@@ -1,0 +1,288 @@
+"""Swin-Transformer building blocks of the DiffuseSG denoiser (PyTorch).
+
+Counterpart of diffusesg_tpu/models/layers.py.  Activations stay
+channels-last ([B, L, C] tokens over an H x W grid); module and parameter
+names follow the PyTorch reference's state dict (``attn.qkv``, ``norm1``,
+``mlp.fc1``, ``affine``, ``upsample.pre_linear``, ...), so a reference
+checkpoint's tensors map one to one.  Parameters stay fp32 and are cast to
+the compute dtype at use; the Swin block, merge, breakup and readout go
+through the kernel wrappers of ``diffusesg_torch.ops`` (hand-written CUDA on
+the card, plain versions on the CPU).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.mlp_block_kernel import LN_EPS, layer_norm
+from ..ops.patch_resample import patch_breakup, patch_merge
+from ..ops.readout_kernel import readout_mlp
+from ..ops.swin_block_v3 import fused_swin_block
+
+NOISE_EMB_CHANNELS = 512
+
+
+def dense(x, linear: nn.Linear, dtype):
+    """A Linear evaluated in ``dtype``, like flax ``nn.Dense(dtype=...)``."""
+    bias = None if linear.bias is None else linear.bias.to(dtype)
+    return F.linear(x.to(dtype), linear.weight.to(dtype), bias)
+
+
+def relative_position_index(window: int) -> np.ndarray:
+    """Static [window^2, window^2] lookup into the (2w-1)^2 bias table."""
+    coords = np.stack(np.meshgrid(np.arange(window), np.arange(window), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0)
+    rel[:, :, 0] += window - 1
+    rel[:, :, 1] += window - 1
+    rel[:, :, 0] *= 2 * window - 1
+    return rel.sum(-1)
+
+
+def shifted_window_attn_mask(h: int, w: int, window: int, shift: int) -> np.ndarray:
+    """Static [nW, w*w, w*w] additive mask (0 / -100) for SW-MSA."""
+    img_mask = np.zeros((1, h, w, 1), dtype=np.float32)
+    slices = (slice(0, -window), slice(-window, -shift), slice(-shift, None))
+    cnt = 0
+    for hs in slices:
+        for ws in slices:
+            img_mask[:, hs, ws, :] = cnt
+            cnt += 1
+    mw = img_mask.reshape(1, h // window, window, w // window, window, 1)
+    mw = mw.transpose(0, 1, 3, 2, 4, 5).reshape(-1, window * window)
+    attn_mask = mw[:, None, :] - mw[:, :, None]
+    return np.where(attn_mask != 0, -100.0, 0.0).astype(np.float32)
+
+
+class Mlp(nn.Module):
+    """Two Linear layers ``fc1``/``fc2``; as a readout head its forward is
+    ``gelu(fc1(x))`` then ``fc2`` through the readout kernel, output in the
+    compute dtype.  A Swin block holds one as the container of its MLP
+    weights, as the reference does."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 dtype=torch.float32):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, out_features)
+        self.dtype = dtype
+
+    def forward(self, x):
+        c, dt = x.shape[-1], self.dtype
+        out = readout_mlp(x.reshape(-1, c).to(dt), self.fc1.weight.to(dt), self.fc1.bias,
+                          self.fc2.weight.to(dt), self.fc2.bias)
+        return out.reshape(*x.shape[:-1], self.fc2.out_features).to(dt)
+
+
+class NoiseAffine(nn.Linear):
+    """Noise conditioning ``silu(shift + x * (scale + 1))``; the module is
+    the Linear emb -> (scale | shift), named ``affine`` by its owner."""
+
+    def __init__(self, dim: int, emb_dim: int = NOISE_EMB_CHANNELS, dtype=torch.float32):
+        super().__init__(emb_dim, 2 * dim)
+        self.dtype = dtype
+
+    def forward(self, x, emb):
+        params = F.linear(emb.to(self.dtype), self.weight.to(self.dtype),
+                          self.bias.to(self.dtype))[:, None, :]
+        scale, shift = params.chunk(2, dim=-1)
+        return F.silu(shift + x * (scale + 1.0))
+
+
+class WindowAttention(nn.Module):
+    """Parameters of window attention: ``qkv``, ``proj`` and the
+    relative-position bias table; the Swin block's kernel computes it."""
+
+    def __init__(self, dim: int, window: int, num_heads: int):
+        super().__init__()
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window - 1) ** 2, num_heads))
+
+
+class SwinBlock(nn.Module):
+    """One Swin block with noise conditioning (reference:
+    diffusesg.py:158-277): attention half then MLP half, as ONE call of
+    ``ops.swin_block_v3.fused_swin_block``."""
+
+    def __init__(self, dim: int, input_resolution, num_heads: int, window_size: int,
+                 shift_size: int, mlp_ratio: float = 4.0, dtype=torch.float32):
+        super().__init__()
+        h, w = input_resolution
+        window, shift = window_size, shift_size
+        if min(h, w) <= window:
+            # the window covers the whole grid: no shift (diffusesg.py:189-192)
+            window, shift = min(h, w), 0
+        self.input_resolution = (h, w)
+        self.num_heads, self.window, self.shift, self.dtype = num_heads, window, shift, dtype
+        self.affine = nn.Linear(NOISE_EMB_CHANNELS, 2 * dim)
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = WindowAttention(dim, window, num_heads)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype)
+        self.register_buffer("relative_position_index",
+                             torch.from_numpy(relative_position_index(window).reshape(-1)),
+                             persistent=False)
+        mask = (torch.from_numpy(shifted_window_attn_mask(h, w, window, shift))
+                if shift > 0 else None)
+        self.register_buffer("attn_mask", mask, persistent=False)
+
+    def rel_bias(self) -> torch.Tensor:
+        """[nH, L, L] fp32 relative-position bias."""
+        L = self.window * self.window
+        table = self.attn.relative_position_bias_table
+        return table[self.relative_position_index].reshape(L, L, -1).permute(2, 0, 1).contiguous()
+
+    def forward(self, x, emb):
+        h, w = self.input_resolution
+        b, L, c = x.shape
+        dt = self.dtype
+        scale_shift = dense(emb, self.affine, dt)
+        a, m = self.attn, self.mlp
+        out = fused_swin_block(
+            x.reshape(b, h, w, c).to(dt), scale_shift, self.norm1.weight, self.norm1.bias,
+            a.qkv.weight.to(dt), a.qkv.bias, a.proj.weight.to(dt), a.proj.bias,
+            self.rel_bias(), self.attn_mask, self.norm2.weight, self.norm2.bias,
+            m.fc1.weight.to(dt), m.fc1.bias, m.fc2.weight.to(dt), m.fc2.bias,
+            self.num_heads, self.window, self.shift)
+        return out.reshape(b, L, c)
+
+
+class PatchMerging(nn.Module):
+    """2x downsample: 2x2 gather, LayerNorm(4C), Linear 4C -> 2C without bias."""
+
+    def __init__(self, input_resolution, dim: int, dtype=torch.float32):
+        super().__init__()
+        self.input_resolution, self.dtype = tuple(input_resolution), dtype
+        self.norm = nn.LayerNorm(4 * dim, eps=LN_EPS)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x):
+        h, w = self.input_resolution
+        b, L, c = x.shape
+        out = patch_merge(x.reshape(b, h, w, c).to(self.dtype), self.norm.weight,
+                          self.norm.bias, self.reduction.weight.to(self.dtype))
+        return out.reshape(b, L // 4, -1)
+
+
+class PatchBreakup(nn.Module):
+    """2x upsample, the inverse of PatchMerging, fed [x | skip]."""
+
+    def __init__(self, input_resolution, dim: int, skip_connection: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.input_resolution, self.dtype = tuple(input_resolution), dtype
+        dim_inner = dim if skip_connection else 2 * dim
+        c_out = dim_inner // 4
+        self.pre_linear = nn.Linear(dim, dim_inner, bias=False)
+        self.norm = nn.LayerNorm(dim_inner, eps=LN_EPS)
+        self.post_norm = nn.LayerNorm(c_out, eps=LN_EPS)
+        self.post_linear = nn.Linear(c_out, c_out, bias=False)
+
+    def forward(self, x, skip=None):
+        h, w = self.input_resolution
+        b, L, _ = x.shape
+        dt = self.dtype
+        grid = lambda t: t.reshape(b, h, w, t.shape[-1]).to(dt)  # noqa: E731
+        out = patch_breakup(grid(x), None if skip is None else grid(skip),
+                            self.pre_linear.weight.to(dt), self.norm.weight, self.norm.bias,
+                            self.post_norm.weight, self.post_norm.bias,
+                            self.post_linear.weight.to(dt))
+        return out.reshape(b, 4 * L, -1)
+
+
+class BasicLayer(nn.Module):
+    """A stage: optional upsample -> depth x SwinBlock -> optional downsample."""
+
+    def __init__(self, dim: int, input_resolution, depth: int, num_heads: int,
+                 window_size: int, mlp_ratio: float = 4.0, downsample: bool = False,
+                 upsample: bool = False, dtype=torch.float32):
+        super().__init__()
+        res = tuple(input_resolution)
+        self.upsample = (PatchBreakup(res, dim * 4, skip_connection=True, dtype=dtype)
+                         if upsample else None)
+        if upsample:
+            res = (res[0] * 2, res[1] * 2)
+        self.blocks = nn.ModuleList([
+            SwinBlock(dim, res, num_heads, window_size,
+                      shift_size=0 if i % 2 == 0 else window_size // 2,
+                      mlp_ratio=mlp_ratio, dtype=dtype)
+            for i in range(depth)])
+        self.downsample = PatchMerging(res, dim, dtype=dtype) if downsample else None
+
+    def forward(self, x, emb, skip=None):
+        if self.upsample is not None:
+            x = self.upsample(x, skip)
+        for blk in self.blocks:
+            x = blk(x, emb)
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return x
+
+
+class PositionalEmbedding(nn.Module):
+    """Sin/cos noise-level embedding, EDM/DDPM++ style, in fp32 (max
+    positions 10000, no endpoint, as the model uses it)."""
+
+    def __init__(self, num_channels: int):
+        super().__init__()
+        self.num_channels = num_channels
+
+    def forward(self, x):
+        half = self.num_channels // 2
+        freqs = torch.arange(half, dtype=torch.float32, device=x.device) / half
+        freqs = torch.pow(1.0 / 10000, freqs)
+        args = x[:, None].float() * freqs[None, :]
+        return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+class PatchEmbed(nn.Module):
+    """Patchify (the reference's strided Conv2d as space-to-depth + Linear),
+    LayerNorm, noise affine."""
+
+    def __init__(self, img_size: int, patch_size: int, in_chans: int, embed_dim: int,
+                 patch_norm: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.patch_size, self.dtype = patch_size, dtype
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, patch_size)
+        self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS) if patch_norm else None
+        self.affine = NoiseAffine(embed_dim, dtype=dtype)
+
+    def forward(self, x, emb):
+        b, h, w, c = x.shape
+        p, dt = self.patch_size, self.dtype
+        x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(b, (h // p) * (w // p), p * p * c)
+        weight = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.out_channels, -1)
+        x = F.linear(x.to(dt), weight.to(dt), self.proj.bias.to(dt))
+        if self.norm is not None:
+            x = layer_norm(x, self.norm.weight, self.norm.bias).to(dt)
+        return self.affine(x, emb)
+
+
+class ReadOut(nn.Module):
+    """Un-patchify + two pointwise layers: the reference's ConvTranspose2d(p)
+    and two 1x1 Conv2d (children ``0``, ``1``, ``2``) as depth-to-space and
+    Linear layers."""
+
+    def __init__(self, patch_size: int, embed_dim: int, dtype=torch.float32):
+        super().__init__()
+        self.patch_size, self.dtype = patch_size, dtype
+        self.add_module("0", nn.ConvTranspose2d(embed_dim, embed_dim, patch_size, patch_size))
+        self.add_module("1", nn.Conv2d(embed_dim, embed_dim, 1))
+        self.add_module("2", nn.Conv2d(embed_dim, embed_dim, 1))
+
+    def forward(self, x, ph: int, pw: int):
+        b, L, c = x.shape
+        p, dt = self.patch_size, self.dtype
+        up, pw1, pw2 = (getattr(self, k) for k in "012")
+        d = up.out_channels
+        w0 = up.weight.permute(2, 3, 1, 0).reshape(p * p * d, c)  # rows (kh, kw, cout)
+        x = F.linear(x.to(dt), w0.to(dt), up.bias.repeat(p * p).to(dt))
+        x = x.reshape(b, ph, pw, p, p, d).permute(0, 1, 3, 2, 4, 5).reshape(b, ph * p, pw * p, d)
+        for conv in (pw1, pw2):
+            x = F.linear(x, conv.weight[:, :, 0, 0].to(dt), conv.bias.to(dt))
+        return x

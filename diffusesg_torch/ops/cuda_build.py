@@ -1,0 +1,157 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources under ``diffusesg_torch/csrc`` are compiled at first use with
+``nvcc`` for ``sm_90a`` (one ``nvcc -c`` per source, all started together,
+then one link) into a shared library with a plain C interface, loaded with
+``ctypes``.  The library lands in ``build/kernels/<hash>/`` beside the
+package, keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads at once.
+
+``LAUNCHES`` counts kernel launches per kernel name and shape; each wrapper
+adds one where it launches its kernel and nowhere else.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of every entry point: pointers and the stream as c_void_p
+_SIGNATURES = {
+    "dsg_swin_attn": [_P] * 15 + [_I] * 7 + [_P],
+    "dsg_token_mlp": [_P] * 10 + [_I] * 3 + [_P],
+    "dsg_readout": [_P] * 7 + [_I] * 4 + [_P],
+    "dsg_patch_merge": [_P] * 6 + [_I] * 5 + [_P],
+    "dsg_patch_breakup": [_P, _P, _I, _I] + [_P] * 10 + [_I] * 4 + [_P],
+}
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def launches_by_kernel() -> dict[str, int]:
+    out: dict[str, int] = collections.Counter()
+    for (name, _shape), n in LAUNCHES.items():
+        out[name] += n
+    return dict(out)
+
+
+def count_launch(name: str, shape: str) -> None:
+    LAUNCHES[(name, shape)] += 1
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+
+
+def build_dir() -> Path:
+    return CSRC.parent.parent / "build" / "kernels" / _source_hash()
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless this source hash is already built; returns
+    the library path.  Raises with nvcc's output when a source fails."""
+    out_dir = build_dir()
+    lib_path = out_dir / "libdsg_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = _nvcc()
+    out_dir.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir.parent) as tmp:
+        procs = []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            if verbose:
+                cmd += ["-Xptxas", "-v"]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        errors = []
+        for src, _obj, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name}:\n{log}")
+            elif verbose and log:
+                print(f"[nvcc {src.name}]\n{log}", flush=True)
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        tmp_lib = os.path.join(tmp, lib_path.name)
+        link = subprocess.run([nvcc, "-shared", "-o", tmp_lib] + [o for _, o, _ in procs],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        os.replace(tmp_lib, lib_path)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def stream_ptr(device: torch.device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch (error {rc})")
+
+
+def require(t: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
+    """Device, type and contiguity check of a kernel operand."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    return t.contiguous()
