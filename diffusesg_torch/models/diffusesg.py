@@ -113,7 +113,7 @@ class DiffuseSG(nn.Module):
         if self.out_chans_adj == 1:
             adj_out = adj_out[..., 0]
         # padding-aware pooled node readout: full-N mean divisor, fp32 sum
-        node_feat = mask_adjs(shared, node_flags).float().mean(dim=2).to(dt)
+        node_feat = torch.mean(mask_adjs(shared, node_flags), dim=2, dtype=torch.float32).to(dt)
         node_out = self.readout_node_mlp(node_feat).float()
         if self.out_chans_node == 1:
             node_out = node_out[..., 0]
