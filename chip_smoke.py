@@ -355,7 +355,7 @@ def profile_eval(ev, eager_ms: float) -> None:
         name = next((k for frag, k in KERNEL_OF if frag in e.key), "other PyTorch ops")
         groups[name] = groups.get(name, 0.0) + e.device_time_total / 1e3
         short = e.key.rsplit("(", 1)[0] if e.key.endswith(")") else e.key
-        funcs.append((e.device_time_total / 1e3, e.count, short[-70:]))
+        funcs.append((e.device_time_total / 1e3, e.count, short.removeprefix("void ")[:90]))
     funcs.sort(reverse=True)
     log("profile functions: " + "; ".join(f"{k} x{n} {t:.3f} ms" for t, n, k in funcs[:12]))
     total = sum(groups.values())
