@@ -19,12 +19,24 @@
 // of 4x2 WMMA fragments, a 3-stage cp.async ring so the next tiles load
 // while the current one multiplies, and an epilogue that handles eight
 // columns per thread with 16-byte stores.  No wgmma or TMA yet.
+//
+// The backward kernels need two more operand layouts and a split of K:
+//   TA: A is stored [K, M] (token-major), so C = A^T-stored x B contracts
+//       over the token axis: the weight gradients dW = d(out)^T x in;
+//   TB: the second operand is stored [K, N], so C = A x W with W untransposed:
+//       the input gradients d(in) = d(out) x W.
+// With gridDim.z > 1 block z covers K range [z * kchunk, (z + 1) * kchunk) and
+// its epilogue writes an fp32 partial; ``reduce_partials`` (backward.cuh, with
+// the backward row pass and the column sums) adds the partials in a fixed
+// order, so the result is the same from run to run.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace dsg {
 
@@ -34,6 +46,8 @@ constexpr float kLnEps = 1e-6f;  // every LayerNorm of the model (flax default)
 constexpr int kBM = 128, kBN = 64, kBK = 32, kThreads = 128, kStages = 3;
 constexpr int kLdA = kBK + 8;  // bf16 elements; rows stay 16-byte aligned
 constexpr int kLdC = kBN + 4;  // floats
+constexpr int kLdAT = kBM + 8;  // A tile stored [kBK][kBM] (TA)
+constexpr int kLdBT = kBN + 8;  // B tile stored [kBK][kBN] (TB)
 
 __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
 
@@ -152,6 +166,10 @@ struct GemmA {
   int K1, K2;
 };
 
+inline GemmA rows(const void* a, int K) {
+  return GemmA{static_cast<const bf16*>(a), nullptr, K, 0};
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int bytes = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros
@@ -176,11 +194,12 @@ struct BreakupOut {};
 struct ReadoutFc1 {};
 struct ReadoutFc2 {};
 
-template <class Site, class Epi>
+template <class Site, class Epi, bool TA, bool TB>
 __global__ void __launch_bounds__(kThreads)
-gemm_kernel(GemmA A, Epi epi, const bf16* __restrict__ W, int M, int N, int K) {
+gemm_kernel(GemmA A, Epi epi, const bf16* __restrict__ W, int M, int N, int K, int kchunk) {
   using namespace nvcuda;
   constexpr int kStageElems = (kBM + kBN) * kLdA;
+  static_assert(kBK * kLdAT <= kBM * kLdA && kBK * kLdBT <= kBN * kLdA, "stage size");
   constexpr int kRingBytes = kStages * kStageElems * 2;
   constexpr int kCsBytes = kBM * kLdC * 4;
   // the cp.async ring, then (after the K loop) the fp32 output tile
@@ -190,26 +209,49 @@ gemm_kernel(GemmA A, Epi epi, const bf16* __restrict__ W, int M, int N, int K) {
 
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
   const int tid = threadIdx.x, warp = tid >> 5;
-  const int ktiles = (K + kBK - 1) / kBK;
+  const int kbeg = blockIdx.z * kchunk;
+  const int kend = kbeg + kchunk < K ? kbeg + kchunk : K;
+  const int ktiles = (kend - kbeg + kBK - 1) / kBK;
 
   auto load_stage = [&](int stage, int k0) {
     bf16* As = ring + stage * kStageElems;
     bf16* Bs = As + kBM * kLdA;
+    if constexpr (TA) {  // A stored [K, M]: 16-byte vectors run along m
 #pragma unroll
-    for (int i = tid; i < kBM * kBK / 8; i += kThreads) {
-      const int r = i / (kBK / 8), kk = (i % (kBK / 8)) * 8;
-      const int m = m0 + r, k = k0 + kk;
-      const bool ok = m < M && k < K;
-      const bf16* src = A.a1;
-      if (ok) src = k < A.K1 ? A.a1 + (size_t)m * A.K1 + k : A.a2 + (size_t)m * A.K2 + (k - A.K1);
-      cp_async16(As + r * kLdA + kk, src, ok);
+      for (int i = tid; i < kBK * kBM / 8; i += kThreads) {
+        const int r = i / (kBM / 8), mm = (i % (kBM / 8)) * 8;
+        const int k = k0 + r, m = m0 + mm;
+        const bool ok = m < M && k < kend;
+        cp_async16(As + r * kLdAT + mm, ok ? A.a1 + (size_t)k * M + m : A.a1, ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = tid; i < kBM * kBK / 8; i += kThreads) {
+        const int r = i / (kBK / 8), kk = (i % (kBK / 8)) * 8;
+        const int m = m0 + r, k = k0 + kk;
+        const bool ok = m < M && k < kend;
+        const bf16* src = A.a1;
+        if (ok)
+          src = k < A.K1 ? A.a1 + (size_t)m * A.K1 + k : A.a2 + (size_t)m * A.K2 + (k - A.K1);
+        cp_async16(As + r * kLdA + kk, src, ok);
+      }
     }
+    if constexpr (TB) {  // W stored [K, N]: vectors run along n
 #pragma unroll
-    for (int i = tid; i < kBN * kBK / 8; i += kThreads) {
-      const int r = i / (kBK / 8), kk = (i % (kBK / 8)) * 8;
-      const int n = n0 + r, k = k0 + kk;
-      const bool ok = n < N && k < K;
-      cp_async16(Bs + r * kLdA + kk, ok ? W + (size_t)n * K + k : W, ok);
+      for (int i = tid; i < kBK * kBN / 8; i += kThreads) {
+        const int r = i / (kBN / 8), nn = (i % (kBN / 8)) * 8;
+        const int k = k0 + r, n = n0 + nn;
+        const bool ok = n < N && k < kend;
+        cp_async16(Bs + r * kLdBT + nn, ok ? W + (size_t)k * N + n : W, ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = tid; i < kBN * kBK / 8; i += kThreads) {
+        const int r = i / (kBK / 8), kk = (i % (kBK / 8)) * 8;
+        const int n = n0 + r, k = k0 + kk;
+        const bool ok = n < N && k < kend;
+        cp_async16(Bs + r * kLdA + kk, ok ? W + (size_t)n * K + k : W, ok);
+      }
     }
   };
 
@@ -222,25 +264,33 @@ gemm_kernel(GemmA A, Epi epi, const bf16* __restrict__ W, int M, int N, int K) {
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load_stage(s, s * kBK);
+    if (s < ktiles) load_stage(s, kbeg + s * kBK);
     cp_async_commit();
   }
   for (int kt = 0; kt < ktiles; ++kt) {
     cp_async_wait<kStages - 2>();  // tile kt has landed
     __syncthreads();               // ... for every thread; stage (kt-1) is free again
     const int nk = kt + kStages - 1;
-    if (nk < ktiles) load_stage(nk % kStages, nk * kBK);
+    if (nk < ktiles) load_stage(nk % kStages, kbeg + nk * kBK);
     cp_async_commit();
     const bf16* as = ring + (kt % kStages) * kStageElems;
     const bf16* bs = as + kBM * kLdA;
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
+      using LayA = std::conditional_t<TA, wmma::col_major, wmma::row_major>;
+      using LayB = std::conditional_t<TB, wmma::row_major, wmma::col_major>;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayA> fa[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayB> fb[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(fa[i], as + (wm + i * 16) * kLdA + kk, kLdA);
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (TA) wmma::load_matrix_sync(fa[i], as + kk * kLdAT + wm + i * 16, kLdAT);
+        else wmma::load_matrix_sync(fa[i], as + (wm + i * 16) * kLdA + kk, kLdA);
+      }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], bs + (wn + j * 16) * kLdA + kk, kLdA);
+      for (int j = 0; j < 2; ++j) {
+        if constexpr (TB) wmma::load_matrix_sync(fb[j], bs + kk * kLdBT + wn + j * 16, kLdBT);
+        else wmma::load_matrix_sync(fb[j], bs + (wn + j * 16) * kLdA + kk, kLdA);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -278,12 +328,21 @@ cudaError_t launch_gemm(const GemmA& A, const Epi& epi, const bf16* W, int M, in
     return cudaErrorInvalidValue;
   dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
   if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  gemm_kernel<Site, Epi><<<grid, kThreads, 0, stream>>>(A, epi, W, M, N, K);
+  gemm_kernel<Site, Epi, false, false><<<grid, kThreads, 0, stream>>>(A, epi, W, M, N, K, K);
   return cudaGetLastError();
 }
 
-inline GemmA rows(const void* a, int K) {
-  return GemmA{static_cast<const bf16*>(a), nullptr, K, 0};
+// C[m, n] = epi(sum_k a[m, k] * w[k, n]): a [M, K] row-major, w [K, N]
+// row-major (a Linear weight [out = K, in = N] taken untransposed).
+template <class Site, class Epi>
+cudaError_t launch_gemm_nn(const void* a, const void* w, const Epi& epi, int M, int N, int K,
+                           cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0) return cudaErrorInvalidValue;
+  dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
+  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  gemm_kernel<Site, Epi, false, true><<<grid, kThreads, 0, stream>>>(
+      rows(a, K), epi, static_cast<const bf16*>(w), M, N, K, K);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- epilogue

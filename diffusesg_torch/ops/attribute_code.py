@@ -137,3 +137,21 @@ def attribute_converter(in_attr, attr_flags, in_encoding, out_encoding, num_attr
                                      flag_nodes=flag_nodes, flag_adjs=flag_adjs)
     return attribute_int_to_one_hot(int_attr, attr_flags, num_attr_type, flag_out_ddpm_range,
                                     flag_nodes=flag_nodes, flag_adjs=flag_adjs)
+
+
+def reshape_node_attr_vec_to_mat(node_attr_vec, node_flags_vec, matrix_size: int):
+    """Pack node attributes onto an adjacency-shaped grid (node-only mode):
+    [B, N](, C) -> [B, M, M](, C) channels-last, plus [B, M, M] bool flags."""
+    b, n = node_attr_vec.shape[:2]
+    m = matrix_size
+    pad = m * m - n
+    if pad < 0:
+        raise ValueError(f"matrix_size^2={m * m} < vector length {n}")
+    flags_mat = F.pad(node_flags_vec.float(), (0, pad)).reshape(b, m, m).bool()
+    if node_attr_vec.ndim == 2:
+        attr_mat = F.pad(node_attr_vec, (0, pad)).reshape(b, m, m)
+    elif node_attr_vec.ndim == 3:
+        attr_mat = F.pad(node_attr_vec, (0, 0, 0, pad)).reshape(b, m, m, -1)
+    else:
+        raise ValueError(f"bad node_attr shape {tuple(node_attr_vec.shape)}")
+    return mask_adjs(attr_mat, flags_mat), flags_mat

@@ -9,6 +9,11 @@ rebuilds and an unchanged one loads at once.
 
 ``LAUNCHES`` counts kernel launches per kernel name and shape; each wrapper
 adds one where it launches its kernel and nowhere else.
+
+Two helpers of the wrappers live here too: ``split_count`` plans the grids of
+the backward kernels' reductions (the wrapper allocates their partials), and
+``plain_vjp`` is the backward of the kernels that differentiate their plain
+version.
 """
 from __future__ import annotations
 
@@ -34,12 +39,17 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "dsg_swin_attn": [_P] * 15 + [_I] * 7 + [_P],
     "dsg_token_mlp": [_P] * 10 + [_I] * 3 + [_P],
+    "dsg_swin_attn_bwd": [_P] * 30 + [_I] * 13 + [_P],
+    "dsg_token_mlp_bwd": [_P] * 23 + [_I] * 7 + [_P],
     "dsg_readout": [_P] * 7 + [_I] * 4 + [_P],
     "dsg_patch_merge": [_P] * 6 + [_I] * 5 + [_P],
     "dsg_patch_breakup": [_P, _P, _I, _I] + [_P] * 10 + [_I] * 4 + [_P],
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
+
+# blocks a split reduction aims for: four per SM of the H100's 132
+TARGET_BLOCKS = 528
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -58,6 +68,30 @@ def launches_by_kernel() -> dict[str, int]:
 
 def count_launch(name: str, shape: str) -> None:
     LAUNCHES[(name, shape)] += 1
+
+
+def split_count(parallel: int, length: int, min_len: int, align: int = 1) -> int:
+    """Into how many parts to split a reduction over ``length`` rows that
+    already runs as ``parallel`` independent blocks, so that the grid reaches
+    about ``TARGET_BLOCKS``: every part is at least ``min_len`` rows (unless
+    ``length`` is shorter), a multiple of ``align``, and none is empty."""
+    want = max(1, min(-(-TARGET_BLOCKS // max(parallel, 1)), length // min_len))
+    chunk = -(-length // want)
+    chunk = -(-chunk // align) * align
+    return -(-length // chunk)
+
+
+def plain_vjp(plain_fn, tensors, grad_out):
+    """Gradients of ``plain_fn(*tensors)`` w.r.t. every tensor (None stays
+    None), by recomputing it under ``torch.enable_grad()`` and differentiating:
+    the backward of the kernels whose TPU counterpart differentiates its XLA
+    composition instead of running a backward kernel."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(True) for t in tensors]
+        out = plain_fn(*leaves)
+        grads = iter(torch.autograd.grad(out, [t for t in leaves if t is not None],
+                                         grad_out.to(out.dtype)))
+    return tuple(None if t is None else next(grads) for t in leaves)
 
 
 def _sources() -> list[Path]:

@@ -1,9 +1,12 @@
 """PatchMerging / PatchBreakup: the U-Net's 2x down- and upsampling.
 
-Counterpart of diffusesg_tpu/ops/patch_resample.py (forward only).  On a
-CUDA tensor they run as the hand-written kernels ``patch_merge`` and
+Counterpart of diffusesg_tpu/ops/patch_resample.py.  On a CUDA tensor the
+forwards run as the hand-written kernels ``patch_merge`` and
 ``patch_breakup`` (csrc/patch_resample.cu); on a CPU tensor as the plain
-versions below.  Channel orders match the reference: merge concatenates
+versions below.  Both are ``torch.autograd.Function``s that save their
+inputs; the backward recomputes the plain version and differentiates it, as
+the JAX ``custom_vjp`` differentiates its XLA composition (the TPU has no
+backward kernel for them either).  Channel orders match the reference: merge concatenates
 [x(0,0), x(1,0), x(0,1), x(1,1)] (h-offset fastest), breakup maps chunk k
 to the offset (ho = k % 2, wo = k // 2).  Weights are in the PyTorch Linear
 layout ([out, in]).
@@ -29,8 +32,8 @@ def patch_merge_plain(x, ln_g, ln_b, w):
     return F.linear(x.float(), w.float()).to(w.dtype)
 
 
-def patch_merge(x, ln_g, ln_b, w):
-    """PatchMerging; the kernel on CUDA tensors, the plain version on CPU."""
+def patch_merge_fwd(x, ln_g, ln_b, w):
+    """Forward alone: the kernel on CUDA tensors, the plain version on CPU."""
     if x.device.type == "cpu":
         return patch_merge_plain(x, ln_g, ln_b, w)
     b, h, ww, c = x.shape
@@ -69,8 +72,24 @@ def patch_breakup_plain(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
     return F.linear(y.float(), w_out.float()).to(w_out.dtype)
 
 
-def patch_breakup(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
-    """PatchBreakup; the kernel on CUDA tensors, the plain version on CPU."""
+class _PatchMerge(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_g, ln_b, w):
+        ctx.save_for_backward(x, ln_g, ln_b, w)
+        return patch_merge_fwd(x, ln_g, ln_b, w)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return cuda_build.plain_vjp(patch_merge_plain, ctx.saved_tensors, dout)
+
+
+def patch_merge(x, ln_g, ln_b, w):
+    """PatchMerging, differentiable (the kernel forward on CUDA tensors)."""
+    return _PatchMerge.apply(x, ln_g, ln_b, w)
+
+
+def patch_breakup_fwd(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
+    """Forward alone: the kernel on CUDA tensors, the plain version on CPU."""
     if x.device.type == "cpu":
         return patch_breakup_plain(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out)
     b, h, ww, c1 = x.shape
@@ -102,3 +121,19 @@ def patch_breakup(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
     cuda_build.check(rc, "patch_breakup")
     cuda_build.count_launch("patch_breakup", f"{h}x{ww}xC{c1 + c2}->{c}")
     return out
+
+
+class _PatchBreakup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
+        ctx.save_for_backward(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out)
+        return patch_breakup_fwd(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return cuda_build.plain_vjp(patch_breakup_plain, ctx.saved_tensors, dout)
+
+
+def patch_breakup(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
+    """PatchBreakup, differentiable (the kernel forward on CUDA tensors)."""
+    return _PatchBreakup.apply(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out)

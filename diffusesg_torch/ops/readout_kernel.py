@@ -1,8 +1,11 @@
 """The denoiser's two-layer output heads: ``gelu(x @ W1^T + b1) @ W2^T + b2``.
 
 Counterpart of diffusesg_tpu/ops/readout_kernel.py.  On a CUDA tensor the
-head runs as the hand-written kernel ``readout`` (csrc/readout.cu); on a
-CPU tensor it runs the plain version below.  Weights are in the PyTorch
+head's forward runs as the hand-written kernel ``readout`` (csrc/readout.cu);
+on a CPU tensor it runs the plain version below.  ``readout_mlp`` is a
+``torch.autograd.Function`` whose backward recomputes the plain version and
+differentiates it, as the JAX ``custom_vjp`` differentiates its XLA
+composition.  Weights are in the PyTorch
 Linear layout ([out, in]); GELU is the exact erf form in both versions.
 """
 from __future__ import annotations
@@ -23,8 +26,8 @@ def readout_mlp_plain(x, w1, b1, w2, b2):
     return F.linear(h.float(), w2.float(), b2.float())
 
 
-def readout_mlp(x, w1, b1, w2, b2):
-    """Readout head; the kernel on CUDA tensors, the plain version on CPU."""
+def readout_mlp_fwd(x, w1, b1, w2, b2):
+    """Forward alone: the kernel on CUDA tensors, the plain version on CPU."""
     if x.device.type == "cpu":
         return readout_mlp_plain(x, w1, b1, w2, b2)
     m, c = x.shape
@@ -46,3 +49,19 @@ def readout_mlp(x, w1, b1, w2, b2):
     cuda_build.check(rc, NAME)
     cuda_build.count_launch(NAME, f"C{c}->{n_out}")
     return out
+
+
+class _Readout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return readout_mlp_fwd(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return cuda_build.plain_vjp(readout_mlp_plain, ctx.saved_tensors, dout)
+
+
+def readout_mlp(x, w1, b1, w2, b2):
+    """Readout head, differentiable (the kernel forward on CUDA tensors)."""
+    return _Readout.apply(x, w1, b1, w2, b2)

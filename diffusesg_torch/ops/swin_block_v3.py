@@ -1,20 +1,24 @@
-"""One whole Swin block (forward): the attention half, then the MLP half.
+"""One whole Swin block: the attention half, then the MLP half.
 
-Counterpart of diffusesg_tpu/ops/swin_block_v3.py (forward only):
+Counterpart of diffusesg_tpu/ops/swin_block_v3.py:
 
     a   = silu(shift + x * (scale + 1))
     y   = a + proj(W-MSA(qkv(LN1(a))))          (+ shifted-window mask)
     out = y + fc2(gelu(fc1(LN2(y))))
 
-On a CUDA tensor the attention half runs as the hand-written kernel
-``swin_attn`` (csrc/swin_attn.cu) and the MLP half as ``token_mlp``; on a
-CPU tensor both run their plain versions, composed exactly as the JAX CPU
-path composes ``swin_attn_block_xla`` and ``mlp_block_xla``.
+``swin_attn`` is a ``torch.autograd.Function``: on a CUDA tensor its forward
+is the hand-written kernel ``swin_attn`` (csrc/swin_attn.cu) and its backward
+the kernel ``swin_attn_bwd`` (csrc/swin_attn_bwd.cu; the TPU's
+``_attn_bwd_kernel``); on a CPU tensor both run the plain versions below.  It
+saves ``x``, ``scale_shift``, the parameters and ``rel_bias``; the backward
+recomputes everything else.  ``fused_swin_block`` composes it with
+``token_mlp``, so the only activation kept between the halves is ``y``, the
+residual the JAX ``custom_vjp`` keeps.
 
 Unlike the JAX entry, ``x`` is NOT pre-rolled: ``shift`` is passed in.  The
-plain version rolls and unrolls like the reference; the kernel folds the
-roll into its window index math, so both take and return the unrolled
-spatial layout.
+plain versions roll and unroll like the reference; the kernels fold the roll
+into their window index math, so all take and return the unrolled spatial
+layout, gradients included.
 """
 from __future__ import annotations
 
@@ -22,9 +26,37 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .mlp_block_kernel import layer_norm, token_mlp
+from .mlp_block_kernel import layer_norm, ln_stats, ln_vjp, token_mlp, up
 
 NAME = "swin_attn"
+NAME_BWD = "swin_attn_bwd"
+
+
+def _to_windows(t, window: int):
+    """[B, H, W, K] -> [B * nW, L, K], windows in raster order."""
+    b, h, w, k = t.shape
+    t = t.reshape(b, h // window, window, w // window, window, k)
+    return t.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, k)
+
+
+def _from_windows(t, b: int, h: int, w: int, window: int):
+    """Inverse of ``_to_windows``."""
+    k = t.shape[-1]
+    t = t.reshape(b, h // window, w // window, window, window, k)
+    return t.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, k)
+
+
+def _heads(t, num_heads: int):
+    """[nWB, L, C] -> [nWB, nH, L, hd]."""
+    return t.reshape(t.shape[0], t.shape[1], num_heads, -1).transpose(1, 2)
+
+
+def _scores(q, k, rel_bias, mask):
+    scores = (q @ k.transpose(-1, -2)) * q.shape[-1] ** -0.5 + up(rel_bias)[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        scores = scores + up(mask)[:, None].repeat(scores.shape[0] // nw, 1, 1, 1)
+    return scores
 
 
 def swin_attn_block_plain(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj,
@@ -36,37 +68,82 @@ def swin_attn_block_plain(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, 
         x = torch.roll(x, (-shift, -shift), dims=(1, 2))
     b, h, w, c = x.shape
     dt = x.dtype
-    scale, sh = scale_shift[:, None, None, :].float().chunk(2, dim=-1)
-    a = F.silu(sh + x.float() * (scale + 1.0)).to(dt)
+    scale, sh = up(scale_shift)[:, None, None, :].chunk(2, dim=-1)
+    a = F.silu(sh + up(x) * (scale + 1.0)).to(dt)
     hn = layer_norm(a, ln_gamma, ln_beta).to(dt)
 
-    L = window * window
-    hw, ww = h // window, w // window
-    xw = hn.reshape(b, hw, window, ww, window, c).permute(0, 1, 3, 2, 4, 5).reshape(-1, L, c)
-    qkv = F.linear(xw.float(), wqkv.float(), bqkv.float()).to(dt)
-    hd = c // num_heads
-    qkv = qkv.reshape(-1, L, 3, num_heads, hd)
-    q, k, v = (qkv[:, :, i].transpose(1, 2).float() for i in range(3))  # [nWB, nH, L, hd]
-    scores = (q * hd ** -0.5) @ k.transpose(-1, -2) + rel_bias[None].float()
-    if mask is not None:
-        nw = mask.shape[0]
-        scores = scores + mask.float()[:, None].repeat(scores.shape[0] // nw, 1, 1, 1)
-    probs = torch.softmax(scores, dim=-1).to(dt)
-    out = (probs.float() @ v).to(dt).transpose(1, 2).reshape(-1, L, c)
-    out = F.linear(out.float(), wproj.float(), bproj.float())
-    out = out.reshape(b, hw, ww, window, window, c).permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
-    y = (a.float() + out).to(dt)
+    qkv = F.linear(up(_to_windows(hn, window)), up(wqkv), up(bqkv)).to(dt)
+    q, k, v = (_heads(up(t), num_heads) for t in qkv.chunk(3, dim=-1))
+    probs = torch.softmax(_scores(q, k, rel_bias, mask), dim=-1).to(dt)
+    out = (up(probs) @ v).to(dt).transpose(1, 2).reshape(-1, window * window, c)
+    out = _from_windows(F.linear(up(out), up(wproj), up(bproj)), b, h, w, window)
+    y = (up(a) + out).to(dt)
     if shift > 0:
         y = torch.roll(y, (shift, shift), dims=(1, 2))
     return y
 
 
-def swin_attn(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, rel_bias, mask,
-              num_heads: int, window: int, shift: int = 0):
-    """Attention half; the kernel on CUDA tensors, the plain version on CPU."""
-    if x.device.type == "cpu":
-        return swin_attn_block_plain(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj,
-                                     bproj, rel_bias, mask, num_heads, window, shift)
+def swin_attn_bwd_plain(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias,
+                        mask, num_heads: int, window: int, shift: int = 0):
+    """Backward of ``swin_attn_block_plain`` step by step, with the kernel's
+    rounding points: x, dy [B, H, W, C] (unrolled) -> (dx, dscale_shift,
+    dgamma, dbeta, dwqkv, dbqkv, dwproj, dbproj, drel_bias).  ``hn``, ``qkv``,
+    the probabilities, ``attn``, ``dattn``, ``dS`` and ``dqkv`` are rounded to
+    x's dtype once before the product that consumes them; the softmax, its
+    vjp and every sum over tokens are fp32 (reference: _attn_bwd_kernel,
+    without its lane packing)."""
+    if shift > 0:
+        x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+        dy = torch.roll(dy, (-shift, -shift), dims=(1, 2))
+    b, h, w, c = x.shape
+    dt = x.dtype
+    gamma = up(ln_gamma)
+    xf, dyf = up(x), up(dy)
+    scale, sh = up(scale_shift)[:, None, None, :].chunk(2, dim=-1)
+    pre = sh + xf * (scale + 1.0)
+    hbar, rstd = ln_stats(up(F.silu(pre).to(dt)))
+    hn_w = up(_to_windows((hbar * gamma + up(ln_beta)).to(dt), window))
+    qkv = up((hn_w @ up(wqkv).T + up(bqkv)).to(dt))
+    q, k, v = (_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    probs = torch.softmax(_scores(q, k, rel_bias, mask), dim=-1)
+    pb = up(probs.to(dt))
+    attn_w = up((pb @ v).to(dt)).transpose(1, 2).reshape(-1, window * window, c)
+
+    dy_w = _to_windows(dyf, window)
+    d_o = _heads(up((dy_w @ up(wproj)).to(dt)), num_heads)
+    d_p = d_o @ v.transpose(-1, -2)
+    d_s = probs * (d_p - (probs * d_p).sum(-1, keepdim=True))
+    drel = d_s.sum(0)
+    d_sb = up(d_s.to(dt))
+    att_scale = q.shape[-1] ** -0.5
+    dq = att_scale * (d_sb @ k)
+    dk = att_scale * (d_sb.transpose(-1, -2) @ q)
+    dv = pb.transpose(-1, -2) @ d_o
+    dqkv_w = up(torch.cat([t.transpose(1, 2).reshape(-1, window * window, c)
+                           for t in (dq, dk, dv)], dim=-1).to(dt))
+
+    flat = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
+    dwproj = flat(dy_w).T @ flat(attn_w)
+    dbproj = flat(dyf).sum(0)
+    dwqkv = flat(dqkv_w).T @ flat(hn_w)
+    dbqkv = flat(dqkv_w).sum(0)
+    dhn = _from_windows(dqkv_w @ up(wqkv), b, h, w, window)
+    dgamma = (dhn * hbar).sum((0, 1, 2))
+    dbeta = dhn.sum((0, 1, 2))
+    da = dyf + ln_vjp(dhn, hbar, rstd, gamma)
+    sig = torch.sigmoid(pre)
+    dpre = da * sig * (1.0 + pre * (1.0 - sig))
+    dx = (dpre * (scale + 1.0)).to(dt)
+    dss = torch.cat([(dpre * xf).sum((1, 2)), dpre.sum((1, 2))], dim=-1)
+    if shift > 0:
+        dx = torch.roll(dx, (shift, shift), dims=(1, 2))
+    return (dx, dss.to(scale_shift.dtype), dgamma.to(ln_gamma.dtype), dbeta.to(ln_beta.dtype),
+            dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype), dwproj.to(wproj.dtype),
+            dbproj.to(bqkv.dtype), drel.to(rel_bias.dtype))
+
+
+def _checked(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias, mask,
+             num_heads: int, window: int):
     b, h, w, c = x.shape
     if window != 8 or c != 32 * num_heads or h % window or w % window:
         raise ValueError(f"swin_attn covers window 8 and head_dim 32; got window={window} "
@@ -76,14 +153,30 @@ def swin_attn(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, rel_b
     ss = cuda_build.require(scale_shift, bf, "scale_shift")
     wqkv = cuda_build.require(wqkv, bf, "wqkv")
     wproj = cuda_build.require(wproj, bf, "wproj")
-    g, bt, bqkv, bproj, rel = (cuda_build.require(t, f32, n) for t, n in (
-        (ln_gamma, "ln_gamma"), (ln_beta, "ln_beta"), (bqkv, "bqkv"), (bproj, "bproj"),
-        (rel_bias, "rel_bias")))
+    g, bt, bqkv, rel = (cuda_build.require(t, f32, n) for t, n in (
+        (ln_gamma, "ln_gamma"), (ln_beta, "ln_beta"), (bqkv, "bqkv"), (rel_bias, "rel_bias")))
     if mask is not None:
         mask = cuda_build.require(mask, f32, "mask")
+    return x, ss, g, bt, wqkv, bqkv, wproj, rel, mask
+
+
+def _shape_key(h: int, w: int, c: int, shift: int) -> str:
+    return f"{h}x{w}xC{c}" + (f" shift{shift}" if shift else "")
+
+
+def swin_attn_fwd(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                  num_heads: int, window: int, shift: int = 0):
+    """Forward alone: the kernel on CUDA tensors, the plain version on CPU."""
+    if x.device.type == "cpu":
+        return swin_attn_block_plain(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj,
+                                     bproj, rel_bias, mask, num_heads, window, shift)
+    x, ss, g, bt, wqkv, bqkv, wproj, rel, mask = _checked(
+        x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias, mask, num_heads, window)
+    bproj = cuda_build.require(bproj, torch.float32, "bproj")
+    b, h, w, c = x.shape
     m = b * h * w
-    a, hn, attn = (torch.empty((m, c), dtype=bf, device=x.device) for _ in range(3))
-    qkv = torch.empty((m, 3 * c), dtype=bf, device=x.device)
+    a, hn, attn = (torch.empty((m, c), dtype=x.dtype, device=x.device) for _ in range(3))
+    qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     p = cuda_build.ptr
     rc = cuda_build.lib().dsg_swin_attn(
@@ -91,8 +184,100 @@ def swin_attn(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, rel_b
         p(a), p(hn), p(qkv), p(attn), p(out), b, h, w, c, num_heads, window, shift,
         cuda_build.stream_ptr(x.device))
     cuda_build.check(rc, NAME)
-    cuda_build.count_launch(NAME, f"{h}x{w}xC{c}" + (f" shift{shift}" if shift else ""))
+    cuda_build.count_launch(NAME, _shape_key(h, w, c, shift))
     return out
+
+
+def attn_bwd_splits(b: int, h: int, w: int, c: int, num_heads: int, window: int) -> dict[str, int]:
+    """Grid plan of ``swin_attn_bwd``'s reductions: split-K counts of the two
+    weight-gradient GEMMs over the B*H*W tokens (128 x 64 output tiles), row
+    splits of the two bias sums, the blocks per head of the window core
+    (each walks several windows and keeps d(rel_bias) in registers) and the
+    blocks per sample of the closing row pass."""
+    m = b * h * w
+    tiles = lambda rows, cols: -(-rows // 128) * -(-cols // 64)  # noqa: E731
+    n_windows = b * (h // window) * (w // window)
+    return dict(wqkv=cuda_build.split_count(tiles(3 * c, c), m, 256, 32),
+                wproj=cuda_build.split_count(tiles(c, c), m, 256, 32),
+                bqkv=cuda_build.split_count(-(-3 * c // 256), m, 64),
+                bproj=cuda_build.split_count(-(-c // 256), m, 64),
+                core=min(n_windows, max(1, cuda_build.TARGET_BLOCKS // num_heads)),
+                rows=min(-(-h * w // 8), max(1, -(-cuda_build.TARGET_BLOCKS // b))))
+
+
+def swin_attn_bwd(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias, mask,
+                  num_heads: int, window: int, shift: int = 0):
+    """Backward of the attention half: the kernel on CUDA tensors, the plain
+    version on CPU.  Returns (dx, dscale_shift, dgamma, dbeta, dwqkv, dbqkv,
+    dwproj, dbproj, drel_bias), each in its primal's dtype."""
+    if x.device.type == "cpu":
+        return swin_attn_bwd_plain(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj,
+                                   rel_bias, mask, num_heads, window, shift)
+    x, ss, g, bt, wqkv, bqkv, wproj, rel, mask = _checked(
+        x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias, mask, num_heads, window)
+    b, h, w, c = x.shape
+    if c > 768:
+        raise ValueError(f"swin_attn_bwd covers C <= 768, got {c}")
+    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
+    dy = cuda_build.require(dy, bf, "dy")
+    if dy.shape != x.shape:
+        raise ValueError(f"dy{tuple(dy.shape)} does not match x{tuple(x.shape)}")
+    m, L = b * h * w, window * window
+    sp = attn_bwd_splits(b, h, w, c, num_heads, window)
+
+    def buf(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    hn, dattn, attn = (buf(m, c, dtype=bf) for _ in range(3))
+    qkv, dqkv = (buf(m, 3 * c, dtype=bf) for _ in range(2))
+    dhn = buf(m, c)
+    part_wqkv, part_wproj = buf(sp["wqkv"], 3 * c * c), buf(sp["wproj"], c * c)
+    part_bqkv, part_bproj = buf(sp["bqkv"], 3 * c), buf(sp["bproj"], c)
+    part_rel = buf(sp["core"], num_heads, L, L)
+    part_rows = buf(b * sp["rows"], 4 * c)
+    dx = torch.empty_like(x)
+    dss, dgb = buf(b, 2 * c), buf(2, c)
+    dwqkv, dbqkv, dwproj, dbproj = buf(3 * c, c), buf(3 * c), buf(c, c), buf(c)
+    drel = buf(num_heads, L, L)
+    p = cuda_build.ptr
+    rc = cuda_build.lib().dsg_swin_attn_bwd(
+        p(x), p(ss), p(dy), p(g), p(bt), p(wqkv), p(bqkv), p(wproj), p(rel), p(mask),
+        p(hn), p(qkv), p(dattn), p(attn), p(dqkv), p(dhn), p(part_wqkv), p(part_wproj),
+        p(part_bqkv), p(part_bproj), p(part_rel), p(part_rows),
+        p(dx), p(dss), p(dgb), p(dwqkv), p(dbqkv), p(dwproj), p(dbproj), p(drel),
+        b, h, w, c, num_heads, window, shift, sp["wqkv"], sp["wproj"], sp["bqkv"], sp["bproj"],
+        sp["core"], sp["rows"], cuda_build.stream_ptr(dev))
+    cuda_build.check(rc, NAME_BWD)
+    cuda_build.count_launch(NAME_BWD, _shape_key(h, w, c, shift))
+    return dx, dss.to(bf), dgb[0], dgb[1], dwqkv.to(bf), dbqkv, dwproj.to(bf), dbproj, drel
+
+
+class _SwinAttn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, rel_bias,
+                mask, num_heads, window, shift):
+        ctx.save_for_backward(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias,
+                              mask)
+        ctx.geometry = (num_heads, window, shift)
+        return swin_attn_fwd(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj,
+                             rel_bias, mask, num_heads, window, shift)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, ss, g, bt, wqkv, bqkv, wproj, rel, mask = ctx.saved_tensors
+        dx, dss, dg, db, dwqkv, dbqkv, dwproj, dbproj, drel = swin_attn_bwd(
+            x, ss, dy.to(x.dtype).contiguous(), g, bt, wqkv, bqkv, wproj, rel, mask,
+            *ctx.geometry)
+        # the mask is a constant of the geometry: no gradient
+        return dx, dss, dg, db, dwqkv, dbqkv, dwproj, dbproj, drel, None, None, None, None
+
+
+def swin_attn(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+              num_heads: int, window: int, shift: int = 0):
+    """Attention half, differentiable: kernels on CUDA tensors (forward
+    ``swin_attn``, backward ``swin_attn_bwd``), the plain versions on CPU."""
+    return _SwinAttn.apply(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj,
+                           rel_bias, mask, num_heads, window, shift)
 
 
 def fused_swin_block(x, scale_shift, ln1_g, ln1_b, wqkv, bqkv, wproj, bproj, rel_bias, mask,

@@ -34,7 +34,9 @@ class TorchNoise:
 
     ``normal(step, kind, shape)`` with kind in init_adj / init_node (step -1)
     and churn_adj / churn_node; ``bernoulli(step, kind, p)`` with kind in
-    refresh_euler / refresh_heun."""
+    refresh_euler / refresh_heun.  Training draws through the same source:
+    kinds sigma, noise_adj, noise_node (``normal``, or ``uniform`` for the
+    vp/ve sigma distributions) and self_cond (``bernoulli``)."""
 
     def __init__(self, seed: int, device: torch.device | str):
         self.device = torch.device(device)
@@ -43,6 +45,9 @@ class TorchNoise:
 
     def normal(self, step: int, kind: str, shape) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=self.gen, device=self.device)
+
+    def uniform(self, step: int, kind: str, shape) -> torch.Tensor:
+        return torch.rand(tuple(shape), generator=self.gen, device=self.device)
 
     def bernoulli(self, step: int, kind: str, p: float) -> bool:
         return bool(torch.rand((), generator=self.host_gen) < p)

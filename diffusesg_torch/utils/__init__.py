@@ -1,1 +1,1 @@
-"""Device policy and weight carry-over."""
+"""Device policy, weight carry-over, logging and checkpoints."""

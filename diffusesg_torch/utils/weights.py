@@ -1,4 +1,4 @@
-"""Carry the JAX package's weights across to the port.
+"""Carry the JAX package's weights across to the port, and back.
 
 ``flax_to_state_dict`` turns a flax ``DiffuseSG`` parameter tree, given as
 nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``, with or
@@ -8,7 +8,9 @@ in diffusesg_tpu/utils/torch_import.py:44-145 and imports nothing of it:
 flax stores Linear kernels [in, out] and the port [out, in]; the patch
 embedding is a Conv2d [D, Cin, p, p] whose flax Dense flattens (kh, kw, cin);
 the readout's ConvTranspose2d [Cin, Cout, p, p] flattens (kh, kw, cout) with
-its bias tiled p*p times.
+its bias tiled p*p times.  ``state_dict_to_flax`` is the inverse, for
+comparing gradients and updated parameters with the JAX package's leaf by
+leaf.
 """
 from __future__ import annotations
 
@@ -101,3 +103,96 @@ def flax_to_state_dict(params: dict, patch_size: int = 1) -> dict[str, torch.Ten
         if m:
             _basic_layer(out, f"{m.group(1)}_layers.{m.group(2)}", p[key])
     return out
+
+
+# ------------------------------------------------------------- the inverse
+
+def _n(t) -> np.ndarray:
+    return t.detach().cpu().float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _inv_dense(sd: dict, prefix: str) -> dict:
+    out = {"kernel": _n(sd[f"{prefix}.weight"]).T}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _n(sd[f"{prefix}.bias"])
+    return out
+
+
+def _inv_mlp(sd: dict, prefix: str, key: str = "") -> dict:
+    out = {}
+    for fc in ("fc1", "fc2"):
+        out[f"{key}{fc}_kernel"] = _n(sd[f"{prefix}.{fc}.weight"]).T
+        out[f"{key}{fc}_bias"] = _n(sd[f"{prefix}.{fc}.bias"])
+    return out
+
+
+def _inv_swin_block(sd: dict, prefix: str) -> dict:
+    t = {"Dense_0": _inv_dense(sd, f"{prefix}.affine"),
+         "norm1_scale": _n(sd[f"{prefix}.norm1.weight"]),
+         "norm1_bias": _n(sd[f"{prefix}.norm1.bias"]),
+         "relative_position_bias_table":
+             _n(sd[f"{prefix}.attn.relative_position_bias_table"]),
+         "norm2_scale": _n(sd[f"{prefix}.norm2.weight"]),
+         "norm2_bias": _n(sd[f"{prefix}.norm2.bias"])}
+    for name in ("qkv", "proj"):
+        t[f"{name}_kernel"] = _n(sd[f"{prefix}.attn.{name}.weight"]).T
+        t[f"{name}_bias"] = _n(sd[f"{prefix}.attn.{name}.bias"])
+    t.update(_inv_mlp(sd, f"{prefix}.mlp", key="mlp_"))
+    return t
+
+
+def _inv_basic_layer(sd: dict, prefix: str) -> dict:
+    t = {}
+    if f"{prefix}.upsample.pre_linear.weight" in sd:
+        t["PatchBreakup_0"] = {
+            "pre_kernel": _n(sd[f"{prefix}.upsample.pre_linear.weight"]).T,
+            "norm1_scale": _n(sd[f"{prefix}.upsample.norm.weight"]),
+            "norm1_bias": _n(sd[f"{prefix}.upsample.norm.bias"]),
+            "norm2_scale": _n(sd[f"{prefix}.upsample.post_norm.weight"]),
+            "norm2_bias": _n(sd[f"{prefix}.upsample.post_norm.bias"]),
+            "post_kernel": _n(sd[f"{prefix}.upsample.post_linear.weight"]).T}
+    blocks = sorted({int(m.group(1)) for k in sd
+                     if (m := re.match(re.escape(prefix) + r"\.blocks\.(\d+)\.", k))})
+    for i in blocks:
+        t[f"SwinBlock_{i}"] = _inv_swin_block(sd, f"{prefix}.blocks.{i}")
+    if f"{prefix}.downsample.reduction.weight" in sd:
+        t["PatchMerging_0"] = {
+            "norm_scale": _n(sd[f"{prefix}.downsample.norm.weight"]),
+            "norm_bias": _n(sd[f"{prefix}.downsample.norm.bias"]),
+            "reduction_kernel": _n(sd[f"{prefix}.downsample.reduction.weight"]).T}
+    return t
+
+
+def state_dict_to_flax(sd: dict, patch_size: int = 1) -> dict:
+    """The port's ``state_dict`` (or a dict of gradients under the same
+    names) -> the flax-shaped tree of numpy arrays, the inverse of
+    ``flax_to_state_dict``; every map is linear, so gradients carry over leaf
+    by leaf.  The readout's transposed-convolution bias is tiled p*p times in
+    flax: a parameter is tiled back, and for a gradient the caller sums the
+    flax leaf's p*p tiles before comparing."""
+    k = patch_size
+    pe_w = _n(sd["patch_embed.proj.weight"])  # [D, Cin, kh, kw]
+    d = pe_w.shape[0]
+    pe = {"Dense_0": {"kernel": pe_w.transpose(2, 3, 1, 0).reshape(-1, d),
+                      "bias": _n(sd["patch_embed.proj.bias"])},
+          "NoiseAffine_0": {"Dense_0": _inv_dense(sd, "patch_embed.affine")}}
+    if "patch_embed.norm.weight" in sd:
+        pe["LayerNorm_0"] = {"scale": _n(sd["patch_embed.norm.weight"]),
+                             "bias": _n(sd["patch_embed.norm.bias"])}
+    w0 = _n(sd["read_out.0.weight"])  # [Cin, Cout, kh, kw]
+    ro = {"Dense_0": {"kernel": w0.transpose(0, 2, 3, 1).reshape(w0.shape[0], -1),
+                      "bias": np.tile(_n(sd["read_out.0.bias"]), k * k)}}
+    for i in (1, 2):
+        ro[f"Dense_{i}"] = {"kernel": _n(sd[f"read_out.{i}.weight"])[:, :, 0, 0].T,
+                            "bias": _n(sd[f"read_out.{i}.bias"])}
+    p = {"patch_embed": pe, "read_out": ro,
+         "map_layer0": _inv_dense(sd, "map_layer0"),
+         "map_layer1": _inv_dense(sd, "map_layer1"),
+         "final_norm": {"scale": _n(sd["norm.weight"]), "bias": _n(sd["norm.bias"])},
+         "readout_adj_mlp": _inv_mlp(sd, "readout_adj_mlp"),
+         "readout_node_mlp": _inv_mlp(sd, "readout_node_mlp")}
+    layers = sorted({(m.group(1), int(m.group(2))) for key in sd
+                     if (m := re.match(r"(down|up)_layers\.(\d+)\.", key))})
+    for kind, i in layers:
+        p[f"{kind}_layers_{i}"] = _inv_basic_layer(sd, f"{kind}_layers.{i}")
+    return {"params": p}

@@ -68,3 +68,52 @@ def node_flags(batch: int, n: int, counts) -> np.ndarray:
     for i, c in enumerate(counts):
         f[i, :c] = True
     return f
+
+
+class JaxTrainNoise:
+    """The JAX training step's draws, by its key schedule, for the port's
+    noise protocol.  ``keys[step]`` is the key ``train_step`` gets at that
+    step; ``loss_fn`` splits it into (objective, self-cond), the objective
+    into (sigma, noise) and the noise into (adj, node)
+    (train_step.py:69, edm.py:240, edm.py:222)."""
+
+    def __init__(self, keys):
+        self.keys = list(keys)
+        self.requests = []
+
+    def _key(self, step, kind):
+        import jax
+        rng_obj, rng_sc = jax.random.split(self.keys[step])
+        rng_sigma, rng_noise = jax.random.split(rng_obj)
+        rng_a, rng_x = jax.random.split(rng_noise)
+        self.requests.append((step, kind))
+        return {"sigma": rng_sigma, "noise_adj": rng_a, "noise_node": rng_x,
+                "self_cond": rng_sc}[kind]
+
+    def normal(self, step, kind, shape):
+        import jax
+        import torch
+        return torch.from_numpy(np.array(jax.random.normal(self._key(step, kind), tuple(shape))))
+
+    def uniform(self, step, kind, shape):
+        import jax
+        import torch
+        return torch.from_numpy(np.array(jax.random.uniform(self._key(step, kind), tuple(shape))))
+
+    def bernoulli(self, step, kind, p):
+        import jax
+        return bool(jax.random.bernoulli(self._key(step, kind), p))
+
+
+def clean_batch(batch: int, n: int, counts, seed: int = 0, node_chan: int = 5):
+    """(adjs [B,N,N], nodes [B,N,C], flags) in the ddpm range, padding zeroed;
+    the last four node channels are boxes (cx, cy, w, h) mapped to [-1, 1]."""
+    rng = np.random.default_rng(seed)
+    flags = node_flags(batch, n, counts)
+    pair = flags[:, :, None] & flags[:, None, :]
+    adjs = (rng.uniform(-1, 1, (batch, n, n)) * pair).astype(np.float32)
+    nodes = rng.uniform(-1, 1, (batch, n, node_chan))
+    nodes[..., -4:-2] = rng.uniform(-0.5, 0.5, (batch, n, 2))   # centres
+    nodes[..., -2:] = rng.uniform(-0.8, -0.2, (batch, n, 2))    # sizes 0.1 .. 0.4
+    nodes = (nodes * flags[:, :, None]).astype(np.float32)
+    return adjs, nodes, flags
