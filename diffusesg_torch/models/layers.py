@@ -20,6 +20,7 @@ from ..ops.mlp_block_kernel import LN_EPS, layer_norm
 from ..ops.patch_resample import patch_breakup, patch_merge
 from ..ops.readout_kernel import readout_mlp
 from ..ops.swin_block_v3 import fused_swin_block
+from ..ops.window_attention import fused_window_attention_qkhd
 
 NOISE_EMB_CHANNELS = 512
 
@@ -92,15 +93,39 @@ class NoiseAffine(nn.Linear):
 
 
 class WindowAttention(nn.Module):
-    """Parameters of window attention: ``qkv``, ``proj`` and the
-    relative-position bias table; the Swin block's kernel computes it."""
+    """Window multi-head self-attention with relative-position bias: ``qkv``,
+    ``proj`` and the bias table.  Inside a Swin block the block's kernel
+    computes it from these parameters; called on its own, ``forward`` takes
+    [nWB, L = window^2, C] tokens and an optional additive mask [nW, L, L]
+    and runs the fused window-attention kernel between the two Linears."""
 
-    def __init__(self, dim: int, window: int, num_heads: int):
+    def __init__(self, dim: int, window: int, num_heads: int, dtype=torch.float32):
         super().__init__()
+        self.dim, self.window, self.num_heads, self.dtype = dim, window, num_heads, dtype
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, num_heads))
+        self.register_buffer("relative_position_index",
+                             torch.from_numpy(relative_position_index(window).reshape(-1)),
+                             persistent=False)
+
+    def rel_bias(self) -> torch.Tensor:
+        """[nH, L, L] fp32 relative-position bias."""
+        L = self.window * self.window
+        table = self.relative_position_bias_table
+        return table[self.relative_position_index].reshape(L, L, -1).permute(2, 0, 1).contiguous()
+
+    def forward(self, x, mask=None):
+        nwb, L, c = x.shape
+        head_dim = self.dim // self.num_heads
+        qkv = dense(x, self.qkv, self.dtype).reshape(nwb, L, 3, self.num_heads, head_dim)
+        q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.float32, device=x.device)
+        out = fused_window_attention_qkhd(q, k, v, self.rel_bias().float(), mask,
+                                          head_dim ** -0.5)
+        return dense(out.transpose(1, 2).reshape(nwb, L, c), self.proj, self.dtype)
 
 
 class SwinBlock(nn.Module):
@@ -120,21 +145,12 @@ class SwinBlock(nn.Module):
         self.num_heads, self.window, self.shift, self.dtype = num_heads, window, shift, dtype
         self.affine = nn.Linear(NOISE_EMB_CHANNELS, 2 * dim)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = WindowAttention(dim, window, num_heads)
+        self.attn = WindowAttention(dim, window, num_heads, dtype)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype)
-        self.register_buffer("relative_position_index",
-                             torch.from_numpy(relative_position_index(window).reshape(-1)),
-                             persistent=False)
         mask = (torch.from_numpy(shifted_window_attn_mask(h, w, window, shift))
                 if shift > 0 else None)
         self.register_buffer("attn_mask", mask, persistent=False)
-
-    def rel_bias(self) -> torch.Tensor:
-        """[nH, L, L] fp32 relative-position bias."""
-        L = self.window * self.window
-        table = self.attn.relative_position_bias_table
-        return table[self.relative_position_index].reshape(L, L, -1).permute(2, 0, 1).contiguous()
 
     def forward(self, x, emb):
         h, w = self.input_resolution
@@ -145,7 +161,7 @@ class SwinBlock(nn.Module):
         out = fused_swin_block(
             x.reshape(b, h, w, c).to(dt), scale_shift, self.norm1.weight, self.norm1.bias,
             a.qkv.weight.to(dt), a.qkv.bias, a.proj.weight.to(dt), a.proj.bias,
-            self.rel_bias(), self.attn_mask, self.norm2.weight, self.norm2.bias,
+            a.rel_bias(), self.attn_mask, self.norm2.weight, self.norm2.bias,
             m.fc1.weight.to(dt), m.fc1.bias, m.fc2.weight.to(dt), m.fc2.bias,
             self.num_heads, self.window, self.shift)
         return out.reshape(b, L, c)

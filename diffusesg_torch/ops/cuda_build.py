@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of every entry point: pointers and the stream as c_void_p
 _SIGNATURES = {
     "dsg_swin_attn": [_P] * 15 + [_I] * 7 + [_P],
@@ -44,6 +45,8 @@ _SIGNATURES = {
     "dsg_readout": [_P] * 7 + [_I] * 4 + [_P],
     "dsg_patch_merge": [_P] * 6 + [_I] * 5 + [_P],
     "dsg_patch_breakup": [_P, _P, _I, _I] + [_P] * 10 + [_I] * 4 + [_P],
+    "dsg_window_attention": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "dsg_mm_accumulate": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -30,6 +30,7 @@ from .mlp_block_kernel import layer_norm, ln_stats, ln_vjp, token_mlp, up
 
 NAME = "swin_attn"
 NAME_BWD = "swin_attn_bwd"
+WINDOWS = (8, 10)  # window sizes the kernels are built for (L = 64 and 100)
 
 
 def _to_windows(t, window: int):
@@ -145,9 +146,15 @@ def swin_attn_bwd_plain(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj
 def _checked(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias, mask,
              num_heads: int, window: int):
     b, h, w, c = x.shape
-    if window != 8 or c != 32 * num_heads or h % window or w % window:
-        raise ValueError(f"swin_attn covers window 8 and head_dim 32; got window={window} "
-                         f"C={c} heads={num_heads} grid={h}x{w}")
+    if window not in WINDOWS or c != 32 * num_heads or h % window or w % window:
+        raise ValueError(f"swin_attn covers windows {WINDOWS} and head_dim 32; got "
+                         f"window={window} C={c} heads={num_heads} grid={h}x{w}")
+    L = window * window
+    if tuple(rel_bias.shape) != (num_heads, L, L):
+        raise ValueError(f"rel_bias{tuple(rel_bias.shape)} is not [{num_heads}, {L}, {L}]")
+    n_win = (h // window) * (w // window)
+    if mask is not None and tuple(mask.shape) != (n_win, L, L):
+        raise ValueError(f"mask{tuple(mask.shape)} is not [{n_win}, {L}, {L}]")
     bf, f32 = torch.bfloat16, torch.float32
     x = cuda_build.require(x, bf, "x")
     ss = cuda_build.require(scale_shift, bf, "scale_shift")

@@ -10,7 +10,10 @@ embedding is a Conv2d [D, Cin, p, p] whose flax Dense flattens (kh, kw, cin);
 the readout's ConvTranspose2d [Cin, Cout, p, p] flattens (kh, kw, cout) with
 its bias tiled p*p times.  ``state_dict_to_flax`` is the inverse, for
 comparing gradients and updated parameters with the JAX package's leaf by
-leaf.
+leaf.  Both walk whatever stages and blocks the tree holds, so the VG tree
+(four stages) and the COCO-Stuff tree (three stages, six blocks in the last,
+361-row bias tables) take the same code.  ``window_attention_to_state_dict``
+and its inverse do the same for a stand-alone ``WindowAttention``.
 """
 from __future__ import annotations
 
@@ -103,6 +106,22 @@ def flax_to_state_dict(params: dict, patch_size: int = 1) -> dict[str, torch.Ten
         if m:
             _basic_layer(out, f"{m.group(1)}_layers.{m.group(2)}", p[key])
     return out
+
+
+def window_attention_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``WindowAttention`` params (``Dense_0`` = qkv, ``Dense_1`` = proj,
+    the bias table) -> the state dict of the port's stand-alone module."""
+    p = params.get("params", params)
+    out = {"relative_position_bias_table": _t(p["relative_position_bias_table"])}
+    _dense(out, "qkv", p["Dense_0"])
+    _dense(out, "proj", p["Dense_1"])
+    return out
+
+
+def window_attention_to_flax(sd: dict) -> dict:
+    """The inverse of ``window_attention_to_state_dict`` (numpy leaves)."""
+    return {"relative_position_bias_table": _n(sd["relative_position_bias_table"]),
+            "Dense_0": _inv_dense(sd, "qkv"), "Dense_1": _inv_dense(sd, "proj")}
 
 
 # ------------------------------------------------------------- the inverse

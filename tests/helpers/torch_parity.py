@@ -16,6 +16,7 @@ ATOL, RTOL = 2e-4, 1e-3
 
 SMALL_CFG = "configs/vg_small_test.yaml"
 VG_CFG = "configs/edm_diffuse_sg_regular_visual_genome.yaml"
+COCO_CFG = "configs/edm_diffuse_sg_regular_coco.yaml"
 
 
 def small_overrides(cfg, num_steps: int = 4, s_churn: float | None = None):
@@ -38,6 +39,25 @@ def load_pair(path: str = SMALL_CFG, **kw):
     from diffusesg_tpu.config import load_config as jload
     from diffusesg_torch.config import load_config as tload
     return small_overrides(jload(path), **kw), small_overrides(tload(path), **kw)
+
+
+def coco_small_overrides(cfg, num_steps: int = 4, s_churn: float | None = None):
+    """The COCO-Stuff config (171 node types, 7 edge types, window 10) at
+    N=20, embed 24, depths (2, 2): a 20x20 stage with an unshifted and a
+    shifted (5) window-10 block, a 10x10 stage whose window is the grid, one
+    merge, one breakup and both readout heads."""
+    small_overrides(cfg, num_steps, s_churn)
+    with cfg.unlocked():
+        cfg.dataset.max_node_num = 20
+        cfg.model.window_size = 10
+    return cfg
+
+
+def load_coco_pair(**kw):
+    """(JAX config, port config) of the COCO-Stuff YAML, cut to a small size."""
+    from diffusesg_tpu.config import load_config as jload
+    from diffusesg_torch.config import load_config as tload
+    return coco_small_overrides(jload(COCO_CFG), **kw), coco_small_overrides(tload(COCO_CFG), **kw)
 
 
 def randomized_params(params, seed: int = 1, scale: float = 0.15):

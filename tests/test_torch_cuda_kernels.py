@@ -3,8 +3,8 @@ PyTorch version on the card.
 
 These need an NVIDIA GPU with nvcc (sm_90a); without one every test skips
 from the ``cuda`` fixture, and counts nothing.  Run them on the card with
-``python -m pytest tests/test_torch_cuda_kernels.py``.  Inputs are bf16 at
-small shapes the kernels cover (window 8, head_dim 32); the tolerance is
+``python -m pytest --noconftest tests/test_torch_cuda_kernels.py``.  Inputs are bf16 at
+small shapes the kernels cover (window 8 and 10, head_dim 32); the tolerance is
 bf16's: the two versions round their bf16 intermediates at the same points
 but sum in different orders, so an intermediate can land one bf16 ulp apart.
 """
@@ -46,11 +46,16 @@ def _vec(dev, n, offset=0.0):
 
 
 def _check(name, kern, plain, *args):
-    before = cuda_build.launches_by_kernel().get(name, 0)
+    """``name``: the kernel whose launch counter one call moves by one, or a
+    tuple of them for an entry that launches several kernels."""
+    names = (name,) if isinstance(name, str) else name
+    before = cuda_build.launches_by_kernel()
     out = kern(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
-    assert cuda_build.launches_by_kernel()[name] == before + 1
+    after = cuda_build.launches_by_kernel()
+    assert {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)} == {
+        k: 1 for k in names}
     assert out.shape == ref.shape and out.dtype == ref.dtype
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
 
@@ -173,3 +178,121 @@ def test_backward_through_a_two_stage_model_runs_the_backward_kernels(cuda):
     den = sum(float(w.norm()) ** 2 for w in want)
     assert all(torch.isfinite(g).all() for g in got)
     assert (num / den) ** 0.5 < 1e-1
+
+
+# ------------------------------------------------ window 10 (L = 100 padded to 112)
+
+def _attn_args(dev, b, hw, heads, window, shift):
+    c, L = 32 * heads, window * window
+    mask = (torch.from_numpy(shifted_window_attn_mask(hw, hw, window, shift)).to(dev)
+            if shift else None)
+    return (_rnd(dev, b, hw, hw, c), _rnd(dev, b, 2 * c, scale=0.5), _vec(dev, c, 1.0),
+            _vec(dev, c), _lin(dev, 3 * c, c), _vec(dev, 3 * c), _lin(dev, c, c), _vec(dev, c),
+            _rnd(dev, heads, L, L, dtype=torch.float32), mask)
+
+
+COCO_SHAPES = [(40, 3, 0), (20, 6, 0), (20, 6, 5), (10, 12, 0)]
+
+
+@pytest.mark.parametrize("hw,heads,shift", COCO_SHAPES)
+@pytest.mark.parametrize("b", [2, 3])  # an odd batch too: no shape leaves the kernel
+def test_swin_attn_kernel_window_10(cuda, hw, heads, shift, b):
+    torch.manual_seed(hw + shift)
+    args = _attn_args(cuda, b, hw, heads, 10, shift)
+    _check("swin_attn", sw.swin_attn, sw.swin_attn_block_plain, *args, heads, 10, shift)
+
+
+def test_swin_attn_window_10_with_a_fully_masked_row_is_finite(cuda):
+    torch.manual_seed(3)
+    args = list(_attn_args(cuda, 2, 20, 6, 10, 5))
+    args[9] = args[9].clone()
+    args[9][:, 7, :] = -100.0
+    out = sw.swin_attn(*args, 6, 10, 5)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), sw.swin_attn_block_plain(*args, 6, 10, 5).float(),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("hw,heads,shift", COCO_SHAPES)
+@pytest.mark.parametrize("b", [1, 4])  # b = 1 at 10x10: one window, one core block per head
+def test_swin_attn_bwd_kernel_window_10(cuda, hw, heads, shift, b):
+    torch.manual_seed(hw + shift)
+    a = _attn_args(cuda, b, hw, heads, 10, shift)
+    bargs = a[:2] + (_rnd(cuda, b, hw, hw, 32 * heads),) + a[2:7] + a[8:]
+    _check_grads("swin_attn_bwd", sw.swin_attn_bwd, sw.swin_attn_bwd_plain, *bargs, heads, 10,
+                 shift)
+    again = sw.swin_attn_bwd(*bargs, heads, 10, shift)
+    assert all(torch.equal(x, y) for x, y in zip(again, sw.swin_attn_bwd(*bargs, heads, 10, shift)))
+
+
+def test_an_uncovered_window_raises_on_the_card(cuda):
+    args = list(_attn_args(cuda, 1, 14, 2, 7, 0))
+    with pytest.raises(ValueError, match="swin_attn covers windows"):
+        sw.swin_attn(*args, 2, 7, 0)
+
+
+# --------------------------------------------- the kernels with an entry of their own
+
+@pytest.mark.parametrize("nwb,nh,L,nw,scale", [(8, 3, 64, 0, 32 ** -0.5), (8, 12, 64, 4, 0.3),
+                                               (16, 3, 100, 0, 0.25), (8, 6, 100, 4, 32 ** -0.5)])
+def test_window_attention_kernel(cuda, nwb, nh, L, nw, scale):
+    from diffusesg_torch.ops import window_attention as wa
+    torch.manual_seed(L + nw)
+    q, k, v = (_rnd(cuda, nwb, nh, L, 32) for _ in range(3))
+    rel = _rnd(cuda, nh, L, L, dtype=torch.float32)
+    mask = None
+    if nw:
+        mask = torch.where(torch.rand(nw, L, L, device=cuda) < 0.2, -100.0, 0.0)
+        mask[0, 5, :] = -100.0
+    _check("window_attention", wa.fused_window_attention_qkhd, wa.attention_plain, q, k, v, rel,
+           mask, scale)
+    # the backward differentiates the plain version, on the card
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, rel)]
+    out = wa.fused_window_attention_qkhd(*leaves, mask, scale)
+    grads = torch.autograd.grad(out.float().sum(), leaves)
+    assert all(torch.isfinite(g).all() and g.shape == t.shape for g, t in zip(grads, leaves))
+    with pytest.raises(ValueError, match="window_attention covers"):
+        wa.fused_window_attention_qkhd(q[..., :16], k[..., :16], v[..., :16], rel, mask, scale)
+
+
+@pytest.mark.parametrize("hw,heads,window", [(16, 2, 8), (20, 2, 10)])
+def test_pre_rolled_block_entries(cuda, hw, heads, window):
+    from diffusesg_torch.ops import swin_block_kernel as sk
+    from diffusesg_torch.ops import swin_full_block as sf
+    torch.manual_seed(hw)
+    c, shift = 32 * heads, window // 2
+    a = _attn_args(cuda, 2, hw, heads, window, shift)
+    mlp = (_vec(cuda, c, 1.0), _vec(cuda, c), _lin(cuda, 4 * c, c), _vec(cuda, 4 * c),
+           _lin(cuda, c, 4 * c), _vec(cuda, c))
+    # the entries own no device function: they launch swin_attn (and token_mlp)
+    _check("swin_attn", sk.fused_swin_attn_block, sk.swin_attn_block_plain, *a, heads, window)
+    _check(("swin_attn", "token_mlp"), sf.fused_swin_block, sf.swin_block_plain, *a, *mlp, heads,
+           window)
+    # the same device code as the model's block with the roll folded in: bit-equal
+    rolled = torch.roll(a[0], (-shift, -shift), dims=(1, 2))
+    got = torch.roll(sf.fused_swin_block(rolled, *a[1:], *mlp, heads, window), (shift, shift),
+                     dims=(1, 2))
+    assert torch.equal(got, sw.fused_swin_block(*a, *mlp, heads, window, shift))
+    # and they differentiate through the backward kernels
+    x = a[0].clone().requires_grad_()
+    before = cuda_build.launches_by_kernel()
+    sf.fused_swin_block(x, *a[1:], *mlp, heads, window).float().sum().backward()
+    after = cuda_build.launches_by_kernel()
+    assert torch.isfinite(x.grad).all()
+    assert all(after[k] == before.get(k, 0) + 1 for k in ("swin_attn_bwd", "token_mlp_bwd"))
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (128, 96, 48), (1024, 96, 288)])
+def test_mm_accumulate_kernel(cuda, m, k, n):
+    from diffusesg_torch.ops import mm_microbench as mm
+    torch.manual_seed(m + n)
+    a8 = torch.randint(-127, 127, (m, k), device=cuda, dtype=torch.int8)
+    b8 = torch.randint(-127, 127, (k, n), device=cuda, dtype=torch.int8)
+    got = mm.mm_accumulate(a8, b8, 64)
+    assert got.dtype == torch.int32 and torch.equal(got, mm.mm_accumulate_plain(a8, b8, 64))
+    a, b = _rnd(cuda, m, k), _rnd(cuda, k, n)
+    got, ref = mm.mm_accumulate(a, b, 64), mm.mm_accumulate_plain(a, b, 64)
+    assert got.dtype == torch.float32
+    assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+    with pytest.raises(ValueError, match="mm_accumulate takes"):
+        mm.mm_accumulate(a[:, :24].contiguous(), b[:24].contiguous(), 64)

@@ -125,17 +125,25 @@ def test_port_imports_no_jax():
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
         "for name in ('serving.generate', 'cli.train', 'train.trainer', 'data.loader',\n"
-        "             'utils.checkpoint', 'ops.box_ops'):\n"
-        "    assert 'diffusesg_torch.' + name in sys.modules, name\n")
+        "             'utils.checkpoint', 'ops.box_ops', 'ops.window_attention',\n"
+        "             'ops.swin_block_kernel', 'ops.swin_full_block', 'ops.mm_microbench'):\n"
+        "    assert 'diffusesg_torch.' + name in sys.modules, name\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('mb', 'scripts/microbench_int8_torch.py')\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'diffusesg_tpu'))\n"
+        "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-def test_chip_smoke_imports_no_jax():
+def _imported_by(path):
     import ast
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+    with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read())
     imported = set()
     for node in ast.walk(tree):
@@ -143,8 +151,18 @@ def test_chip_smoke_imports_no_jax():
             imported.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             imported.add((node.module or "").split(".")[0])
+    return imported
+
+
+def test_chip_smoke_imports_no_jax():
+    imported = _imported_by("chip_smoke.py")
     assert "diffusesg_torch" in imported
     assert not imported & {"jax", "jaxlib", "flax", "optax", "orbax", "diffusesg_tpu"}, imported
+
+
+def test_microbench_script_imports_torch_and_the_port_only():
+    imported = _imported_by(os.path.join("scripts", "microbench_int8_torch.py"))
+    assert imported == {"os", "subprocess", "sys", "torch", "diffusesg_torch"}, imported
 
 
 def test_entry_points_need_the_card_unless_asked():
@@ -159,3 +177,27 @@ def test_entry_points_need_the_card_unless_asked():
     model = build_model(tcfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         generate(model, get_mc_sampler(tcfg), tcfg, [3])
+
+
+def test_coco_entry_points_and_the_microbench_need_the_card_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    import importlib.util
+
+    from torch_parity import load_coco_pair
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.serving.generate import generate
+    _, tcfg = load_coco_pair()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(tcfg)
+    model = build_model(tcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(model, get_mc_sampler(tcfg), tcfg, [3])
+    adj, node, bbox = generate(model, get_mc_sampler(tcfg), tcfg, [3, 20], device="cpu")
+    assert adj.shape == (2, 20, 20) and int(node.max()) < 171 and int(adj.max()) < 7
+    spec = importlib.util.spec_from_file_location(
+        "microbench_int8_torch", os.path.join(REPO, "scripts", "microbench_int8_torch.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    assert bench.main() == 2

@@ -63,20 +63,27 @@ def _assert_weights_close(got_tree, want_tree, unstable, steps_done, lr, what):
 
 @pytest.mark.parametrize("self_cond", [True, False])
 def test_three_training_steps_match_jax(self_cond):
+    run_three_training_steps(self_cond, load_pair, COUNTS)
+
+
+def run_three_training_steps(self_cond, load, counts):
+    """Three steps in both packages from the config pair ``load()`` gives, on
+    a clean batch of ``counts`` nodes per graph (shared with the COCO-Stuff
+    slice test, which passes its own loader)."""
     from diffusesg_tpu.train import train_state as jts
     from diffusesg_tpu.train import train_step as jstep
     from diffusesg_torch.train import (create_train_state, ema_slice, make_loss_fn,
                                        make_optimizer, make_train_step, train_step_config_from)
     from diffusesg_torch.utils.weights import state_dict_to_flax
 
-    jcfg, tcfg = load_pair()
+    jcfg, tcfg = load()
     for cfg in (jcfg, tcfg):
         with cfg.unlocked():
             cfg.train.self_cond = self_cond
     jm, params, tm = model_pair(jcfg, tcfg)
     params = jax.tree.map(jnp.asarray, params)
     betas, decay, wd, spe = [0.9, 0.999], 0.5, 1e-2, 2
-    adjs, nodes, flags = clean_batch(4, 16, COUNTS, seed=9)
+    adjs, nodes, flags = clean_batch(len(counts), tcfg.dataset.max_node_num, counts, seed=9)
 
     jopt = jts.make_optimizer(LR, decay, spe, wd)
     jstate = jts.create_train_state(params, betas, jopt)
