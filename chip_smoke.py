@@ -29,9 +29,12 @@ Phases, each printed on its own line:
      restores bit-equal state; the gradients of the card's bf16 kernel model
      are held against the fp32 plain model on the CPU at batch 4 (a leaf that
      the plain model in bf16 cannot hold under the limit either is held at
-     the kernel instead, against its plain backward on the same inputs); then ms per
-     training step at batch 64, its peak memory, the largest power-of-two
-     batch that fits, and the profile of one step;
+     the kernel instead, against its plain backward on the same inputs, on 8
+     batches, beside its window core alone, its recomputed operands in bf16
+     ulps and two controls without the kernel); then ms per training step at
+     batch 64, its peak memory, the largest power-of-two batch that fits, and
+     the profile of one step (the window core and the fused MLP under their
+     own names);
   5. the COCO-Stuff slice: the full-width COCO model (30,690,020 parameters,
      window 10, bf16) answers requests of 40, 33, 12 and 5 nodes and then 16
      full graphs through ``serving.generate``, checked as phase 3 (node types
@@ -629,12 +632,32 @@ TRAIN_BATCH = 64
 # fp32 (COCO's deepest 10x10 bias tables, whose gradient is a small difference
 # of large sums over 4 windows), the comparison with fp32 measures the
 # activations' rounding, not the kernel: such a leaf must be a bias table, and
-# the d(rel_bias) that ``swin_attn_bwd`` wrote for it in this very backward
-# is held against ``swin_attn_bwd_plain`` on the same inputs (the model's own
-# activations) under phase 2's backward tolerance.
+# the d(rel_bias) that ``swin_attn_bwd`` wrote for it is held, under
+# NOISY_LEAF_TOL, against ``swin_attn_bwd_plain`` on the same inputs (the
+# model's activations), on NOISY_SEEDS batches.  Beside it: the window core
+# alone against the plain core backward on the very bf16 operands it read
+# (phase 2's tolerance), and how far the kernel's recomputed hn, qkv and
+# d(attn) are from the plain version's, in bf16 ulps.  Two controls on the
+# plain operands show what the comparison reads without the kernel: the
+# same number of elements moved one ulp (sound rounding noise), and qkv and
+# d(attn) rounded to one mantissa bit fewer than bf16 (a recompute that is
+# less precise than it should be, which the gate must refuse).
 GRAD_REL_L2_LIMIT = 3e-2
 GRAD_WORST_LEAF_LIMIT = 1.5e-1
 BWD_TOL = (0.0, 2e-2, 1e-2)  # phase 2's: |err| <= 2e-2 |ref| + 1e-2 max|ref|
+# The noisy tables' gate, from 8 batches on the H100: the kernel against the
+# plain backward read 4.0e-3 to 1.8e-2 of max, and the plain backward on the
+# CPU against itself on the card (no kernel) up to 1.5e-2, so phase 2's bound
+# could not hold sound code here.  Moving that many operand elements one ulp
+# read up to 2.9e-2, and operands one mantissa bit coarser at least 4.4e-2:
+# the bound lies between, and the gate must refuse the coarser control on
+# every batch.
+NOISY_LEAF_TOL = (0.0, 0.0, 3e-2)
+NOISY_SEEDS = 8
+# the recomputed hn, qkv and d(attn) against the plain version's: at most this
+# share of elements apart, none by more than two ulps of the tensor's largest
+OPERANDS_APART = 1e-2
+OPERANDS_MAX_ERR = 2.0 ** -6
 
 
 def _forced(noise_cls, self_cond: bool):
@@ -645,12 +668,78 @@ def _forced(noise_cls, self_cond: bool):
     return Forced
 
 
+def bf16_ulps(a, b):
+    """Elementwise distance of two bf16 tensors in bf16 steps (ulps)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def nudged(t, n: int, gen):
+    """bf16 ``t`` with ``n`` of its nonzero elements, drawn with ``gen`` (a
+    CPU generator), moved one ulp towards or away from zero."""
+    bits = t.contiguous().view(torch.int16).flatten().cpu().clone()
+    nz = (bits & 0x7FFF).nonzero().flatten()
+    pick = nz[torch.randperm(len(nz), generator=gen)[:n]]
+    bits[pick] += (torch.randint(0, 2, (len(pick),), generator=gen) * 2 - 1).to(torch.int16)
+    return bits.view(t.dtype).reshape(t.shape).to(t.device)
+
+
+def coarser(t):
+    """bf16 ``t`` rounded to one mantissa bit fewer (6 instead of 7)."""
+    i = t.float().contiguous().view(torch.int32)
+    return ((i + (1 << 16)) & ~((1 << 17) - 1)).view(torch.float32).to(t.dtype)
+
+
+def rel_max_err(got, want) -> float:
+    """max |got - want| / max |want|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def held(got, want, tol) -> bool:
+    atol, rtol, rel_max = tol
+    got, want = got.double().cpu(), want.double().cpu()
+    return bool(((got - want).abs() <= atol + rtol * want.abs()
+                 + rel_max * float(want.abs().max())).all())
+
+
+def noisy_leaf_readings(args, outs, ops, gen) -> dict:
+    """What the check of a noisy bias table reads on one ``swin_attn_bwd``
+    call: ``args``, its nine gradients ``outs`` and its recomputed bf16 (hn,
+    qkv, d(attn)) ``ops``."""
+    from diffusesg_torch.ops import swin_block_v3 as sw
+
+    got, core_args = outs[8], args[8:]
+    want = sw.swin_attn_bwd_plain(*args)[8]
+    plain_ops = sw.swin_attn_bwd_operands_plain(*args[:8], *args[11:13])
+    core = sw.window_core_drel_plain(ops[1], ops[2], *core_args)
+    cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    ulps = [bf16_ulps(k, p) for k, p in zip(ops, plain_ops)]
+    moved = [int((u > 0).sum()) for u in ulps]
+    op_err = [rel_max_err(k, p) for k, p in zip(ops, plain_ops)]
+    nudge = sw.window_core_drel_plain(nudged(plain_ops[1], moved[1], gen),
+                                      nudged(plain_ops[2], moved[2], gen), *core_args)
+    coarse = sw.window_core_drel_plain(coarser(plain_ops[1]), coarser(plain_ops[2]), *core_args)
+    return dict(
+        old=rel_max_err(got, want), old_ok=held(got, want, NOISY_LEAF_TOL),
+        core=rel_max_err(got, core), core_ok=held(got, core, BWD_TOL),
+        witness=rel_max_err(sw.swin_attn_bwd_plain(*cpu_args)[8], want),
+        nudge=rel_max_err(nudge, want), coarse=rel_max_err(coarse, want),
+        coarse_refused=not held(coarse, want, NOISY_LEAF_TOL),
+        moved=[m / u.numel() for m, u in zip(moved, ulps)],
+        max_ulps=[int(u.max()) for u in ulps], op_err=op_err,
+        ops_ok=all(m <= OPERANDS_APART * u.numel() for m, u in zip(moved, ulps))
+        and max(op_err) <= OPERANDS_MAX_ERR)
+
+
 def check_gradients(cfg, model, dev, spec):
     """One loss at batch 4 with the same draws on every side: gradients of
     the card's bf16 model (kernels) vs the fp32 plain model on the CPU.  The
     plain model in bf16 on the CPU measures bf16's own noise: a leaf it cannot
-    hold under the leaf limit is checked at the kernel instead (see
-    GRAD_WORST_LEAF_LIMIT)."""
+    hold under the leaf limit is checked at the kernel instead, on
+    NOISY_SEEDS batches (see GRAD_WORST_LEAF_LIMIT)."""
     from diffusesg_torch.models import make_model
     from diffusesg_torch.sampling.edm_sampler import TorchNoise
     from diffusesg_torch.train import make_loss_fn, train_step_config_from
@@ -665,15 +754,17 @@ def check_gradients(cfg, model, dev, spec):
             return super().normal(step, kind, shape).to(self.target)
 
     n = cfg.dataset.max_node_num
-    gen = torch.Generator().manual_seed(11)
     flags = torch.zeros(4, n, dtype=torch.bool)
     for i, c in enumerate(spec["requests"]):
         flags[i, :c] = True
     pair = flags[:, :, None] & flags[:, None, :]
-    adjs = (torch.rand(4, n, n, generator=gen) * 2 - 1) * pair
-    nodes = torch.rand(4, n, 5, generator=gen) * 2 - 1
-    nodes[..., -2:] = nodes[..., -2:] * 0.3 - 0.5  # box sizes 0.1 .. 0.4 of the image
-    nodes = nodes * flags[:, :, None]
+
+    def batch(seed):
+        gen = torch.Generator().manual_seed(11 + seed)
+        adjs = (torch.rand(4, n, n, generator=gen) * 2 - 1) * pair
+        nodes = torch.rand(4, n, 5, generator=gen) * 2 - 1
+        nodes[..., -2:] = nodes[..., -2:] * 0.3 - 0.5  # box sizes 0.1 .. 0.4 of the image
+        return adjs, nodes * flags[:, :, None]
 
     step_cfg = train_step_config_from(cfg)
     weights = {k: v.cpu() for k, v in model.state_dict().items()}
@@ -686,29 +777,35 @@ def check_gradients(cfg, model, dev, spec):
         cfg.tpu.compute_dtype = dtype_name
     ref.load_state_dict(weights)
 
-    def grads_of(m, device):
-        loss, _ = make_loss_fn(m, step_cfg)(None, CpuDraws(3, device), 0, adjs.to(device),
-                                            nodes.to(device), flags.to(device))
+    def grads_of(m, device, seed=0):
+        adjs, nodes = batch(seed)
+        loss, _ = make_loss_fn(m, step_cfg)(None, CpuDraws(3 + seed, device), 0,
+                                            adjs.to(device), nodes.to(device), flags.to(device))
         return float(loss.detach()), torch.autograd.grad(loss, list(m.parameters()))
 
     from diffusesg_torch.ops import cuda_build
     from diffusesg_torch.ops import swin_block_v3 as sw
 
-    # every swin_attn_bwd call of the card's backward, with what it returned
-    calls, kernel_bwd = [], sw.swin_attn_bwd
+    def card_grads(seed):
+        """The card's loss and gradients, and every swin_attn_bwd call of its
+        backward with what it returned and the bf16 operands it recomputed."""
+        calls, kernel_bwd = [], sw.swin_attn_bwd
 
-    def recorded(*args):
-        outs = kernel_bwd(*args)
-        calls.append((args, outs))
-        return outs
+        def recorded(*args):
+            outs, ops = sw._swin_attn_bwd_kernel(*args)
+            calls.append((args, outs, ops))
+            return outs
+
+        sw.swin_attn_bwd = recorded
+        try:
+            loss, grads = grads_of(model, dev, seed)
+        finally:
+            sw.swin_attn_bwd = kernel_bwd
+        torch.cuda.synchronize()
+        return loss, grads, calls
 
     cuda_build.reset_launches()
-    sw.swin_attn_bwd = recorded
-    try:
-        loss_card, g_card = grads_of(model, dev)
-    finally:
-        sw.swin_attn_bwd = kernel_bwd
-    torch.cuda.synchronize()
+    loss_card, g_card, calls = card_grads(0)
     by_kernel = cuda_build.launches_by_kernel()
     t0 = time.perf_counter()
     loss_cpu, g_cpu = grads_of(ref, torch.device("cpu"))
@@ -744,29 +841,51 @@ def check_gradients(cfg, model, dev, spec):
         f"{by_kernel.get('token_mlp_bwd', 0)}")
     if not rel < GRAD_REL_L2_LIMIT or over:
         fail(f"the card's gradients disagree with the fp32 plain model: {over[:4]}")
-    atol, rtol, rel_max = BWD_TOL
+    if abs(loss_card - loss_cpu) > 5e-2 * abs(loss_cpu):
+        fail("the card's loss disagrees with the fp32 plain model")
+    if not noisy:
+        return
+    blocks = []
     for name, leaf, plain in noisy:
         block, _, param = name.rpartition(".attn.")
         if param != "relative_position_bias_table":
             fail(f"plain bf16 is {plain:.3e} from fp32 on {name}, which no kernel check covers")
-        gamma = model.get_submodule(block).norm1.weight
-        mine = [c for c in calls if c[0][3].data_ptr() == gamma.data_ptr()]
-        if len(mine) != 1:
-            fail(f"{len(mine)} swin_attn_bwd calls recorded for {block}")
-        args, outs = mine[0]
-        got, want = outs[8].double(), sw.swin_attn_bwd_plain(*args)[8].double()
-        err, top = (got - want).abs(), float(want.abs().max())
-        ok = bool((err <= atol + rtol * want.abs() + rel_max * top).all())
-        log(f"train {spec['tag']}: {name}: card vs CPU fp32 {leaf:.3e}, plain bf16 on the CPU vs "
-            f"fp32 {plain:.3e} (over {GRAD_WORST_LEAF_LIMIT}: bf16's noise); this block's "
-            f"d(rel_bias) {tuple(got.shape)} from swin_attn_bwd vs swin_attn_bwd_plain on the "
-            f"model's activations: max_err/max|ref|={float(err.max()) / max(top, 1e-30):.3e} "
-            f"rel_l2={float(err.norm()) / max(float(want.norm()), 1e-30):.3e} "
-            f"tol=rtol {rtol}+{rel_max}*max {'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            fail(f"d(rel_bias) of {block} disagrees with the plain backward")
-    if abs(loss_card - loss_cpu) > 5e-2 * abs(loss_cpu):
-        fail("the card's loss disagrees with the fp32 plain model")
+        log(f"train {spec['tag']}: {name}: card vs CPU fp32 {leaf:.3e}, plain bf16 on the CPU "
+            f"vs fp32 {plain:.3e} (over {GRAD_WORST_LEAF_LIMIT}: bf16's noise): checked at "
+            f"swin_attn_bwd on {NOISY_SEEDS} batches")
+        blocks.append((name, model.get_submodule(block).norm1.weight.data_ptr()))
+    gen, failed = torch.Generator().manual_seed(5), []
+    readings = {name: [] for name, _ in blocks}
+    for seed in range(NOISY_SEEDS):
+        seed_calls = calls if seed == 0 else card_grads(seed)[2]
+        for name, gamma in blocks:
+            mine = [c for c in seed_calls if c[0][3].data_ptr() == gamma]
+            if len(mine) != 1:
+                fail(f"{len(mine)} swin_attn_bwd calls recorded for {name}")
+            r = noisy_leaf_readings(*mine[0], gen)
+            readings[name].append(r)
+            log(f"train {spec['tag']}: {name} batch {seed}: d(rel_bias) of swin_attn_bwd vs "
+                f"swin_attn_bwd_plain on the model's activations max_err/max|ref|="
+                f"{r['old']:.3e} {'ok' if r['old_ok'] else 'MISMATCH'} (tol {NOISY_LEAF_TOL}); "
+                f"its window core vs the plain core backward on the operands it read "
+                f"{r['core']:.3e} {'ok' if r['core_ok'] else 'MISMATCH'} (tol {BWD_TOL}); "
+                f"recomputed hn / qkv / d(attn) vs the plain version's: "
+                + " / ".join(f"{f:.3%} of elements apart, at most {u} ulp, max_err/max|ref|="
+                             f"{e:.3e}" for f, u, e in zip(r["moved"], r["max_ulps"], r["op_err"]))
+                + f" {'ok' if r['ops_ok'] else 'MISMATCH'} (at most {OPERANDS_APART:.0%} apart, "
+                f"{OPERANDS_MAX_ERR:.3e} of max); without the kernel: plain on the CPU vs on "
+                f"the card {r['witness']:.3e}, that many elements moved 1 ulp {r['nudge']:.3e}, "
+                f"qkv and d(attn) one mantissa bit coarser {r['coarse']:.3e} "
+                f"{'refused' if r['coarse_refused'] else 'PASSED THE GATE'}")
+            if not (r["old_ok"] and r["core_ok"] and r["ops_ok"] and r["coarse_refused"]):
+                failed.append(f"{name} batch {seed}")
+    for name, rs in readings.items():
+        summary = {k: f"{min(r[k] for r in rs):.3e}..{max(r[k] for r in rs):.3e}"
+                   for k in ("old", "core", "witness", "nudge", "coarse")}
+        log(f"train {spec['tag']}: {name} over {len(rs)} batches, max_err/max|ref| of d(rel_bias) "
+            f"(least..most): " + ", ".join(f"{k} {v}" for k, v in summary.items()))
+    if failed:
+        fail(f"d(rel_bias) disagrees with the plain backward: {failed}")
 
 
 def check_training(dev, smi: str, spec=VG, find_largest_batch: bool = True):
@@ -935,23 +1054,37 @@ def check_training(dev, smi: str, spec=VG, find_largest_batch: bool = True):
     return launches
 
 
-# which kernel each device function belongs to (demangled-name fragments);
-# the row pass before a block's first GEMM (AffineSrc, RowSrc) is the same
-# function in a kernel's forward and in its backward's recompute: it is
-# counted under the forward kernel's name
+# which kernel each device function belongs to (demangled-name fragments,
+# first match wins); the row pass before a block's first GEMM (AffineSrc,
+# RowSrc) is the same function in a kernel's forward and in its backward's
+# recompute: AffineSrc is counted under the forward kernel's name, RowSrc (no
+# longer in the fused token_mlp forward) under token_mlp_bwd, and F32RowSrc
+# (patch_breakup's LayerNorm) under patch_breakup; both are printed as parts
+# too (PARTS), for comparison with profiles that counted them under token_mlp
 OTHER = "other PyTorch ops"
 KERNEL_OF = (("window_attn_bwd_kernel", "swin_attn_bwd"), ("SwinBwd", "swin_attn_bwd"),
              ("MlpBwd", "token_mlp_bwd"), ("GeluAndGradEpi", "token_mlp_bwd"),
              ("ln_bwd_rows_kernel", "backward row pass + reductions (both backward kernels)"),
              ("reduce_partials_kernel", "backward row pass + reductions (both backward kernels)"),
              ("col_sums_kernel", "backward row pass + reductions (both backward kernels)"),
+             ("F32RowSrc", "patch_breakup"), ("dsg::RowSrc", "token_mlp_bwd"),
              ("window_attn_kernel", "swin_attn"), ("AffineSrc", "swin_attn"),
              ("SwinQkv", "swin_attn"), ("SwinProj", "swin_attn"),
-             ("RowSrc", "token_mlp"), ("MlpFc", "token_mlp"),
+             ("token_mlp_kernel", "token_mlp"), ("mlp_close_kernel", "token_mlp"),
              ("MergeSrc", "patch_merge"), ("MergeProj", "patch_merge"),
-             ("BreakupIn", "patch_breakup"), ("F32RowSrc", "patch_breakup"),
+             ("BreakupIn", "patch_breakup"),
              ("ScatterSrc", "patch_breakup"), ("BreakupOut", "patch_breakup"),
              ("ReadoutFc", "readout"))
+# device functions printed under their own names beside their kernel's total:
+# the parts of the two redesigned kernels, and the two RowSrc row passes
+# (label, name fragment, kernel)
+PARTS = (("window core", "window_attn_kernel<", "swin_attn"),
+         ("qkv GEMM", "SwinQkv", "swin_attn"), ("proj GEMM", "SwinProj", "swin_attn"),
+         ("row pass", "AffineSrc", "swin_attn"),
+         ("fused MLP", "token_mlp_kernel", "token_mlp"),
+         ("closing pass", "mlp_close_kernel", "token_mlp"),
+         ("LayerNorm row pass", "F32RowSrc", "patch_breakup"),
+         ("LN2 recompute row pass", "dsg::RowSrc", "token_mlp_bwd"))
 
 
 def profile_eval(ev, eager_ms: float, tag: str) -> None:
@@ -999,6 +1132,12 @@ def profile_call(fn, what: str, eager_ms: float) -> None:
                       for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
     log(f"profile: {what}, device time {total:.3f} ms of {eager_ms:.3f} ms eager "
         f"(device busy {min(total / eager_ms, 1.0):.1%}): {parts}")
+    split = []
+    for label, frag, kernel in PARTS:
+        ms, n = sum(t for t, _, k in funcs if frag in k), sum(c for _, c, k in funcs if frag in k)
+        if n and groups.get(kernel):
+            split.append(f"{label} {ms:.3f} ms x{n} ({ms / groups[kernel]:.1%} of {kernel})")
+    log(f"profile parts ({what}): " + "; ".join(split))
 
 
 def main(argv=None) -> int:
@@ -1022,6 +1161,13 @@ def main(argv=None) -> int:
     cuda_build.build(verbose=True)
     cuda_build.lib()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {cuda_build.build_dir()}")
+    from diffusesg_torch.ops import mlp_block_kernel as mk
+    log("grid plans, as the library reports them: blocks of the window core an SM holds "
+        + ", ".join(f"{q} L={L} {cuda_build.blocks_per_sm(q, L)}"
+                    for q in ("dsg_swin_attn_core_per_sm", "dsg_window_attention_per_sm")
+                    for L in (64, 100))
+        + "; token_mlp (rows, hidden chunk, blocks an SM) "
+        + ", ".join(f"C{c} {mk.mlp_tile(c)}" for c in (64, 96, 192, 384, 768)))
 
     results, entry_cases = check_kernels(dev)
     # launch counts per path: {path: (sampling or entries run, training run)}

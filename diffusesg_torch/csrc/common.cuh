@@ -91,6 +91,77 @@ __device__ __forceinline__ void store8(bf16* p, const float v[8]) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
+// ------------------------------------------------ register-level MMA pieces
+//
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate) with fragments loaded by
+// ldmatrix, for the kernels that keep intermediate tiles in registers (the
+// forward window core, the fused MLP).  Lane l holds, with g = l / 4 and
+// t = l % 4: of the 16x16 A tile a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..),
+// a[2] = (g, 2t+8..), a[3] = (g+8, 2t+8..); of the 16x8 B tile (k x n)
+// b[0] = (k 2t..2t+1, n g), b[1] = (k 2t+8.., n g); of the 16x8 fp32
+// accumulator c[0..1] = (g, 2t..2t+1), c[2..3] = (g+8, 2t..2t+1).
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// the same, each matrix transposed (a B operand stored k-major)
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// two 8x8 matrices; lanes 0..15 give the row addresses
+__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// c += a b for one 16x8x16 tile
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats -> bf16x2, `lo` in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// A fragment of a 16x16 tile of a row-major bf16 tile in shared memory
+// (row stride ld elements), rows r0.., columns k0..
+__device__ __forceinline__ void load_a16(uint32_t a[4], const bf16* tile, int ld, int r0, int k0,
+                                         int lane) {
+  ldsm_x4(a, tile + (r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+}
+
+// B fragments of two n-tiles (n0.., n0+8..) x k16 from an [n][k] row-major
+// tile (a Linear weight, or K of attention): {b0, b1} of n0, then of n0 + 8
+__device__ __forceinline__ void load_b16x2(uint32_t b[4], const bf16* tile, int ld, int n0,
+                                           int k0, int lane) {
+  ldsm_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 + ((lane >> 3) & 1) * 8);
+}
+
+// B fragment of one n-tile x k16 from an [n][k] row-major tile
+__device__ __forceinline__ void load_b16(uint32_t b[2], const bf16* tile, int ld, int n0, int k0,
+                                         int lane) {
+  ldsm_x2(b, tile + (n0 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
+}
+
 // ------------------------------------------------------- row preparation
 
 // A plain row-major bf16 [M, K] source.
@@ -101,14 +172,13 @@ struct RowSrc {
   __device__ void emit(int, int, const float*) const {}
 };
 
-// out[m, :] = bf16(LayerNorm(src row m)), one warp per row, the row held in
+// LayerNorm of source row `row` by one warp, written in bf16 to `out` (the
+// row's first element, device or shared memory); the row is held in
 // registers (MAXV vectors of 8 per lane: K <= 256 * MAXV).
 template <class Src, int MAXV>
-__global__ void __launch_bounds__(256)
-ln_rows_kernel(Src src, const float* __restrict__ gamma, const float* __restrict__ beta,
-               bf16* __restrict__ out, int M, int K) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= M) return;
+__device__ __forceinline__ void ln_row(const Src& src, int row, int K, int lane,
+                                       const float* __restrict__ gamma,
+                                       const float* __restrict__ beta, bf16* out) {
   float v[MAXV][8];
   float s = 0.f;
 #pragma unroll
@@ -138,10 +208,20 @@ ln_rows_kernel(Src src, const float* __restrict__ gamma, const float* __restrict
       float o[8];
 #pragma unroll
       for (int t = 0; t < 8; ++t) o[t] = (v[i][t] - mean) * rstd * gamma[k + t] + beta[k + t];
-      store8(out + (size_t)row * K + k, o);
+      store8(out + k, o);
       src.emit(row, k, v[i]);
     }
   }
+}
+
+// out[m, :] = bf16(LayerNorm(src row m)), one warp per row.
+template <class Src, int MAXV>
+__global__ void __launch_bounds__(256)
+ln_rows_kernel(Src src, const float* __restrict__ gamma, const float* __restrict__ beta,
+               bf16* __restrict__ out, int M, int K) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= M) return;
+  ln_row<Src, MAXV>(src, row, K, lane, gamma, beta, out + (size_t)row * K);
 }
 
 template <class Src>
@@ -186,8 +266,6 @@ __device__ __forceinline__ void cp_async_wait() {
 // kernel name of its own in a profile.
 struct SwinQkv {};
 struct SwinProj {};
-struct MlpFc1 {};
-struct MlpFc2 {};
 struct MergeProj {};
 struct BreakupIn {};
 struct BreakupOut {};
@@ -350,7 +428,6 @@ cudaError_t launch_gemm_nn(const void* a, const void* w, const Epi& epi, int M, 
 enum class Act { kNone, kGelu };
 enum class Res {
   kNone,
-  kRounded,  // out = res + bf16(y): the MLP residual, branch rounded first
   kSum,      // out = res + y, one rounding: the attention residual
 };
 
@@ -375,7 +452,6 @@ struct Epilogue {
     for (int t = 0; t < 8; ++t) {
       float v = acc[t] + (bias && t < cnt ? bias[n + t] : 0.f);
       if constexpr (ACT == Act::kGelu) v = gelu_erf(v);
-      if constexpr (RES == Res::kRounded) v = rv[t] + round_bf16(v);
       if constexpr (RES == Res::kSum) v = rv[t] + v;
       y[t] = v;
     }
@@ -397,7 +473,6 @@ struct Epilogue {
 using StoreBf16 = Epilogue<Act::kNone, Res::kNone, bf16>;
 using StoreF32 = Epilogue<Act::kNone, Res::kNone, float>;
 using GeluBf16 = Epilogue<Act::kGelu, Res::kNone, bf16>;
-using ResidBf16 = Epilogue<Act::kNone, Res::kRounded, bf16>;
 using AddResidBf16 = Epilogue<Act::kNone, Res::kSum, bf16>;
 
 }  // namespace dsg

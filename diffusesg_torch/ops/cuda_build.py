@@ -10,15 +10,17 @@ rebuilds and an unchanged one loads at once.
 ``LAUNCHES`` counts kernel launches per kernel name and shape; each wrapper
 adds one where it launches its kernel and nowhere else.
 
-Two helpers of the wrappers live here too: ``split_count`` plans the grids of
-the backward kernels' reductions (the wrapper allocates their partials), and
-``plain_vjp`` is the backward of the kernels that differentiate their plain
+Helpers of the wrappers live here too: ``split_count`` plans the grids of
+the backward kernels' reductions (the wrapper allocates their partials),
+``sm_count`` and ``blocks_per_sm`` give the forward grid plans the card's SM
+count and a kernel's occupancy, and ``plain_vjp`` is the backward of the kernels that differentiate their plain
 version.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,15 +40,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every entry point: pointers and the stream as c_void_p
 _SIGNATURES = {
-    "dsg_swin_attn": [_P] * 15 + [_I] * 7 + [_P],
-    "dsg_token_mlp": [_P] * 10 + [_I] * 3 + [_P],
+    "dsg_swin_attn": [_P] * 15 + [_I] * 8 + [_P],
+    "dsg_token_mlp": [_P] * 9 + [_I] * 5 + [_P],
     "dsg_swin_attn_bwd": [_P] * 30 + [_I] * 13 + [_P],
     "dsg_token_mlp_bwd": [_P] * 23 + [_I] * 7 + [_P],
     "dsg_readout": [_P] * 7 + [_I] * 4 + [_P],
     "dsg_patch_merge": [_P] * 6 + [_I] * 5 + [_P],
     "dsg_patch_breakup": [_P, _P, _I, _I] + [_P] * 10 + [_I] * 4 + [_P],
-    "dsg_window_attention": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "dsg_window_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     "dsg_mm_accumulate": [_P] * 3 + [_I] * 6 + [_P],
+    # the forward grid plans' queries: a kernel's tile and its occupancy
+    "dsg_token_mlp_tile": [_I, ctypes.POINTER(_I)],
+    "dsg_swin_attn_core_per_sm": [_I],
+    "dsg_window_attention_per_sm": [_I],
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -82,6 +88,22 @@ def split_count(parallel: int, length: int, min_len: int, align: int = 1) -> int
     chunk = -(-length // want)
     chunk = -(-chunk // align) * align
     return -(-length // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on the H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(query: str, *args: int) -> int:
+    """Blocks of a kernel an SM holds, from the library's ``query`` entry
+    (the card's occupancy for the kernel's registers and shared memory)."""
+    n = getattr(lib(), query)(*args)
+    if n <= 0:
+        raise RuntimeError(f"{query}{args}: no occupancy (error {n})")
+    return n
 
 
 def plain_vjp(plain_fn, tensors, grad_out):

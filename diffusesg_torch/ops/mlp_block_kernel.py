@@ -2,7 +2,9 @@
 
 Counterpart of diffusesg_tpu/ops/mlp_block_kernel.py.  ``token_mlp`` is a
 ``torch.autograd.Function``: on a CUDA tensor its forward is the
-hand-written kernel ``token_mlp`` (csrc/token_mlp.cu), which serves every
+hand-written kernel ``token_mlp`` (csrc/token_mlp.cu, one fused launch in
+which the [M, 4C] hidden stays on chip, plus a closing pass where the hidden
+dimension is split across blocks), which serves every
 Swin block's MLP half (the TPU's ``fused_mlp_block`` and the MLP half of
 ``fused_swin_block_v3``), and its backward the kernel ``token_mlp_bwd``
 (csrc/token_mlp_bwd.cu; the TPU's ``_mlp_bwd_kernel`` and, at C = 768,
@@ -12,6 +14,8 @@ backward recomputes.  Weights are in the PyTorch Linear layout ([out, in]).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -106,6 +110,34 @@ def _checked(x, ln_gamma, ln_beta, w1, b1, w2):
     return xf, g, bt, w1, b1, w2
 
 
+@functools.lru_cache(maxsize=None)
+def mlp_tile(c: int) -> tuple[int, int, int]:
+    """The fused forward kernel's tile at C, from the library
+    (csrc/token_mlp.cu MlpConfig): token rows a block, hidden columns a
+    chunk, and the blocks an SM holds (the card's occupancy)."""
+    geom = (ctypes.c_int * 3)()
+    rc = cuda_build.lib().dsg_token_mlp_tile(c, geom)
+    if rc == -1:
+        raise ValueError(f"token_mlp is not built for C={c}")
+    cuda_build.check(rc, NAME)
+    return tuple(geom)
+
+
+def mlp_fwd_plan(m: int, hidden: int, tile: tuple[int, int, int],
+                 sms: int = 132) -> dict[str, int]:
+    """Grid plan of the fused ``token_mlp``: into how many ``splits`` of
+    ``chunks`` hidden chunks each to cut the hidden dimension, so that the
+    row tiles times the splits fill about one wave of resident blocks
+    (``sms`` x the blocks an SM holds) without passing it.  ``tile`` is
+    ``mlp_tile(C)``.  Every split gets at least one chunk; one split (no
+    partials) when the row tiles alone fill the wave."""
+    rows, chunk, per_sm = tile
+    n_chunks = hidden // chunk
+    want = max(1, min(n_chunks, sms * per_sm // -(-m // rows)))
+    per_split = -(-n_chunks // want)
+    return dict(splits=-(-n_chunks // per_split), chunks=per_split)
+
+
 def token_mlp_fwd(x, ln_gamma, ln_beta, w1, b1, w2, b2):
     """Forward alone: the kernel on CUDA tensors, the plain version on CPU."""
     if x.device.type == "cpu":
@@ -114,13 +146,19 @@ def token_mlp_fwd(x, ln_gamma, ln_beta, w1, b1, w2, b2):
     b2 = cuda_build.require(b2, torch.float32, "b2")
     m, c = xf.shape
     hidden = w1.shape[0]
-    hn = torch.empty_like(xf)
-    hid = torch.empty((m, hidden), dtype=torch.bfloat16, device=x.device)
+    tile = mlp_tile(c)
+    if hidden % tile[1]:
+        raise ValueError(f"token_mlp needs a hidden width that is a multiple of its chunk "
+                         f"{tile[1]}; got C={c} hidden={hidden}")
+    plan = mlp_fwd_plan(m, hidden, tile, cuda_build.sm_count(x.device))
+    part = None
+    if plan["splits"] > 1:
+        part = torch.empty((plan["splits"], m, c), dtype=torch.float32, device=x.device)
     out = torch.empty_like(xf)
     p = cuda_build.ptr
     rc = cuda_build.lib().dsg_token_mlp(
-        p(xf), p(g), p(bt), p(w1), p(b1), p(w2), p(b2), p(hn), p(hid), p(out), m, c, hidden,
-        cuda_build.stream_ptr(x.device))
+        p(xf), p(g), p(bt), p(w1), p(b1), p(w2), p(b2), p(part), p(out), m, c, hidden,
+        plan["splits"], plan["chunks"], cuda_build.stream_ptr(x.device))
     cuda_build.check(rc, NAME)
     cuda_build.count_launch(NAME, f"C{c}")
     return out.reshape(x.shape)

@@ -33,6 +33,20 @@ NAME_BWD = "swin_attn_bwd"
 WINDOWS = (8, 10)  # window sizes the kernels are built for (L = 64 and 100)
 
 
+def window_core_plan(n_windows: int, num_heads: int, classes: int, per_sm: int,
+                     sms: int = 132) -> int:
+    """Windows per block of the forward window core.  A block serves one head
+    and one of ``classes`` mask classes (window index mod the class count; 1
+    without a mask) and walks a run of that class's windows, so the bias is
+    staged once per run.  The runs are as short as one wave of resident
+    blocks (``sms`` x ``per_sm``, the blocks an SM holds) allows: every block
+    is in flight at once, and none is empty."""
+    classes = max(classes, 1)
+    per_class = -(-n_windows // classes)
+    blocks = max(1, min(per_class, sms * per_sm // (num_heads * classes)))
+    return -(-per_class // blocks)
+
+
 def _to_windows(t, window: int):
     """[B, H, W, K] -> [B * nW, L, K], windows in raster order."""
     b, h, w, k = t.shape
@@ -84,6 +98,57 @@ def swin_attn_block_plain(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, 
     return y
 
 
+def _softmax_vjp(q, k, v, d_o, rel_bias, mask):
+    """Probabilities and d(scores) of the window core, fp32, from its
+    operands q, k, v, d(out) [nWB, nH, L, hd]."""
+    probs = torch.softmax(_scores(q, k, rel_bias, mask), dim=-1)
+    d_p = d_o @ v.transpose(-1, -2)
+    return probs, probs * (d_p - (probs * d_p).sum(-1, keepdim=True))
+
+
+def window_core_drel_plain(qkv, dattn, rel_bias, mask, num_heads: int, window: int,
+                           shift: int = 0):
+    """d(rel_bias) of the backward window core alone, from the bf16 operands
+    it reads: qkv [B, H, W, 3C] and d(attn) [B, H, W, C] in unrolled raster
+    order, as ``_swin_attn_bwd_kernel`` and ``swin_attn_bwd_operands_plain``
+    return them (the rest of ``swin_attn_bwd_plain``'s d(rel_bias))."""
+    if shift > 0:
+        qkv, dattn = (torch.roll(t, (-shift, -shift), dims=(1, 2)) for t in (qkv, dattn))
+    q, k, v = (_heads(up(t), num_heads) for t in _to_windows(qkv, window).chunk(3, dim=-1))
+    d_o = _heads(up(_to_windows(dattn, window)), num_heads)
+    return _softmax_vjp(q, k, v, d_o, rel_bias, mask)[1].sum(0)
+
+
+def _bwd_recompute(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj, window: int):
+    """The recompute that opens ``swin_attn_bwd_plain``, on rolled x and dy:
+    (pre, hbar, rstd) of the noise affine and LN1, and the bf16-rounded
+    hn, qkv and d(attn) in windows [nWB, L, C / 3C / C], held in fp32."""
+    dt = x.dtype
+    scale, sh = up(scale_shift)[:, None, None, :].chunk(2, dim=-1)
+    pre = sh + up(x) * (scale + 1.0)
+    hbar, rstd = ln_stats(up(F.silu(pre).to(dt)))
+    hn_w = up(_to_windows((hbar * up(ln_gamma) + up(ln_beta)).to(dt), window))
+    qkv = up((hn_w @ up(wqkv).T + up(bqkv)).to(dt))
+    dattn = up((_to_windows(up(dy), window) @ up(wproj)).to(dt))
+    return pre, hbar, rstd, hn_w, qkv, dattn
+
+
+def swin_attn_bwd_operands_plain(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj,
+                                 window: int, shift: int = 0):
+    """hn, qkv and d(attn) as ``swin_attn_bwd_plain`` recomputes them, in x's
+    dtype and unrolled raster order [B, H, W, C / 3C / C]: the operands of
+    the window core and the weight gradients, laid out as
+    ``_swin_attn_bwd_kernel`` returns its own."""
+    if shift > 0:
+        x, dy = (torch.roll(t, (-shift, -shift), dims=(1, 2)) for t in (x, dy))
+    b, h, w, _ = x.shape
+    ops = _bwd_recompute(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj, window)[3:]
+    ops = [_from_windows(t, b, h, w, window).to(x.dtype) for t in ops]
+    if shift > 0:
+        ops = [torch.roll(t, (shift, shift), dims=(1, 2)) for t in ops]
+    return tuple(ops)
+
+
 def swin_attn_bwd_plain(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias,
                         mask, num_heads: int, window: int, shift: int = 0):
     """Backward of ``swin_attn_block_plain`` step by step, with the kernel's
@@ -100,20 +165,15 @@ def swin_attn_bwd_plain(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj
     dt = x.dtype
     gamma = up(ln_gamma)
     xf, dyf = up(x), up(dy)
-    scale, sh = up(scale_shift)[:, None, None, :].chunk(2, dim=-1)
-    pre = sh + xf * (scale + 1.0)
-    hbar, rstd = ln_stats(up(F.silu(pre).to(dt)))
-    hn_w = up(_to_windows((hbar * gamma + up(ln_beta)).to(dt), window))
-    qkv = up((hn_w @ up(wqkv).T + up(bqkv)).to(dt))
+    scale = up(scale_shift)[:, None, None, :c]
+    pre, hbar, rstd, hn_w, qkv, dattn = _bwd_recompute(x, scale_shift, dy, ln_gamma, ln_beta,
+                                                       wqkv, bqkv, wproj, window)
     q, k, v = (_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
-    probs = torch.softmax(_scores(q, k, rel_bias, mask), dim=-1)
+    dy_w = _to_windows(dyf, window)
+    d_o = _heads(dattn, num_heads)
+    probs, d_s = _softmax_vjp(q, k, v, d_o, rel_bias, mask)
     pb = up(probs.to(dt))
     attn_w = up((pb @ v).to(dt)).transpose(1, 2).reshape(-1, window * window, c)
-
-    dy_w = _to_windows(dyf, window)
-    d_o = _heads(up((dy_w @ up(wproj)).to(dt)), num_heads)
-    d_p = d_o @ v.transpose(-1, -2)
-    d_s = probs * (d_p - (probs * d_p).sum(-1, keepdim=True))
     drel = d_s.sum(0)
     d_sb = up(d_s.to(dt))
     att_scale = q.shape[-1] ** -0.5
@@ -185,10 +245,14 @@ def swin_attn_fwd(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, r
     a, hn, attn = (torch.empty((m, c), dtype=x.dtype, device=x.device) for _ in range(3))
     qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
+    n_win = (h // window) * (w // window)
+    per_sm = cuda_build.blocks_per_sm("dsg_swin_attn_core_per_sm", window * window)
+    wpb = window_core_plan(b * n_win, num_heads, n_win if mask is not None else 1, per_sm,
+                           cuda_build.sm_count(x.device))
     p = cuda_build.ptr
     rc = cuda_build.lib().dsg_swin_attn(
         p(x), p(ss), p(g), p(bt), p(wqkv), p(bqkv), p(wproj), p(bproj), p(rel), p(mask),
-        p(a), p(hn), p(qkv), p(attn), p(out), b, h, w, c, num_heads, window, shift,
+        p(a), p(hn), p(qkv), p(attn), p(out), b, h, w, c, num_heads, window, shift, wpb,
         cuda_build.stream_ptr(x.device))
     cuda_build.check(rc, NAME)
     cuda_build.count_launch(NAME, _shape_key(h, w, c, shift))
@@ -220,6 +284,16 @@ def swin_attn_bwd(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_
     if x.device.type == "cpu":
         return swin_attn_bwd_plain(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj,
                                    rel_bias, mask, num_heads, window, shift)
+    return _swin_attn_bwd_kernel(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj,
+                                 rel_bias, mask, num_heads, window, shift)[0]
+
+
+def _swin_attn_bwd_kernel(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias,
+                          mask, num_heads: int, window: int, shift: int = 0):
+    """The launch of ``swin_attn_bwd``: its nine gradients, and the bf16 hn,
+    qkv and d(attn) [B, H, W, C / 3C / C] of its recompute, which its window
+    core and weight gradients read (``swin_attn_bwd_operands_plain`` gives
+    the plain version's; ``window_core_drel_plain`` checks the core alone)."""
     x, ss, g, bt, wqkv, bqkv, wproj, rel, mask = _checked(
         x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias, mask, num_heads, window)
     b, h, w, c = x.shape
@@ -256,7 +330,8 @@ def swin_attn_bwd(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_
         sp["core"], sp["rows"], cuda_build.stream_ptr(dev))
     cuda_build.check(rc, NAME_BWD)
     cuda_build.count_launch(NAME_BWD, _shape_key(h, w, c, shift))
-    return dx, dss.to(bf), dgb[0], dgb[1], dwqkv.to(bf), dbqkv, dwproj.to(bf), dbproj, drel
+    grads = dx, dss.to(bf), dgb[0], dgb[1], dwqkv.to(bf), dbqkv, dwproj.to(bf), dbproj, drel
+    return grads, (hn.view(b, h, w, c), qkv.view(b, h, w, 3 * c), dattn.view(b, h, w, c))
 
 
 class _SwinAttn(torch.autograd.Function):

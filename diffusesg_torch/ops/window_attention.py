@@ -5,7 +5,8 @@ Counterpart of diffusesg_tpu/ops/window_attention.py.  q, k, v are
 optional shifted-window ``mask`` [nW, L, L]; the bias is never materialized
 at [nWB, nH, L, L].  On a CUDA tensor the forward is the hand-written kernel
 ``window_attention`` (csrc/window_attention.cu: the window core of the Swin
-block with separate q, k, v operands, scores in shared memory only), which
+block with separate q, k, v operands, scores and probabilities in registers
+only), which
 covers head_dim 32 with L = 64 or L = 100 in bf16 and raises for anything
 else; on a CPU tensor it is ``attention_plain``, which is general.  The
 backward recomputes the plain version and differentiates it, as the JAX
@@ -17,7 +18,7 @@ import torch
 
 from . import cuda_build
 from .mlp_block_kernel import up
-from .swin_block_v3 import WINDOWS
+from .swin_block_v3 import WINDOWS, window_core_plan
 
 NAME = "window_attention"
 LENGTHS = tuple(w * w for w in WINDOWS)  # window lengths the kernel is built for
@@ -56,9 +57,11 @@ def window_attention_fwd(q, k, v, rel_bias, mask=None, scale: float = 1.0):
         if tuple(mask.shape[1:]) != (L, L) or nwb % mask_n:
             raise ValueError(f"mask{tuple(mask.shape)} does not tile {nwb} windows of {L} tokens")
     out = torch.empty_like(q)
+    per_sm = cuda_build.blocks_per_sm("dsg_window_attention_per_sm", L)
+    wpb = window_core_plan(nwb, nh, mask_n, per_sm, cuda_build.sm_count(q.device))
     p = cuda_build.ptr
     rc = cuda_build.lib().dsg_window_attention(
-        p(q), p(k), p(v), p(rel), p(mask), p(out), nwb, nh, L, hd, mask_n, float(scale),
+        p(q), p(k), p(v), p(rel), p(mask), p(out), nwb, nh, L, hd, mask_n, wpb, float(scale),
         cuda_build.stream_ptr(q.device))
     cuda_build.check(rc, NAME)
     cuda_build.count_launch(NAME, f"{nwb}x{nh}xL{L}" + (" mask" if mask is not None else ""))

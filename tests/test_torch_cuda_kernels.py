@@ -60,24 +60,43 @@ def _check(name, kern, plain, *args):
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("hw,heads,shift", [(16, 2, 0), (16, 2, 4), (8, 3, 0)])
-def test_swin_attn_kernel(cuda, hw, heads, shift):
+def _bit_equal_again(kern, *args):
+    """Two launches on the same inputs give the same bits (no atomics)."""
+    assert torch.equal(kern(*args), kern(*args))
+
+
+# (grid, heads, shift, batch): batch 7 at 64x64 gives the window core a run
+# that is not a multiple of its windows per block, batch 23 at 16x16 the same
+# within each of the 4 mask classes, batch 1 at 8x8 a single window
+@pytest.mark.parametrize("hw,heads,shift,b", [(16, 2, 0, 2), (16, 2, 4, 2), (8, 3, 0, 2),
+                                              (64, 3, 0, 7), (16, 12, 4, 23), (8, 3, 0, 1)])
+def test_swin_attn_kernel(cuda, hw, heads, shift, b):
     torch.manual_seed(hw + shift)
     c = 32 * heads
     mask = (torch.from_numpy(shifted_window_attn_mask(hw, hw, 8, shift)).to(cuda)
             if shift else None)
-    _check("swin_attn", sw.swin_attn, sw.swin_attn_block_plain,
-           _rnd(cuda, 2, hw, hw, c), _rnd(cuda, 2, 2 * c, scale=0.5), _vec(cuda, c, 1.0),
-           _vec(cuda, c), _lin(cuda, 3 * c, c), _vec(cuda, 3 * c), _lin(cuda, c, c),
-           _vec(cuda, c), _rnd(cuda, heads, 64, 64, dtype=torch.float32), mask, heads, 8, shift)
+    args = (_rnd(cuda, b, hw, hw, c), _rnd(cuda, b, 2 * c, scale=0.5), _vec(cuda, c, 1.0),
+            _vec(cuda, c), _lin(cuda, 3 * c, c), _vec(cuda, 3 * c), _lin(cuda, c, c),
+            _vec(cuda, c), _rnd(cuda, heads, 64, 64, dtype=torch.float32), mask, heads, 8, shift)
+    _check("swin_attn", sw.swin_attn, sw.swin_attn_block_plain, *args)
+    _bit_equal_again(sw.swin_attn, *args)
 
 
-@pytest.mark.parametrize("c", [64, 96])
-def test_token_mlp_kernel(cuda, c):
+# (C, tokens): no token count is a multiple of the row tile; the smaller
+# counts take the hidden-split path (fp32 partials and a closing pass), the
+# larger ones fill the card with row tiles alone
+@pytest.mark.parametrize("c,m,split", [(64, 200, True), (96, 300, True), (96, 40000, False),
+                                       (192, 1000, True), (192, 20000, False),
+                                       (384, 520, True), (384, 9000, False),
+                                       (768, 100, True), (768, 5000, False)])
+def test_token_mlp_kernel(cuda, c, m, split):
     torch.manual_seed(c)
-    _check("token_mlp", mk.token_mlp, mk.mlp_block_plain, _rnd(cuda, 2, 100, c),
-           _vec(cuda, c, 1.0), _vec(cuda, c), _lin(cuda, 4 * c, c), _vec(cuda, 4 * c),
-           _lin(cuda, c, 4 * c), _vec(cuda, c))
+    plan = mk.mlp_fwd_plan(m, 4 * c, mk.mlp_tile(c), cuda_build.sm_count(cuda))
+    assert (plan["splits"] > 1) == split, plan
+    args = (_rnd(cuda, m, c), _vec(cuda, c, 1.0), _vec(cuda, c), _lin(cuda, 4 * c, c),
+            _vec(cuda, 4 * c), _lin(cuda, c, 4 * c), _vec(cuda, c))
+    _check("token_mlp", mk.token_mlp, mk.mlp_block_plain, *args)
+    _bit_equal_again(mk.token_mlp, *args)
 
 
 def test_patch_merge_kernel(cuda):
@@ -195,11 +214,14 @@ COCO_SHAPES = [(40, 3, 0), (20, 6, 0), (20, 6, 5), (10, 12, 0)]
 
 
 @pytest.mark.parametrize("hw,heads,shift", COCO_SHAPES)
-@pytest.mark.parametrize("b", [2, 3])  # an odd batch too: no shape leaves the kernel
+# an odd batch too: no shape leaves the kernel; batch 16 gives the window core
+# runs that are not a multiple of its windows per block (at 40x40)
+@pytest.mark.parametrize("b", [2, 3, 16])
 def test_swin_attn_kernel_window_10(cuda, hw, heads, shift, b):
     torch.manual_seed(hw + shift)
     args = _attn_args(cuda, b, hw, heads, 10, shift)
     _check("swin_attn", sw.swin_attn, sw.swin_attn_block_plain, *args, heads, 10, shift)
+    _bit_equal_again(sw.swin_attn, *args, heads, 10, shift)
 
 
 def test_swin_attn_window_10_with_a_fully_masked_row_is_finite(cuda):
@@ -233,8 +255,13 @@ def test_an_uncovered_window_raises_on_the_card(cuda):
 
 # --------------------------------------------- the kernels with an entry of their own
 
+# nwb 1000 and 100 give the window core runs that are not a multiple of its
+# windows per block (the latter within each of 4 mask classes); nwb 1 is one
+# window, with and without a mask of one class
 @pytest.mark.parametrize("nwb,nh,L,nw,scale", [(8, 3, 64, 0, 32 ** -0.5), (8, 12, 64, 4, 0.3),
-                                               (16, 3, 100, 0, 0.25), (8, 6, 100, 4, 32 ** -0.5)])
+                                               (16, 3, 100, 0, 0.25), (8, 6, 100, 4, 32 ** -0.5),
+                                               (1000, 3, 64, 0, 32 ** -0.5), (100, 6, 100, 4, 0.3),
+                                               (1, 3, 64, 0, 0.25), (1, 2, 100, 1, 32 ** -0.5)])
 def test_window_attention_kernel(cuda, nwb, nh, L, nw, scale):
     from diffusesg_torch.ops import window_attention as wa
     torch.manual_seed(L + nw)
@@ -246,6 +273,7 @@ def test_window_attention_kernel(cuda, nwb, nh, L, nw, scale):
         mask[0, 5, :] = -100.0
     _check("window_attention", wa.fused_window_attention_qkhd, wa.attention_plain, q, k, v, rel,
            mask, scale)
+    _bit_equal_again(wa.fused_window_attention_qkhd, q, k, v, rel, mask, scale)
     # the backward differentiates the plain version, on the card
     leaves = [t.clone().requires_grad_() for t in (q, k, v, rel)]
     out = wa.fused_window_attention_qkhd(*leaves, mask, scale)

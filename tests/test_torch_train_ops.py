@@ -175,6 +175,35 @@ def _function_grads(fn, tensors, ct):
     return torch.autograd.grad(out, [x for x in leaves if x is not None], ct)
 
 
+@pytest.mark.parametrize("window,shift", [(8, 0), (8, 4), (10, 5)])
+def test_window_core_drel_plain_is_the_plain_backwards_drel(window, shift):
+    """The plain backward of the window core alone, fed the qkv and d(attn)
+    that ``swin_attn_bwd_plain`` computes (raster rows, unrolled, as
+    ``swin_attn_bwd_operands_plain`` returns them), gives that function's
+    d(rel_bias): the check of the kernel's core in chip_smoke.py."""
+    import torch.nn.functional as F
+    rs = np.random.RandomState(window + shift)
+    b, hw, heads = 2, 2 * window, 2
+    c, L = 32 * heads, window * window
+    x, dy = _t(rs.randn(b, hw, hw, c)), _t(rs.randn(b, hw, hw, c))
+    ss = _t(0.5 * rs.randn(b, 2 * c))
+    g, bt = _t(1 + 0.1 * rs.randn(c)), _t(0.1 * rs.randn(c))
+    wqkv, bqkv = _t(rs.randn(3 * c, c) * c ** -0.5), _t(0.1 * rs.randn(3 * c))
+    wproj, rel = _t(rs.randn(c, c) * c ** -0.5), _t(rs.randn(heads, L, L))
+    mask = _t(shifted_window_attn_mask(hw, hw, window, shift)) if shift else None
+    want = sw.swin_attn_bwd_plain(x, ss, dy, g, bt, wqkv, bqkv, wproj, rel, mask, heads,
+                                  window, shift)[8]
+    scale, sh = ss[:, None, None, :].chunk(2, dim=-1)
+    hbar, _ = mk.ln_stats(F.silu(sh + x * (scale + 1.0)))
+    hn, qkv, dattn = sw.swin_attn_bwd_operands_plain(x, ss, dy, g, bt, wqkv, bqkv, wproj,
+                                                     window, shift)
+    _close(hn, (hbar * g + bt).numpy(), "hn", rtol=1e-5, atol_frac=1e-5)
+    _close(qkv, ((hbar * g + bt) @ wqkv.T + bqkv).numpy(), "qkv", rtol=1e-5, atol_frac=1e-5)
+    _close(dattn, (dy @ wproj).numpy(), "dattn", rtol=1e-5, atol_frac=1e-5)
+    got = sw.window_core_drel_plain(qkv, dattn, rel, mask, heads, window, shift)
+    _close(got, want.numpy(), "drel", rtol=1e-5, atol_frac=1e-5)
+
+
 def test_patch_merge_function_gradients_match_jax_vjp():
     rs = np.random.RandomState(1)
     h, c = 8, 24
