@@ -5,7 +5,9 @@
     python3 chip_smoke.py --no-train # phases 1-3 and 5 only
 
 Phases, each printed on its own line:
-  1. the card (nvidia-smi name and power limit) and the kernels' nvcc build;
+  1. the card (nvidia-smi name and power limit), the kernels' nvcc build, and
+     the built library's SASS: every Hopper GEMM kernel (hgemm_kernel) must
+     issue HGMMA (wgmma) instructions;
   2. every hand-written kernel at every Visual Genome and COCO-Stuff shape of
      the main paths (batch 16, bf16) and the four TPU kernels with an entry of
      their own (window_attention, mm_accumulate, and the pre-rolled block
@@ -16,6 +18,9 @@ Phases, each printed on its own line:
      the launch counters of the kernels it launches; kernel and plain times,
      the roofline bound from the shapes and, where a PyTorch library call
      computes the same function, the time of that library doing the same work;
+     for swin_attn and patch_breakup also the device time of each of their
+     launches (torch.profiler) beside a cuBLAS yardstick of the same product
+     (F.layer_norm + F.linear for qkv, F.linear for the others, bf16);
   3. the slice: the full-width VG model (35,808,848 parameters, seeded
      weights, bf16) answers requests through ``serving.generate`` with 16 Heun
      steps; every kernel's launch count must move, the decoded graphs must be
@@ -147,6 +152,29 @@ def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def check_sass(lib_path) -> None:
+    """The Hopper GEMM kernels of the built library issue wgmma: count the
+    HGMMA instructions of every hgemm_kernel instantiation (cuobjdump -sass)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump: {out.stderr.strip()[:200]}")
+    counts, func = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :", 1)[1].strip()
+            if "hgemm_kernel" in func:
+                counts[func] = 0
+        elif func in counts and "HGMMA" in line:
+            counts[func] += 1
+    log(f"sass: {len(counts)} hgemm_kernel instantiations, HGMMA instructions in each: "
+        f"{sorted(counts.values())}")
+    if not counts or min(counts.values()) == 0:
+        fail("a Hopper GEMM kernel issues no HGMMA instruction")
+
+
 # ------------------------------------------------------------------ phase 2
 
 @dataclasses.dataclass
@@ -161,8 +189,10 @@ class Case:
     other: the case's own name unless the entry launches other kernels (the
     pre-rolled block entries own no device function: they launch
     ``swin_attn`` and ``token_mlp``).  ``library`` is a PyTorch library's
-    kernels doing the same work (a yardstick, timed only); ``graph_plain`` is
-    False for a plain version that leaves the card and cannot be captured."""
+    kernels doing the same work (a yardstick, timed only); ``gemms`` names a
+    kernel's launches to time one by one, each with a cuBLAS yardstick of its
+    product (timed only); ``graph_plain`` is False for a plain version that
+    leaves the card and cannot be captured."""
     name: str
     src: str
     replaces: str
@@ -175,6 +205,7 @@ class Case:
     path: str
     counts: tuple = ()
     library: object = None
+    gemms: tuple = ()  # (label, device-function name fragment, yardstick or None)
     products: dict = None
     peak: float = H100_BF16_FLOPS
     graph_plain: bool = True
@@ -225,6 +256,17 @@ def kernel_cases(dev):
                   + (mask.numel() * 4 if mask is not None else 0) + 6 * c * 4)
         return flops, nbytes
 
+    def linear(m, n_in, n_out, bias=True):
+        """cuBLAS doing one product of a kernel (bf16 Linear): the yardstick."""
+        a, w = rnd(m, n_in), lin(n_out, n_in)
+        bias = rnd(n_out, scale=0.1) if bias else None
+        return lambda: F.linear(a, w, bias)
+
+    def ln_linear(m, c, n_out):
+        """The same with the LayerNorm before it (swin_attn's qkv prologue)."""
+        a, g, bt, w, bias = rnd(m, c), rnd(c), rnd(c), lin(n_out, c), rnd(n_out, scale=0.1)
+        return lambda: F.linear(F.layer_norm(a, (c,), g, bt, 1e-6), w, bias)
+
     def mlp_args(c):
         return (rnd(c, dtype=f32, scale=0.1, offset=1.0), rnd(c, dtype=f32, scale=0.1),
                 lin(4 * c, c), rnd(4 * c, dtype=f32, scale=0.1), lin(c, 4 * c),
@@ -243,7 +285,10 @@ def kernel_cases(dev):
             mask = args[9]
             flops, nbytes = attn_work(hw, c, heads, window, mask)
             cases.append(Case("swin_attn", "swin_attn.cu", K1, sw.swin_attn,
-                              sw.swin_attn_block_plain, args, flops, nbytes, fwd_tol, path))
+                              sw.swin_attn_block_plain, args, flops, nbytes, fwd_tol, path,
+                              gemms=(("qkv GEMM", "SwinQkv", ln_linear(m, c, 3 * c)),
+                                     ("window core", "window_attn_kernel<", None),
+                                     ("proj GEMM", "SwinProj", linear(m, c, c)))))
             # its backward: x, scale_shift and dy in; nine gradients out
             bargs = args[:2] + (rnd(b, hw, hw, c),) + args[2:7] + args[8:]
             cases.append(Case(
@@ -285,7 +330,11 @@ def kernel_cases(dev):
                               pr.patch_breakup_plain, args,
                               2 * mi * cin * dim + 2 * mo * cout * cout,
                               mi * cin * 2 + (cin * dim + cout * cout) * 2 + mo * cout * 2
-                              + (2 * dim + 2 * cout) * 4, fwd_tol, path))
+                              + (2 * dim + 2 * cout) * 4, fwd_tol, path,
+                              gemms=(("first GEMM", "BreakupIn", linear(mi, cin, dim, False)),
+                                     ("row pass", "breakup_rows_kernel", None),
+                                     ("second GEMM", "BreakupOut",
+                                      linear(mo, cout, cout, False)))))
         # readout: the adjacency head over B*N*N tokens, the node head over B*N
         n = grids[0][0]
         for m, n_out in ((b * n * n, 1), (b * n, 5)):
@@ -362,6 +411,26 @@ def kernel_cases(dev):
     return cases
 
 
+def device_ms_by(fn, frags, reps: int) -> dict:
+    """Device time of one call of ``fn`` by device function (torch.profiler
+    over ``reps`` calls), summed over the functions whose name holds each of
+    ``frags``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(frags, 0.0)
+    for e in prof.key_averages():
+        for f in frags:
+            if f in e.key:
+                out[f] += e.device_time_total / 1e3 / reps
+    return out
+
+
 def check_kernels(dev, reps: int = 20):
     from diffusesg_torch.ops import cuda_build
 
@@ -414,6 +483,12 @@ def check_kernels(dev, reps: int = 20):
                 library_ms = graph_ms(case.library, reps)
         bound_ms, bound_by = bound(case.flops, case.nbytes, case.peak)
         label = f"{name}@{case.path} {keys[0][1]}"
+        if case.gemms:
+            parts = device_ms_by(lambda: kern(*args), [f for _, f, _ in case.gemms], reps)
+            log(f"kernel {name:16s} {case.path:7s} {keys[0][1]:22s} launches: " + "; ".join(
+                f"{lbl} {parts[frag]:.4f} ms"
+                + ("" if lib is None else f" (cuBLAS, bf16: {graph_ms(lib, reps):.4f} ms)")
+                for lbl, frag, lib in case.gemms if parts[frag] > 0))
         results.append(dict(name=label, route="cuda", source=SRC + case.src,
                             replaces=case.replaces, kernel=name, keys=keys, path=case.path,
                             max_abs_err=max_abs, max_err_over_max=max_of_max, max_rel_l2=max_l2, ms=ms,
@@ -1055,35 +1130,34 @@ def check_training(dev, smi: str, spec=VG, find_largest_batch: bool = True):
 
 
 # which kernel each device function belongs to (demangled-name fragments,
-# first match wins); the row pass before a block's first GEMM (AffineSrc,
-# RowSrc) is the same function in a kernel's forward and in its backward's
-# recompute: AffineSrc is counted under the forward kernel's name, RowSrc (no
-# longer in the fused token_mlp forward) under token_mlp_bwd, and F32RowSrc
-# (patch_breakup's LayerNorm) under patch_breakup; both are printed as parts
-# too (PARTS), for comparison with profiles that counted them under token_mlp
+# first match wins); the row passes before the backward kernels' recompute
+# GEMMs (AffineSrc, RowSrc) run in no forward any more (the forwards take
+# their LayerNorms in their GEMMs' or their fused kernel's prologue), so they
+# count under the backward kernels, and are printed as parts too (PARTS)
 OTHER = "other PyTorch ops"
 KERNEL_OF = (("window_attn_bwd_kernel", "swin_attn_bwd"), ("SwinBwd", "swin_attn_bwd"),
              ("MlpBwd", "token_mlp_bwd"), ("GeluAndGradEpi", "token_mlp_bwd"),
              ("ln_bwd_rows_kernel", "backward row pass + reductions (both backward kernels)"),
              ("reduce_partials_kernel", "backward row pass + reductions (both backward kernels)"),
              ("col_sums_kernel", "backward row pass + reductions (both backward kernels)"),
-             ("F32RowSrc", "patch_breakup"), ("dsg::RowSrc", "token_mlp_bwd"),
-             ("window_attn_kernel", "swin_attn"), ("AffineSrc", "swin_attn"),
+             ("dsg::RowSrc", "token_mlp_bwd"), ("AffineSrc", "swin_attn_bwd"),
+             ("window_attn_kernel", "swin_attn"),
              ("SwinQkv", "swin_attn"), ("SwinProj", "swin_attn"),
              ("token_mlp_kernel", "token_mlp"), ("mlp_close_kernel", "token_mlp"),
              ("MergeSrc", "patch_merge"), ("MergeProj", "patch_merge"),
-             ("BreakupIn", "patch_breakup"),
-             ("ScatterSrc", "patch_breakup"), ("BreakupOut", "patch_breakup"),
-             ("ReadoutFc", "readout"))
+             ("BreakupIn", "patch_breakup"), ("breakup_rows_kernel", "patch_breakup"),
+             ("BreakupOut", "patch_breakup"), ("ReadoutFc", "readout"))
 # device functions printed under their own names beside their kernel's total:
-# the parts of the two redesigned kernels, and the two RowSrc row passes
-# (label, name fragment, kernel)
+# the parts of the redesigned kernels, and the backward kernels' recompute
+# row passes (label, name fragment, kernel)
 PARTS = (("window core", "window_attn_kernel<", "swin_attn"),
          ("qkv GEMM", "SwinQkv", "swin_attn"), ("proj GEMM", "SwinProj", "swin_attn"),
-         ("row pass", "AffineSrc", "swin_attn"),
          ("fused MLP", "token_mlp_kernel", "token_mlp"),
          ("closing pass", "mlp_close_kernel", "token_mlp"),
-         ("LayerNorm row pass", "F32RowSrc", "patch_breakup"),
+         ("breakup first GEMM", "BreakupIn", "patch_breakup"),
+         ("breakup row pass", "breakup_rows_kernel", "patch_breakup"),
+         ("breakup second GEMM", "BreakupOut", "patch_breakup"),
+         ("LN1 recompute row pass", "AffineSrc", "swin_attn_bwd"),
          ("LN2 recompute row pass", "dsg::RowSrc", "token_mlp_bwd"))
 
 
@@ -1161,7 +1235,17 @@ def main(argv=None) -> int:
     cuda_build.build(verbose=True)
     cuda_build.lib()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {cuda_build.build_dir()}")
+    check_sass(cuda_build.build())
     from diffusesg_torch.ops import mlp_block_kernel as mk
+    from diffusesg_torch.ops import patch_resample as pr
+    from diffusesg_torch.ops import swin_block_v3 as sw
+    log("Hopper GEMM tiles (rows, columns, blocks an SM, whole rows), as the library reports "
+        "them: " + ", ".join(f"swin_attn {w} C{c} {sw.attn_gemm_tile(c, w)}"
+                             for c in (96, 192, 384, 768) for w in ("qkv", "proj"))
+        + f", swin_attn qkv C384 64-row panels {sw.attn_gemm_tile(384, 'qkv', True)}"
+        + ", " + ", ".join(f"patch_breakup {w} {cin}->{dim} {pr.breakup_tile(cin, dim, w)}"
+                           for cin, dim in ((1536, 1536), (768, 768), (384, 384))
+                           for w in ("in", "out")))
     log("grid plans, as the library reports them: blocks of the window core an SM holds "
         + ", ".join(f"{q} L={L} {cuda_build.blocks_per_sm(q, L)}"
                     for q in ("dsg_swin_attn_core_per_sm", "dsg_window_attention_per_sm")

@@ -8,17 +8,17 @@
 // plain load), the warp keeps the row in registers, takes LayerNorm
 // statistics over all K (two passes: mean, then the mean of squared
 // deviations, as the reference LayerNorm), and writes the normalized row
-// once in bf16; `emit` lets a source store its raw values too (the noise
-// affine's output, needed again by the residual).  So every element's
-// prologue work runs once, not once per output tile.
+// once in bf16.  So every element's prologue work runs once, not once per
+// output tile.
 //
-// GEMM: C[m, n] = epi(m, n, sum_k A[m, k] * W[n, k]), W in the PyTorch
+// WMMA GEMM: C[m, n] = epi(m, n, sum_k A[m, k] * W[n, k]), W in the PyTorch
 // Linear layout [N, K] (the column-major B operand WMMA wants) and A = [a1 |
-// a2] row-major, two sources so a concatenated skip is never materialized.
-// 128x64 output per 128-thread block, K step 32, each warp a 64x32 quadrant
-// of 4x2 WMMA fragments, a 3-stage cp.async ring so the next tiles load
-// while the current one multiplies, and an epilogue that handles eight
-// columns per thread with 16-byte stores.  No wgmma or TMA yet.
+// a2] row-major.  128x64 output per 128-thread block, K step 32, each warp a
+// 64x32 quadrant of 4x2 WMMA fragments, a 3-stage cp.async ring, and an
+// epilogue over an fp32 staging tile with 16-byte stores.  It still serves
+// patch_merge (MergeProj), readout (ReadoutFc1/2) and every GEMM of the
+// backward kernels; swin_attn's and patch_breakup's GEMMs run on the wgmma
+// GEMM of hopper_gemm.cuh.
 //
 // The backward kernels need two more operand layouts and a split of K:
 //   TA: A is stored [K, M] (token-major), so C = A^T-stored x B contracts
@@ -63,6 +63,46 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// the same for N independent values at once (their shuffles interleave),
+// each summed over aligned groups of LANES lanes
+template <int LANES = 32, int N>
+__device__ __forceinline__ void warp_sum_n(float (&v)[N]) {
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] += __shfl_xor_sync(0xffffffffu, v[j], o);
+}
+
+// Loads of data that no kernel writes while it runs (weights, biases,
+// LayerNorm parameters, a launch's inputs): plain asm without `volatile` or a
+// memory clobber, so the compiler may move them ahead of stores it cannot
+// prove apart, and an epilogue's loads overlap instead of queueing behind
+// each store.
+__device__ __forceinline__ float ld_ro(const float* p) {
+  float v;
+  asm("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float4 ld_ro4(const float* p) {  // 16-byte aligned
+  float4 v;
+  asm("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
+}
+__device__ __forceinline__ void ld_ro8(const bf16* p, float v[8]) {  // 16-byte aligned
+  uint4 u;
+  asm("ld.global.nc.v4.b32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+      : "l"(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x, v[2 * i + 1] = f.y;
+  }
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -169,7 +209,6 @@ struct RowSrc {
   const bf16* x;
   int K;
   __device__ void raw8(int m, int k, float v[8]) const { load8(x + (size_t)m * K + k, v); }
-  __device__ void emit(int, int, const float*) const {}
 };
 
 // LayerNorm of source row `row` by one warp, written in bf16 to `out` (the
@@ -209,7 +248,6 @@ __device__ __forceinline__ void ln_row(const Src& src, int row, int K, int lane,
 #pragma unroll
       for (int t = 0; t < 8; ++t) o[t] = (v[i][t] - mean) * rstd * gamma[k + t] + beta[k + t];
       store8(out + k, o);
-      src.emit(row, k, v[i]);
     }
   }
 }
@@ -264,11 +302,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Call sites of the GEMM: an empty tag type per site, so each launch has a
 // kernel name of its own in a profile.
-struct SwinQkv {};
-struct SwinProj {};
 struct MergeProj {};
-struct BreakupIn {};
-struct BreakupOut {};
 struct ReadoutFc1 {};
 struct ReadoutFc2 {};
 
@@ -426,33 +460,21 @@ cudaError_t launch_gemm_nn(const void* a, const void* w, const Epi& epi, int M, 
 // ---------------------------------------------------------------- epilogue
 
 enum class Act { kNone, kGelu };
-enum class Res {
-  kNone,
-  kSum,      // out = res + y, one rounding: the attention residual
-};
 
-// y = act(acc + bias[n]) (bias may be null), then the residual, stored as
-// OutT; `cnt` columns from n, 16-byte vectors when `vec`.
-template <Act ACT, Res RES, class OutT>
+// y = act(acc + bias[n]) (bias may be null), stored as OutT; `cnt` columns
+// from n, 16-byte vectors when `vec`.
+template <Act ACT, class OutT>
 struct Epilogue {
   OutT* out;
   const float* bias;
-  const bf16* res;  // [M, N], RES != kNone
   int N;
   __device__ void store(int m, int n, const float* acc, int cnt, bool vec) const {
     const size_t base = (size_t)m * N + n;
-    float rv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if constexpr (RES != Res::kNone) {
-      if (vec) load8(res + base, rv);
-      else
-        for (int t = 0; t < cnt; ++t) rv[t] = __bfloat162float(res[base + t]);
-    }
     float y[8];
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       float v = acc[t] + (bias && t < cnt ? bias[n + t] : 0.f);
       if constexpr (ACT == Act::kGelu) v = gelu_erf(v);
-      if constexpr (RES == Res::kSum) v = rv[t] + v;
       y[t] = v;
     }
     if constexpr (sizeof(OutT) == 2) {
@@ -470,9 +492,8 @@ struct Epilogue {
   }
 };
 
-using StoreBf16 = Epilogue<Act::kNone, Res::kNone, bf16>;
-using StoreF32 = Epilogue<Act::kNone, Res::kNone, float>;
-using GeluBf16 = Epilogue<Act::kGelu, Res::kNone, bf16>;
-using AddResidBf16 = Epilogue<Act::kNone, Res::kSum, bf16>;
+using StoreBf16 = Epilogue<Act::kNone, bf16>;
+using StoreF32 = Epilogue<Act::kNone, float>;
+using GeluBf16 = Epilogue<Act::kGelu, bf16>;
 
 }  // namespace dsg

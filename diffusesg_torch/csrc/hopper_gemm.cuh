@@ -1,0 +1,524 @@
+// A bf16 x bf16 -> fp32 GEMM on Hopper's warpgroup MMA (wgmma), with a fused
+// prologue and epilogue: C[m, n] = epi(m, n, sum_k A[m, k] * W[n, k]), W the
+// PyTorch Linear weight [N, K] (K-major, the B operand wgmma reads as it is).
+//
+// Call sites: swin_attn's qkv and proj GEMMs (swin_attn.cu) and patch_breakup's
+// two products (patch_resample.cu).  patch_merge, readout and the backward
+// kernels stay on the WMMA tile GEMM of common.cuh.
+//
+// A block is two consumer warpgroups and one producer warp.  The producer's
+// lane 0 streams 64-wide K slices of W by TMA (cp.async.bulk.tensor, 128-byte
+// swizzle, tensor map encoded on the host through
+// cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled"), so the build
+// needs no -lcuda) into a ring of STAGES slots guarded by mbarriers: `full`
+// (the slot's bytes have landed) and `empty` (every consumer warp is done with
+// it).  Each consumer warpgroup owns a 64 x NW tile of the block's BM x BN
+// output and issues m64nNWk16 wgmmas with both operands read from shared
+// memory through descriptors in the 128-byte-swizzled K-major layout; one
+// group stays in flight while the next slot is waited for.  The accumulators
+// stay in registers through the epilogue.  Two ways for A:
+//   (a) resident panel (Tile::kPanel): the block's BM x K rows are built once
+//       by a prologue functor (`fill`: LayerNorm'd, affine'd or copied rows),
+//       already swizzled, and the block walks its N tiles of W;
+//   (b) streamed: A = [a1 | a2] (a second source so a concatenated skip is
+//       never materialized) arrives by TMA beside W in every slot.
+// The grid is (row tiles, column splits): block (x, y) walks N tiles
+// [y * per, (y + 1) * per).  Where the row tiles are too few to fill the card
+// the wrapper splits N (each split redoes its rows' prologue); the plan is
+// Python's (ops/swin_block_v3.py::gemm_plan), the tile and the occupancy it
+// reads are the library's (the sites' *_tile queries).
+//
+// Epilogues get eight consecutive columns of a row at a time (`put8`): each
+// warp passes its 16 x 32 slices of accumulators through a small tile of its
+// own in shared memory, so loads of the epilogue's operands and stores of
+// the output are 16-byte vectors along rows (in the accumulator layout a
+// warp's 4-byte accesses touch 8 cache lines for 128 bytes).  With
+// kWholeRows an epilogue gets the block's whole BM x BN fp32 tile instead,
+// staged over the ring, which is free by then (`rows`): LayerNorms over a
+// whole output row (patch_breakup's LN1) need every column.  Loads of
+// read-only operands (ld_ro, common.cuh) may move ahead of stores, so a
+// thread's loads overlap.
+//
+// Swizzle: a 64-element (128-byte) K slice of R rows is stored as R rows of
+// 128 bytes; 16-byte chunk j of row r lies at chunk j ^ (r % 8).  Every slice
+// is 1024-byte aligned, so the pattern is the one TMA writes and wgmma reads
+// (descriptor layout type 1, SBO = 8 rows = 1024 bytes; a k16 step inside the
+// slice adds 32 bytes to the start address).
+#pragma once
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include "common.cuh"
+
+namespace dsg {
+
+// Call sites of the Hopper GEMM: an empty tag type per site, so each launch
+// has a kernel name of its own in a profile.
+struct SwinQkv {};
+struct SwinProj {};
+struct BreakupIn {};
+struct BreakupOut {};
+
+namespace hg {
+
+constexpr int kSlice = 64;  // bf16 elements of one 128-byte swizzled K slice
+constexpr int kMaxDynSmem = 227 * 1024 - 1024;  // leaves room for the static barriers
+
+// ------------------------------------------------------------ PTX pieces
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// a box {64, rows} of a 2-D bf16 tensor map at (k, row) into shared memory
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst, uint64_t* bar, int k,
+                                         int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(k), "r"(row)
+      : "memory");
+}
+
+// generic-proxy writes to shared memory, visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the 256 consumer threads only (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator accesses across a wgmma wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// descriptor of a K-major, 128-byte-swizzled operand starting at p (1024-byte
+// aligned slice; +2 per k16 step)
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// element (r, k) of a swizzled panel of R rows: slice k / 64, row r, chunk
+// (k / 8) ^ (r % 8); k a multiple of 8 (one 16-byte chunk)
+__device__ __forceinline__ bf16* swizzled(bf16* panel, int R, int r, int k) {
+  return panel + (k >> 6) * R * kSlice + r * kSlice + ((((k >> 3) & 7) ^ (r & 7)) << 3);
+}
+
+// D (64 x N, fp32, the accumulator layout) += A (64 x 16) B (16 x N)
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<96> {
+  __device__ static void mma(float (&d)[48], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "%48, %49, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  __device__ static void mma(float (&d)[96], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "%96, %97, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+// -------------------------------------------------------------- the tiles
+
+// BM x BN output per block; WGN consumer warpgroups side by side along N (2:
+// each 64 x BN/2) or stacked along M (1: each 64 x BN, BM = 128).  kPanel:
+// mode (a), A resident; else mode (b), A streamed.  MINB: blocks an SM is
+// meant to hold (the register budget of __launch_bounds__).
+template <int BM_, int BN_, int WGN_, int STAGES_, bool PANEL_, int MINB_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, WGN = WGN_, STAGES = STAGES_, MINB = MINB_;
+  static constexpr bool kPanel = PANEL_;
+  static constexpr int NW = BN / WGN;  // columns of one consumer warpgroup
+  static constexpr int kConsumers = 256, kThreads = kConsumers + 32;
+  static constexpr int kAStage = kPanel ? 0 : BM * kSlice;  // bf16 elements of a slot
+  static constexpr int kWStage = BN * kSlice;
+  static constexpr int kStageBytes = (kAStage + kWStage) * 2;
+  static constexpr int kEpiLd = 36;  // floats a row of a warp's epilogue tile (16 x 32)
+  static constexpr int kEpiBytes = kConsumers / 32 * 16 * kEpiLd * 4;
+  static_assert(BM == 64 * (2 / WGN) && NW % 32 == 0 && NW <= 256, "tile");
+  __host__ __device__ static size_t panel_bytes(int K) {
+    return kPanel ? (size_t)BM * ((K + kSlice - 1) / kSlice * kSlice) * 2 : 0;
+  }
+  __host__ __device__ static size_t ring_bytes() { return (size_t)STAGES * kStageBytes; }
+  __host__ __device__ static size_t smem_bytes(int K) {
+    return 1024 + panel_bytes(K) + ring_bytes() + kEpiBytes;
+  }
+};
+
+// the tiles the sites run
+using PanelRows = Tile<128, 96, 1, 3, true, 2>;   // mode (a), two blocks an SM up to K = 192
+using PanelTall = Tile<128, 96, 1, 4, true, 1>;   // mode (a), K <= 384, registers for the prologue
+using PanelWide = Tile<64, 192, 2, 4, true, 1>;   // mode (a), K <= 768
+using StreamRows = Tile<128, 96, 1, 3, false, 2>; // mode (b), any K
+using StreamLine = Tile<64, 384, 2, 3, false, 1>; // mode (b), whole rows of N <= 384
+
+// An epilogue that takes the accumulators eight columns of a row at a time.
+struct RowEpi {
+  static constexpr bool kWholeRows = false;
+};
+
+// bias[n..n+7] (16-byte aligned) into v
+__device__ __forceinline__ void add_bias8(const float* bias, int n, float v[8]) {
+  const float4 lo = ld_ro4(bias + n), hi = ld_ro4(bias + n + 4);
+  v[0] += lo.x, v[1] += lo.y, v[2] += lo.z, v[3] += lo.w;
+  v[4] += hi.x, v[5] += hi.y, v[6] += hi.z, v[7] += hi.w;
+}
+
+// out[m, n] = bf16(acc + bias[n]) (bias may be null)
+struct Bf16Epi : RowEpi {
+  bf16* out;
+  const float* bias;
+  int N;
+  __device__ void put8(int m, int n, float v[8]) const {
+    if (bias) add_bias8(bias, n, v);
+    store8(out + (size_t)m * N + n, v);
+  }
+};
+
+// out[m, n] = acc, fp32
+struct F32Epi : RowEpi {
+  float* out;
+  int N;
+  __device__ void put8(int m, int n, float v[8]) const {
+    float4* p = reinterpret_cast<float4*>(out + (size_t)m * N + n);
+    p[0] = make_float4(v[0], v[1], v[2], v[3]);
+    p[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+};
+
+// Rows [m0, m0 + R) of a row-major bf16 [M, K] matrix into the swizzled
+// panel by the 256 consumer threads, every 16-byte load in flight at once
+// (cp.async); rows >= M are left as they are (their outputs are never stored).
+__device__ __forceinline__ void load_rows(bf16* panel, const bf16* a, int R, int m0, int M, int K,
+                                          int tid) {
+  const int vecs = K / 8;
+  for (int i = tid; i < R * vecs; i += 256) {
+    const int r = i / vecs, k = (i - r * vecs) * 8;
+    if (m0 + r < M) cp_async16(swizzled(panel, R, r, k), a + (size_t)(m0 + r) * K + k, true);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+// Prologue of mode (a): the panel holds rows [m0, m0 + R) of a plain
+// row-major bf16 [M, K] matrix.
+struct CopyPanel {
+  const bf16* a;
+  __device__ void fill(bf16* panel, int R, int m0, int M, int K, int warp, int lane) const {
+    load_rows(panel, a, R, m0, M, K, warp * 32 + lane);
+  }
+};
+
+// Mode (b) has no prologue.
+struct NoPanel {
+  __device__ void fill(bf16*, int, int, int, int, int, int) const {}
+};
+
+struct Maps {
+  CUtensorMap w, a1, a2;  // W [N, K]; A's two sources [M, K1] and [M, K2] (mode b)
+};
+
+struct Shape {
+  int M, N, K, K1, per;  // per: N tiles a block walks
+};
+
+// ------------------------------------------------------------- the kernel
+
+template <class T, class Site, class Pro, class Epi>
+__global__ void __launch_bounds__(T::kThreads, T::MINB)
+hgemm_kernel(const __grid_constant__ Maps maps, const Pro pro, const Epi epi, const Shape sh) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[T::STAGES], empty[T::STAGES];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* panel = reinterpret_cast<bf16*>(base);
+  unsigned char* ring = base + T::panel_bytes(sh.K);
+  float* epi_tile = reinterpret_cast<float*>(ring + T::ring_bytes());
+
+  const int m0 = blockIdx.x * T::BM;
+  const int n_tiles = (sh.N + T::BN - 1) / T::BN;
+  const int t_begin = blockIdx.y * sh.per;
+  const int t_end = t_begin + sh.per < n_tiles ? t_begin + sh.per : n_tiles;
+  const int kslices = (sh.K + kSlice - 1) / kSlice;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], T::kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == T::kConsumers / 32) {  // the producer warp
+    if (lane == 0) {
+      int it = 0;
+      for (int t = t_begin; t < t_end; ++t)
+        for (int ks = 0; ks < kslices; ++ks, ++it) {
+          const int s = it % T::STAGES;
+          mbar_wait(&empty[s], ((it / T::STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], T::kStageBytes);
+          unsigned char* slot = ring + s * T::kStageBytes;
+          const int k = ks * kSlice;
+          if constexpr (!T::kPanel) {
+            if (k < sh.K1) tma_load(&maps.a1, slot, &full[s], k, m0);
+            else tma_load(&maps.a2, slot, &full[s], k - sh.K1, m0);
+          }
+          bf16* ws = reinterpret_cast<bf16*>(slot) + T::kAStage;
+#pragma unroll
+          for (int i = 0; i < T::WGN; ++i)
+            tma_load(&maps.w, ws + i * T::NW * kSlice, &full[s], k, t * T::BN + i * T::NW);
+        }
+    }
+    return;
+  }
+
+  if constexpr (T::kPanel) {
+    pro.fill(panel, T::BM, m0, sh.M, sh.K, warp, lane);
+    fence_proxy_async();
+  }
+  consumer_sync();  // the panel is complete; the consumers run converged from here
+  const int wg = warp >> 2;
+  const int row0 = T::WGN == 1 ? wg * 64 : 0, col0 = T::WGN == 2 ? wg * T::NW : 0;
+  float acc[T::NW / 2];
+  int it = 0;
+  for (int t = t_begin; t < t_end; ++t) {
+#pragma unroll
+    for (int i = 0; i < T::NW / 2; ++i) acc[i] = 0.f;
+    int prev = -1;
+    for (int ks = 0; ks < kslices; ++ks, ++it) {
+      const int s = it % T::STAGES;
+      mbar_wait(&full[s], (it / T::STAGES) & 1);
+      const bf16* slot = reinterpret_cast<const bf16*>(ring + s * T::kStageBytes);
+      const bf16* a = T::kPanel ? panel + ks * T::BM * kSlice + row0 * kSlice : slot + row0 * kSlice;
+      const uint64_t da = sw128_desc(a), db = sw128_desc(slot + T::kAStage + col0 * kSlice);
+      const int steps = min(kSlice, sh.K - ks * kSlice) / 16;
+      fence_regs(acc);
+      wgmma_fence();
+      for (int j = 0; j < steps; ++j) Wgmma<T::NW>::mma(acc, da + 2 * j, db + 2 * j);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous slice's group is done: free its slot
+      fence_regs(acc);
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = s;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+
+    // accumulator element (row, col): rows 16 (warp % 4) + lane / 4 + 8 i,
+    // cols 8 j + 2 (lane % 4) + {0, 1} -> acc[4 j + 2 i + {0, 1}]
+    if constexpr (Epi::kWholeRows) {
+      constexpr int ld = T::BN + 4;
+      static_assert(T::BM * ld * 4 <= T::STAGES * T::kStageBytes, "staging tile");
+      float* stage = reinterpret_cast<float*>(ring);
+      consumer_sync();  // every warpgroup is done reading the ring
+      const int wr = row0 + (warp & 3) * 16 + (lane >> 2), wc = col0 + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < T::NW / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<float2*>(stage + (wr + 8 * i) * ld + wc + 8 * j) =
+              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      consumer_sync();
+      epi.rows(stage, ld, m0, min(T::BM, sh.M - m0), warp, lane);
+      consumer_sync();
+    } else {
+      // per 32 columns: the warp's 16 x 32 accumulators into its tile, then
+      // each lane takes two (row, 8 columns) pieces of it
+      float* et = epi_tile + warp * 16 * T::kEpiLd;
+      const int mr = m0 + row0 + (warp & 3) * 16, nc = t * T::BN + col0;
+#pragma unroll
+      for (int c0 = 0; c0 < T::NW; c0 += 32) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int j = c0 / 8 + jj;
+            *reinterpret_cast<float2*>(et + ((lane >> 2) + 8 * i) * T::kEpiLd + 8 * jj +
+                                       2 * (lane & 3)) =
+                make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+          }
+        __syncwarp();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = (lane >> 2) + 8 * h, ch = lane & 3;
+          const int m = mr + r, n = nc + c0 + 8 * ch;
+          if (m < sh.M && n < sh.N) {
+            const float4 lo = *reinterpret_cast<const float4*>(et + r * T::kEpiLd + 8 * ch);
+            const float4 hi = *reinterpret_cast<const float4*>(et + r * T::kEpiLd + 8 * ch + 4);
+            float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+            epi.put8(m, n, v);
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------- host
+
+// cuTensorMapEncodeTiled through the runtime (no -lcuda); null if missing
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// a row-major bf16 [rows, inner] matrix, read in boxes {64, box_rows} with
+// the 128-byte swizzle (out-of-range elements read as zero)
+inline bool make_map(CUtensorMap* map, const void* p, int inner, int rows, int box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (!encode || reinterpret_cast<uintptr_t>(p) % 16) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kSlice, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the kernel of one site, its shared memory allowed up to kMaxDynSmem once
+template <class T, class Site, class Pro, class Epi>
+cudaError_t kernel_ready() {
+  static const cudaError_t err =
+      cudaFuncSetAttribute(hgemm_kernel<T, Site, Pro, Epi>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+  return err;
+}
+
+// The tile of a site for the wrapper's plan: {BM, BN, blocks an SM holds at
+// this K (the card's occupancy), whole rows}; 0 or a CUDA error.
+template <class T, class Site, class Pro, class Epi>
+int tile_query(int K, int* geom) {
+  if (T::smem_bytes(K) > (size_t)kMaxDynSmem) return -1;
+  cudaError_t err = kernel_ready<T, Site, Pro, Epi>();
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hgemm_kernel<T, Site, Pro, Epi>,
+                                                        T::kThreads, T::smem_bytes(K));
+  if (err != cudaSuccess) return err;
+  geom[0] = T::BM, geom[1] = T::BN, geom[2] = per_sm, geom[3] = Epi::kWholeRows;
+  return 0;
+}
+
+// C = epi(A W^T): A = [a1 | a2] ([M, K1] and [M, K2]; mode (a) reads A
+// through `pro` instead and takes K = K1), W [N, K]; each block walks `per` N
+// tiles of its rows.
+template <class T, class Site, class Pro, class Epi>
+cudaError_t launch(const GemmA& A, const Pro& pro, const Epi& epi, const bf16* W, int M, int N,
+                   int per, cudaStream_t stream) {
+  const int K = A.K1 + A.K2;
+  const int n_tiles = (N + T::BN - 1) / T::BN;
+  if (M <= 0 || N <= 0 || N % 8 || K <= 0 || K % 16 || per <= 0 ||
+      T::smem_bytes(K) > (size_t)kMaxDynSmem || (Epi::kWholeRows && n_tiles != 1) ||
+      (!T::kPanel && A.K2 > 0 && A.K1 % kSlice))
+    return cudaErrorInvalidValue;
+  Maps maps;
+  if (!make_map(&maps.w, W, K, N, T::NW)) return cudaErrorInvalidValue;
+  if constexpr (!T::kPanel) {
+    if (!make_map(&maps.a1, A.a1, A.K1, M, T::BM)) return cudaErrorInvalidValue;
+    maps.a2 = maps.a1;
+    if (A.K2 > 0 && !make_map(&maps.a2, A.a2, A.K2, M, T::BM)) return cudaErrorInvalidValue;
+  }
+  cudaError_t err = kernel_ready<T, Site, Pro, Epi>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + T::BM - 1) / T::BM, (n_tiles + per - 1) / per);
+  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  hgemm_kernel<T, Site, Pro, Epi><<<grid, T::kThreads, T::smem_bytes(K), stream>>>(
+      maps, pro, epi, Shape{M, N, K, A.K1, per});
+  return cudaGetLastError();
+}
+
+}  // namespace hg
+}  // namespace dsg

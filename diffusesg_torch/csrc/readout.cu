@@ -26,9 +26,9 @@ extern "C" int dsg_readout(const void* x, const void* w1, const void* b1, const 
                            int n_out, void* stream) {
   if (n_out < 1 || n_out > 16) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GeluBf16 epi1{static_cast<bf16*>(hid_buf), static_cast<const float*>(b1), nullptr, hidden};
+  GeluBf16 epi1{static_cast<bf16*>(hid_buf), static_cast<const float*>(b1), hidden};
   cudaError_t err = launch_gemm<ReadoutFc1>(rows(x, C), epi1, static_cast<const bf16*>(w1), M, hidden, s);
   if (err != cudaSuccess) return err;
-  StoreF32 epi2{static_cast<float*>(out), static_cast<const float*>(b2), nullptr, n_out};
+  StoreF32 epi2{static_cast<float*>(out), static_cast<const float*>(b2), n_out};
   return launch_gemm<ReadoutFc2>(rows(hid_buf, hidden), epi2, static_cast<const bf16*>(w2), M, n_out, s);
 }

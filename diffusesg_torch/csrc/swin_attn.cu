@@ -6,17 +6,21 @@
 //   a   = silu(shift + x * (scale + 1))                    (noise affine)
 //   y   = a + proj(W-MSA(qkv(LN1(a))))                      (+ shift mask)
 //
-// Four launches on the caller's stream:
-//   1. row preparation, one warp per token: the noise affine a (written, the
-//      residual needs it) and LN1(a), in registers, written once in bf16;
-//   2. the qkv GEMM, bias in its epilogue;
-//   3. the window-attention core (window_attn_kernel, swin_window.cuh): a
+// Three launches on the caller's stream:
+//   1. the qkv GEMM on wgmma (hopper_gemm.cuh, mode (a)): its prologue reads
+//      x and scale_shift, forms a (rounded to bf16) and LN1(a) one warp per
+//      token with the row pass's two-pass statistics, straight into the
+//      block's swizzled A panel; the epilogue adds bqkv and stores bf16 qkv
+//      rows in raster order;
+//   2. the window-attention core (window_attn_kernel, swin_window.cuh): a
 //      block per head, mask class and run of windows (windows per block from
 //      swin_block_v3.window_core_plan), the bias staged once in shared
 //      memory, scores, softmax and probabilities in registers (mma.sync),
 //      the next window's q, k, v loading while this one computes; window 8
 //      (L = 64) or window 10 (L = 100: 104 score columns, 112 rows);
-//   4. the proj GEMM, bias and the residual a in its epilogue.
+//   3. the proj GEMM on wgmma (mode (a)), the attention output as its panel;
+//      the epilogue adds bproj and the residual a, recomputed from x and
+//      scale_shift and rounded to bf16 as the prologue rounds it.
 // The cyclic roll of shifted windows is folded into the core's index math:
 // window token (r, c) of the rolled grid reads and writes raster position
 // ((r + shift) % H, (c + shift) % W), and every other step is per token, so
@@ -24,52 +28,193 @@
 //
 // Bound on the H100 at the VG and COCO shapes: operations.  Per token the
 // block does 8 C^2 + 4 L C multiply-adds against 4 C bytes of activations
-// in and out, far above the card's ~295 FLOP/byte ridge for C >= 96.  The
-// matmuls run on the tensor cores (bf16 in, fp32 accumulate); between the
-// launches the block writes a, LN1(a), qkv and the attention output in bf16
-// (6 C + 3 C bytes per token).  The qkv GEMM is the largest of the four
-// launches (PERF.md section 5); fusing the row pass into it is later work.
+// in and out, far above the card's ~295 FLOP/byte ridge for C >= 96.  Between
+// the launches only qkv (6 C bytes per token) and the attention output (2 C)
+// go through device memory; x is read twice (prologue, residual).  Where a
+// stage's 128-row tiles cannot fill the card (C768, COCO's 10x10 C384) the
+// wrapper takes 64-row tiles and splits the GEMMs' N across blocks
+// (swin_block_v3.attn_gemm_plan, from the tiles and occupancy
+// dsg_swin_attn_gemm_tile reports), each block redoing its rows' prologue.
+#include "hopper_gemm.cuh"
 #include "swin_window.cuh"
 
 using namespace dsg;
 
+namespace {
+
+// qkv prologue: panel row r = bf16(LN1(a)) of token m0 + r.  The raw x rows
+// come in first (all loads in flight), then each warp takes the noise affine
+// (rounded to bf16, as AffineSrc::raw8) and LayerNorm (two passes, as ln_row)
+// in place, ROWS rows per group of LPR lanes at once (LPR = 16 puts two rows
+// in a warp where a row has at most 16 vectors of 8), their loads and
+// reductions interleaved; gamma and beta of a lane's columns are loaded once.
+// K <= 8 LPR MAXV.
+template <int MAXV, int ROWS, int LPR>
+struct AffineLnPanel {
+  const bf16* x;
+  const bf16* ss;  // [B, 2C]  scale | shift
+  const float* gamma;
+  const float* beta;
+  int HW;
+
+  __device__ void fill(bf16* panel, int R, int m0, int M, int K, int warp, int lane) const {
+    constexpr int kGroups = 32 / LPR;  // rows a warp instruction covers
+    hg::load_rows(panel, x, R, m0, M, K, warp * 32 + lane);
+    hg::consumer_sync();
+    const int sub = lane / LPR, ln = lane % LPR;
+    float g[MAXV][8], bt[MAXV][8];
+#pragma unroll
+    for (int i = 0; i < MAXV; ++i) {
+      const int k = (i * LPR + ln) * 8;
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        g[i][t] = k < K ? ld_ro(gamma + k + t) : 0.f, bt[i][t] = k < K ? ld_ro(beta + k + t) : 0.f;
+    }
+    for (int r0 = warp; r0 < R; r0 += 8 * ROWS * kGroups) {
+      float v[ROWS][MAXV][8], s[ROWS], q[ROWS];
+      bool live[ROWS];
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j) {
+        const int r = r0 + 8 * (j * kGroups + sub), m = m0 + r;
+        live[j] = r < R && m < M;
+        s[j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < MAXV; ++i) {
+          const int k = (i * LPR + ln) * 8;
+          if (k < K && live[j]) {
+            float xv[8], sc[8], sh[8];
+            const bf16* p = ss + (size_t)(m / HW) * 2 * K + k;
+            load8(hg::swizzled(panel, R, r, k), xv);
+            ld_ro8(p, sc);
+            ld_ro8(p + K, sh);
+#pragma unroll
+            for (int t = 0; t < 8; ++t) {
+              v[j][i][t] = noise_affine(xv[t], sc[t], sh[t]);
+              s[j] += v[j][i][t];
+            }
+          }
+        }
+      }
+      warp_sum_n<LPR>(s);
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j) {
+        s[j] /= K;
+        q[j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < MAXV; ++i)
+          if ((i * LPR + ln) * 8 < K && live[j])
+#pragma unroll
+            for (int t = 0; t < 8; ++t) q[j] += (v[j][i][t] - s[j]) * (v[j][i][t] - s[j]);
+      }
+      warp_sum_n<LPR>(q);
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j) {
+        const int r = r0 + 8 * (j * kGroups + sub);
+        const float rstd = rsqrtf(q[j] / K + kLnEps);
+#pragma unroll
+        for (int i = 0; i < MAXV; ++i) {
+          const int k = (i * LPR + ln) * 8;
+          if (k < K && live[j]) {
+            float o[8];
+#pragma unroll
+            for (int t = 0; t < 8; ++t) o[t] = (v[j][i][t] - s[j]) * rstd * g[i][t] + bt[i][t];
+            store8(hg::swizzled(panel, R, r, k), o);
+          }
+        }
+      }
+    }
+  }
+};
+
+// proj epilogue: out = bf16(a + (acc + bproj)), a recomputed from x and
+// scale_shift (the plain version's one rounding of the residual sum)
+struct ProjEpi : hg::RowEpi {
+  bf16* out;
+  const float* bias;
+  const bf16* x;
+  const bf16* ss;
+  int C, HW;
+  __device__ void put8(int m, int n, float v[8]) const {
+    const size_t o = (size_t)m * C + n;
+    const bf16* s = ss + (size_t)(m / HW) * 2 * C + n;
+    float xv[8], sc[8], sh[8];
+    ld_ro8(x + o, xv);
+    ld_ro8(s, sc);
+    ld_ro8(s + C, sh);
+    hg::add_bias8(bias, n, v);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) v[t] = noise_affine(xv[t], sc[t], sh[t]) + v[t];
+    store8(out + o, v);
+  }
+};
+
+// The GEMM tile of a width C: 128-row panels up to C = 384 (two blocks an SM
+// up to C = 192), 64-row panels (K up to 768) above, or wherever `wide`
+// asks for them (the wrapper's plan, where 128-row tiles are too few to fill
+// the card: a block's LayerNorm prologue then covers half the rows); `f`
+// gets a value of the tile type and of the qkv prologue's type.
+template <class F>
+int with_tile(int C, int wide, F f) {
+  if (C % 32 || C <= 0 || C > 768) return -1;
+  if (wide || C > 384) return f(hg::PanelWide{}, AffineLnPanel<3, 2, 32>{});
+  if (C <= 128) return f(hg::PanelRows{}, AffineLnPanel<1, 4, 16>{});
+  if (C <= 256) return f(hg::PanelRows{}, AffineLnPanel<1, 4, 32>{});
+  return f(hg::PanelTall{}, AffineLnPanel<2, 4, 32>{});
+}
+
+}  // namespace
+
 extern "C" int dsg_swin_attn(const void* x, const void* ss, const void* ln_g, const void* ln_b,
                              const void* wqkv, const void* bqkv, const void* wproj,
                              const void* bproj, const void* rel_bias, const void* mask,
-                             void* a_buf, void* hn_buf, void* qkv_buf, void* attn_buf, void* out,
-                             int B, int H, int W, int C, int num_heads, int window, int shift,
-                             int wpb, void* stream) {
+                             void* qkv_buf, void* attn_buf, void* out, int B, int H, int W, int C,
+                             int num_heads, int window, int shift, int wpb, int wide,
+                             int qkv_per, int proj_per, void* stream) {
   if (!window_length_supported(window * window) || C != num_heads * kHD || H % window ||
       W % window)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * H * W;
-  AffineSrc src{static_cast<const bf16*>(x), static_cast<const bf16*>(ss),
-                static_cast<bf16*>(a_buf), C, H * W};
-  cudaError_t err = launch_ln_rows(src, static_cast<const float*>(ln_g),
-                                   static_cast<const float*>(ln_b), static_cast<bf16*>(hn_buf),
-                                   M, C, s);
-  if (err != cudaSuccess) return err;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* ssb = static_cast<const bf16*>(ss);
+  return with_tile(C, wide, [&](auto tile, auto pro) -> int {
+    using T = decltype(tile);
+    const decltype(pro) qkv_pro{xb, ssb, static_cast<const float*>(ln_g),
+                                static_cast<const float*>(ln_b), H * W};
+    const hg::Bf16Epi qkv_epi{{}, static_cast<bf16*>(qkv_buf), static_cast<const float*>(bqkv),
+                              3 * C};
+    cudaError_t err = hg::launch<T, SwinQkv>(rows(x, C), qkv_pro, qkv_epi,
+                                             static_cast<const bf16*>(wqkv), M, 3 * C, qkv_per, s);
+    if (err != cudaSuccess) return err;
 
-  StoreBf16 epi_qkv{static_cast<bf16*>(qkv_buf), static_cast<const float*>(bqkv), nullptr,
-                    3 * C};
-  err = launch_gemm<SwinQkv>(rows(hn_buf, C), epi_qkv, static_cast<const bf16*>(wqkv), M, 3 * C, s);
-  if (err != cudaSuccess) return err;
+    PackedWindows lay{static_cast<const bf16*>(qkv_buf), static_cast<bf16*>(attn_buf), H, W, C,
+                      window, shift};
+    const int nw = (H / window) * (W / window);
+    const float* rel = static_cast<const float*>(rel_bias);
+    const float* msk = static_cast<const float*>(mask);
+    const float scale = 1.f / sqrtf((float)kHD);
+    err = window * window == 64
+              ? launch_window_attn<64>(lay, rel, msk, nw, wpb, scale, B * nw, num_heads, s)
+              : launch_window_attn<100>(lay, rel, msk, nw, wpb, scale, B * nw, num_heads, s);
+    if (err != cudaSuccess) return err;
 
-  PackedWindows lay{static_cast<const bf16*>(qkv_buf), static_cast<bf16*>(attn_buf), H, W, C,
-                    window, shift};
-  const int nw = (H / window) * (W / window);
-  const float* rel = static_cast<const float*>(rel_bias);
-  const float* msk = static_cast<const float*>(mask);
-  const float scale = 1.f / sqrtf((float)kHD);
-  err = window * window == 64
-            ? launch_window_attn<64>(lay, rel, msk, nw, wpb, scale, B * nw, num_heads, s)
-            : launch_window_attn<100>(lay, rel, msk, nw, wpb, scale, B * nw, num_heads, s);
-  if (err != cudaSuccess) return err;
+    const ProjEpi proj_epi{{}, static_cast<bf16*>(out), static_cast<const float*>(bproj), xb, ssb,
+                           C, H * W};
+    const hg::CopyPanel attn_rows{static_cast<const bf16*>(attn_buf)};
+    return hg::launch<T, SwinProj>(rows(attn_buf, C), attn_rows, proj_epi,
+                                   static_cast<const bf16*>(wproj), M, C, proj_per, s);
+  });
+}
 
-  AddResidBf16 epi_p{static_cast<bf16*>(out), static_cast<const float*>(bproj),
-                     static_cast<const bf16*>(a_buf), C};
-  return launch_gemm<SwinProj>(rows(attn_buf, C), epi_p, static_cast<const bf16*>(wproj), M, C, s);
+// The GEMM tile of the qkv (which = 0) or proj (1) launch at width C (64-row
+// panels if `wide`), for the wrapper's plan: geom = {rows, columns, blocks an
+// SM holds, 0}; -1 for a C no tile covers, else 0 or a CUDA error.
+extern "C" int dsg_swin_attn_gemm_tile(int C, int which, int wide, int* geom) {
+  return with_tile(C, wide, [&](auto tile, auto pro) -> int {
+    using T = decltype(tile);
+    return which == 0 ? hg::tile_query<T, SwinQkv, decltype(pro), hg::Bf16Epi>(C, geom)
+                      : hg::tile_query<T, SwinProj, hg::CopyPanel, ProjEpi>(C, geom);
+  });
 }
 
 // Blocks of swin_attn's window core an SM holds at window length L (the card's

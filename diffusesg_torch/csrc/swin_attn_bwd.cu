@@ -340,13 +340,13 @@ extern "C" int dsg_swin_attn_bwd(
   const float* gamma = static_cast<const float*>(ln_g);
   float* dhn = static_cast<float*>(dhn_buf);
 
-  AffineSrc src{static_cast<const bf16*>(x), static_cast<const bf16*>(ss), nullptr, C, HW};
+  AffineSrc src{static_cast<const bf16*>(x), static_cast<const bf16*>(ss), C, HW};
   DSG_TRY(launch_ln_rows(src, gamma, static_cast<const float*>(ln_b),
                          static_cast<bf16*>(hn_buf), M, C, s));
-  StoreBf16 epi_qkv{static_cast<bf16*>(qkv_buf), static_cast<const float*>(bqkv), nullptr, 3 * C};
+  StoreBf16 epi_qkv{static_cast<bf16*>(qkv_buf), static_cast<const float*>(bqkv), 3 * C};
   DSG_TRY(launch_gemm<SwinBwdQkv>(rows(hn_buf, C), epi_qkv, static_cast<const bf16*>(wqkv), M,
                                   3 * C, s));
-  StoreBf16 epi_da{static_cast<bf16*>(dattn_buf), nullptr, nullptr, C};
+  StoreBf16 epi_da{static_cast<bf16*>(dattn_buf), nullptr, C};
   DSG_TRY(launch_gemm_nn<SwinBwdDattn>(dy, wproj, epi_da, M, C, C, s));
 
   const float scale = 1.f / sqrtf((float)kHD);
@@ -382,7 +382,7 @@ extern "C" int dsg_swin_attn_bwd(
   DSG_TRY(col_sums(dqkv_buf, static_cast<float*>(part_bqkv), static_cast<float*>(dbqkv), M, 3 * C,
                    splits_bqkv, s));
 
-  StoreF32 epi_dhn{dhn, nullptr, nullptr, C};
+  StoreF32 epi_dhn{dhn, nullptr, C};
   DSG_TRY(launch_gemm_nn<SwinBwdDhn>(dqkv_buf, wqkv, epi_dhn, M, C, 3 * C, s));
   float* rows_part = static_cast<float*>(part_rows);  // [B * bps, 4C]
   DSG_TRY(launch_ln_bwd_rows<true>(x, ss, dy, dhn, gamma, dx, rows_part, B, HW, C, bps, s));

@@ -41,12 +41,16 @@
 
 namespace dsg {
 
-// Row source: a = bf16(silu(shift + x * (scale + 1))); emit stores a, which
-// the residual needs again.
+// The noise affine of one element: a = bf16(silu(shift + x * (scale + 1))),
+// held in fp32 (the qkv prologue's LN1 input and the proj epilogue's residual).
+__device__ __forceinline__ float noise_affine(float x, float scale, float shift) {
+  return round_bf16(silu(shift + x * (scale + 1.f)));
+}
+
+// Row source: the noise affine of row m of x.
 struct AffineSrc {
   const bf16* x;   // [M, C]
   const bf16* ss;  // [B, 2C]  scale | shift
-  bf16* a;         // [M, C]   output: the noise affine (null: not stored)
   int C, HW;
   __device__ void raw8(int m, int k, float v[8]) const {
     float xv[8], sc[8], sh[8];
@@ -55,10 +59,7 @@ struct AffineSrc {
     load8(ss + (size_t)b * 2 * C + k, sc);
     load8(ss + (size_t)b * 2 * C + C + k, sh);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = round_bf16(silu(sh[i] + xv[i] * (sc[i] + 1.f)));
-  }
-  __device__ void emit(int m, int k, const float* v) const {
-    if (a) store8(a + (size_t)m * C + k, v);
+    for (int i = 0; i < 8; ++i) v[i] = noise_affine(xv[i], sc[i], sh[i]);
   }
 };
 

@@ -72,7 +72,7 @@ extern "C" int dsg_token_mlp_bwd(
   DSG_TRY(col_sums(du_buf, static_cast<float*>(part_b1), static_cast<float*>(db1), M, hidden,
                    splits_b1, s));
 
-  StoreF32 epi3{dhn, nullptr, nullptr, C};
+  StoreF32 epi3{dhn, nullptr, C};
   DSG_TRY(launch_gemm_nn<MlpBwdDhn>(du_buf, w1, epi3, M, C, hidden, s));
   DSG_TRY(launch_ln_bwd_rows<false>(x, nullptr, dout, dhn, gamma, dx,
                                     static_cast<float*>(part_ln), 1, M, C, ln_blocks, s));

@@ -12,9 +12,11 @@ adds one where it launches its kernel and nowhere else.
 
 Helpers of the wrappers live here too: ``split_count`` plans the grids of
 the backward kernels' reductions (the wrapper allocates their partials),
-``sm_count`` and ``blocks_per_sm`` give the forward grid plans the card's SM
-count and a kernel's occupancy, and ``plain_vjp`` is the backward of the kernels that differentiate their plain
-version.
+``wave_split`` the column splits of the forward kernels whose row tiles are
+too few to fill the card, ``sm_count`` and ``blocks_per_sm`` give the forward
+grid plans the card's SM count and a kernel's occupancy, ``tile_of`` reads a
+kernel's tile from the library, and ``plain_vjp`` is the backward of the
+kernels that differentiate their plain version.
 """
 from __future__ import annotations
 
@@ -40,17 +42,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every entry point: pointers and the stream as c_void_p
 _SIGNATURES = {
-    "dsg_swin_attn": [_P] * 15 + [_I] * 8 + [_P],
+    "dsg_swin_attn": [_P] * 13 + [_I] * 11 + [_P],
     "dsg_token_mlp": [_P] * 9 + [_I] * 5 + [_P],
     "dsg_swin_attn_bwd": [_P] * 30 + [_I] * 13 + [_P],
     "dsg_token_mlp_bwd": [_P] * 23 + [_I] * 7 + [_P],
     "dsg_readout": [_P] * 7 + [_I] * 4 + [_P],
     "dsg_patch_merge": [_P] * 6 + [_I] * 5 + [_P],
-    "dsg_patch_breakup": [_P, _P, _I, _I] + [_P] * 10 + [_I] * 4 + [_P],
+    "dsg_patch_breakup": [_P, _P, _I, _I] + [_P] * 9 + [_I] * 6 + [_P],
     "dsg_window_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     "dsg_mm_accumulate": [_P] * 3 + [_I] * 6 + [_P],
     # the forward grid plans' queries: a kernel's tile and its occupancy
     "dsg_token_mlp_tile": [_I, ctypes.POINTER(_I)],
+    "dsg_swin_attn_gemm_tile": [_I, _I, _I, ctypes.POINTER(_I)],
+    "dsg_patch_breakup_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_swin_attn_core_per_sm": [_I],
     "dsg_window_attention_per_sm": [_I],
 }
@@ -88,6 +92,32 @@ def split_count(parallel: int, length: int, min_len: int, align: int = 1) -> int
     chunk = -(-length // want)
     chunk = -(-chunk // align) * align
     return -(-length // chunk)
+
+
+def wave_split(row_tiles: int, col_tiles: int, per_sm: int, sms: int) -> tuple[int, int]:
+    """Into how many splits of how many column tiles each to cut
+    ``col_tiles``, so that ``row_tiles`` x splits fills about one wave of
+    resident blocks (``sms`` x ``per_sm``, the blocks an SM holds) without
+    passing it: (splits, tiles per split).  Every split gets at least one
+    tile; one split when the row tiles alone fill the wave."""
+    want = max(1, min(col_tiles, sms * per_sm // row_tiles))
+    per = -(-col_tiles // want)
+    return -(-col_tiles // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def tile_of(query: str, *args: int) -> tuple[int, ...]:
+    """A kernel's tile from the library's ``query`` entry, which fills four
+    ints (rows, columns, blocks an SM holds at these widths, a flag); raises
+    ValueError for widths the kernel is not built for."""
+    geom = (ctypes.c_int * 4)()
+    rc = getattr(lib(), query)(*args, geom)
+    if rc == -1:
+        raise ValueError(f"{query}{args}: no tile covers these widths")
+    check(rc, query)
+    if geom[2] <= 0:
+        raise RuntimeError(f"{query}{args}: no occupancy")
+    return tuple(geom)
 
 
 @functools.lru_cache(maxsize=None)

@@ -132,10 +132,8 @@ def mlp_fwd_plan(m: int, hidden: int, tile: tuple[int, int, int],
     ``mlp_tile(C)``.  Every split gets at least one chunk; one split (no
     partials) when the row tiles alone fill the wave."""
     rows, chunk, per_sm = tile
-    n_chunks = hidden // chunk
-    want = max(1, min(n_chunks, sms * per_sm // -(-m // rows)))
-    per_split = -(-n_chunks // want)
-    return dict(splits=-(-n_chunks // per_split), chunks=per_split)
+    splits, per = cuda_build.wave_split(-(-m // rows), hidden // chunk, per_sm, sms)
+    return dict(splits=splits, chunks=per)
 
 
 def token_mlp_fwd(x, ln_gamma, ln_beta, w1, b1, w2, b2):

@@ -12,7 +12,10 @@ to the offset (ho = k % 2, wo = k // 2).  Weights are in the PyTorch Linear
 layout ([out, in]).
 
 The breakup takes the U-Net's skip as a second argument: the plain version
-concatenates it, the kernel reads both sources without a copy.
+concatenates it, the kernel reads both sources without a copy.  Its two
+products run on the Hopper GEMM (csrc/hopper_gemm.cuh); where 4c <= 384 the
+first one's epilogue applies both LayerNorms and the depth-to-space scatter
+(two launches), wider rows take a row pass between the products (three).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 
 from . import cuda_build
 from .mlp_block_kernel import layer_norm
+from .swin_block_v3 import gemm_plan
 
 
 def patch_merge_plain(x, ln_g, ln_b, w):
@@ -72,6 +76,14 @@ def patch_breakup_plain(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
     return F.linear(y.float(), w_out.float()).to(w_out.dtype)
 
 
+def breakup_tile(cin: int, dim: int, which: str) -> tuple[int, ...]:
+    """The tile of ``patch_breakup``'s first (``"in"``: Cin -> dim) or second
+    (``"out"``: c -> c) GEMM, from the library (csrc/patch_resample.cu):
+    rows, columns, blocks an SM holds, and 1 where the first GEMM holds whole
+    output rows (the fused path, no fp32 rows in device memory)."""
+    return cuda_build.tile_of("dsg_patch_breakup_tile", cin, dim, ("in", "out").index(which))
+
+
 class _PatchMerge(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_g, ln_b, w):
@@ -96,11 +108,12 @@ def patch_breakup_fwd(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
     c2 = 0 if skip is None else skip.shape[-1]
     dim = w_in.shape[0]
     c = dim // 4
-    if (w_in.shape[1] != c1 + c2 or dim % 32 or c1 % 8 or c2 % 8
-            or tuple(w_out.shape) != (c, c)
+    if (w_in.shape[1] != c1 + c2 or dim % 64 or c > 384 or c1 % 8 or c2 % 8
+            or (c1 + c2) % 16 or (c2 and c1 % 64) or tuple(w_out.shape) != (c, c)
             or (skip is not None and skip.shape[:3] != x.shape[:3])):
         raise ValueError(f"patch_breakup shapes x{tuple(x.shape)} w_in{tuple(w_in.shape)} "
-                         "are not supported")
+                         "are not supported (4c a multiple of 64 up to 1536, Cin of 16, "
+                         "C1 of 64 beside a skip)")
     bf, f32 = torch.bfloat16, torch.float32
     x = cuda_build.require(x, bf, "x")
     if skip is not None:
@@ -110,14 +123,18 @@ def patch_breakup_fwd(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
     g1, b1, g2, b2 = (cuda_build.require(t, f32, n) for t, n in (
         (ln1_g, "ln1_g"), (ln1_b, "ln1_b"), (ln2_g, "ln2_g"), (ln2_b, "ln2_b")))
     m = b * h * ww
-    y = torch.empty((m, dim), dtype=f32, device=x.device)
-    z = torch.empty((m, dim), dtype=bf, device=x.device)
+    sms = cuda_build.sm_count(x.device)
+    tile_in = breakup_tile(c1 + c2, dim, "in")
+    plan_in = gemm_plan(m, dim, tile_in, sms)
+    plan_out = gemm_plan(4 * m, c, breakup_tile(c1 + c2, dim, "out"), sms)
+    y = None if tile_in[3] else torch.empty((m, dim), dtype=f32, device=x.device)
     scattered = torch.empty((4 * m, c), dtype=bf, device=x.device)
     out = torch.empty((b, 2 * h, 2 * ww, c), dtype=bf, device=x.device)
     p = cuda_build.ptr
     rc = cuda_build.lib().dsg_patch_breakup(
-        p(x), p(skip), c1, c2, p(w_in), p(g1), p(b1), p(g2), p(b2), p(w_out), p(y), p(z),
-        p(scattered), p(out), b, h, ww, dim, cuda_build.stream_ptr(x.device))
+        p(x), p(skip), c1, c2, p(w_in), p(g1), p(b1), p(g2), p(b2), p(w_out), p(y),
+        p(scattered), p(out), b, h, ww, dim, plan_in["tiles"], plan_out["tiles"],
+        cuda_build.stream_ptr(x.device))
     cuda_build.check(rc, "patch_breakup")
     cuda_build.count_launch("patch_breakup", f"{h}x{ww}xC{c1 + c2}->{c}")
     return out

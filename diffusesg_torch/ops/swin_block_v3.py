@@ -7,7 +7,9 @@ Counterpart of diffusesg_tpu/ops/swin_block_v3.py:
     out = y + fc2(gelu(fc1(LN2(y))))
 
 ``swin_attn`` is a ``torch.autograd.Function``: on a CUDA tensor its forward
-is the hand-written kernel ``swin_attn`` (csrc/swin_attn.cu) and its backward
+is the hand-written kernel ``swin_attn`` (csrc/swin_attn.cu: the qkv GEMM
+with the noise affine and LN1 as its prologue, the window core, the proj
+GEMM with the residual in its epilogue) and its backward
 the kernel ``swin_attn_bwd`` (csrc/swin_attn_bwd.cu; the TPU's
 ``_attn_bwd_kernel``); on a CPU tensor both run the plain versions below.  It
 saves ``x``, ``scale_shift``, the parameters and ``rel_bias``; the backward
@@ -45,6 +47,42 @@ def window_core_plan(n_windows: int, num_heads: int, classes: int, per_sm: int,
     per_class = -(-n_windows // classes)
     blocks = max(1, min(per_class, sms * per_sm // (num_heads * classes)))
     return -(-per_class // blocks)
+
+
+def gemm_plan(m: int, n: int, tile: tuple[int, ...], sms: int = 132) -> dict[str, int]:
+    """Grid plan of a Hopper GEMM (csrc/hopper_gemm.cuh) over ``m`` rows and
+    ``n`` output columns: a block owns ``tile[0]`` rows and walks ``tiles``
+    column tiles of ``tile[1]``; where the row tiles alone cannot fill one
+    wave of resident blocks (``sms`` x ``tile[2]``, the blocks an SM holds)
+    the columns are cut into ``splits`` (each split redoes its rows'
+    prologue).  ``tile`` is what the library reports for the launch
+    (``attn_gemm_tile``, ``patch_resample.breakup_tile``)."""
+    rows, cols, per_sm = tile[:3]
+    splits, per = cuda_build.wave_split(-(-m // rows), -(-n // cols), per_sm, sms)
+    return dict(splits=splits, tiles=per)
+
+
+def attn_gemm_tile(c: int, which: str, wide: bool = False) -> tuple[int, ...]:
+    """The tile of ``swin_attn``'s qkv or proj GEMM at width C (64-row panels
+    if ``wide``), from the library (csrc/swin_attn.cu ``with_tile``): rows,
+    columns, blocks an SM holds, 0."""
+    return cuda_build.tile_of("dsg_swin_attn_gemm_tile", c, ("qkv", "proj").index(which),
+                              int(wide))
+
+
+def attn_gemm_plan(m: int, c: int, sms: int = 132) -> dict[str, int]:
+    """Grid plan of ``swin_attn``'s two GEMMs over ``m`` tokens at width C:
+    64-row panels (``wide``) where the default qkv tile's rows are so few
+    that its N splits outnumber the blocks an SM holds (every split redoes
+    its rows' LayerNorm prologue; up to that count co-resident blocks overlap
+    one another's prologue with their products, beyond it the repeated
+    prologue sets the pace, and halving the rows a block normalizes halves
+    it), and ``gemm_plan``'s column split of each GEMM on the tile taken."""
+    tile = attn_gemm_tile(c, "qkv")
+    wide = gemm_plan(m, 3 * c, tile, sms)["splits"] > tile[2]
+    return dict(wide=int(wide),
+                qkv=gemm_plan(m, 3 * c, attn_gemm_tile(c, "qkv", wide), sms)["tiles"],
+                proj=gemm_plan(m, c, attn_gemm_tile(c, "proj", wide), sms)["tiles"])
 
 
 def _to_windows(t, window: int):
@@ -242,18 +280,19 @@ def swin_attn_fwd(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, r
     bproj = cuda_build.require(bproj, torch.float32, "bproj")
     b, h, w, c = x.shape
     m = b * h * w
-    a, hn, attn = (torch.empty((m, c), dtype=x.dtype, device=x.device) for _ in range(3))
     qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
+    attn = torch.empty((m, c), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     n_win = (h // window) * (w // window)
+    sms = cuda_build.sm_count(x.device)
     per_sm = cuda_build.blocks_per_sm("dsg_swin_attn_core_per_sm", window * window)
-    wpb = window_core_plan(b * n_win, num_heads, n_win if mask is not None else 1, per_sm,
-                           cuda_build.sm_count(x.device))
+    wpb = window_core_plan(b * n_win, num_heads, n_win if mask is not None else 1, per_sm, sms)
+    plan = attn_gemm_plan(m, c, sms)
     p = cuda_build.ptr
     rc = cuda_build.lib().dsg_swin_attn(
         p(x), p(ss), p(g), p(bt), p(wqkv), p(bqkv), p(wproj), p(bproj), p(rel), p(mask),
-        p(a), p(hn), p(qkv), p(attn), p(out), b, h, w, c, num_heads, window, shift, wpb,
-        cuda_build.stream_ptr(x.device))
+        p(qkv), p(attn), p(out), b, h, w, c, num_heads, window, shift, wpb, plan["wide"],
+        plan["qkv"], plan["proj"], cuda_build.stream_ptr(x.device))
     cuda_build.check(rc, NAME)
     cuda_build.count_launch(NAME, _shape_key(h, w, c, shift))
     return out

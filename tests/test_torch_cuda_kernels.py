@@ -106,15 +106,24 @@ def test_patch_merge_kernel(cuda):
            _vec(cuda, 4 * c, 1.0), _vec(cuda, 4 * c), _lin(cuda, 2 * c, 4 * c))
 
 
+# patch_breakup at a small width and at the five stages of both models, with
+# and without the skip: 4c <= 384 takes the fused path (LayerNorms and
+# scatter in the first GEMM's epilogue), 768 and 1536 the split path (fp32
+# rows and a row pass)
+@pytest.mark.parametrize("hw,cin,cout,fused", [(8, 128, 32, True), (8, 1536, 384, False),
+                                               (16, 768, 192, False), (32, 384, 96, True),
+                                               (10, 768, 192, False), (20, 384, 96, True)])
 @pytest.mark.parametrize("with_skip", [True, False])
-def test_patch_breakup_kernel(cuda, with_skip):
-    torch.manual_seed(2)
-    cout, dim = 32, 128
-    c1 = dim // 2 if with_skip else dim
-    skip = _rnd(cuda, 2, 8, 8, dim - c1) if with_skip else None
-    _check("patch_breakup", pr.patch_breakup, pr.patch_breakup_plain, _rnd(cuda, 2, 8, 8, c1),
-           skip, _lin(cuda, dim, dim), _vec(cuda, dim, 1.0), _vec(cuda, dim),
-           _vec(cuda, cout, 1.0), _vec(cuda, cout), _lin(cuda, cout, cout))
+def test_patch_breakup_kernel(cuda, hw, cin, cout, fused, with_skip):
+    torch.manual_seed(hw + cin)
+    dim = 4 * cout
+    assert bool(pr.breakup_tile(cin, dim, "in")[3]) == fused
+    c1 = cin // 2 if with_skip else cin
+    skip = _rnd(cuda, 2, hw, hw, cin - c1) if with_skip else None
+    args = (_rnd(cuda, 2, hw, hw, c1), skip, _lin(cuda, dim, cin), _vec(cuda, dim, 1.0),
+            _vec(cuda, dim), _vec(cuda, cout, 1.0), _vec(cuda, cout), _lin(cuda, cout, cout))
+    _check("patch_breakup", pr.patch_breakup, pr.patch_breakup_plain, *args)
+    _bit_equal_again(pr.patch_breakup, *args)
 
 
 @pytest.mark.parametrize("n_out", [1, 5, 16])
@@ -245,6 +254,28 @@ def test_swin_attn_bwd_kernel_window_10(cuda, hw, heads, shift, b):
                  shift)
     again = sw.swin_attn_bwd(*bargs, heads, 10, shift)
     assert all(torch.equal(x, y) for x, y in zip(again, sw.swin_attn_bwd(*bargs, heads, 10, shift)))
+
+
+# Every VG and COCO stage of swin_attn at ragged token counts (batch 1 and 3):
+# the qkv and proj GEMMs (csrc/hopper_gemm.cuh) at each C, window 8 and 10,
+# shift on and off; at these few rows C384 and C768 take 64-row panels, and
+# at C768 the plan splits N across blocks, each redoing its rows' prologue.
+MODEL_ATTN_SHAPES = [(64, 3, 8, 0), (32, 6, 8, 0), (16, 12, 8, 0), (16, 12, 8, 4), (8, 24, 8, 0),
+                     (40, 3, 10, 0), (20, 6, 10, 0), (20, 6, 10, 5), (10, 12, 10, 0)]
+
+
+@pytest.mark.parametrize("hw,heads,window,shift", MODEL_ATTN_SHAPES)
+@pytest.mark.parametrize("b", [1, 3])
+def test_swin_attn_kernel_model_shapes(cuda, hw, heads, window, shift, b):
+    torch.manual_seed(hw + heads + b)
+    c, m = 32 * heads, b * hw * hw
+    plan = sw.attn_gemm_plan(m, c, cuda_build.sm_count(cuda))
+    assert plan["wide"] or c < 384, plan
+    if c == 768:
+        assert plan["qkv"] < -(-3 * c // sw.attn_gemm_tile(c, "qkv", True)[1]), plan
+    args = _attn_args(cuda, b, hw, heads, window, shift)
+    _check("swin_attn", sw.swin_attn, sw.swin_attn_block_plain, *args, heads, window, shift)
+    _bit_equal_again(sw.swin_attn, *args, heads, window, shift)
 
 
 def test_an_uncovered_window_raises_on_the_card(cuda):

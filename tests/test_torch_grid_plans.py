@@ -1,18 +1,24 @@
-"""The grid plans of the forward window core and of the fused MLP, on the CPU.
+"""The grid plans of the forward kernels, on the CPU.
 
 ``window_core_plan`` (ops/swin_block_v3.py) gives the windows per block of
 ``window_attn_kernel`` (csrc/swin_window.cuh); ``mlp_fwd_plan``
 (ops/mlp_block_kernel.py) the hidden split of ``token_mlp_kernel``
-(csrc/token_mlp.cu).  The partitions below repeat the kernels' index math:
-every window, and every hidden chunk, must be covered exactly once by a
-block that has work, and the grid must aim at one wave of resident blocks.
-On the card the wrappers read the blocks an SM holds, and the MLP's tile,
-from the built library; here the plans get the H100 build's values.
+(csrc/token_mlp.cu); ``gemm_plan`` (ops/swin_block_v3.py) the column split of
+the Hopper GEMM (csrc/hopper_gemm.cuh) that runs swin_attn's qkv and proj and
+patch_breakup's two products.  The partitions below repeat the kernels' index
+math: every window, hidden chunk and column tile must be covered exactly once
+by a block that has work, and the grid must aim at one wave of resident
+blocks.  On the card the wrappers read the blocks an SM holds, and the tiles,
+from the built library; here the plans get the H100 build's values, the
+GEMM tiles through a stub of the library's queries.
 """
 import pytest
 
+from diffusesg_torch.ops import cuda_build
+from diffusesg_torch.ops import patch_resample as pr
+from diffusesg_torch.ops import swin_block_v3 as sw
 from diffusesg_torch.ops.mlp_block_kernel import mlp_fwd_plan
-from diffusesg_torch.ops.swin_block_v3 import window_core_plan
+from diffusesg_torch.ops.swin_block_v3 import gemm_plan, window_core_plan
 
 H100_SMS = 132
 # blocks of the window core an SM holds on the H100, by window length
@@ -122,3 +128,140 @@ def test_mlp_fwd_plan_splits_where_the_rows_do_not_fill_the_card():
     assert mlp_fwd_plan(16 * 64, 3072, MLP_TILE[768])["splits"] > 1
     assert mlp_fwd_plan(16 * 100, 1536, MLP_TILE[384])["splits"] > 1
     assert mlp_fwd_plan(16 * 4096, 384, MLP_TILE[96])["splits"] == 1
+
+
+# ------------------------------------------------------------ the Hopper GEMM
+
+def _attn_tile(c, which, wide=0):
+    """What the H100 build reports for swin_attn's GEMMs (rows, columns,
+    blocks an SM, 0): 128-row panels up to C384 (two blocks an SM while the
+    panel is at most 48 KB), 64-row panels at C768 or where asked for."""
+    if c <= 384 and not wide:
+        return (128, 96, 2 if c <= 192 else 1, 0)
+    return (64, 192, 1, 0)
+
+
+def _breakup_tile(cin, dim, which):
+    """The same for patch_breakup: the first product holds whole rows up to
+    4c = 384 (the fused path), else 128 x 96 tiles; the second is a panel GEMM
+    over c."""
+    if which == 1:
+        return _attn_tile(dim // 4, 0)
+    return (64, 384, 1, 1) if dim <= 384 else (128, 96, 2, 0)
+
+
+class _StubLib:
+    """The library's two GEMM tile queries, answering as the H100 build."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _fill(self, geom, values):
+        for i, v in enumerate(values):
+            geom[i] = v
+        return 0
+
+    def dsg_swin_attn_gemm_tile(self, c, which, wide, geom):
+        self.calls.append(("attn", c, which, wide))
+        return self._fill(geom, _attn_tile(c, which, wide))
+
+    def dsg_patch_breakup_tile(self, cin, dim, which, geom):
+        self.calls.append(("breakup", cin, dim, which))
+        return self._fill(geom, _breakup_tile(cin, dim, which))
+
+
+@pytest.fixture
+def stub_lib(monkeypatch):
+    stub = _StubLib()
+    cuda_build.tile_of.cache_clear()
+    monkeypatch.setattr(cuda_build, "lib", lambda: stub)
+    yield stub
+    cuda_build.tile_of.cache_clear()
+
+
+ATTN_STAGES = [(64, 96), (32, 192), (16, 384), (8, 768), (40, 96), (20, 192), (10, 384)]
+BREAKUP_STAGES = [(8, 1536, 1536), (16, 768, 768), (32, 384, 384), (10, 768, 768), (20, 384, 384)]
+
+
+def _gemms(b):
+    """(rows, columns, tile) of every Hopper GEMM launch of one VG and one
+    COCO eval at batch b, the tiles through the wrappers' library queries."""
+    out = []
+    for hw, c in ATTN_STAGES:
+        m = b * hw * hw
+        wide = bool(sw.attn_gemm_plan(m, c, H100_SMS)["wide"])
+        out += [(m, 3 * c, sw.attn_gemm_tile(c, "qkv", wide)),
+                (m, c, sw.attn_gemm_tile(c, "proj", wide))]
+    for hw, cin, dim in BREAKUP_STAGES:
+        m = b * hw * hw
+        out += [(m, dim, pr.breakup_tile(cin, dim, "in")),
+                (4 * m, dim // 4, pr.breakup_tile(cin, dim, "out"))]
+    return out
+
+
+def test_gemm_tiles_come_from_the_library(stub_lib):
+    assert sw.attn_gemm_tile(768, "qkv") == (64, 192, 1, 0)
+    assert sw.attn_gemm_tile(384, "proj", True) == (64, 192, 1, 0)
+    assert pr.breakup_tile(384, 384, "in") == (64, 384, 1, 1)
+    assert pr.breakup_tile(768, 768, "out") == (128, 96, 2, 0)
+    assert stub_lib.calls == [("attn", 768, 0, 0), ("attn", 384, 1, 1),
+                              ("breakup", 384, 384, 0), ("breakup", 768, 768, 1)]
+
+
+# (grid, C, batch, 64-row tiles): the default tile where its N splits are no
+# more than the blocks an SM holds, 64-row panels where they are more: VG's
+# C384-C768 and COCO's C192-C384 stages at batch 16, COCO's 10x10 at 64 too
+@pytest.mark.parametrize("hw,c,b,wide", [(64, 96, 16, False), (32, 192, 16, False),
+                                         (16, 384, 16, True), (16, 384, 64, False),
+                                         (8, 768, 16, True), (40, 96, 16, False),
+                                         (20, 192, 16, True), (10, 384, 16, True),
+                                         (10, 384, 64, True), (40, 96, 1, True),
+                                         (64, 96, 64, False), (32, 192, 64, False)])
+def test_attn_gemm_plan_takes_64_row_panels_where_rows_are_few(stub_lib, hw, c, b, wide):
+    plan = sw.attn_gemm_plan(b * hw * hw, c, H100_SMS)
+    assert bool(plan["wide"]) == wide
+    tile = sw.attn_gemm_tile(c, "qkv", bool(plan["wide"]))
+    assert plan["qkv"] == gemm_plan(b * hw * hw, 3 * c, tile, H100_SMS)["tiles"]
+
+
+@pytest.mark.parametrize("b", [1, 16, 64])
+def test_gemm_plan_covers_every_column_tile_once(stub_lib, b):
+    for m, n, tile in _gemms(b):
+        n_tiles = -(-n // tile[1])
+        plan = gemm_plan(m, n, tile, H100_SMS)
+        per = plan["tiles"]
+        # hgemm_kernel: block y walks column tiles [y per, min((y + 1) per, n_tiles))
+        parts = [range(y * per, min((y + 1) * per, n_tiles)) for y in range(-(-n_tiles // per))]
+        assert len(parts) == plan["splits"]
+        assert all(len(p) > 0 for p in parts), "a block without a column tile"
+        assert sorted(t for p in parts for t in p) == list(range(n_tiles))
+        if tile[3]:  # whole rows: one block holds every column of its rows
+            assert n_tiles == 1 and plan["splits"] == 1
+
+
+@pytest.mark.parametrize("b", [1, 16, 64])
+def test_gemm_plan_aims_at_one_wave(stub_lib, b):
+    for m, n, tile in _gemms(b):
+        rows, cols, per_sm = tile[:3]
+        slots = H100_SMS * per_sm
+        row_tiles, n_tiles = -(-m // rows), -(-n // cols)
+        splits = gemm_plan(m, n, tile, H100_SMS)["splits"]
+        if row_tiles > slots // 2 or n_tiles == 1:
+            assert splits == 1, (m, n, tile)  # the row tiles alone fill the card
+        else:
+            assert splits > 1 and row_tiles * splits <= slots, (m, n, tile)
+            assert splits == n_tiles or 2 * row_tiles * splits > slots, (m, n, tile)
+
+
+def test_gemm_plan_splits_where_the_rows_do_not_fill_the_card(stub_lib):
+    """At batch 16, VG's C768 and COCO's 10x10 C384 stages split the qkv
+    columns (each split redoes its rows' LayerNorm), VG's C96 does not; the
+    fused breakup never splits."""
+    def splits(m, n, tile):
+        return gemm_plan(m, n, tile, H100_SMS)["splits"]
+    assert splits(16 * 64, 3 * 768, sw.attn_gemm_tile(768, "qkv")) > 1
+    assert splits(16 * 64, 768, sw.attn_gemm_tile(768, "proj")) > 1
+    assert splits(16 * 100, 3 * 384, sw.attn_gemm_tile(384, "qkv")) > 1
+    assert splits(16 * 4096, 3 * 96, sw.attn_gemm_tile(96, "qkv")) == 1
+    assert splits(16 * 1024, 384, pr.breakup_tile(384, 384, "in")) == 1
+    assert splits(16 * 64, 1536, pr.breakup_tile(1536, 1536, "in")) > 1
