@@ -2,12 +2,12 @@
 
     python3 chip_smoke.py            # every phase, as a CI check
     python3 chip_smoke.py --no-slice # build + kernels vs plain only
-    python3 chip_smoke.py --no-train # phases 1-3 and 5 only
+    python3 chip_smoke.py --no-train # phases 1-3, 5 and 7 only
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit), the kernels' nvcc build, and
-     the built library's SASS: every Hopper GEMM kernel (hgemm_kernel) must
-     issue HGMMA (wgmma) instructions;
+     the built library's SASS: every wgmma kernel (each hgemm_kernel and the
+     readout_kernel) must issue HGMMA instructions;
   2. every hand-written kernel at every Visual Genome and COCO-Stuff shape of
      the main paths (batch 16, bf16) and the four TPU kernels with an entry of
      their own (window_attention, mm_accumulate, and the pre-rolled block
@@ -18,9 +18,11 @@ Phases, each printed on its own line:
      the launch counters of the kernels it launches; kernel and plain times,
      the roofline bound from the shapes and, where a PyTorch library call
      computes the same function, the time of that library doing the same work;
-     for swin_attn and patch_breakup also the device time of each of their
-     launches (torch.profiler) beside a cuBLAS yardstick of the same product
-     (F.layer_norm + F.linear for qkv, F.linear for the others, bf16);
+     for swin_attn, patch_merge, patch_breakup and readout also the device
+     time of each of their launches (torch.profiler) beside a yardstick of the
+     same products in PyTorch (bf16, timed only): F.layer_norm + F.linear for
+     qkv and merge, F.linear for the others, F.linear, F.gelu, F.linear for
+     readout;
   3. the slice: the full-width VG model (35,808,848 parameters, seeded
      weights, bf16) answers requests through ``serving.generate`` with 16 Heun
      steps; every kernel's launch count must move, the decoded graphs must be
@@ -49,8 +51,13 @@ Phases, each printed on its own line:
      ``fused_swin_block`` on a pre-rolled grid against the model's own block,
      and ``scripts/microbench_int8_torch.py``;
   6. the COCO-Stuff training slice: 8 steps at batch 64 through
-     ``go_training`` as phase 4, 18 launches of each backward kernel per step.
-Launch counts are set to 0 before each of phases 3-6 and read after it.
+     ``go_training`` as phase 4, 18 launches of each backward kernel per step;
+  7. ``configs/vg_small_test.yaml``, whose ``tpu`` block switches the kernels
+     off (float32, head_dim 16, which no kernel covers): its denoiser on the
+     card against the same fp32 plain model on the CPU (relative L2 1e-4),
+     then two training steps through ``cli.train`` with its default device;
+     no kernel may launch.
+Launch counts are set to 0 before each of phases 3-7 and read after it.
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Exits non-zero without a result when no CUDA device is present.
@@ -152,9 +159,13 @@ def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+WGMMA_KERNELS = ("hgemm_kernel", "readout_kernel")
+
+
 def check_sass(lib_path) -> None:
-    """The Hopper GEMM kernels of the built library issue wgmma: count the
-    HGMMA instructions of every hgemm_kernel instantiation (cuobjdump -sass)."""
+    """The wgmma kernels of the built library issue wgmma: count the HGMMA
+    instructions of every hgemm_kernel instantiation and of readout_kernel
+    (cuobjdump -sass)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
@@ -165,14 +176,15 @@ def check_sass(lib_path) -> None:
     for line in out.stdout.splitlines():
         if "Function :" in line:
             func = line.split("Function :", 1)[1].strip()
-            if "hgemm_kernel" in func:
+            if any(k in func for k in WGMMA_KERNELS):
                 counts[func] = 0
         elif func in counts and "HGMMA" in line:
             counts[func] += 1
-    log(f"sass: {len(counts)} hgemm_kernel instantiations, HGMMA instructions in each: "
-        f"{sorted(counts.values())}")
-    if not counts or min(counts.values()) == 0:
-        fail("a Hopper GEMM kernel issues no HGMMA instruction")
+    for k in WGMMA_KERNELS:
+        mine = sorted(n for f, n in counts.items() if k in f)
+        log(f"sass: {len(mine)} {k} instantiations, HGMMA instructions in each: {mine}")
+        if not mine or min(mine) == 0:
+            fail(f"a {k} issues no HGMMA instruction")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -190,8 +202,8 @@ class Case:
     pre-rolled block entries own no device function: they launch
     ``swin_attn`` and ``token_mlp``).  ``library`` is a PyTorch library's
     kernels doing the same work (a yardstick, timed only); ``gemms`` names a
-    kernel's launches to time one by one, each with a cuBLAS yardstick of its
-    product (timed only); ``graph_plain`` is False for a plain version that
+    kernel's launches to time one by one, each with a yardstick of its
+    products in PyTorch (cuBLAS; timed only); ``graph_plain`` is False for a plain version that
     leaves the card and cannot be captured."""
     name: str
     src: str
@@ -262,10 +274,18 @@ def kernel_cases(dev):
         bias = rnd(n_out, scale=0.1) if bias else None
         return lambda: F.linear(a, w, bias)
 
-    def ln_linear(m, c, n_out):
-        """The same with the LayerNorm before it (swin_attn's qkv prologue)."""
-        a, g, bt, w, bias = rnd(m, c), rnd(c), rnd(c), lin(n_out, c), rnd(n_out, scale=0.1)
+    def ln_linear(m, c, n_out, bias=True):
+        """The same with the LayerNorm before it (swin_attn's qkv prologue,
+        patch_merge's on rows already gathered)."""
+        a, g, bt, w = rnd(m, c), rnd(c), rnd(c), lin(n_out, c)
+        bias = rnd(n_out, scale=0.1) if bias else None
         return lambda: F.linear(F.layer_norm(a, (c,), g, bt, 1e-6), w, bias)
+
+    def two_linear(m, c, hidden, n_out):
+        """readout's two products and the GELU between them, in PyTorch."""
+        a, w1, b1 = rnd(m, c), lin(hidden, c), rnd(hidden, scale=0.1)
+        w2, b2 = lin(n_out, hidden), rnd(n_out, scale=0.1)
+        return lambda: F.linear(F.gelu(F.linear(a, w1, b1)), w2, b2)
 
     def mlp_args(c):
         return (rnd(c, dtype=f32, scale=0.1, offset=1.0), rnd(c, dtype=f32, scale=0.1),
@@ -317,7 +337,9 @@ def kernel_cases(dev):
             cases.append(Case("patch_merge", "patch_resample.cu", K2, pr.patch_merge,
                               pr.patch_merge_plain, args, 2 * mo * 4 * c * 2 * c,
                               b * hw * hw * c * 2 + 8 * c * c * 2 + mo * 2 * c * 2 + 8 * c * 4,
-                              fwd_tol, path))
+                              fwd_tol, path,
+                              gemms=(("merge GEMM", "MergeProj",
+                                      ln_linear(mo, 4 * c, 2 * c, bias=False)),)))
         # patch_breakup: [x | skip] back up the same grids
         for hw, c in grids[:0:-1]:
             cin, cout = 2 * c, c // 2
@@ -343,7 +365,9 @@ def kernel_cases(dev):
             cases.append(Case("readout", "readout.cu", K4, rk.readout_mlp, rk.readout_mlp_plain,
                               args, 2 * m * 96 * (96 + n_out),
                               m * 96 * 2 + m * n_out * 4 + (96 + n_out) * 96 * 2
-                              + (96 + n_out) * 4, (2e-2, 2e-2, 0.0), path))
+                              + (96 + n_out) * 4, (2e-2, 2e-2, 0.0), path,
+                              gemms=(("readout", "readout_kernel",
+                                      two_linear(m, 96, 96, n_out)),)))
 
     # window_attention (K11): [B * nW, nH, L, 32] at a VG and a COCO stage each,
     # with and without the shift mask, one with a scale that is not hd^-0.5
@@ -487,7 +511,7 @@ def check_kernels(dev, reps: int = 20):
             parts = device_ms_by(lambda: kern(*args), [f for _, f, _ in case.gemms], reps)
             log(f"kernel {name:16s} {case.path:7s} {keys[0][1]:22s} launches: " + "; ".join(
                 f"{lbl} {parts[frag]:.4f} ms"
-                + ("" if lib is None else f" (cuBLAS, bf16: {graph_ms(lib, reps):.4f} ms)")
+                + ("" if lib is None else f" (yardstick, bf16: {graph_ms(lib, reps):.4f} ms)")
                 for lbl, frag, lib in case.gemms if parts[frag] > 0))
         results.append(dict(name=label, route="cuda", source=SRC + case.src,
                             replaces=case.replaces, kernel=name, keys=keys, path=case.path,
@@ -1129,6 +1153,85 @@ def check_training(dev, smi: str, spec=VG, find_largest_batch: bool = True):
     return launches
 
 
+# ------------------------------------------------------------------ phase 7
+
+SMALL_CFG = "configs/vg_small_test.yaml"
+SMALL_REL_L2 = 1e-4  # fp32 on the card vs fp32 on the CPU, the same plain code
+
+
+def check_small_config(dev) -> None:
+    """``configs/vg_small_test.yaml`` on the card: its ``tpu`` block sets
+    float32 and ``use_pallas_attention: false``, so every layer runs its plain
+    version (head_dim 16 and float32, which no kernel covers, as the JAX
+    package runs its XLA composition there).  The denoiser on the card
+    against the same model on the CPU, then two training steps through
+    ``cli.train`` with its default device on 8 synthetic graphs; no kernel
+    may launch."""
+    import glob
+
+    from diffusesg_torch.cli import train as train_cli
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.models import build_model, make_model
+    from diffusesg_torch.ops import cuda_build
+
+    cfg = load_config(SMALL_CFG)
+    cuda_build.reset_launches()
+    model = build_model(cfg, device=dev, seed=0)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():  # weights at a scale that makes every path of the network matter
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.15)
+    if model.use_kernels or model.dtype != torch.float32:
+        fail(f"{SMALL_CFG}: kernels {model.use_kernels}, {model.dtype}; the config asks for "
+             "neither")
+    ref = make_model(cfg).eval()
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    n = cfg.dataset.max_node_num
+    flags = torch.zeros(2, n, dtype=torch.bool)
+    flags[0, :n], flags[1, :7] = True, True
+    x = (torch.randn(2, n, n, generator=gen), torch.randn(2, n, 5, generator=gen), flags,
+         torch.log(torch.tensor([0.3, 4.0])) / 4.0, torch.randn(2, n, n, generator=gen) * 0.5,
+         torch.randn(2, n, 5, generator=gen) * 0.5)
+    with torch.inference_mode():
+        got = model(*(t.to(dev) for t in x))
+        want = ref(*x)
+    for g, w, what in zip(got, want, ("adj", "node")):
+        rel = float((g.cpu() - w).norm() / w.norm())
+        log(f"small: {SMALL_CFG} denoiser (float32, kernels off) on the card vs the CPU, {what} "
+            f"output {tuple(g.shape)} relative L2 {rel:.3e} (limit {SMALL_REL_L2})")
+        if not (g.device.type == "cuda" and g.dtype == torch.float32 and rel < SMALL_REL_L2):
+            fail(f"{SMALL_CFG}: the card's {what} output disagrees with the CPU's")
+
+    exp_dir = os.path.join("build", "smoke_runs", "small")
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    state = train_cli.main(["-c", SMALL_CFG, "--data_root", "/nonexistent", "--subset", "8",
+                            "--max_epoch", "1", "--save_interval", "1", "-l", "WARNING",
+                            "-o", f"exp_dir={exp_dir}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = []
+    for path in glob.glob(os.path.join(exp_dir, "**", "scalars.jsonl"), recursive=True):
+        with open(path) as f:
+            losses += [json.loads(line)["value"] for line in f if "regression_loss" in line]
+    params = list(state.params())
+    init = list(build_model(cfg, device=dev, seed=int(cfg.seed)).parameters())
+    with torch.no_grad():
+        moved = max(float((p - q).abs().max()) for p, q in zip(params, init))
+    launches = cuda_build.launches_by_kernel()
+    log(f"small: cli.train on {SMALL_CFG} (default device) took {state.step} steps at batch "
+        f"{cfg.train.batch_size} in {wall:.1f} s on {params[0].device}; epoch losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}; parameters moved by up to {moved:.3e}; "
+        f"kernel launches in this phase {json.dumps(launches, sort_keys=True)}")
+    if state.step != 2 or params[0].device.type != "cuda":
+        fail(f"{SMALL_CFG}: expected 2 training steps on the card, ran {state.step} on "
+             f"{params[0].device}")
+    if not losses or not all(v == v and abs(v) != float("inf") for v in losses) or not moved > 0:
+        fail(f"{SMALL_CFG}: losses {losses} not finite, or the parameters did not move")
+    if launches:
+        fail(f"{SMALL_CFG} switches the kernels off, yet {launches} launched")
+
+
 # which kernel each device function belongs to (demangled-name fragments,
 # first match wins); the row passes before the backward kernels' recompute
 # GEMMs (AffineSrc, RowSrc) run in no forward any more (the forwards take
@@ -1144,9 +1247,9 @@ KERNEL_OF = (("window_attn_bwd_kernel", "swin_attn_bwd"), ("SwinBwd", "swin_attn
              ("window_attn_kernel", "swin_attn"),
              ("SwinQkv", "swin_attn"), ("SwinProj", "swin_attn"),
              ("token_mlp_kernel", "token_mlp"), ("mlp_close_kernel", "token_mlp"),
-             ("MergeSrc", "patch_merge"), ("MergeProj", "patch_merge"),
+             ("MergeProj", "patch_merge"),
              ("BreakupIn", "patch_breakup"), ("breakup_rows_kernel", "patch_breakup"),
-             ("BreakupOut", "patch_breakup"), ("ReadoutFc", "readout"))
+             ("BreakupOut", "patch_breakup"), ("readout_kernel", "readout"))
 # device functions printed under their own names beside their kernel's total:
 # the parts of the redesigned kernels, and the backward kernels' recompute
 # row passes (label, name fragment, kernel)
@@ -1216,7 +1319,7 @@ def profile_call(fn, what: str, eager_ms: float) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 6")
+    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 7")
     ap.add_argument("--no-train", action="store_true", help="skip phases 4 and 6")
     args = ap.parse_args(argv)
 
@@ -1238,6 +1341,7 @@ def main(argv=None) -> int:
     check_sass(cuda_build.build())
     from diffusesg_torch.ops import mlp_block_kernel as mk
     from diffusesg_torch.ops import patch_resample as pr
+    from diffusesg_torch.ops import readout_kernel as rk
     from diffusesg_torch.ops import swin_block_v3 as sw
     log("Hopper GEMM tiles (rows, columns, blocks an SM, whole rows), as the library reports "
         "them: " + ", ".join(f"swin_attn {w} C{c} {sw.attn_gemm_tile(c, w)}"
@@ -1245,7 +1349,10 @@ def main(argv=None) -> int:
         + f", swin_attn qkv C384 64-row panels {sw.attn_gemm_tile(384, 'qkv', True)}"
         + ", " + ", ".join(f"patch_breakup {w} {cin}->{dim} {pr.breakup_tile(cin, dim, w)}"
                            for cin, dim in ((1536, 1536), (768, 768), (384, 384))
-                           for w in ("in", "out")))
+                           for w in ("in", "out"))
+        + ", " + ", ".join(f"patch_merge C{c} {pr.merge_tile(c)}" for c in (96, 192, 384))
+        + f", patch_merge C96 64-row panels {pr.merge_tile(96, True)}; readout (rows, "
+          f"warpgroups, blocks an SM) {rk.readout_tile()}")
     log("grid plans, as the library reports them: blocks of the window core an SM holds "
         + ", ".join(f"{q} L={L} {cuda_build.blocks_per_sm(q, L)}"
                     for q in ("dsg_swin_attn_core_per_sm", "dsg_window_attention_per_sm")
@@ -1266,6 +1373,7 @@ def main(argv=None) -> int:
         coco_train = {} if args.no_train else check_training(dev, smi, COCO,
                                                              find_largest_batch=False)
         counts = dict(vg=(vg, vg_train), coco=(coco, coco_train), entries=(entries, {}))
+        check_small_config(dev)
     # launches: of the path's sampling (or entries) run for the forward
     # kernels, of its training run for the backward kernels; launches_train:
     # of the training run.  A case that moves several counters (an entry over

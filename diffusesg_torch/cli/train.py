@@ -2,7 +2,9 @@
 
 Counterpart of diffusesg_tpu/cli/train.py: init basics -> load data -> build
 model/optimizer/EMAs -> train, on one CUDA device (``--device cpu`` runs the
-plain versions on the CPU).  With ``--data_root`` pointing nowhere the
+plain versions on the CPU).  The config's ``tpu.use_pallas_attention`` picks
+the hand-written kernels or the plain versions on the card, as it picks the
+Pallas kernels or XLA in the JAX package.  With ``--data_root`` pointing nowhere the
 synthetic scene graphs of ``data/synthetic.py`` are used.
 """
 from __future__ import annotations
@@ -28,7 +30,9 @@ def main(argv=None):
 
     bundle = load_data(config, eval_mode=False, data_root=args.data_root)
     model = build_model(config, device=device, seed=config.seed).train()
-    logging.info("model parameters: %s", f"{count_params(model):,}")
+    logging.info("model parameters: %s; %s in %s (tpu.use_pallas_attention, "
+                 "tpu.compute_dtype)", f"{count_params(model):,}",
+                 "hand-written kernels" if model.use_kernels else "plain versions", model.dtype)
 
     # the schedule's steps per epoch are the steps the loop runs per epoch
     # (the reference steps its scheduler once per epoch)

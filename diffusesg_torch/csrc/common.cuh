@@ -1,24 +1,24 @@
 // Shared pieces of the Hopper kernels: a row-preparation kernel for the
-// LayerNorm'd (and gathered) GEMM operands, a bf16 tile GEMM on the tensor
-// cores (WMMA 16x16x16, fp32 accumulate) with a fused per-element epilogue,
-// and small device helpers (erf-GELU, SiLU, bf16 rounding, warp sums).
+// backward kernels' LayerNorm'd recompute operands, a bf16 tile GEMM on the
+// tensor cores (WMMA 16x16x16, fp32 accumulate) with a fused per-element
+// epilogue, and small device helpers (erf-GELU, SiLU, bf16 rounding, warp
+// sums, the mma.sync pieces).
 //
 // Row preparation: one warp per row.  A source functor hands over eight
-// consecutive raw values of row m (`raw8`: a gather, the noise affine, a
-// plain load), the warp keeps the row in registers, takes LayerNorm
-// statistics over all K (two passes: mean, then the mean of squared
-// deviations, as the reference LayerNorm), and writes the normalized row
-// once in bf16.  So every element's prologue work runs once, not once per
-// output tile.
+// consecutive raw values of row m (`raw8`: the noise affine, a plain load),
+// the warp keeps the row in registers, takes LayerNorm statistics over all K
+// (two passes: mean, then the mean of squared deviations, as the reference
+// LayerNorm), and writes the normalized row once in bf16.  The forward
+// GEMMs' prologues (hg::LnPanel) repeat this arithmetic on shared memory.
 //
 // WMMA GEMM: C[m, n] = epi(m, n, sum_k A[m, k] * W[n, k]), W in the PyTorch
 // Linear layout [N, K] (the column-major B operand WMMA wants) and A = [a1 |
 // a2] row-major.  128x64 output per 128-thread block, K step 32, each warp a
 // 64x32 quadrant of 4x2 WMMA fragments, a 3-stage cp.async ring, and an
-// epilogue over an fp32 staging tile with 16-byte stores.  It still serves
-// patch_merge (MergeProj), readout (ReadoutFc1/2) and every GEMM of the
-// backward kernels; swin_attn's and patch_breakup's GEMMs run on the wgmma
-// GEMM of hopper_gemm.cuh.
+// epilogue over an fp32 staging tile with 16-byte stores.  It serves every
+// GEMM of the backward kernels and nothing else: the forward GEMMs
+// (swin_attn, patch_merge, patch_breakup, readout) run on wgmma
+// (hopper_gemm.cuh).
 //
 // The backward kernels need two more operand layouts and a split of K:
 //   TA: A is stored [K, M] (token-major), so C = A^T-stored x B contracts
@@ -300,12 +300,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Call sites of the GEMM: an empty tag type per site, so each launch has a
-// kernel name of its own in a profile.
-struct MergeProj {};
-struct ReadoutFc1 {};
-struct ReadoutFc2 {};
-
 template <class Site, class Epi, bool TA, bool TB>
 __global__ void __launch_bounds__(kThreads)
 gemm_kernel(GemmA A, Epi epi, const bf16* __restrict__ W, int M, int N, int K, int kchunk) {
@@ -459,11 +453,9 @@ cudaError_t launch_gemm_nn(const void* a, const void* w, const Epi& epi, int M, 
 
 // ---------------------------------------------------------------- epilogue
 
-enum class Act { kNone, kGelu };
-
-// y = act(acc + bias[n]) (bias may be null), stored as OutT; `cnt` columns
-// from n, 16-byte vectors when `vec`.
-template <Act ACT, class OutT>
+// y = acc + bias[n] (bias may be null), stored as OutT; `cnt` columns from
+// n, 16-byte vectors when `vec`.
+template <class OutT>
 struct Epilogue {
   OutT* out;
   const float* bias;
@@ -472,11 +464,7 @@ struct Epilogue {
     const size_t base = (size_t)m * N + n;
     float y[8];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      float v = acc[t] + (bias && t < cnt ? bias[n + t] : 0.f);
-      if constexpr (ACT == Act::kGelu) v = gelu_erf(v);
-      y[t] = v;
-    }
+    for (int t = 0; t < 8; ++t) y[t] = acc[t] + (bias && t < cnt ? bias[n + t] : 0.f);
     if constexpr (sizeof(OutT) == 2) {
       if (vec) store8(out + base, y);
       else
@@ -492,8 +480,7 @@ struct Epilogue {
   }
 };
 
-using StoreBf16 = Epilogue<Act::kNone, bf16>;
-using StoreF32 = Epilogue<Act::kNone, float>;
-using GeluBf16 = Epilogue<Act::kGelu, bf16>;
+using StoreBf16 = Epilogue<bf16>;
+using StoreF32 = Epilogue<float>;
 
 }  // namespace dsg

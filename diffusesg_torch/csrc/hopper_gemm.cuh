@@ -2,13 +2,14 @@
 // prologue and epilogue: C[m, n] = epi(m, n, sum_k A[m, k] * W[n, k]), W the
 // PyTorch Linear weight [N, K] (K-major, the B operand wgmma reads as it is).
 //
-// Call sites: swin_attn's qkv and proj GEMMs (swin_attn.cu) and patch_breakup's
-// two products (patch_resample.cu).  patch_merge, readout and the backward
-// kernels stay on the WMMA tile GEMM of common.cuh.
+// Call sites: swin_attn's qkv and proj GEMMs (swin_attn.cu), patch_merge's
+// product and patch_breakup's two products (patch_resample.cu).  readout
+// (readout.cu) is a kernel of its own built from the PTX pieces below.  The
+// backward kernels stay on the WMMA tile GEMM of common.cuh.
 //
-// A block is two consumer warpgroups and one producer warp.  The producer's
-// lane 0 streams 64-wide K slices of W by TMA (cp.async.bulk.tensor, 128-byte
-// swizzle, tensor map encoded on the host through
+// A block is one or two consumer warpgroups and one producer warp.  The
+// producer's lane 0 streams 64-wide K slices of W by TMA (cp.async.bulk.tensor,
+// 128-byte swizzle, tensor map encoded on the host through
 // cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled"), so the build
 // needs no -lcuda) into a ring of STAGES slots guarded by mbarriers: `full`
 // (the slot's bytes have landed) and `empty` (every consumer warp is done with
@@ -18,14 +19,14 @@
 // group stays in flight while the next slot is waited for.  The accumulators
 // stay in registers through the epilogue.  Two ways for A:
 //   (a) resident panel (Tile::kPanel): the block's BM x K rows are built once
-//       by a prologue functor (`fill`: LayerNorm'd, affine'd or copied rows),
-//       already swizzled, and the block walks its N tiles of W;
+//       by a prologue functor (`fill`: LayerNorm'd, affine'd, gathered or
+//       copied rows), already swizzled, and the block walks its N tiles of W;
 //   (b) streamed: A = [a1 | a2] (a second source so a concatenated skip is
 //       never materialized) arrives by TMA beside W in every slot.
 // The grid is (row tiles, column splits): block (x, y) walks N tiles
 // [y * per, (y + 1) * per).  Where the row tiles are too few to fill the card
 // the wrapper splits N (each split redoes its rows' prologue); the plan is
-// Python's (ops/swin_block_v3.py::gemm_plan), the tile and the occupancy it
+// Python's (ops/cuda_build.py::gemm_plan), the tile and the occupancy it
 // reads are the library's (the sites' *_tile queries).
 //
 // Epilogues get eight consecutive columns of a row at a time (`put8`): each
@@ -57,12 +58,14 @@ namespace dsg {
 // has a kernel name of its own in a profile.
 struct SwinQkv {};
 struct SwinProj {};
+struct MergeProj {};
 struct BreakupIn {};
 struct BreakupOut {};
 
 namespace hg {
 
 constexpr int kSlice = 64;  // bf16 elements of one 128-byte swizzled K slice
+
 constexpr int kMaxDynSmem = 227 * 1024 - 1024;  // leaves room for the static barriers
 
 // ------------------------------------------------------------ PTX pieces
@@ -109,9 +112,9 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// the 256 consumer threads only (barrier 0 is __syncthreads)
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+// the block's `threads` consumer threads only (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumer_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -197,24 +200,43 @@ struct Wgmma<192> {
   }
 };
 
+// D (64 x 16, fp32, the accumulator layout) += A (64 x 16) B (16 x 16), A
+// from registers (the RS form): each warp holds its 16 rows as an mma.sync
+// m16n8k16 A fragment (common.cuh), which is how a 64 x N accumulator's
+// columns 16 k .. 16 k + 15 lie once packed to bf16 pairs: acc[8 k + 2 q],
+// acc[8 k + 2 q + 1] -> a[q]
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // -------------------------------------------------------------- the tiles
 
-// BM x BN output per block; WGN consumer warpgroups side by side along N (2:
-// each 64 x BN/2) or stacked along M (1: each 64 x BN, BM = 128).  kPanel:
-// mode (a), A resident; else mode (b), A streamed.  MINB: blocks an SM is
-// meant to hold (the register budget of __launch_bounds__).
+// BM x BN output per block; WGN consumer warpgroups side by side along N
+// (2: each 64 x BN/2) or one column of them along M (1: each 64 x BN; BM =
+// 64, one warpgroup, or 128, two).  kPanel: mode (a), A resident; else mode
+// (b), A streamed.  MINB: blocks an SM is meant to hold (the register budget
+// of __launch_bounds__).
 template <int BM_, int BN_, int WGN_, int STAGES_, bool PANEL_, int MINB_>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, WGN = WGN_, STAGES = STAGES_, MINB = MINB_;
   static constexpr bool kPanel = PANEL_;
   static constexpr int NW = BN / WGN;  // columns of one consumer warpgroup
-  static constexpr int kConsumers = 256, kThreads = kConsumers + 32;
+  static constexpr int kGroups = BM / 64 * WGN;  // consumer warpgroups
+  static constexpr int kConsumers = 128 * kGroups, kThreads = kConsumers + 32;
   static constexpr int kAStage = kPanel ? 0 : BM * kSlice;  // bf16 elements of a slot
   static constexpr int kWStage = BN * kSlice;
   static constexpr int kStageBytes = (kAStage + kWStage) * 2;
   static constexpr int kEpiLd = 36;  // floats a row of a warp's epilogue tile (16 x 32)
   static constexpr int kEpiBytes = kConsumers / 32 * 16 * kEpiLd * 4;
-  static_assert(BM == 64 * (2 / WGN) && NW % 32 == 0 && NW <= 256, "tile");
+  static_assert((BM == 64 || (BM == 128 && WGN == 1)) && kGroups <= 2 && NW % 32 == 0 &&
+                    NW <= 256,
+                "tile");
   __host__ __device__ static size_t panel_bytes(int K) {
     return kPanel ? (size_t)BM * ((K + kSlice - 1) / kSlice * kSlice) * 2 : 0;
   }
@@ -228,6 +250,9 @@ struct Tile {
 using PanelRows = Tile<128, 96, 1, 3, true, 2>;   // mode (a), two blocks an SM up to K = 192
 using PanelTall = Tile<128, 96, 1, 4, true, 1>;   // mode (a), K <= 384, registers for the prologue
 using PanelWide = Tile<64, 192, 2, 4, true, 1>;   // mode (a), K <= 768
+// mode (a), K <= 1536: a 64 x 1536 panel is 192 KB, so one warpgroup and a
+// two-slot ring of W (12 KB a slot) fill the shared memory exactly
+using PanelDeep = Tile<64, 96, 1, 2, true, 1>;
 using StreamRows = Tile<128, 96, 1, 3, false, 2>; // mode (b), any K
 using StreamLine = Tile<64, 384, 2, 3, false, 1>; // mode (b), whole rows of N <= 384
 
@@ -265,15 +290,49 @@ struct F32Epi : RowEpi {
   }
 };
 
-// Rows [m0, m0 + R) of a row-major bf16 [M, K] matrix into the swizzled
-// panel by the 256 consumer threads, every 16-byte load in flight at once
-// (cp.async); rows >= M are left as they are (their outputs are never stored).
-__device__ __forceinline__ void load_rows(bf16* panel, const bf16* a, int R, int m0, int M, int K,
-                                          int tid) {
-  const int vecs = K / 8;
-  for (int i = tid; i < R * vecs; i += 256) {
-    const int r = i / vecs, k = (i - r * vecs) * 8;
-    if (m0 + r < M) cp_async16(swizzled(panel, R, r, k), a + (size_t)(m0 + r) * K + k, true);
+// Rows of a plain row-major bf16 [M, K] matrix, as a panel's source.  A row
+// source's row m is kPieces contiguous pieces of K / kPieces elements
+// (`piece(m, q)`).
+struct PlainRows {
+  static constexpr int kPieces = 1;
+  const bf16* a;
+  int K;
+  __device__ const bf16* piece(int m, int) const { return a + (size_t)m * K; }
+};
+
+// Rows [m0, m0 + R) of a row source into the swizzled panel by the block's
+// `warps` consumer warps, every 16-byte load in flight at once (cp.async);
+// rows >= M are left as they are (their outputs are never stored).  A row of
+// one piece is cut into 16-byte chunks across all threads; a row of several
+// pieces (a gather) is taken by one warp, which finds the pieces' addresses
+// once and spreads their chunks over its lanes.
+template <class Src>
+__device__ __forceinline__ void load_rows(bf16* panel, const Src& src, int R, int m0, int M, int K,
+                                          int warps, int warp, int lane) {
+  if constexpr (Src::kPieces == 1) {
+    const int vecs = K / 8;
+    for (int i = warp * 32 + lane; i < R * vecs; i += warps * 32) {
+      const int r = i / vecs, k = (i - r * vecs) * 8;
+      if (m0 + r < M) cp_async16(swizzled(panel, R, r, k), src.piece(m0 + r, 0) + k, true);
+    }
+  } else {
+    constexpr int P = Src::kPieces;
+    const int len = K / P, per = len / 8;  // elements and 16-byte chunks of a piece
+    for (int r = warp; r < R && m0 + r < M; r += warps) {
+      const bf16* p[P];
+#pragma unroll
+      for (int q = 0; q < P; ++q) p[q] = src.piece(m0 + r, q);
+      for (int i = lane; i < P * per; i += 32) {
+        int q = 0;
+#pragma unroll
+        for (int t = 1; t < P; ++t) q += i >= t * per;
+        const bf16* from = p[0];
+#pragma unroll
+        for (int t = 1; t < P; ++t) from = q == t ? p[t] : from;
+        const int c = (i - q * per) * 8;
+        cp_async16(swizzled(panel, R, r, q * len + c), from + c, true);
+      }
+    }
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -283,14 +342,114 @@ __device__ __forceinline__ void load_rows(bf16* panel, const bf16* a, int R, int
 // row-major bf16 [M, K] matrix.
 struct CopyPanel {
   const bf16* a;
-  __device__ void fill(bf16* panel, int R, int m0, int M, int K, int warp, int lane) const {
-    load_rows(panel, a, R, m0, M, K, warp * 32 + lane);
+  __device__ void fill(bf16* panel, int R, int m0, int M, int K, int warps, int warp,
+                       int lane) const {
+    load_rows(panel, PlainRows{a, K}, R, m0, M, K, warps, warp, lane);
+  }
+};
+
+// sum of eight values, and of their squared deviations from `mean`, as
+// pairwise trees (short dependency chains; fp32 throughout)
+__device__ __forceinline__ float sum8(const float v[8]) {
+  return ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
+}
+__device__ __forceinline__ float sq_dev8(const float v[8], float mean) {
+  float d[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) d[t] = (v[t] - mean) * (v[t] - mean);
+  return sum8(d);
+}
+
+// Prologue of mode (a): panel row r = bf16(LayerNorm(pre(source row m0 + r)))
+// over K.  The raw rows come in first (load_rows: all loads in flight; a row
+// may be a gather of pieces), then each group of LPR lanes takes ROWS
+// rows at once in place, their loads and reductions interleaved (LPR = 16
+// puts two rows in a warp instruction where a row has at most 16 MAXV
+// vectors of 8): the source's `pre8` (the noise affine of swin_attn's qkv,
+// nothing for patch_merge's gather), then the row pass's arithmetic (ln_row,
+// common.cuh): fp32 statistics in two passes, mean then mean of squared
+// deviations (each vector of 8 summed as a pairwise tree), and one rounding
+// to bf16.  gamma and beta of a lane's columns
+// are loaded once.  K <= 8 LPR MAXV.
+template <class Src, int MAXV, int ROWS, int LPR>
+struct LnPanel {
+  Src src;
+  const float* gamma;
+  const float* beta;
+
+  __device__ void fill(bf16* panel, int R, int m0, int M, int K, int warps, int warp,
+                       int lane) const {
+    constexpr int kGroups = 32 / LPR;  // rows a warp instruction covers
+    load_rows(panel, src, R, m0, M, K, warps, warp, lane);
+    consumer_sync(warps * 32);
+    const int sub = lane / LPR, ln = lane % LPR;
+    float g[MAXV][8], bt[MAXV][8];
+#pragma unroll
+    for (int i = 0; i < MAXV; ++i) {
+      const int k = (i * LPR + ln) * 8;
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        g[i][t] = k < K ? ld_ro(gamma + k + t) : 0.f, bt[i][t] = k < K ? ld_ro(beta + k + t) : 0.f;
+    }
+    for (int r0 = warp; r0 < R; r0 += warps * ROWS * kGroups) {
+      float v[ROWS][MAXV][8], s[ROWS], q[ROWS];
+      int row[ROWS];
+      bool live[ROWS];
+      // every load first, all independent: an address outside the rows or
+      // columns is moved into the panel and its values are not used
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j) {
+        row[j] = r0 + warps * (j * kGroups + sub);
+        live[j] = row[j] < R && m0 + row[j] < M;
+#pragma unroll
+        for (int i = 0; i < MAXV; ++i) {
+          const int k = (i * LPR + ln) * 8;
+          load8(swizzled(panel, R, live[j] ? row[j] : 0, k < K ? k : 0), v[j][i]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j) {
+        s[j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < MAXV; ++i) {
+          const int k = (i * LPR + ln) * 8;
+          if (k < K && live[j]) {
+            src.pre8(m0 + row[j], k, v[j][i]);
+            s[j] += sum8(v[j][i]);
+          }
+        }
+      }
+      warp_sum_n<LPR>(s);
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j) {
+        s[j] /= K;
+        q[j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < MAXV; ++i)
+          if ((i * LPR + ln) * 8 < K && live[j]) q[j] += sq_dev8(v[j][i], s[j]);
+      }
+      warp_sum_n<LPR>(q);
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j) {
+        const float rstd = rsqrtf(q[j] / K + kLnEps);
+#pragma unroll
+        for (int i = 0; i < MAXV; ++i) {
+          const int k = (i * LPR + ln) * 8;
+          if (k < K && live[j]) {
+            float o[8];
+#pragma unroll
+            for (int t = 0; t < 8; ++t) o[t] = (v[j][i][t] - s[j]) * rstd * g[i][t] + bt[i][t];
+            store8(swizzled(panel, R, row[j], k), o);
+          }
+        }
+      }
+    }
   }
 };
 
 // Mode (b) has no prologue.
 struct NoPanel {
-  __device__ void fill(bf16*, int, int, int, int, int, int) const {}
+  __device__ void fill(bf16*, int, int, int, int, int, int, int) const {}
 };
 
 struct Maps {
@@ -308,8 +467,9 @@ __global__ void __launch_bounds__(T::kThreads, T::MINB)
 hgemm_kernel(const __grid_constant__ Maps maps, const Pro pro, const Epi epi, const Shape sh) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[T::STAGES], empty[T::STAGES];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // aligned by an offset on smem_raw (not through an integer), so the
+  // compiler keeps the panel and the epilogue tiles in the shared space
+  unsigned char* base = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
   bf16* panel = reinterpret_cast<bf16*>(base);
   unsigned char* ring = base + T::panel_bytes(sh.K);
   float* epi_tile = reinterpret_cast<float*>(ring + T::ring_bytes());
@@ -354,10 +514,10 @@ hgemm_kernel(const __grid_constant__ Maps maps, const Pro pro, const Epi epi, co
   }
 
   if constexpr (T::kPanel) {
-    pro.fill(panel, T::BM, m0, sh.M, sh.K, warp, lane);
+    pro.fill(panel, T::BM, m0, sh.M, sh.K, T::kConsumers / 32, warp, lane);
     fence_proxy_async();
   }
-  consumer_sync();  // the panel is complete; the consumers run converged from here
+  consumer_sync(T::kConsumers);  // the panel is complete; the consumers run converged from here
   const int wg = warp >> 2;
   const int row0 = T::WGN == 1 ? wg * 64 : 0, col0 = T::WGN == 2 ? wg * T::NW : 0;
   float acc[T::NW / 2];
@@ -392,7 +552,7 @@ hgemm_kernel(const __grid_constant__ Maps maps, const Pro pro, const Epi epi, co
       constexpr int ld = T::BN + 4;
       static_assert(T::BM * ld * 4 <= T::STAGES * T::kStageBytes, "staging tile");
       float* stage = reinterpret_cast<float*>(ring);
-      consumer_sync();  // every warpgroup is done reading the ring
+      consumer_sync(T::kConsumers);  // every warpgroup is done reading the ring
       const int wr = row0 + (warp & 3) * 16 + (lane >> 2), wc = col0 + 2 * (lane & 3);
 #pragma unroll
       for (int j = 0; j < T::NW / 8; ++j)
@@ -400,9 +560,9 @@ hgemm_kernel(const __grid_constant__ Maps maps, const Pro pro, const Epi epi, co
         for (int i = 0; i < 2; ++i)
           *reinterpret_cast<float2*>(stage + (wr + 8 * i) * ld + wc + 8 * j) =
               make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
-      consumer_sync();
+      consumer_sync(T::kConsumers);
       epi.rows(stage, ld, m0, min(T::BM, sh.M - m0), warp, lane);
-      consumer_sync();
+      consumer_sync(T::kConsumers);
     } else {
       // per 32 columns: the warp's 16 x 32 accumulators into its tile, then
       // each lane takes two (row, 8 columns) pieces of it

@@ -3,9 +3,18 @@
 // patch_merge replaces diffusesg_tpu/ops/patch_resample.py::_merge_kernel
 // (entry fused_patch_merge): 2x2 space-to-depth with the h-offset fastest,
 // [x(0,0), x(1,0), x(0,1), x(1,1)], then LayerNorm(4C), then Linear 4C->2C
-// without bias.  Two launches: a row preparation that gathers the four
-// neighbours by index math and normalizes them (one warp per merged token,
-// written once in bf16), then the WMMA tile GEMM (common.cuh).
+// without bias.  One launch of the wgmma GEMM (hopper_gemm.cuh, mode (a)):
+// its prologue gathers each merged token's four neighbours by index math
+// straight into the block's swizzled A panel (cp.async, every load in
+// flight) and normalizes the rows in place with the row pass's arithmetic
+// (hg::LnPanel: fp32, two passes, one rounding to bf16), so the
+// gathered rows never reach device memory; the epilogue stores bf16.  The
+// panel holds all of K = 4C: 128 rows up to K = 384 (VG 64x64), 64 rows up
+// to 768 (VG 32x32, COCO 20x20, and COCO 40x40, where 128-row tiles would
+// split N), and at K = 1536 (VG 16x16) 64 rows in 192 KB with one consumer
+// warpgroup and a two-slot ring of W (hg::PanelDeep).  Where the row tiles
+// do not fill the card the wrapper splits N (merge_plan in
+// ops/patch_resample.py), each split redoing its rows' gather and LayerNorm.
 //
 // patch_breakup replaces diffusesg_tpu/ops/patch_resample.py::_breakup_kernel
 // (entry fused_patch_breakup): Linear Cin->4c, LayerNorm(4c), depth-to-space
@@ -33,18 +42,35 @@
 
 namespace dsg {
 
-// Row source for merged token m = (b, i, j) of the H/2 x W/2 grid, k in [0, 4C).
-struct MergeSrc {
+// Row source of patch_merge's panel: merged token m = (b, i, j) of the
+// H/2 x W/2 grid is four pieces of C, its neighbours q = 0..3 at (2i + q % 2,
+// 2j + q / 2); with t = m / (W/2) = b H/2 + i, neighbour q's pixel is
+// (2t + q % 2) W + 2j + q / 2 (H even), so a row costs one division.
+struct MergeRows {
+  static constexpr int kPieces = 4;
   const bf16* x;  // [B, H, W, C]
   int H, W, C;
-  __device__ void raw8(int m, int k, float v[8]) const {
-    const int wo2 = W / 2, ho2 = H / 2;
-    const int j = m % wo2, i = (m / wo2) % ho2, b = m / (wo2 * ho2);
-    const int q = k / C, ch = k % C;
-    const int ho = q & 1, wo = q >> 1;
-    load8(x + (((size_t)b * H + 2 * i + ho) * W + 2 * j + wo) * C + ch, v);
+  __device__ const bf16* piece(int m, int q) const {
+    const int t = m / (W / 2), j = m - t * (W / 2);
+    return x + ((size_t)(2 * t + (q & 1)) * W + 2 * j + (q >> 1)) * C;
   }
+  __device__ void pre8(int, int, float*) const {}
 };
+
+// The GEMM tile and prologue of patch_merge at width C (K = 4C): 128-row
+// panels up to K = 384 unless `wide` (the wrapper's plan, where 128-row
+// tiles would split N beyond the blocks an SM holds) asks for 64 rows, 64
+// rows up to K = 768, the one-warpgroup tile up to 1536; `f` gets a value of
+// the tile type and of the prologue's type.
+template <class F>
+int merge_tile(int C, int wide, F f) {
+  const int K = 4 * C;
+  if (C <= 0 || C % 8 || K > 1536) return -1;
+  if (K > 768) return f(hg::PanelDeep{}, hg::LnPanel<MergeRows, 6, 2, 32>{});
+  if (K > 384) return f(hg::PanelWide{}, hg::LnPanel<MergeRows, 3, 2, 32>{});
+  if (wide) return f(hg::PanelWide{}, hg::LnPanel<MergeRows, 3, 2, 16>{});
+  return f(hg::PanelTall{}, hg::LnPanel<MergeRows, 3, 2, 16>{});
+}
 
 // First-GEMM rows y (fp32, 4c wide; shared or device memory) of input
 // tokens m -> their four output tokens each: LN1 over the row, rounded to
@@ -172,18 +198,28 @@ inline bool breakup_fused(int dim) { return dim <= hg::StreamLine::BN; }
 using namespace dsg;
 
 extern "C" int dsg_patch_merge(const void* x, const void* ln_g, const void* ln_b, const void* w,
-                               void* a_buf, void* out, int B, int H, int W, int C, int c_out,
+                               void* out, int B, int H, int W, int C, int c_out, int wide, int per,
                                void* stream) {
-  if (H % 2 || W % 2 || C % 8) return -1;
+  if (H % 2 || W % 2) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * (H / 2) * (W / 2);
-  MergeSrc src{static_cast<const bf16*>(x), H, W, C};
-  cudaError_t err = launch_ln_rows(src, static_cast<const float*>(ln_g),
-                                   static_cast<const float*>(ln_b), static_cast<bf16*>(a_buf),
-                                   M, 4 * C, s);
-  if (err != cudaSuccess) return err;
-  StoreBf16 epi{static_cast<bf16*>(out), nullptr, c_out};
-  return launch_gemm<MergeProj>(rows(a_buf, 4 * C), epi, static_cast<const bf16*>(w), M, c_out, s);
+  return merge_tile(C, wide, [&](auto tile, auto pro) -> int {
+    using T = decltype(tile);
+    const decltype(pro) gather_ln{MergeRows{static_cast<const bf16*>(x), H, W, C},
+                                  static_cast<const float*>(ln_g), static_cast<const float*>(ln_b)};
+    const hg::Bf16Epi epi{{}, static_cast<bf16*>(out), nullptr, c_out};
+    return hg::launch<T, MergeProj>(rows(x, 4 * C), gather_ln, epi, static_cast<const bf16*>(w), M,
+                                    c_out, per, s);
+  });
+}
+
+// The GEMM tile of patch_merge at width C (64-row panels where K <= 384 if
+// `wide`), for the wrapper's plan: geom = {rows, columns, blocks an SM holds,
+// 0}; -1 for a C no tile covers, else 0 or a CUDA error.
+extern "C" int dsg_patch_merge_tile(int C, int wide, int* geom) {
+  return merge_tile(C, wide, [&](auto tile, auto pro) -> int {
+    return hg::tile_query<decltype(tile), MergeProj, decltype(pro), hg::Bf16Epi>(4 * C, geom);
+  });
 }
 
 extern "C" int dsg_patch_breakup(const void* x, const void* skip, int C1, int C2,
@@ -234,3 +270,4 @@ extern "C" int dsg_patch_breakup_tile(int cin, int dim, int which, int* geom) {
              ? hg::tile_query<hg::StreamLine, BreakupIn, hg::NoPanel, BreakupRowsEpi>(cin, geom)
              : hg::tile_query<hg::StreamRows, BreakupIn, hg::NoPanel, hg::F32Epi>(cin, geom);
 }
+

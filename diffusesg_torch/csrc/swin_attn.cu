@@ -7,11 +7,11 @@
 //   y   = a + proj(W-MSA(qkv(LN1(a))))                      (+ shift mask)
 //
 // Three launches on the caller's stream:
-//   1. the qkv GEMM on wgmma (hopper_gemm.cuh, mode (a)): its prologue reads
-//      x and scale_shift, forms a (rounded to bf16) and LN1(a) one warp per
-//      token with the row pass's two-pass statistics, straight into the
-//      block's swizzled A panel; the epilogue adds bqkv and stores bf16 qkv
-//      rows in raster order;
+//   1. the qkv GEMM on wgmma (hopper_gemm.cuh, mode (a)): its prologue
+//      (hg::LnPanel over AffineRows) reads x and scale_shift, forms a
+//      (rounded to bf16) and LN1(a) with the row pass's two-pass statistics,
+//      straight into the block's swizzled A panel; the epilogue adds bqkv
+//      and stores bf16 qkv rows in raster order;
 //   2. the window-attention core (window_attn_kernel, swin_window.cuh): a
 //      block per head, mask class and run of windows (windows per block from
 //      swin_block_v3.window_core_plan), the bias staged once in shared
@@ -42,89 +42,27 @@ using namespace dsg;
 
 namespace {
 
-// qkv prologue: panel row r = bf16(LN1(a)) of token m0 + r.  The raw x rows
-// come in first (all loads in flight), then each warp takes the noise affine
-// (rounded to bf16, as AffineSrc::raw8) and LayerNorm (two passes, as ln_row)
-// in place, ROWS rows per group of LPR lanes at once (LPR = 16 puts two rows
-// in a warp where a row has at most 16 vectors of 8), their loads and
-// reductions interleaved; gamma and beta of a lane's columns are loaded once.
-// K <= 8 LPR MAXV.
-template <int MAXV, int ROWS, int LPR>
-struct AffineLnPanel {
+// Row source of the qkv panel: the raw x rows of tokens m come in, and
+// `pre8` turns them into a = silu(shift + x * (scale + 1)) rounded to bf16,
+// as AffineSrc::raw8; hg::LnPanel then takes LN1 over them in place.
+struct AffineRows {
+  static constexpr int kPieces = 1;
   const bf16* x;
   const bf16* ss;  // [B, 2C]  scale | shift
-  const float* gamma;
-  const float* beta;
-  int HW;
-
-  __device__ void fill(bf16* panel, int R, int m0, int M, int K, int warp, int lane) const {
-    constexpr int kGroups = 32 / LPR;  // rows a warp instruction covers
-    hg::load_rows(panel, x, R, m0, M, K, warp * 32 + lane);
-    hg::consumer_sync();
-    const int sub = lane / LPR, ln = lane % LPR;
-    float g[MAXV][8], bt[MAXV][8];
+  int C, HW;
+  __device__ const bf16* piece(int m, int) const { return x + (size_t)m * C; }
+  __device__ void pre8(int m, int k, float v[8]) const {
+    float sc[8], sh[8];
+    const bf16* p = ss + (size_t)(m / HW) * 2 * C + k;
+    ld_ro8(p, sc);
+    ld_ro8(p + C, sh);
 #pragma unroll
-    for (int i = 0; i < MAXV; ++i) {
-      const int k = (i * LPR + ln) * 8;
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-        g[i][t] = k < K ? ld_ro(gamma + k + t) : 0.f, bt[i][t] = k < K ? ld_ro(beta + k + t) : 0.f;
-    }
-    for (int r0 = warp; r0 < R; r0 += 8 * ROWS * kGroups) {
-      float v[ROWS][MAXV][8], s[ROWS], q[ROWS];
-      bool live[ROWS];
-#pragma unroll
-      for (int j = 0; j < ROWS; ++j) {
-        const int r = r0 + 8 * (j * kGroups + sub), m = m0 + r;
-        live[j] = r < R && m < M;
-        s[j] = 0.f;
-#pragma unroll
-        for (int i = 0; i < MAXV; ++i) {
-          const int k = (i * LPR + ln) * 8;
-          if (k < K && live[j]) {
-            float xv[8], sc[8], sh[8];
-            const bf16* p = ss + (size_t)(m / HW) * 2 * K + k;
-            load8(hg::swizzled(panel, R, r, k), xv);
-            ld_ro8(p, sc);
-            ld_ro8(p + K, sh);
-#pragma unroll
-            for (int t = 0; t < 8; ++t) {
-              v[j][i][t] = noise_affine(xv[t], sc[t], sh[t]);
-              s[j] += v[j][i][t];
-            }
-          }
-        }
-      }
-      warp_sum_n<LPR>(s);
-#pragma unroll
-      for (int j = 0; j < ROWS; ++j) {
-        s[j] /= K;
-        q[j] = 0.f;
-#pragma unroll
-        for (int i = 0; i < MAXV; ++i)
-          if ((i * LPR + ln) * 8 < K && live[j])
-#pragma unroll
-            for (int t = 0; t < 8; ++t) q[j] += (v[j][i][t] - s[j]) * (v[j][i][t] - s[j]);
-      }
-      warp_sum_n<LPR>(q);
-#pragma unroll
-      for (int j = 0; j < ROWS; ++j) {
-        const int r = r0 + 8 * (j * kGroups + sub);
-        const float rstd = rsqrtf(q[j] / K + kLnEps);
-#pragma unroll
-        for (int i = 0; i < MAXV; ++i) {
-          const int k = (i * LPR + ln) * 8;
-          if (k < K && live[j]) {
-            float o[8];
-#pragma unroll
-            for (int t = 0; t < 8; ++t) o[t] = (v[j][i][t] - s[j]) * rstd * g[i][t] + bt[i][t];
-            store8(hg::swizzled(panel, R, r, k), o);
-          }
-        }
-      }
-    }
+    for (int t = 0; t < 8; ++t) v[t] = noise_affine(v[t], sc[t], sh[t]);
   }
 };
+
+template <int MAXV, int ROWS, int LPR>
+using AffineLnPanel = hg::LnPanel<AffineRows, MAXV, ROWS, LPR>;
 
 // proj epilogue: out = bf16(a + (acc + bproj)), a recomputed from x and
 // scale_shift (the plain version's one rounding of the residual sum)
@@ -179,8 +117,8 @@ extern "C" int dsg_swin_attn(const void* x, const void* ss, const void* ln_g, co
   const bf16* ssb = static_cast<const bf16*>(ss);
   return with_tile(C, wide, [&](auto tile, auto pro) -> int {
     using T = decltype(tile);
-    const decltype(pro) qkv_pro{xb, ssb, static_cast<const float*>(ln_g),
-                                static_cast<const float*>(ln_b), H * W};
+    const decltype(pro) qkv_pro{AffineRows{xb, ssb, C, H * W}, static_cast<const float*>(ln_g),
+                                static_cast<const float*>(ln_b)};
     const hg::Bf16Epi qkv_epi{{}, static_cast<bf16*>(qkv_buf), static_cast<const float*>(bqkv),
                               3 * C};
     cudaError_t err = hg::launch<T, SwinQkv>(rows(x, C), qkv_pro, qkv_epi,
@@ -224,3 +162,4 @@ extern "C" int dsg_swin_attn_core_per_sm(int L) {
   return L == 64 ? window_attn_blocks_per_sm<64, PackedWindows>()
                  : window_attn_blocks_per_sm<100, PackedWindows>();
 }
+

@@ -34,7 +34,7 @@ class DiffuseSG(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
                  mlp_ratio: float = 4.0, out_chans_adj: int = 1, out_chans_node: int = 1,
                  patch_norm: bool = True, self_condition: bool = False,
-                 symmetric_noise: bool = True, dtype=torch.float32):
+                 symmetric_noise: bool = True, dtype=torch.float32, use_kernels: bool = False):
         super().__init__()
         n_layers = len(depths)
         pres = img_size // patch_size
@@ -42,13 +42,16 @@ class DiffuseSG(nn.Module):
         self.out_chans_adj, self.out_chans_node = out_chans_adj, out_chans_node
         self.self_condition, self.symmetric_noise, self.dtype = (
             self_condition, symmetric_noise, dtype)
+        # the config's tpu.use_pallas_attention: every layer with a kernel
+        # runs it (on), or its plain version (off)
+        self.use_kernels = use_kernels
         in_ch = in_chans * 2 if self_condition else in_chans
 
         self.patch_embed = PatchEmbed(img_size, patch_size, in_ch, embed_dim, patch_norm, dtype)
         self.down_layers = nn.ModuleList([
             BasicLayer(int(embed_dim * 2 ** i), (pres // 2 ** i, pres // 2 ** i), depths[i],
                        num_heads[i], window_size, mlp_ratio, downsample=i < n_layers - 1,
-                       upsample=False, dtype=dtype)
+                       upsample=False, dtype=dtype, use_kernels=use_kernels)
             for i in range(n_layers)])
         up = []
         for i in range(n_layers):
@@ -56,7 +59,8 @@ class DiffuseSG(nn.Module):
             scale = 2 ** rest if i == 0 else 2 ** (rest + 1)
             up.append(BasicLayer(int(embed_dim * 2 ** rest), (pres // scale, pres // scale),
                                  depths[rest], num_heads[rest], window_size, mlp_ratio,
-                                 downsample=False, upsample=i > 0, dtype=dtype))
+                                 downsample=False, upsample=i > 0, dtype=dtype,
+                                 use_kernels=use_kernels))
         self.up_layers = nn.ModuleList(up)
 
         self.map_noise = PositionalEmbedding(embed_dim)
@@ -64,8 +68,8 @@ class DiffuseSG(nn.Module):
         self.map_layer1 = nn.Linear(NOISE_EMB_CHANNELS, NOISE_EMB_CHANNELS)
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.read_out = ReadOut(patch_size, embed_dim, dtype)
-        self.readout_adj_mlp = Mlp(embed_dim, embed_dim, out_chans_adj, dtype)
-        self.readout_node_mlp = Mlp(embed_dim, embed_dim, out_chans_node, dtype)
+        self.readout_adj_mlp = Mlp(embed_dim, embed_dim, out_chans_adj, dtype, use_kernels)
+        self.readout_node_mlp = Mlp(embed_dim, embed_dim, out_chans_node, dtype, use_kernels)
 
     def forward_features(self, x, emb):
         """U-Net core over [B, H, W, C_in] -> [B, H, W, D] in the compute dtype."""

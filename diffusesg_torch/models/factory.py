@@ -1,8 +1,12 @@
 """Model factory: config -> DiffuseSG module with a seeded init.
 
 Counterpart of diffusesg_tpu/models/factory.py.  The compute dtype comes
-from the config's ``tpu.compute_dtype`` (bf16 for the shipped configs),
-parameters stay fp32.
+from the config's ``tpu.compute_dtype`` (bf16 for the two full configs),
+parameters stay fp32; ``tpu.use_pallas_attention`` switches the hand-written
+kernels on (the two full configs) or leaves every layer on its plain version
+(``configs/vg_small_test.yaml``: float32, head_dim 16, which no kernel
+covers).  Without a ``tpu:`` block the model runs its plain versions in
+float32, as the JAX factory does.
 """
 from __future__ import annotations
 
@@ -19,11 +23,20 @@ FIXED_NUM_HEADS = (3, 6, 12, 24)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
+def _tpu(config):
+    return config.get("tpu", None) or {}
+
+
 def compute_dtype(config) -> torch.dtype:
-    name = str((config.get("tpu", None) or {}).get("compute_dtype", "float32"))
+    name = str(_tpu(config).get("compute_dtype", "float32"))
     if name not in _DTYPES:
         raise ValueError(f"unsupported compute_dtype {name!r}")
     return _DTYPES[name]
+
+
+def use_kernels(config) -> bool:
+    """The config's ``tpu.use_pallas_attention`` (false when missing)."""
+    return bool(_tpu(config).get("use_pallas_attention", False))
 
 
 def make_model(config) -> DiffuseSG:
@@ -46,6 +59,7 @@ def make_model(config) -> DiffuseSG:
         self_condition=config.train.self_cond,
         symmetric_noise=not config.flag_sg,
         dtype=compute_dtype(config),
+        use_kernels=use_kernels(config),
     )
 
 

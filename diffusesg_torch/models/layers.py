@@ -5,9 +5,14 @@ channels-last ([B, L, C] tokens over an H x W grid); module and parameter
 names follow the PyTorch reference's state dict (``attn.qkv``, ``norm1``,
 ``mlp.fc1``, ``affine``, ``upsample.pre_linear``, ...), so a reference
 checkpoint's tensors map one to one.  Parameters stay fp32 and are cast to
-the compute dtype at use; the Swin block, merge, breakup and readout go
-through the kernel wrappers of ``diffusesg_torch.ops`` (hand-written CUDA on
-the card, plain versions on the CPU).
+the compute dtype at use.  Every layer that has a kernel takes
+``use_kernels``, the config's ``tpu.use_pallas_attention`` as the JAX
+``use_pallas`` is, and decides in one place: on, the Swin block, window
+attention, merge, breakup and readout go through the kernel wrappers of
+``diffusesg_torch.ops`` (hand-written CUDA on the card, which raise by name
+on shapes or dtypes they do not cover; plain versions on the CPU); off, they
+run their plain versions on whatever device the tensors are on,
+differentiated by autograd, as the JAX package runs its XLA composition.
 """
 from __future__ import annotations
 
@@ -17,10 +22,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.mlp_block_kernel import LN_EPS, layer_norm
-from ..ops.patch_resample import patch_breakup, patch_merge
-from ..ops.readout_kernel import readout_mlp
-from ..ops.swin_block_v3 import fused_swin_block
-from ..ops.window_attention import fused_window_attention_qkhd
+from ..ops.patch_resample import (patch_breakup, patch_breakup_plain, patch_merge,
+                                  patch_merge_plain)
+from ..ops.readout_kernel import readout_mlp, readout_mlp_plain
+from ..ops.swin_block_v3 import fused_swin_block, swin_block_plain
+from ..ops.window_attention import attention_plain, fused_window_attention_qkhd
 
 NOISE_EMB_CHANNELS = 512
 
@@ -59,21 +65,22 @@ def shifted_window_attn_mask(h: int, w: int, window: int, shift: int) -> np.ndar
 
 class Mlp(nn.Module):
     """Two Linear layers ``fc1``/``fc2``; as a readout head its forward is
-    ``gelu(fc1(x))`` then ``fc2`` through the readout kernel, output in the
-    compute dtype.  A Swin block holds one as the container of its MLP
-    weights, as the reference does."""
+    ``gelu(fc1(x))`` then ``fc2`` through the readout kernel (or its plain
+    version), output in the compute dtype.  A Swin block holds one as the
+    container of its MLP weights, as the reference does."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_kernels: bool = False):
         super().__init__()
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
-        self.dtype = dtype
+        self.dtype, self.use_kernels = dtype, use_kernels
 
     def forward(self, x):
         c, dt = x.shape[-1], self.dtype
-        out = readout_mlp(x.reshape(-1, c).to(dt), self.fc1.weight.to(dt), self.fc1.bias,
-                          self.fc2.weight.to(dt), self.fc2.bias)
+        readout = readout_mlp if self.use_kernels else readout_mlp_plain
+        out = readout(x.reshape(-1, c).to(dt), self.fc1.weight.to(dt), self.fc1.bias,
+                      self.fc2.weight.to(dt), self.fc2.bias)
         return out.reshape(*x.shape[:-1], self.fc2.out_features).to(dt)
 
 
@@ -97,11 +104,14 @@ class WindowAttention(nn.Module):
     ``proj`` and the bias table.  Inside a Swin block the block's kernel
     computes it from these parameters; called on its own, ``forward`` takes
     [nWB, L = window^2, C] tokens and an optional additive mask [nW, L, L]
-    and runs the fused window-attention kernel between the two Linears."""
+    and runs the fused window-attention kernel (or its plain version) between
+    the two Linears."""
 
-    def __init__(self, dim: int, window: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, dim: int, window: int, num_heads: int, dtype=torch.float32,
+                 use_kernels: bool = False):
         super().__init__()
         self.dim, self.window, self.num_heads, self.dtype = dim, window, num_heads, dtype
+        self.use_kernels = use_kernels
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -123,18 +133,19 @@ class WindowAttention(nn.Module):
         q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
         if mask is not None:
             mask = torch.as_tensor(mask, dtype=torch.float32, device=x.device)
-        out = fused_window_attention_qkhd(q, k, v, self.rel_bias().float(), mask,
-                                          head_dim ** -0.5)
+        attend = fused_window_attention_qkhd if self.use_kernels else attention_plain
+        out = attend(q, k, v, self.rel_bias().float(), mask, head_dim ** -0.5)
         return dense(out.transpose(1, 2).reshape(nwb, L, c), self.proj, self.dtype)
 
 
 class SwinBlock(nn.Module):
     """One Swin block with noise conditioning (reference:
     diffusesg.py:158-277): attention half then MLP half, as ONE call of
-    ``ops.swin_block_v3.fused_swin_block``."""
+    ``ops.swin_block_v3.fused_swin_block`` (or of ``swin_block_plain``)."""
 
     def __init__(self, dim: int, input_resolution, num_heads: int, window_size: int,
-                 shift_size: int, mlp_ratio: float = 4.0, dtype=torch.float32):
+                 shift_size: int, mlp_ratio: float = 4.0, dtype=torch.float32,
+                 use_kernels: bool = False):
         super().__init__()
         h, w = input_resolution
         window, shift = window_size, shift_size
@@ -143,11 +154,12 @@ class SwinBlock(nn.Module):
             window, shift = min(h, w), 0
         self.input_resolution = (h, w)
         self.num_heads, self.window, self.shift, self.dtype = num_heads, window, shift, dtype
+        self.use_kernels = use_kernels
         self.affine = nn.Linear(NOISE_EMB_CHANNELS, 2 * dim)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = WindowAttention(dim, window, num_heads, dtype)
+        self.attn = WindowAttention(dim, window, num_heads, dtype, use_kernels)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, use_kernels)
         mask = (torch.from_numpy(shifted_window_attn_mask(h, w, window, shift))
                 if shift > 0 else None)
         self.register_buffer("attn_mask", mask, persistent=False)
@@ -158,7 +170,8 @@ class SwinBlock(nn.Module):
         dt = self.dtype
         scale_shift = dense(emb, self.affine, dt)
         a, m = self.attn, self.mlp
-        out = fused_swin_block(
+        block = fused_swin_block if self.use_kernels else swin_block_plain
+        out = block(
             x.reshape(b, h, w, c).to(dt), scale_shift, self.norm1.weight, self.norm1.bias,
             a.qkv.weight.to(dt), a.qkv.bias, a.proj.weight.to(dt), a.proj.bias,
             a.rel_bias(), self.attn_mask, self.norm2.weight, self.norm2.bias,
@@ -170,17 +183,20 @@ class SwinBlock(nn.Module):
 class PatchMerging(nn.Module):
     """2x downsample: 2x2 gather, LayerNorm(4C), Linear 4C -> 2C without bias."""
 
-    def __init__(self, input_resolution, dim: int, dtype=torch.float32):
+    def __init__(self, input_resolution, dim: int, dtype=torch.float32,
+                 use_kernels: bool = False):
         super().__init__()
         self.input_resolution, self.dtype = tuple(input_resolution), dtype
+        self.use_kernels = use_kernels
         self.norm = nn.LayerNorm(4 * dim, eps=LN_EPS)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x):
         h, w = self.input_resolution
         b, L, c = x.shape
-        out = patch_merge(x.reshape(b, h, w, c).to(self.dtype), self.norm.weight,
-                          self.norm.bias, self.reduction.weight.to(self.dtype))
+        merge = patch_merge if self.use_kernels else patch_merge_plain
+        out = merge(x.reshape(b, h, w, c).to(self.dtype), self.norm.weight, self.norm.bias,
+                    self.reduction.weight.to(self.dtype))
         return out.reshape(b, L // 4, -1)
 
 
@@ -188,9 +204,10 @@ class PatchBreakup(nn.Module):
     """2x upsample, the inverse of PatchMerging, fed [x | skip]."""
 
     def __init__(self, input_resolution, dim: int, skip_connection: bool = True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_kernels: bool = False):
         super().__init__()
         self.input_resolution, self.dtype = tuple(input_resolution), dtype
+        self.use_kernels = use_kernels
         dim_inner = dim if skip_connection else 2 * dim
         c_out = dim_inner // 4
         self.pre_linear = nn.Linear(dim, dim_inner, bias=False)
@@ -203,10 +220,11 @@ class PatchBreakup(nn.Module):
         b, L, _ = x.shape
         dt = self.dtype
         grid = lambda t: t.reshape(b, h, w, t.shape[-1]).to(dt)  # noqa: E731
-        out = patch_breakup(grid(x), None if skip is None else grid(skip),
-                            self.pre_linear.weight.to(dt), self.norm.weight, self.norm.bias,
-                            self.post_norm.weight, self.post_norm.bias,
-                            self.post_linear.weight.to(dt))
+        breakup = patch_breakup if self.use_kernels else patch_breakup_plain
+        out = breakup(grid(x), None if skip is None else grid(skip),
+                      self.pre_linear.weight.to(dt), self.norm.weight, self.norm.bias,
+                      self.post_norm.weight, self.post_norm.bias,
+                      self.post_linear.weight.to(dt))
         return out.reshape(b, 4 * L, -1)
 
 
@@ -215,19 +233,20 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim: int, input_resolution, depth: int, num_heads: int,
                  window_size: int, mlp_ratio: float = 4.0, downsample: bool = False,
-                 upsample: bool = False, dtype=torch.float32):
+                 upsample: bool = False, dtype=torch.float32, use_kernels: bool = False):
         super().__init__()
         res = tuple(input_resolution)
-        self.upsample = (PatchBreakup(res, dim * 4, skip_connection=True, dtype=dtype)
-                         if upsample else None)
+        self.upsample = (PatchBreakup(res, dim * 4, skip_connection=True, dtype=dtype,
+                                      use_kernels=use_kernels) if upsample else None)
         if upsample:
             res = (res[0] * 2, res[1] * 2)
         self.blocks = nn.ModuleList([
             SwinBlock(dim, res, num_heads, window_size,
                       shift_size=0 if i % 2 == 0 else window_size // 2,
-                      mlp_ratio=mlp_ratio, dtype=dtype)
+                      mlp_ratio=mlp_ratio, dtype=dtype, use_kernels=use_kernels)
             for i in range(depth)])
-        self.downsample = PatchMerging(res, dim, dtype=dtype) if downsample else None
+        self.downsample = (PatchMerging(res, dim, dtype=dtype, use_kernels=use_kernels)
+                           if downsample else None)
 
     def forward(self, x, emb, skip=None):
         if self.upsample is not None:

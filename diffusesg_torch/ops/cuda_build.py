@@ -13,7 +13,8 @@ adds one where it launches its kernel and nowhere else.
 Helpers of the wrappers live here too: ``split_count`` plans the grids of
 the backward kernels' reductions (the wrapper allocates their partials),
 ``wave_split`` the column splits of the forward kernels whose row tiles are
-too few to fill the card, ``sm_count`` and ``blocks_per_sm`` give the forward
+too few to fill the card (``gemm_plan`` and ``wide_panels`` apply it to the
+Hopper GEMM of csrc/hopper_gemm.cuh), ``sm_count`` and ``blocks_per_sm`` give the forward
 grid plans the card's SM count and a kernel's occupancy, ``tile_of`` reads a
 kernel's tile from the library, and ``plain_vjp`` is the backward of the
 kernels that differentiate their plain version.
@@ -46,8 +47,8 @@ _SIGNATURES = {
     "dsg_token_mlp": [_P] * 9 + [_I] * 5 + [_P],
     "dsg_swin_attn_bwd": [_P] * 30 + [_I] * 13 + [_P],
     "dsg_token_mlp_bwd": [_P] * 23 + [_I] * 7 + [_P],
-    "dsg_readout": [_P] * 7 + [_I] * 4 + [_P],
-    "dsg_patch_merge": [_P] * 6 + [_I] * 5 + [_P],
+    "dsg_readout": [_P] * 6 + [_I] * 5 + [_P],
+    "dsg_patch_merge": [_P] * 5 + [_I] * 7 + [_P],
     "dsg_patch_breakup": [_P, _P, _I, _I] + [_P] * 9 + [_I] * 6 + [_P],
     "dsg_window_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     "dsg_mm_accumulate": [_P] * 3 + [_I] * 6 + [_P],
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "dsg_token_mlp_tile": [_I, ctypes.POINTER(_I)],
     "dsg_swin_attn_gemm_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_patch_breakup_tile": [_I, _I, _I, ctypes.POINTER(_I)],
+    "dsg_patch_merge_tile": [_I, _I, ctypes.POINTER(_I)],
+    "dsg_readout_tile": [ctypes.POINTER(_I)],
     "dsg_swin_attn_core_per_sm": [_I],
     "dsg_window_attention_per_sm": [_I],
 }
@@ -103,6 +106,32 @@ def wave_split(row_tiles: int, col_tiles: int, per_sm: int, sms: int) -> tuple[i
     want = max(1, min(col_tiles, sms * per_sm // row_tiles))
     per = -(-col_tiles // want)
     return -(-col_tiles // per), per
+
+
+def gemm_plan(m: int, n: int, tile: tuple[int, ...], sms: int = 132) -> dict[str, int]:
+    """Grid plan of a Hopper GEMM (csrc/hopper_gemm.cuh) over ``m`` rows and
+    ``n`` output columns: a block owns ``tile[0]`` rows and walks ``tiles``
+    column tiles of ``tile[1]``; where the row tiles alone cannot fill one
+    wave of resident blocks (``sms`` x ``tile[2]``, the blocks an SM holds)
+    the columns are cut into ``splits`` (each split redoes its rows'
+    prologue).  ``tile`` is what the library reports for the launch
+    (``swin_block_v3.attn_gemm_tile``, ``patch_resample.merge_tile``,
+    ``patch_resample.breakup_tile``)."""
+    rows, cols, per_sm = tile[:3]
+    splits, per = wave_split(-(-m // rows), -(-n // cols), per_sm, sms)
+    return dict(splits=splits, tiles=per)
+
+
+def wide_panels(m: int, n: int, tile_for, sms: int = 132) -> bool:
+    """Whether a panel GEMM (mode (a) of csrc/hopper_gemm.cuh) over ``m``
+    rows and ``n`` columns takes 64-row panels: where the default tile's
+    (``tile_for(False)``) N splits outnumber the blocks an SM holds.  Every
+    split redoes its rows' prologue (a LayerNorm); up to that count
+    co-resident blocks overlap one another's prologue with their products,
+    beyond it the repeated prologue sets the pace, and halving the rows a
+    block normalizes halves it."""
+    tile = tile_for(False)
+    return gemm_plan(m, n, tile, sms)["splits"] > tile[2]
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,10 +3,13 @@
 Counterpart of diffusesg_tpu/ops/patch_resample.py.  On a CUDA tensor the
 forwards run as the hand-written kernels ``patch_merge`` and
 ``patch_breakup`` (csrc/patch_resample.cu); on a CPU tensor as the plain
-versions below.  Both are ``torch.autograd.Function``s that save their
-inputs; the backward recomputes the plain version and differentiates it, as
-the JAX ``custom_vjp`` differentiates its XLA composition (the TPU has no
-backward kernel for them either).  Channel orders match the reference: merge concatenates
+versions below.  The merge is one launch of the Hopper GEMM
+(csrc/hopper_gemm.cuh) whose prologue gathers and normalizes the rows in
+shared memory (C a multiple of 8, 4C up to 1536).  Both are
+``torch.autograd.Function``s that save their inputs; the backward recomputes
+the plain version and differentiates it, as the JAX ``custom_vjp``
+differentiates its XLA composition (the TPU has no backward kernel for them
+either).  Channel orders match the reference: merge concatenates
 [x(0,0), x(1,0), x(0,1), x(1,1)] (h-offset fastest), breakup maps chunk k
 to the offset (ho = k % 2, wo = k // 2).  Weights are in the PyTorch Linear
 layout ([out, in]).
@@ -24,7 +27,6 @@ import torch.nn.functional as F
 
 from . import cuda_build
 from .mlp_block_kernel import layer_norm
-from .swin_block_v3 import gemm_plan
 
 
 def patch_merge_plain(x, ln_g, ln_b, w):
@@ -36,25 +38,42 @@ def patch_merge_plain(x, ln_g, ln_b, w):
     return F.linear(x.float(), w.float()).to(w.dtype)
 
 
+def merge_tile(c: int, wide: bool = False) -> tuple[int, ...]:
+    """The tile of ``patch_merge``'s GEMM at width C (64-row panels where
+    4C <= 384 if ``wide``), from the library (csrc/patch_resample.cu
+    ``merge_tile``): rows, columns, blocks an SM holds, 0."""
+    return cuda_build.tile_of("dsg_patch_merge_tile", c, int(wide))
+
+
+def merge_plan(m: int, c: int, n: int, sms: int = 132) -> dict[str, int]:
+    """Grid plan of ``patch_merge`` over ``m`` merged tokens, width C and
+    ``n`` output columns: 64-row panels where ``wide_panels`` says so, and
+    ``gemm_plan``'s column split on the tile taken."""
+    wide = cuda_build.wide_panels(m, n, lambda w: merge_tile(c, w), sms)
+    plan = cuda_build.gemm_plan(m, n, merge_tile(c, wide), sms)
+    return dict(wide=int(wide), tiles=plan["tiles"])
+
+
 def patch_merge_fwd(x, ln_g, ln_b, w):
     """Forward alone: the kernel on CUDA tensors, the plain version on CPU."""
     if x.device.type == "cpu":
         return patch_merge_plain(x, ln_g, ln_b, w)
     b, h, ww, c = x.shape
     c_out = w.shape[0]
-    if h % 2 or ww % 2 or c % 8 or w.shape[1] != 4 * c:
+    if h % 2 or ww % 2 or c % 8 or 4 * c > 1536 or w.shape[1] != 4 * c or c_out % 8:
         raise ValueError(f"patch_merge shapes x{tuple(x.shape)} w{tuple(w.shape)} "
-                         "are not supported")
+                         "are not supported (an even grid, C a multiple of 8 up to 384, "
+                         "outputs a multiple of 8)")
     x = cuda_build.require(x, torch.bfloat16, "x")
     w = cuda_build.require(w, torch.bfloat16, "w")
     g = cuda_build.require(ln_g, torch.float32, "ln_g")
     bt = cuda_build.require(ln_b, torch.float32, "ln_b")
-    gathered = torch.empty((b * (h // 2) * (ww // 2), 4 * c), dtype=torch.bfloat16,
-                           device=x.device)
     out = torch.empty((b, h // 2, ww // 2, c_out), dtype=torch.bfloat16, device=x.device)
+    plan = merge_plan(b * (h // 2) * (ww // 2), c, c_out, cuda_build.sm_count(x.device))
     p = cuda_build.ptr
-    rc = cuda_build.lib().dsg_patch_merge(p(x), p(g), p(bt), p(w), p(gathered), p(out), b, h,
-                                          ww, c, c_out, cuda_build.stream_ptr(x.device))
+    rc = cuda_build.lib().dsg_patch_merge(p(x), p(g), p(bt), p(w), p(out), b, h, ww, c, c_out,
+                                          plan["wide"], plan["tiles"],
+                                          cuda_build.stream_ptr(x.device))
     cuda_build.check(rc, "patch_merge")
     cuda_build.count_launch("patch_merge", f"{h}x{ww}xC{c}")
     return out
@@ -125,8 +144,8 @@ def patch_breakup_fwd(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
     m = b * h * ww
     sms = cuda_build.sm_count(x.device)
     tile_in = breakup_tile(c1 + c2, dim, "in")
-    plan_in = gemm_plan(m, dim, tile_in, sms)
-    plan_out = gemm_plan(4 * m, c, breakup_tile(c1 + c2, dim, "out"), sms)
+    plan_in = cuda_build.gemm_plan(m, dim, tile_in, sms)
+    plan_out = cuda_build.gemm_plan(4 * m, c, breakup_tile(c1 + c2, dim, "out"), sms)
     y = None if tile_in[3] else torch.empty((m, dim), dtype=f32, device=x.device)
     scattered = torch.empty((4 * m, c), dtype=bf, device=x.device)
     out = torch.empty((b, 2 * h, 2 * ww, c), dtype=bf, device=x.device)

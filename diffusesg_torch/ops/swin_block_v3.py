@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .mlp_block_kernel import layer_norm, ln_stats, ln_vjp, token_mlp, up
+from .mlp_block_kernel import layer_norm, ln_stats, ln_vjp, mlp_block_plain, token_mlp, up
 
 NAME = "swin_attn"
 NAME_BWD = "swin_attn_bwd"
@@ -49,19 +49,6 @@ def window_core_plan(n_windows: int, num_heads: int, classes: int, per_sm: int,
     return -(-per_class // blocks)
 
 
-def gemm_plan(m: int, n: int, tile: tuple[int, ...], sms: int = 132) -> dict[str, int]:
-    """Grid plan of a Hopper GEMM (csrc/hopper_gemm.cuh) over ``m`` rows and
-    ``n`` output columns: a block owns ``tile[0]`` rows and walks ``tiles``
-    column tiles of ``tile[1]``; where the row tiles alone cannot fill one
-    wave of resident blocks (``sms`` x ``tile[2]``, the blocks an SM holds)
-    the columns are cut into ``splits`` (each split redoes its rows'
-    prologue).  ``tile`` is what the library reports for the launch
-    (``attn_gemm_tile``, ``patch_resample.breakup_tile``)."""
-    rows, cols, per_sm = tile[:3]
-    splits, per = cuda_build.wave_split(-(-m // rows), -(-n // cols), per_sm, sms)
-    return dict(splits=splits, tiles=per)
-
-
 def attn_gemm_tile(c: int, which: str, wide: bool = False) -> tuple[int, ...]:
     """The tile of ``swin_attn``'s qkv or proj GEMM at width C (64-row panels
     if ``wide``), from the library (csrc/swin_attn.cu ``with_tile``): rows,
@@ -72,17 +59,12 @@ def attn_gemm_tile(c: int, which: str, wide: bool = False) -> tuple[int, ...]:
 
 def attn_gemm_plan(m: int, c: int, sms: int = 132) -> dict[str, int]:
     """Grid plan of ``swin_attn``'s two GEMMs over ``m`` tokens at width C:
-    64-row panels (``wide``) where the default qkv tile's rows are so few
-    that its N splits outnumber the blocks an SM holds (every split redoes
-    its rows' LayerNorm prologue; up to that count co-resident blocks overlap
-    one another's prologue with their products, beyond it the repeated
-    prologue sets the pace, and halving the rows a block normalizes halves
-    it), and ``gemm_plan``'s column split of each GEMM on the tile taken."""
-    tile = attn_gemm_tile(c, "qkv")
-    wide = gemm_plan(m, 3 * c, tile, sms)["splits"] > tile[2]
+    64-row panels (``wide``) where ``wide_panels`` says so for the qkv GEMM,
+    and ``gemm_plan``'s column split of each GEMM on the tile taken."""
+    wide = cuda_build.wide_panels(m, 3 * c, lambda w: attn_gemm_tile(c, "qkv", w), sms)
     return dict(wide=int(wide),
-                qkv=gemm_plan(m, 3 * c, attn_gemm_tile(c, "qkv", wide), sms)["tiles"],
-                proj=gemm_plan(m, c, attn_gemm_tile(c, "proj", wide), sms)["tiles"])
+                qkv=cuda_build.gemm_plan(m, 3 * c, attn_gemm_tile(c, "qkv", wide), sms)["tiles"],
+                proj=cuda_build.gemm_plan(m, c, attn_gemm_tile(c, "proj", wide), sms)["tiles"])
 
 
 def _to_windows(t, window: int):
@@ -399,6 +381,17 @@ def swin_attn(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, rel_b
     ``swin_attn``, backward ``swin_attn_bwd``), the plain versions on CPU."""
     return _SwinAttn.apply(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj,
                            rel_bias, mask, num_heads, window, shift)
+
+
+def swin_block_plain(x, scale_shift, ln1_g, ln1_b, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                     ln2_g, ln2_b, w1, b1, w2, b2, num_heads: int, window: int,
+                     shift: int = 0):
+    """Whole block, plain: ``swin_attn_block_plain`` then ``mlp_block_plain``
+    (reference: swin_attn_block_xla and mlp_block_xla, the model's path with
+    its kernels switched off); differentiated by autograd."""
+    y = swin_attn_block_plain(x, scale_shift, ln1_g, ln1_b, wqkv, bqkv, wproj, bproj, rel_bias,
+                              mask, num_heads, window, shift)
+    return mlp_block_plain(y, ln2_g, ln2_b, w1, b1, w2, b2)
 
 
 def fused_swin_block(x, scale_shift, ln1_g, ln1_b, wqkv, bqkv, wproj, bproj, rel_bias, mask,

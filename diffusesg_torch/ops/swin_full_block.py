@@ -24,17 +24,9 @@ its launches are ``swin_attn``'s and ``token_mlp``'s.  On a CPU tensor it is
 from __future__ import annotations
 
 from . import swin_block_v3
-from .mlp_block_kernel import mlp_block_plain
-from .swin_block_v3 import swin_attn_block_plain
-
-
-def swin_block_plain(x, scale_shift, ln1_g, ln1_b, wqkv, bqkv, wproj, bproj, rel_bias, mask,
-                     ln2_g, ln2_b, w1, b1, w2, b2, num_heads: int, window: int):
-    """Attention half then MLP half on a pre-rolled x (reference:
-    swin_block_xla with the erf GELU)."""
-    y = swin_attn_block_plain(x, scale_shift, ln1_g, ln1_b, wqkv, bqkv, wproj, bproj, rel_bias,
-                              mask, num_heads, window)
-    return mlp_block_plain(y, ln2_g, ln2_b, w1, b1, w2, b2)
+# attention half then MLP half; on a pre-rolled x with the default shift 0
+# (reference: swin_block_xla with the erf GELU)
+from .swin_block_v3 import swin_block_plain  # noqa: F401
 
 
 def fused_swin_block(x, scale_shift, ln1_g, ln1_b, wqkv, bqkv, wproj, bproj, rel_bias, mask,

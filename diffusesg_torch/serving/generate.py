@@ -7,8 +7,10 @@ diffusesg_tpu/serving/export.py:
                                  bboxes[B, N, 4])
 
 ``generate`` takes a plain list of requests (nodes per graph) and returns
-the decoded graphs; padded slots decode to zeros.  The AOT export and the
-HTTP server wait for the serving slice.
+the decoded graphs; padded slots decode to zeros.  The model runs its
+kernels or its plain versions as its config's ``tpu.use_pallas_attention``
+chose (``models.make_model``).  The AOT export and the HTTP server wait for
+the serving slice.
 """
 from __future__ import annotations
 

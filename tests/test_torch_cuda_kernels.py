@@ -99,11 +99,25 @@ def test_token_mlp_kernel(cuda, c, m, split):
     _bit_equal_again(mk.token_mlp, *args)
 
 
-def test_patch_merge_kernel(cuda):
-    torch.manual_seed(1)
-    c = 48
-    _check("patch_merge", pr.patch_merge, pr.patch_merge_plain, _rnd(cuda, 2, 16, 16, c),
-           _vec(cuda, 4 * c, 1.0), _vec(cuda, 4 * c), _lin(cuda, 2 * c, 4 * c))
+# patch_merge at a small width and at every VG and COCO stage it runs (batch
+# 16: 64x64 C96, 32x32 C192, 16x16 C384 -> K = 1536, 40x40 C96, 20x20 C192),
+# and at ragged row counts (not a multiple of the 64- or 128-row tile): one
+# launch of the Hopper GEMM with the gather and LayerNorm in its prologue;
+# 128-row panels at VG 64x64, 64-row panels where they would split N (COCO
+# 40x40) or where K > 384, the one-warpgroup tile at K = 1536
+@pytest.mark.parametrize("hw,c,b,rows", [(16, 48, 2, 128), (64, 96, 16, 128), (32, 192, 16, 64),
+                                         (16, 384, 16, 64), (40, 96, 16, 64), (20, 192, 16, 64),
+                                         (62, 96, 9, 128), (10, 96, 3, 64), (6, 384, 3, 64),
+                                         (20, 192, 1, 64)])
+def test_patch_merge_kernel(cuda, hw, c, b, rows):
+    torch.manual_seed(hw + c + b)
+    m = b * (hw // 2) ** 2
+    plan = pr.merge_plan(m, c, 2 * c, cuda_build.sm_count(cuda))
+    assert pr.merge_tile(c, bool(plan["wide"]))[0] == rows, plan
+    args = (_rnd(cuda, b, hw, hw, c), _vec(cuda, 4 * c, 1.0), _vec(cuda, 4 * c),
+            _lin(cuda, 2 * c, 4 * c))
+    _check("patch_merge", pr.patch_merge, pr.patch_merge_plain, *args)
+    _bit_equal_again(pr.patch_merge, *args)
 
 
 # patch_breakup at a small width and at the five stages of both models, with
@@ -126,11 +140,46 @@ def test_patch_breakup_kernel(cuda, hw, cin, cout, fused, with_skip):
     _bit_equal_again(pr.patch_breakup, *args)
 
 
-@pytest.mark.parametrize("n_out", [1, 5, 16])
-def test_readout_kernel(cuda, n_out):
-    torch.manual_seed(n_out)
-    _check("readout", rk.readout_mlp, rk.readout_mlp_plain, _rnd(cuda, 300, 96),
-           _lin(cuda, 96, 96), _vec(cuda, 96), _lin(cuda, n_out, 96), _vec(cuda, n_out))
+# readout at the model's row counts (batch 16: the VG and COCO adjacency
+# heads over B N N tokens, the node heads over B N) and ragged ones (300 rows:
+# tiles split unevenly across the persistent grid's warpgroups; 1 row)
+@pytest.mark.parametrize("m,n_out", [(16 * 64 * 64, 1), (16 * 64, 5), (16 * 40 * 40, 1),
+                                     (16 * 40, 5), (300, 1), (300, 5), (300, 16), (1, 16)])
+def test_readout_kernel(cuda, m, n_out):
+    torch.manual_seed(n_out + m)
+    args = (_rnd(cuda, m, 96), _lin(cuda, 96, 96), _vec(cuda, 96), _lin(cuda, n_out, 96),
+            _vec(cuda, n_out))
+    _check("readout", rk.readout_mlp, rk.readout_mlp_plain, *args)
+    _bit_equal_again(rk.readout_mlp, *args)
+
+
+def test_small_config_runs_its_plain_versions_on_the_card(cuda):
+    """configs/vg_small_test.yaml switches the kernels off (float32, head_dim
+    16): its denoiser runs the plain versions on the card, launches no
+    kernel, and agrees with the same model on the CPU."""
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.models import make_model
+    cfg = load_config("configs/vg_small_test.yaml")
+    ref = make_model(cfg).eval()
+    torch.manual_seed(0)
+    for p in ref.parameters():
+        torch.nn.init.normal_(p, std=0.15)
+    model = make_model(cfg).eval().to(cuda)
+    model.load_state_dict(ref.state_dict())
+    n = cfg.dataset.max_node_num
+    flags = torch.ones(2, n, dtype=torch.bool)
+    flags[1, 7:] = False
+    x = (torch.randn(2, n, n), torch.randn(2, n, 5), flags, torch.tensor([0.1, -0.3]),
+         torch.randn(2, n, n), torch.randn(2, n, 5))
+    before = dict(cuda_build.LAUNCHES)
+    with torch.no_grad():
+        got = model(*(t.to(cuda) for t in x))
+        want = ref(*x)
+    torch.cuda.synchronize()
+    assert dict(cuda_build.LAUNCHES) == before
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert float((g.cpu() - w).norm() / w.norm()) < 1e-4
 
 
 # The backward kernels' outputs are gradients: sums over tokens whose scale
@@ -185,7 +234,7 @@ def test_backward_through_a_two_stage_model_runs_the_backward_kernels(cuda):
     ref = DiffuseSG(dtype=torch.float32, **kw)
     for p in ref.parameters():
         torch.nn.init.normal_(p, std=0.1)
-    model = DiffuseSG(dtype=torch.bfloat16, **kw).to(cuda)
+    model = DiffuseSG(dtype=torch.bfloat16, use_kernels=True, **kw).to(cuda)
     model.load_state_dict(ref.state_dict())
     adj, node = torch.randn(2, 16, 16), torch.randn(2, 16, 5)
     flags = torch.ones(2, 16, dtype=torch.bool)

@@ -3,9 +3,11 @@
 ``window_core_plan`` (ops/swin_block_v3.py) gives the windows per block of
 ``window_attn_kernel`` (csrc/swin_window.cuh); ``mlp_fwd_plan``
 (ops/mlp_block_kernel.py) the hidden split of ``token_mlp_kernel``
-(csrc/token_mlp.cu); ``gemm_plan`` (ops/swin_block_v3.py) the column split of
-the Hopper GEMM (csrc/hopper_gemm.cuh) that runs swin_attn's qkv and proj and
-patch_breakup's two products.  The partitions below repeat the kernels' index
+(csrc/token_mlp.cu); ``gemm_plan`` (ops/cuda_build.py) the column split of
+the Hopper GEMM (csrc/hopper_gemm.cuh) that runs swin_attn's qkv and proj,
+patch_merge's product and patch_breakup's two products; ``readout_plan``
+(ops/readout_kernel.py) the persistent grid of ``readout_kernel``
+(csrc/readout.cu).  The partitions below repeat the kernels' index
 math: every window, hidden chunk and column tile must be covered exactly once
 by a block that has work, and the grid must aim at one wave of resident
 blocks.  On the card the wrappers read the blocks an SM holds, and the tiles,
@@ -16,9 +18,11 @@ import pytest
 
 from diffusesg_torch.ops import cuda_build
 from diffusesg_torch.ops import patch_resample as pr
+from diffusesg_torch.ops import readout_kernel as rk
 from diffusesg_torch.ops import swin_block_v3 as sw
 from diffusesg_torch.ops.mlp_block_kernel import mlp_fwd_plan
-from diffusesg_torch.ops.swin_block_v3 import gemm_plan, window_core_plan
+from diffusesg_torch.ops.cuda_build import gemm_plan
+from diffusesg_torch.ops.swin_block_v3 import window_core_plan
 
 H100_SMS = 132
 # blocks of the window core an SM holds on the H100, by window length
@@ -150,8 +154,22 @@ def _breakup_tile(cin, dim, which):
     return (64, 384, 1, 1) if dim <= 384 else (128, 96, 2, 0)
 
 
+def _merge_tile(c, wide=0):
+    """The same for patch_merge (K = 4C): 128-row panels up to K = 384 unless
+    asked for 64, 64-row panels up to 768, the one-warpgroup 64 x 96 tile up
+    to 1536; one block an SM (the panel takes most of the shared memory)."""
+    if 4 * c > 768:
+        return (64, 96, 1, 0)
+    if 4 * c > 384 or wide:
+        return (64, 192, 1, 0)
+    return (128, 96, 1, 0)
+
+
+READOUT_TILE = (64, 2, 2, 0)  # rows a tile, warpgroups a block, blocks an SM
+
+
 class _StubLib:
-    """The library's two GEMM tile queries, answering as the H100 build."""
+    """The library's tile queries, answering as the H100 build."""
 
     def __init__(self):
         self.calls = []
@@ -169,6 +187,14 @@ class _StubLib:
         self.calls.append(("breakup", cin, dim, which))
         return self._fill(geom, _breakup_tile(cin, dim, which))
 
+    def dsg_patch_merge_tile(self, c, wide, geom):
+        self.calls.append(("merge", c, wide))
+        return self._fill(geom, _merge_tile(c, wide))
+
+    def dsg_readout_tile(self, geom):
+        self.calls.append(("readout",))
+        return self._fill(geom, READOUT_TILE)
+
 
 @pytest.fixture
 def stub_lib(monkeypatch):
@@ -181,6 +207,7 @@ def stub_lib(monkeypatch):
 
 ATTN_STAGES = [(64, 96), (32, 192), (16, 384), (8, 768), (40, 96), (20, 192), (10, 384)]
 BREAKUP_STAGES = [(8, 1536, 1536), (16, 768, 768), (32, 384, 384), (10, 768, 768), (20, 384, 384)]
+MERGE_STAGES = [(64, 96), (32, 192), (16, 384), (40, 96), (20, 192)]
 
 
 def _gemms(b):
@@ -196,6 +223,9 @@ def _gemms(b):
         m = b * hw * hw
         out += [(m, dim, pr.breakup_tile(cin, dim, "in")),
                 (4 * m, dim // 4, pr.breakup_tile(cin, dim, "out"))]
+    for hw, c in MERGE_STAGES:
+        m = b * (hw // 2) ** 2
+        out.append((m, 2 * c, pr.merge_tile(c, bool(pr.merge_plan(m, c, 2 * c, H100_SMS)["wide"]))))
     return out
 
 
@@ -265,3 +295,44 @@ def test_gemm_plan_splits_where_the_rows_do_not_fill_the_card(stub_lib):
     assert splits(16 * 4096, 3 * 96, sw.attn_gemm_tile(96, "qkv")) == 1
     assert splits(16 * 1024, 384, pr.breakup_tile(384, 384, "in")) == 1
     assert splits(16 * 64, 1536, pr.breakup_tile(1536, 1536, "in")) > 1
+
+
+# (grid, C, batch, 64-row tiles) of patch_merge: the 128-row panel at K = 384
+# where its row tiles fill the card (VG 64x64), 64 rows where it would split N
+# beyond the blocks an SM holds (COCO 40x40, few rows), and always above K = 384
+@pytest.mark.parametrize("hw,c,b,wide", [(64, 96, 16, False), (64, 96, 64, False),
+                                         (40, 96, 16, True), (40, 96, 64, False),
+                                         (40, 96, 1, True), (16, 48, 2, False)])
+def test_merge_plan_takes_64_row_panels_where_rows_are_few(stub_lib, hw, c, b, wide):
+    m = b * (hw // 2) ** 2
+    plan = pr.merge_plan(m, c, 2 * c, H100_SMS)
+    assert bool(plan["wide"]) == wide
+    assert plan["tiles"] == gemm_plan(m, 2 * c, pr.merge_tile(c, wide), H100_SMS)["tiles"]
+    assert pr.merge_tile(c, wide)[0] == (64 if wide else 128)
+
+
+def test_merge_tiles_come_from_the_library(stub_lib):
+    assert pr.merge_tile(384) == (64, 96, 1, 0)
+    assert pr.merge_tile(192) == (64, 192, 1, 0)
+    assert pr.merge_tile(96, True) == (64, 192, 1, 0)
+    assert stub_lib.calls == [("merge", 384, 0), ("merge", 192, 0), ("merge", 96, 1)]
+
+
+# the readout heads of one VG and one COCO eval at batch 1, 16 and 64, and
+# ragged row counts
+@pytest.mark.parametrize("m", [1, 64, 65, 300, 16 * 64, 16 * 40, 16 * 4096, 16 * 1600,
+                               64 * 4096, 64 * 1600])
+def test_readout_plan_covers_every_tile_once(stub_lib, m):
+    tile = rk.readout_tile()
+    rows, groups, per_sm = tile[:3]
+    blocks = rk.readout_plan(m, tile, H100_SMS)
+    # readout_kernel: warpgroup g of block x is worker w = x groups + g of W =
+    # blocks groups and walks tiles w, w + W, ...
+    workers = blocks * groups
+    tiles = -(-m // rows)
+    walked = [t for w in range(workers) for t in range(w, tiles, workers)]
+    assert sorted(walked) == list(range(tiles))
+    assert blocks <= H100_SMS * per_sm  # one wave of resident blocks at most ...
+    assert all(range(x * groups, tiles, workers) for x in range(blocks)), "a block without work"
+    if tiles >= H100_SMS * per_sm * groups:
+        assert blocks == H100_SMS * per_sm  # ... and all of it where the tiles fill it

@@ -95,7 +95,9 @@ def test_token_mlp_matches_jax(c):
     assert torch.equal(port, mlp_block_plain(_t(x), *args))
 
 
-@pytest.mark.parametrize("h,c", [(16, 24), (8, 48)])
+# small widths, then every C of the model's merges at small grids: K = 4C of
+# 384, 768 and 1536
+@pytest.mark.parametrize("h,c", [(16, 24), (8, 48), (8, 96), (4, 192), (4, 384)])
 def test_patch_merge_matches_jax(h, c):
     rng = np.random.default_rng(h * c)
     x = rng.standard_normal((2, h, h, c)).astype(np.float32)
@@ -126,7 +128,7 @@ def test_patch_breakup_matches_jax(h, c_out, with_skip):
     _close(port, ref)
 
 
-@pytest.mark.parametrize("n_out", [1, 5])
+@pytest.mark.parametrize("n_out", [1, 5, 16])
 def test_readout_matches_jax(n_out):
     rng = np.random.default_rng(n_out)
     c = 24
