@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # every phase, as a CI check
     python3 chip_smoke.py --no-slice # build + kernels vs plain only
-    python3 chip_smoke.py --no-train # phases 1-3, 5 and 7 only
+    python3 chip_smoke.py --no-train # phases 1-3, 5, 7 and 8 (from a seeded checkpoint)
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit), the kernels' nvcc build, and
@@ -56,8 +56,23 @@ Phases, each printed on its own line:
      off (float32, head_dim 16, which no kernel covers): its denoiser on the
      card against the same fp32 plain model on the CPU (relative L2 1e-4),
      then two training steps through ``cli.train`` with its default device;
-     no kernel may launch.
-Launch counts are set to 0 before each of phases 3-7 and read after it.
+     no kernel may launch;
+  8. the eval slice on the full-width VG model (kernels on, bf16; 16 Heun
+     steps, an eval set of 64 synthetic graphs at batch 64): ``go_training``
+     with the sampler for epochs 0 and 1 (epoch 0's sanity check reads every
+     MMD 0.0; the training state bit-equal around each pass; under
+     ``--no-train`` a checkpoint of the seeded model instead), then
+     ``cli.eval`` on the checkpoint with its default device, plain and with
+     ``--inpaint_frac 0.5``: every metric of the JAX package's block present
+     and finite, the artifacts written, the known entries of the inpainted
+     graphs equal to the ground truth's decode, the native VOC F1 built and
+     equal to numpy, every forward kernel launched; the first denoised output
+     of the inpainted sample, and the network's output inside it, against
+     the fp32 plain model on the card (relative L2 5e-2), the final samples'
+     distance as a reading; seconds of
+     sampling + decode and of metrics + artifacts, graphs/s, peak memory and
+     whether plots were written (the card's machine has no matplotlib).
+Launch counts are set to 0 before each of phases 3-8 and read after it.
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Exits non-zero without a result when no CUDA device is present.
@@ -1232,6 +1247,318 @@ def check_small_config(dev) -> None:
         fail(f"{SMALL_CFG} switches the kernels off, yet {launches} launched")
 
 
+# ------------------------------------------------------------------ phase 8
+
+EVAL_GRAPHS = 64
+EVAL_STEPS = 16
+FORWARD_KERNELS = ("swin_attn", "token_mlp", "patch_merge", "patch_breakup", "readout")
+MMD_KEYS = ("node_degree_mmd_gaussian", "node_average_mmd_gaussian", "node_type_mmd_gaussian",
+            "edge_type_mmd_gaussian")
+# the JAX package's metric block (diffusesg_tpu/sampling/orchestrator.py:433-505)
+METRIC_KEYS = (
+    ["gen_data_size", "test_data_size", *MMD_KEYS]
+    + [f"triplet_{m}_{t}" for t in ("val", "train")
+       for m in ("tv_dist_rej", "tv_dist_all", "tv_dist_full", "novelty")]
+    + [f"{p}_{m}_blt" for p in ("pred", "gt") for m in ("iou", "iou_percp", "overlap", "alignment")]
+    + [f"{w}_f1_avg_{s}" for w in ("vanilla", "area", "freq", "no_node_type")
+       for s in ("max", "mean", "median")])
+# one denoiser eval, bf16 kernels vs the fp32 plain model (phase 3's bar)
+EVAL_REL_L2 = 5e-2
+# the native VOC F1 against its numpy version (tests/test_eval.py)
+F1_TOL = 1e-12
+
+
+def _eval_config(exp_dir):
+    """The full-width VG config (kernels on, bf16) at PERF.md section 4's cuts:
+    16 Heun steps, synthetic data, an eval set of 64 graphs at test batch 64,
+    two epochs of one training step, sampling and a checkpoint every epoch."""
+    from diffusesg_torch.config import load_config
+    cfg = load_config(VG["config"])
+    with cfg.unlocked():
+        cfg.seed = 0
+        cfg.exp_dir = exp_dir
+        cfg.mcmc.num_steps = EVAL_STEPS
+        cfg.train.batch_size = TRAIN_BATCH
+        cfg.test.batch_size = EVAL_GRAPHS
+        cfg.test.eval_size = EVAL_GRAPHS
+        cfg.train.max_epoch = 2
+        cfg.train.sample_interval = 1
+        cfg.train.save_interval = 1
+        cfg.dataset.synthetic_num_train = TRAIN_BATCH
+        cfg.dataset.synthetic_num_test = EVAL_GRAPHS
+    return cfg
+
+
+def _in_training_sampling(cfg, dev, bundle):
+    """``go_training`` with ``get_mc_sampler(cfg)`` for epochs 0 and 1: the
+    largest-beta EMA samples the eval set after each epoch, the model's
+    parameters, Adam's state and the training noise stream bit-equal around
+    each pass, and epoch 0's sanity-check row reads every MMD 0.0."""
+    import csv
+
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.sampling.edm_sampler import TorchNoise
+    from diffusesg_torch.train import (create_train_state, go_training, make_eval_step,
+                                       make_optimizer, make_train_step, train_step_config_from)
+    from diffusesg_torch.train import trainer
+
+    model = build_model(cfg, device=dev, seed=0)
+    state = create_train_state(model, list(cfg.train.ema_coef),
+                               make_optimizer(cfg.train.lr_init, cfg.train.lr_dacey, 1,
+                                              cfg.train.weight_decay))
+    noise = TorchNoise(0, dev)
+
+    def snapshot():
+        return ([p.detach().clone() for p in state.params()],
+                [t.clone() for st in state.opt.state.values() for t in st.values()],
+                noise.gen.get_state(), noise.host_gen.get_state(), state.step)
+
+    real, passes = trainer.sg_go_sampling, []
+
+    def watched(model_, params, *args, **kw):
+        before = snapshot()
+        out = real(model_, params, *args, **kw)
+        torch.cuda.synchronize()
+        after = snapshot()
+        same = (all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
+                and 0 < len(before[1]) == len(after[1])
+                and all(torch.equal(a, b) for a, b in zip(before[1], after[1]))
+                and all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(before[2:4], after[2:4]))
+                and before[4] == after[4])
+        passes.append((kw["epoch"], kw["sanity_check"], same, out["_seconds"]))
+        return out
+
+    step_cfg = train_step_config_from(cfg)
+    trainer.sg_go_sampling = watched
+    t0 = time.perf_counter()
+    try:
+        go_training(model, state, make_train_step(model, step_cfg), make_eval_step(model, step_cfg),
+                    cfg, bundle, mc_sampler=get_mc_sampler(cfg), noise=noise)
+    finally:
+        trainer.sg_go_sampling = real
+    torch.cuda.synchronize()
+    with open(os.path.join(cfg.logdir, "eval_results.csv"), newline="") as f:
+        rows = list(csv.DictReader(f))
+    log(f"eval: go_training with the sampler, {state.step} steps at batch {TRAIN_BATCH} and "
+        f"{len(passes)} sampling passes of {EVAL_GRAPHS} graphs in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        "per pass (epoch, sanity check, training state bit-equal, seconds): "
+        + "; ".join(f"({e}, {sc}, {same}, {sec['sampling_decode']:.2f} + "
+                    f"{sec['metrics_artifacts']:.2f})" for e, sc, same, sec in passes)
+        + f"; epoch-0 MMDs {[float(rows[0][k]) for k in MMD_KEYS] if rows else None}")
+    if [(e, sc, same) for e, sc, same, _ in passes] != [(0, True, True), (1, False, True)]:
+        fail(f"in-training sampling passes {passes}: expected epochs 0 (sanity check) and 1, "
+             "each leaving the training state bit-equal")
+    if [r["model_nm"] for r in rows] != ["training_e00000", "training_e00001"] or \
+            any(float(rows[0][k]) != 0.0 for k in MMD_KEYS):
+        fail("epoch 0's sanity-check row must read every MMD 0.0")
+
+
+def _run_dirs(root):
+    import glob
+    return {r.rsplit("_", 1)[1]: r for r in glob.glob(os.path.join(root, "*", "*"))}
+
+
+def check_eval_slice(dev, smi: str, run_training: bool = True) -> dict:
+    """Phase 8, the eval slice on the card; returns its launch counts."""
+    import glob
+
+    import numpy as np
+
+    from diffusesg_torch.cli import eval as eval_cli
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.data import load_data
+    from diffusesg_torch.data.loader import split_eval_set
+    from diffusesg_torch.eval import compute_bbox_f1
+    from diffusesg_torch.eval.native import compute_bbox_f1_native, get_lib
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.models.precond import precond_forward
+    from diffusesg_torch.ops import cuda_build
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.sampling.decode import decode_samples
+    from diffusesg_torch.sampling.edm_sampler import TorchNoise
+    from diffusesg_torch.sampling.orchestrator import inpaint_masks, xyxy_in_unit
+    from diffusesg_torch.train import create_train_state, make_optimizer
+    from diffusesg_torch.utils.checkpoint import load_weights, read_checkpoint, save_checkpoint
+    from diffusesg_torch.utils.logging_utils import set_seed_and_logger
+
+    exp_dir = os.path.join("build", "smoke_runs", "eval")
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    cfg = _eval_config(exp_dir)
+    set_seed_and_logger(cfg, mode="train", comment="smoke", log_level="WARNING")
+    t0 = time.perf_counter()
+    bundle = load_data(cfg, data_root="/nonexistent")
+    log(f"eval: {len(bundle.train)} + {len(bundle.test)} synthetic scene graphs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cuda_build.reset_launches()
+    if run_training:
+        _in_training_sampling(cfg, dev, bundle)
+        epoch = 1
+    else:  # a checkpoint of the seeded model
+        state = create_train_state(build_model(cfg, device=dev, seed=0), list(cfg.train.ema_coef),
+                                   make_optimizer(cfg.train.lr_init, cfg.train.lr_dacey, 1))
+        save_checkpoint(os.path.join(cfg.model_ckpt_dir, "00000"), state, {"epoch": 0})
+        epoch = 0
+    ckpt = os.path.join(cfg.model_ckpt_dir, f"{epoch:05d}.pt")
+    beta = max(cfg.train.ema_coef)
+
+    # cli.eval on that checkpoint, default device: plain, then inpainted
+    eval_root = os.path.join(exp_dir, "cli")
+    args = ["-p", cfg.logdir, "--specify_epoch", str(epoch), "--use_ema", str(beta),
+            "--data_root", "/nonexistent", "-l", "WARNING", "-o", f"exp_dir={eval_root}"]
+    torch.cuda.reset_peak_memory_stats()
+    results = {}
+    for tag, extra in (("plain", []), ("inpaint", ["--inpaint_frac", "0.5"])):
+        t0 = time.perf_counter()
+        (results[tag],) = eval_cli.main(args + ["-m", tag] + extra)
+        torch.cuda.synchronize()
+        results[tag]["_wall"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(cuda_build.LAUNCHES)
+    by_kernel = cuda_build.launches_by_kernel()
+    log(f"eval: launches of phase 8 (go_training with the sampler and both cli.eval runs) "
+        f"{json.dumps(by_kernel, sort_keys=True)}")
+    for name in FORWARD_KERNELS:
+        if by_kernel.get(name, 0) == 0:
+            fail(f"the eval slice never launched {name}")
+
+    runs = _run_dirs(eval_root)
+    outs = {}
+    for tag, metrics in results.items():
+        keys = [k for k in metrics if not k.startswith("_")]
+        bad = [k for k in METRIC_KEYS if not (k in metrics and np.isfinite(metrics[k]))]
+        if keys != METRIC_KEYS or bad:
+            fail(f"cli.eval {tag}: metric keys {keys}; missing or not finite: {bad}")
+        (outs[tag],) = glob.glob(os.path.join(runs[tag], "sampling_during_evaluation", "*"))
+        for name in ("final_samples_array.npz", "gen_scene_graph.txt"):
+            if not os.path.exists(os.path.join(outs[tag], name)):
+                fail(f"cli.eval {tag} wrote no {name}")
+        if not os.path.exists(os.path.join(runs[tag], "eval_results.csv")):
+            fail(f"cli.eval {tag} wrote no eval_results.csv")
+        sec = metrics["_seconds"]
+        plots = sorted(os.path.basename(p) for p in glob.glob(os.path.join(outs[tag], "*.png")))
+        log(f"eval: cli.eval {tag}: one sg_go_sampling over {EVAL_GRAPHS} graphs at "
+            f"{EVAL_STEPS} Heun steps, {sec['sampling_decode']:.3f} s sampling + decode, "
+            f"{sec['metrics_artifacts']:.3f} s metrics + artifacts "
+            f"({metrics['_wall']:.1f} s for the whole cli.eval call, data and model included); "
+            f"{EVAL_GRAPHS / sec['sampling_decode']:.1f} graphs sampled per second; "
+            f"plots written: {len(plots) > 0} ({len(plots)} png)")
+        log(f"eval: cli.eval {tag} metrics: " + ", ".join(f"{k} {metrics[k]:.6g}"
+                                                          for k in METRIC_KEYS))
+    log(f"eval: peak memory of the two cli.eval runs {peak:.2f} GiB on {smi}")
+
+    # the inpainted run's known entries equal the ground truth's decode
+    res = dict(np.load(os.path.join(outs["inpaint"], "final_samples_array.npz")))
+    flags = res["gt_node_flags"]
+    _, known = inpaint_masks(flags, 0.5)
+    pair = known[:, :, None] & known[:, None, :]
+    exact = (np.array_equal(res["samples_x"][known], res["gt_x"][known])
+             and np.array_equal(res["samples_x_bbox"][known], res["gt_x_bbox"][known])
+             and np.array_equal(res["samples_a"][pair], res["gt_a"][pair]))
+    unknown = flags & ~known
+    moved = not np.array_equal(res["samples_x"][unknown], res["gt_x"][unknown])
+    log(f"eval: inpainted run, {int(known.sum())} known nodes and {int(pair.sum())} known "
+        f"pairs equal the ground truth's decode exactly: {exact}; the {int(unknown.sum())} "
+        f"unknown nodes differ from it: {moved}")
+    if not (exact and moved):
+        fail("inpainting did not pin the known entries exactly, or pinned everything")
+
+    # the native VOC F1: built on this machine, equal to numpy on these samples
+    lib = get_lib()
+    if lib is None:
+        fail("the native VOC F1 library did not build")
+    pred, gt = xyxy_in_unit(res["samples_x_bbox"]), xyxy_in_unit(res["gt_x_bbox"])
+    f1_args = (pred, res["samples_x"], res["samples_node_flags"], gt, res["gt_x"], flags)
+    t0 = time.perf_counter()
+    nat = compute_bbox_f1_native(*f1_args)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = compute_bbox_f1(*f1_args)
+    t_np = time.perf_counter() - t0
+    err = float(np.abs(nat - ref).max())
+    log(f"eval: native VOC F1 ({lib._name}) vs numpy on the inpainted samples, "
+        f"{nat.shape[0]}x{nat.shape[1]} pairs: max abs difference {err:.3e} (tolerance "
+        f"{F1_TOL} + {F1_TOL} rel); {t_nat * 1e3:.2f} ms native, {t_np * 1e3:.2f} ms numpy")
+    if not np.allclose(nat, ref, rtol=F1_TOL, atol=F1_TOL):
+        fail("the native VOC F1 disagrees with numpy")
+
+    # the same inpainted sample with the kernels off: the fp32 plain model on
+    # the card, the same checkpoint, inputs and draws (these launches are a
+    # comparison, not the path: they come after the counts were read)
+    payload = read_checkpoint(ckpt)
+    idx = list(payload["ema_betas"]).index(beta)
+    ecfg = load_config(os.path.join(runs["inpaint"], "config.yaml"))
+    kmodel = build_model(ecfg, device=dev, seed=0)
+    load_weights(kmodel, payload, idx)
+    with ecfg.unlocked():
+        ecfg.tpu.use_pallas_attention = False
+        ecfg.tpu.compute_dtype = "float32"
+    pmodel = build_model(ecfg, device=dev, seed=0)
+    load_weights(pmodel, payload, idx)
+    if not kmodel.use_kernels or pmodel.use_kernels or pmodel.dtype != torch.float32:
+        fail("the kernel and plain models are not what they should be")
+    test = split_eval_set(load_data(ecfg, eval_mode=True, data_root="/nonexistent").test,
+                          EVAL_GRAPHS, seed=ecfg.seed)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    mask_a, known_t = inpaint_masks(test.node_flags, 0.5)
+    flags_t = put(test.node_flags)
+    ip = dict(gt_adjs=put(test.adjs), gt_nodes=put(test.nodes), mask_adjs=put(mask_a),
+              mask_nodes=put(known_t))
+    sampler = get_mc_sampler(ecfg)
+    first = {}
+
+    def sample(model, record):
+        def net(*args):  # the network inside the preconditioning
+            out = model(*args)
+            if record is not None and "net" not in record:
+                record["net"] = (tuple(t.clone() for t in args), tuple(t.clone() for t in out))
+            return out
+
+        def denoiser(a, x, sigmas, sc_a, sc_x):
+            out = precond_forward(net, "edm", a, x, flags_t, sigmas, sc_a, sc_x)
+            if record is not None and "denoised" not in record:
+                record["denoised"] = ((a.clone(), x.clone(), sigmas.clone(), sc_a.clone(),
+                                       sc_x.clone()), tuple(t.clone() for t in out))
+            return out
+        return sampler.sample(denoiser, flags_t, 5, 1, inpaint=ip,
+                              noise=TorchNoise(int(ecfg.seed) + epoch, dev))
+    k_a, k_x = sample(kmodel, first)
+    p_a, p_x = sample(pmodel, None)
+    # the first step's inputs, known entries pinned, through the plain model:
+    # the denoised output (c_skip x + c_out F) and the network's own output F,
+    # which the skip term cannot hide
+    with torch.inference_mode():
+        (a, x, sigmas, sc_a, sc_x), got_d = first["denoised"]
+        want_d = precond_forward(pmodel, "edm", a, x, flags_t, sigmas, sc_a, sc_x)
+        net_args, got_f = first["net"]
+        want_f = pmodel(*net_args)
+    for what, got, want in (("denoised output", got_d, want_d), ("network output", got_f, want_f)):
+        for g, w, part in zip(got, want, ("adj", "node")):
+            rel = float((g.float() - w).norm() / w.norm())
+            log(f"eval: inpainted sample's first {what} (known entries pinned), card bf16 "
+                f"kernels vs card fp32 plain model, {part} relative L2 {rel:.3e} (limit "
+                f"{EVAL_REL_L2})")
+            if not rel < EVAL_REL_L2:
+                fail(f"the inpainted sample's first {part} {what} disagrees with the fp32 "
+                     "plain model")
+    rel_final = [float((k - p).norm() / p.norm()) for k, p in ((k_a, p_a), (k_x, p_x))]
+    same_raw = (np.array_equal(k_a.cpu().numpy(), res["raw_a"])
+                and np.array_equal(k_x.cpu().numpy(), res["raw_x"]))
+    dec = [decode_samples(a, x, flags_t, ecfg.train.node_encoding, ecfg.train.edge_encoding,
+                          VG["node_types"], VG["edge_types"]) for a, x in ((k_a, k_x), (p_a, p_x))]
+    fl = flags_t.bool()
+    pr = fl[:, :, None] & fl[:, None, :]
+    node_eq = float((dec[0].node_types == dec[1].node_types)[fl].float().mean())
+    edge_eq = float((dec[0].adj_types == dec[1].adj_types)[pr].float().mean())
+    log(f"eval: reading, not a gate: after {EVAL_STEPS} steps with churn the kernels' final "
+        f"inpainted samples are {rel_final[0]:.3e} (adj) / {rel_final[1]:.3e} (node) relative "
+        f"L2 from the fp32 plain model's; decoded node types equal {node_eq:.1%}, edge types "
+        f"{edge_eq:.1%} of valid entries; the kernel run repeats cli.eval's samples "
+        f"bit for bit: {same_raw}")
+    return launches
+
+
 # which kernel each device function belongs to (demangled-name fragments,
 # first match wins); the row passes before the backward kernels' recompute
 # GEMMs (AffineSrc, RowSrc) run in no forward any more (the forwards take
@@ -1319,8 +1646,9 @@ def profile_call(fn, what: str, eager_ms: float) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 7")
-    ap.add_argument("--no-train", action="store_true", help="skip phases 4 and 6")
+    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 8")
+    ap.add_argument("--no-train", action="store_true",
+                    help="skip phases 4 and 6, and phase 8's training run")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1362,7 +1690,7 @@ def main(argv=None) -> int:
 
     results, entry_cases = check_kernels(dev)
     # launch counts per path: {path: (sampling or entries run, training run)}
-    counts = {}
+    counts, eval_counts = {}, {}
     if not args.no_slice:
         vg, _ = check_slice(dev, smi, VG)
         vg_train = {} if args.no_train else check_training(dev, smi, VG)
@@ -1374,14 +1702,17 @@ def main(argv=None) -> int:
                                                              find_largest_batch=False)
         counts = dict(vg=(vg, vg_train), coco=(coco, coco_train), entries=(entries, {}))
         check_small_config(dev)
+        eval_counts = check_eval_slice(dev, smi, run_training=not args.no_train)
     # launches: of the path's sampling (or entries) run for the forward
     # kernels, of its training run for the backward kernels; launches_train:
-    # of the training run.  A case that moves several counters (an entry over
-    # two kernels) reports the least of them.
+    # of the training run; launches_eval: of phase 8 (the VG forward
+    # kernels).  A case that moves several counters (an entry over two
+    # kernels) reports the least of them.
     for r in results:
-        keys, kernel = r.pop("keys"), r.pop("kernel")
-        run, train = counts.get(r.pop("path"), ({}, {}))
+        keys, kernel, path = r.pop("keys"), r.pop("kernel"), r.pop("path")
+        run, train = counts.get(path, ({}, {}))
         r["launches_train"] = min(train.get(k, 0) for k in keys)
+        r["launches_eval"] = min(eval_counts.get(k, 0) for k in keys) if path == "vg" else 0
         r["launches"] = (r["launches_train"] if kernel.endswith("_bwd")
                          else min(run.get(k, 0) for k in keys))
         if r["launches"] == 0 and not (args.no_slice or (args.no_train and

@@ -1,12 +1,14 @@
 """Shared CLI argument parsing.
 
-Counterpart of diffusesg_tpu/cli/common.py (the training half): the
-reference's flag names, YAML + keyword-wise overrides, plus ``--device``.
+Counterpart of diffusesg_tpu/cli/common.py: the reference's flag names,
+YAML + keyword-wise overrides and eval-side config discovery, plus
+``--device``.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 from ..config import ConfigDict, load_config
 
@@ -44,6 +46,42 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_root", default=".")
     p.add_argument("-o", "--override", action="append", default=[],
                    metavar="KEY=VALUE", help="arbitrary config override")
+    return p
+
+
+def build_eval_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="diffusesg_torch evaluation")
+    p.add_argument("-p", "--model_path", required=True,
+                   help="checkpoint file or run dir containing models_ckpt/")
+    p.add_argument("-c", "--config_file", default=None,
+                   help="defaults to config.yaml next to the checkpoints")
+    p.add_argument("-m", "--comment", default="", help="run-dir name suffix")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without a card) or cpu (plain versions)")
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--eval_size", type=int, default=None)
+    p.add_argument("--num_steps", type=int, default=None)
+    p.add_argument("-l", "--log_level", default="INFO")
+    p.add_argument("--min_epoch", type=int, default=None)
+    p.add_argument("--max_epoch", type=int, default=None)
+    p.add_argument("--specify_epoch", type=int, nargs="+", default=None,
+                   help="evaluate exactly these epochs")
+    p.add_argument("--num_ckpts", type=int, default=None)
+    p.add_argument("--ema_weights", nargs="*", default=None,
+                   help="EMA beta values to evaluate (default: all)")
+    p.add_argument("--use_ema", nargs="*", default="all",
+                   help="'all', 'none', or beta values; 1.0 means the raw online weights")
+    p.add_argument("--sanity_check", action="store_true")
+    p.add_argument("--random_node_num", action="store_true")
+    p.add_argument("--inpaint_frac", type=float, default=None,
+                   help="conditional completion: pin the first ceil(n_valid * FRAC) nodes "
+                        "of every test graph (labels, boxes and the edges among them) to "
+                        "ground truth and sample only the remainder")
+    p.add_argument("--test_pkl", default=None,
+                   help="custom test pickle path (overrides test.test_pkl)")
+    p.add_argument("--skip_eval", action="store_true")
+    p.add_argument("--data_root", default=".")
+    p.add_argument("-o", "--override", action="append", default=[], metavar="KEY=VALUE")
     return p
 
 
@@ -88,3 +126,14 @@ def config_from_args(args, mode: str = "train") -> ConfigDict:
     if getattr(args, "binary_edge", False):
         cfg.train.binary_edge = True
     return cfg
+
+
+def find_eval_config(model_path: str) -> str:
+    """config.yaml beside a checkpoint, or one or two directories up
+    (reference: arg_parser.py:146-153 reads ../config.yaml)."""
+    base = model_path if os.path.isdir(model_path) else os.path.dirname(model_path)
+    for c in (os.path.join(base, "config.yaml"), os.path.join(base, "..", "config.yaml"),
+              os.path.join(base, "..", "..", "config.yaml")):
+        if os.path.isfile(c):
+            return os.path.abspath(c)
+    raise FileNotFoundError(f"no config.yaml found near {model_path}")

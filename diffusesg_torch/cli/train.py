@@ -16,6 +16,7 @@ import os
 def main(argv=None):
     from ..data import Batches, load_data
     from ..models import build_model, count_params
+    from ..sampling import get_mc_sampler
     from ..train import (create_train_state, go_training, make_eval_step, make_optimizer,
                          make_train_step, train_step_config_from)
     from ..utils.checkpoint import latest_checkpoint, restore_checkpoint
@@ -64,12 +65,11 @@ def main(argv=None):
     step_cfg = train_step_config_from(config)
     train_step = make_train_step(model, step_cfg)
     eval_step = make_eval_step(model, step_cfg)
-    logging.info("in-training sampling is off: it needs the sampling orchestrator, "
-                 "which the port does not have yet")
     writer = ScalarWriter(config.logdir)
     try:
         state = go_training(model, state, train_step, eval_step, config, bundle,
-                            mc_sampler=None, writer=writer, start_epoch=start_epoch)
+                            mc_sampler=get_mc_sampler(config), writer=writer,
+                            start_epoch=start_epoch)
     finally:
         writer.close()
     logging.info("training complete")

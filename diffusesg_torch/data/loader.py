@@ -3,7 +3,9 @@
 Counterpart of diffusesg_tpu/data/loader.py (the reference's DataLoader +
 DistributedSampler): data already lives in dense numpy arrays, so batching
 is pure indexing; with several processes each iterates its own strided
-shard.  The C++ batch assembler of the JAX package (data/native) waits.
+shard; ``split_eval_set`` picks the sampling orchestrator's eval set.  The
+C++ batch assembler of the JAX package (data/native) and the eval-side
+``shard_for_process`` wait for the multi-device slice.
 """
 from __future__ import annotations
 
@@ -74,6 +76,23 @@ class Batches:
     def __len__(self):
         n = len(self._filled(self._host_indices()))
         return n // self.batch_size if self.drop_remainder else -(-n // self.batch_size)
+
+
+def split_eval_set(data: SceneGraphData, total_samples: int, seed: int = 0) -> SceneGraphData:
+    """Subset (a seeded permutation) or repeat the test set to hit
+    ``total_samples`` (reference: runner/sampler/sampler_utils.py:8-41)."""
+    n = len(data)
+    if total_samples < n:
+        sel = np.random.RandomState(seed).permutation(n)[:total_samples]
+    elif total_samples == n:
+        sel = np.arange(n)
+    else:
+        sel = np.tile(np.arange(n), -(-total_samples // n))[:total_samples]
+    return SceneGraphData(
+        adjs=data.adjs[sel], nodes=data.nodes[sel], node_flags=data.node_flags[sel],
+        image_ids=data.image_ids[sel],
+        pkl_data=[data.pkl_data[i % len(data.pkl_data)] for i in sel] if data.pkl_data else [],
+        num_node_type=data.num_node_type, num_edge_type=data.num_edge_type)
 
 
 def pad_batch(arrays, batch_size: int):

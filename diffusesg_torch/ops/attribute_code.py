@@ -155,3 +155,25 @@ def reshape_node_attr_vec_to_mat(node_attr_vec, node_flags_vec, matrix_size: int
     else:
         raise ValueError(f"bad node_attr shape {tuple(node_attr_vec.shape)}")
     return mask_adjs(attr_mat, flags_mat), flags_mat
+
+
+def reshape_node_attr_mat_to_vec(node_attr_mat, node_flags_mat, vector_size: int):
+    """Unpack adjacency-shaped node attributes back to vectors (node-only
+    mode): [B, M, M](, C) -> [B, N](, C), plus [B, N] bool flags."""
+    b, m = node_attr_mat.shape[:2]
+    flat_len = m * m
+
+    def fit(x_flat):
+        if vector_size >= flat_len:
+            pad = [0, 0] * (x_flat.ndim - 2) + [0, vector_size - flat_len]
+            return F.pad(x_flat, pad)
+        return x_flat[:, :vector_size]
+
+    flags_vec = fit(node_flags_mat.float().reshape(b, -1)).bool()
+    if node_attr_mat.ndim == 3:
+        attr_vec = fit(node_attr_mat.reshape(b, -1))
+    elif node_attr_mat.ndim == 4:
+        attr_vec = fit(node_attr_mat.reshape(b, flat_len, node_attr_mat.shape[-1]))
+    else:
+        raise ValueError(f"bad node_attr shape {tuple(node_attr_mat.shape)}")
+    return mask_nodes(attr_vec, flags_vec), flags_vec

@@ -1,9 +1,10 @@
 """EDM stochastic Heun/Euler sampler for joint node + adjacency diffusion.
 
-Counterpart of diffusesg_tpu/sampling/edm_sampler.py (``sample`` without
-inpainting, interim snapshots or chunking, which wait for the eval slice).
-The per-step coefficients are computed host-side in float64 exactly as the
-JAX package does and handed to the loop as float32 values; the JAX
+Counterpart of diffusesg_tpu/sampling/edm_sampler.py (``sample`` with
+``init_*``, interim snapshots and inpainting; ``chunk_steps`` waits for the
+serving slice, ``sample_adj`` for the adj-only path).  The per-step
+coefficients are computed host-side in float64 exactly as the JAX package
+does and handed to the loop as float32 values; the JAX
 ``lax.scan`` is a Python loop here and the ``lax.cond`` on ``is_heun`` a host
 ``if``.  Reference behaviours kept: churn gated on S_min <= sigma <= S_max,
 the Heun quirk of re-evaluating at (x_hat, t_hat) (``heun_reuse_xhat``),
@@ -32,8 +33,9 @@ class TorchNoise:
     """Default noise source: normals from a ``torch.Generator`` on the
     sampling device, Bernoulli draws (host decisions) from one on the CPU.
 
-    ``normal(step, kind, shape)`` with kind in init_adj / init_node (step -1)
-    and churn_adj / churn_node; ``bernoulli(step, kind, p)`` with kind in
+    ``normal(step, kind, shape)`` with kind in init_adj / init_node (step -1),
+    churn_adj / churn_node and, when inpainting, inpaint_adj / inpaint_node
+    (the known entries re-noised at the step's sigma_hat); ``bernoulli(step, kind, p)`` with kind in
     refresh_euler / refresh_heun.  Training draws through the same source:
     kinds sigma, noise_adj, noise_node (``normal``, or ``uniform`` for the
     vp/ve sigma distributions) and self_cond (``bernoulli``)."""
@@ -214,19 +216,49 @@ class NodeAdjEDMSampler:
 
     @torch.no_grad()
     def sample(self, denoiser_fn: DenoiserFn, node_flags, num_node_chan: int,
-               num_edge_chan: int, noise=None, seed: int = 0):
-        """Run the reverse diffusion; returns (adjs, nodes) in float32.
+               num_edge_chan: int, noise=None, seed: int = 0, init_adjs=None, init_nodes=None,
+               num_interim: int = 0, inpaint: dict | None = None):
+        """Run the reverse diffusion; returns (adjs, nodes) in float32, or
+        (adjs, nodes, interim_a, interim_x) when ``num_interim`` > 0.
 
         ``noise`` is the source of random draws (default: ``TorchNoise`` from
-        ``seed`` on the flags' device)."""
+        ``seed`` on the flags' device).  ``init_adjs`` / ``init_nodes``
+        replace the initial draw (both or neither; unscaled, as
+        ``gen_init_sample`` returns it).
+
+        ``num_interim`` keeps min(num_interim, num_steps) snapshots:
+        slot 0 the unscaled initial sample, slot k + 1 the output of step
+        clip(linspace(0, S, n).astype(int), 0, S - 1)[k]; each stack is
+        [n + 1, B, ...] (edm_sampler.py:317-328).
+
+        ``inpaint`` (conditional completion, edm_sampler.py:271-300): a dict
+        with keys among gt_adjs / gt_nodes (known clean values, encoded
+        space) and mask_adjs [B, N, N(, 1)] / mask_nodes [B, N(, 1)] (1 where
+        the entry is known).  After each step's churn the known entries are
+        re-noised from the ground truth at sigma_hat; the output carries the
+        exact known values."""
         noise = noise if noise is not None else TorchNoise(seed, node_flags.device)
-        init_adjs, init_nodes = self.gen_init_sample(noise, node_flags, num_node_chan,
-                                                     num_edge_chan)
+        num_interim = min(num_interim, self.num_steps)
+        if init_adjs is None or init_nodes is None:
+            init_adjs, init_nodes = self.gen_init_sample(noise, node_flags, num_node_chan,
+                                                         num_edge_chan)
         scale0 = self.init_scale()
         adjs, nodes = init_adjs * scale0, init_nodes * scale0
         sc_a, sc_x = torch.zeros_like(adjs), torch.zeros_like(nodes)
         batch = node_flags.shape[0]
         refresh = self.self_condition and self.precond_self_cond_refresh_p > 0.0
+        ip = inpaint or {}
+        ip = (ip.get("gt_adjs"), ip.get("mask_adjs"), ip.get("gt_nodes"), ip.get("mask_nodes"))
+        has_inpaint = any(v is not None for v in ip)
+
+        slot_of_step = {}
+        if num_interim > 0:
+            snap_steps = np.clip(np.linspace(0, self.num_steps, num_interim).astype(int), 0,
+                                 self.num_steps - 1)
+            slot_of_step = {int(s): k + 1 for k, s in enumerate(snap_steps)}
+            interim_a = adjs.new_zeros((num_interim + 1,) + tuple(adjs.shape))
+            interim_x = nodes.new_zeros((num_interim + 1,) + tuple(nodes.shape))
+            interim_a[0], interim_x[0] = init_adjs, init_nodes
 
         def denoise(step, kind, a_hat, x_hat, inv_s, sigma, sa, sx):
             sigma_vec = torch.full((batch,), sigma, dtype=torch.float32, device=a_hat.device)
@@ -250,6 +282,9 @@ class NodeAdjEDMSampler:
                 a_hat = a_hat + noise_coef * self._adj_noise(noise, i, "churn_adj", adjs.shape)
                 x_hat = x_hat + noise_coef * noise.normal(i, "churn_node", nodes.shape)
             a_hat, x_hat = mask_adjs(a_hat, node_flags), mask_nodes(x_hat, node_flags)
+            if has_inpaint:
+                a_hat, x_hat = self._apply_inpaint(noise, i, node_flags, ip, a_hat, x_hat,
+                                                   sigma_hat)
 
             # Euler evaluation (edm.py:368-391)
             den_a, den_x = denoise(i, "refresh_euler", a_hat, x_hat, inv_s_hat, sigma_hat,
@@ -284,4 +319,34 @@ class NodeAdjEDMSampler:
             adjs, nodes = mask_adjs(adjs, node_flags), mask_nodes(nodes, node_flags)
             if self.self_condition:
                 sc_a, sc_x = den_a, den_x
+            if i in slot_of_step:
+                interim_a[slot_of_step[i]], interim_x[slot_of_step[i]] = adjs, nodes
+        if has_inpaint:
+            # the exact known values in the output (edm_sampler.py:352-355)
+            adjs, nodes = self._apply_inpaint(noise, self.num_steps, node_flags, ip, adjs,
+                                              nodes, 0.0)
+        if num_interim > 0:
+            return adjs, nodes, interim_a, interim_x
         return adjs, nodes
+
+    def _apply_inpaint(self, noise, step: int, node_flags, ip, adjs_v, nodes_v, sigma: float):
+        """Replace the known entries with the ground truth re-noised at
+        ``sigma`` (edm_sampler.py:360-384); ``ip`` = (gt_adjs, mask_adjs,
+        gt_nodes, mask_nodes), None where unset.  At sigma 0 nothing is
+        drawn: the known entries are the ground truth itself."""
+        gt_a, mask_a, gt_x, mask_x = ip
+        if mask_a is not None and gt_a is not None:
+            m = mask_a.to(adjs_v.dtype)
+            if m.ndim < adjs_v.ndim:
+                m = m[..., None]
+            known = gt_a if sigma == 0.0 else (
+                gt_a + sigma * self._adj_noise(noise, step, "inpaint_adj", adjs_v.shape))
+            adjs_v = mask_adjs(known, node_flags) * m + adjs_v * (1 - m)
+        if mask_x is not None and gt_x is not None:
+            m = mask_x.to(nodes_v.dtype)
+            if m.ndim < nodes_v.ndim:
+                m = m[..., None]
+            known = gt_x if sigma == 0.0 else (
+                gt_x + sigma * noise.normal(step, "inpaint_node", nodes_v.shape))
+            nodes_v = mask_nodes(known, node_flags) * m + nodes_v * (1 - m)
+        return adjs_v, nodes_v

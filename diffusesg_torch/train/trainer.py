@@ -2,10 +2,9 @@
 
 Counterpart of diffusesg_tpu/train/trainer.py: epoch loop over prefetched
 batches, epoch-end metric fetch, per-interval test pass on the smallest-beta
-EMA, rolling and best checkpoints, loss logging, and a preempt checkpoint on
-SIGTERM/SIGINT.  In-training sampling with the largest-beta EMA needs the
-sampling orchestrator of the eval slice; until it lands ``mc_sampler`` must
-be None.
+EMA, rolling and best checkpoints, loss logging, in-training sampling with
+the largest-beta EMA every ``train.sample_interval`` epochs, and a preempt
+checkpoint on SIGTERM/SIGINT.
 """
 from __future__ import annotations
 
@@ -19,6 +18,7 @@ import torch
 
 from ..data.loader import Batches, pad_batch, prefetch_to_device
 from ..sampling.edm_sampler import TorchNoise
+from ..sampling.orchestrator import sg_go_sampling
 from ..utils.checkpoint import list_checkpoints, save_checkpoint
 from ..utils.logging_utils import LossTxtLogger, ScalarWriter
 from .train_state import TrainState, ema_slice
@@ -39,12 +39,15 @@ def go_training(model, state: TrainState, train_step, eval_step, config, bundle,
     ``TorchNoise`` seeded from ``config.seed`` and ``start_epoch``, so a
     resumed run draws a stream of its own).
 
+    With ``mc_sampler`` set, every ``train.sample_interval`` epochs the
+    largest-beta EMA samples the eval set through ``sg_go_sampling`` (epoch
+    0 is its ground-truth sanity check); the EMA is applied with
+    ``functional_call``, so the model's parameters, Adam's state and the
+    training noise stream are left as they were.
+
     On SIGTERM/SIGINT the loop finishes the current step, writes
     ``models_ckpt/preempt.pt`` with the epoch to re-run, and returns.
     """
-    if mc_sampler is not None:
-        raise NotImplementedError("in-training sampling needs the sampling orchestrator, "
-                                  "which the port does not have yet; pass mc_sampler=None")
     device = next(model.parameters()).device
     logging.info("training on %s", device)
     batch_size = int(config.train.batch_size)
@@ -56,6 +59,7 @@ def go_training(model, state: TrainState, train_step, eval_step, config, bundle,
     loss_txt = LossTxtLogger(config.logdir)
     lowest = {"epoch": -1, "loss": float("inf")}
     save_interval = config.train.save_interval
+    sample_interval = config.train.sample_interval
 
     def to_full_batch(item):
         return pad_batch(item[:3], batch_size)[0]
@@ -150,6 +154,17 @@ def go_training(model, state: TrainState, train_step, eval_step, config, bundle,
                         for c in list_checkpoints(config.model_ckpt_dir)):
                     os.remove(pre)
                     logging.info("dropped superseded preempt checkpoint")
+
+            # in-training sampling with the largest-beta EMA
+            # (reference: trainer_node_adj.py:262-284)
+            if mc_sampler is not None and epoch % sample_interval == 0:
+                sampling_params = {
+                    "model_nm": f"training_e{epoch:05d}",
+                    "weight_kw": f"{state.ema_betas[-1]:.3f}",
+                    "model_path": os.path.join(config.model_ckpt_dir, f"{epoch:05d}")}
+                sg_go_sampling(model, ema_slice(state, -1), mc_sampler, config, bundle,
+                               epoch=epoch, eval_mode=False, sanity_check=epoch == 0,
+                               sampling_params=sampling_params, writer=writer)
     finally:
         for sig, handler in old_handlers.items():
             signal.signal(sig, handler)

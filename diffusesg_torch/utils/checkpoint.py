@@ -22,6 +22,7 @@ import os
 import tempfile
 from typing import TYPE_CHECKING
 
+import numpy as np
 import torch
 
 if TYPE_CHECKING:  # utils <-> train would import each other at run time
@@ -56,11 +57,33 @@ def save_checkpoint(path: str, state: "TrainState", extra: dict | None = None) -
     return path
 
 
+def read_checkpoint(path: str) -> dict:
+    """The payload of the checkpoint at ``path`` (tensors on the CPU), with
+    no training state to restore into; ``load_weights`` applies it."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+@torch.no_grad()
+def load_weights(model: torch.nn.Module, payload: dict, ema_index: int = -1) -> None:
+    """Load a checkpoint payload's weights into ``model`` in place: the online
+    parameters (``ema_index`` -1, the reference's 'model' key) or the EMA copy
+    ``ema_index`` (the K EMAs are aligned with ``model.parameters()``)."""
+    model.load_state_dict(payload["params"], strict=True)
+    if ema_index == -1:
+        return
+    ema = payload["ema_params"][ema_index]
+    params = list(model.parameters())
+    if len(ema) != len(params):
+        raise ValueError(f"checkpoint EMA holds {len(ema)} tensors, the model {len(params)}")
+    for dst, src in zip(params, ema):
+        dst.copy_(src)
+
+
 def restore_checkpoint(path: str, state: "TrainState") -> dict:
     """Load the checkpoint at ``path`` into ``state`` in place (parameters,
     EMAs, Adam state, step); returns its ``extra`` metadata.  Raises when the
     checkpoint does not match the model."""
-    payload = torch.load(path, map_location="cpu", weights_only=False)
+    payload = read_checkpoint(path)
     if len(payload["ema_params"]) != len(state.ema_params):
         raise ValueError(f"checkpoint holds {len(payload['ema_params'])} EMAs, the state "
                          f"{len(state.ema_params)}")
@@ -107,3 +130,27 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
                             and os.path.getmtime(best_other) > os.path.getmtime(best_num)):
         return best_other
     return best_num
+
+
+def select_checkpoints(ckpt_dir: str, min_epoch: int | None = None,
+                       max_epoch: int | None = None,
+                       specify_epoch: int | list[int] | None = None,
+                       num_ckpts: int | None = None) -> list[str]:
+    """Epoch-range / explicit-epoch / count-limited checkpoint selection
+    (diffusesg_tpu/utils/checkpoint.py:202-223; reference: arg_parser.py:144-184);
+    a non-numeric checkpoint counts as epoch -1."""
+    ckpts = list_checkpoints(ckpt_dir)
+
+    def epoch_of(p):
+        return int(os.path.basename(p)[:-len(SUFFIX)]) if _is_numeric(p) else -1
+    if specify_epoch is not None:
+        wanted = [specify_epoch] if isinstance(specify_epoch, int) else list(specify_epoch)
+        return [p for p in ckpts if epoch_of(p) in wanted]
+    if min_epoch is not None:
+        ckpts = [p for p in ckpts if epoch_of(p) >= min_epoch]
+    if max_epoch is not None:
+        ckpts = [p for p in ckpts if epoch_of(p) <= max_epoch]
+    if num_ckpts is not None and len(ckpts) > num_ckpts:
+        sel = np.linspace(0, len(ckpts) - 1, num_ckpts).astype(int)
+        ckpts = [ckpts[i] for i in sel]
+    return ckpts

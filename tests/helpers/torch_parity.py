@@ -90,6 +90,48 @@ def node_flags(batch: int, n: int, counts) -> np.ndarray:
     return f
 
 
+class JaxKeyNoise:
+    """The JAX sampler's draws, by its key schedule, for the port's noise
+    protocol: ``rng, rng_init = split(key)``, ``rng_a, rng_x =
+    split(rng_init)`` for the initial sample (edm_sampler.py:305-308, 249;
+    split even when ``init_*`` is given), then per step ``rng, k1, k2 =
+    split(rng, 3)`` for the churn noise of adjs and nodes, with the
+    self-cond refresh on ``rng, k3, k4 = split(rng, 3)`` for its Bernoulli
+    draws at the Euler and Heun evals (:425-428, :414), and with inpainting
+    ``rng, k_ip = split(rng)``, ``k_a, k_x = split(k_ip)`` for the known
+    entries' re-noising (:436-440, :366).  ``key`` is a seed or a PRNG key."""
+
+    def __init__(self, key, num_steps: int, refresh: bool = False, inpaint: bool = False):
+        import jax
+        rng = jax.random.PRNGKey(key) if isinstance(key, int) else key
+        rng, rng_init = jax.random.split(rng)
+        self.init = dict(zip(("init_adj", "init_node"), jax.random.split(rng_init)))
+        self.steps = []
+        for _ in range(num_steps):
+            rng, k1, k2 = jax.random.split(rng, 3)
+            keys = {"churn_adj": k1, "churn_node": k2}
+            if refresh:
+                rng, k3, k4 = jax.random.split(rng, 3)
+                keys.update(refresh_euler=k3, refresh_heun=k4)
+            if inpaint:
+                rng, k_ip = jax.random.split(rng)
+                keys.update(zip(("inpaint_adj", "inpaint_node"), jax.random.split(k_ip)))
+            self.steps.append(keys)
+        self.requests = []
+
+    def normal(self, step, kind, shape):
+        import jax
+        import torch
+        self.requests.append((step, kind))
+        key = self.init[kind] if step < 0 else self.steps[step][kind]
+        return torch.from_numpy(np.array(jax.random.normal(key, tuple(shape))))
+
+    def bernoulli(self, step, kind, p):
+        import jax
+        self.requests.append((step, kind))
+        return bool(jax.random.bernoulli(self.steps[step][kind], p))
+
+
 class JaxTrainNoise:
     """The JAX training step's draws, by its key schedule, for the port's
     noise protocol.  ``keys[step]`` is the key ``train_step`` gets at that

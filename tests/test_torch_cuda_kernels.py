@@ -182,6 +182,42 @@ def test_small_config_runs_its_plain_versions_on_the_card(cuda):
         assert float((g.cpu() - w).norm() / w.norm()) < 1e-4
 
 
+def test_inpainted_sample_pins_known_entries_on_the_card(cuda):
+    """The full-width VG model (kernels on, bf16) samples with inpainting on
+    the card: every forward kernel launches, and the known entries of the
+    output are the ground truth exactly."""
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.sampling.orchestrator import inpaint_masks
+    from diffusesg_torch.serving.generate import make_denoiser
+    cfg = load_config("configs/edm_diffuse_sg_regular_visual_genome.yaml")
+    with cfg.unlocked():
+        cfg.mcmc.num_steps = 4
+    model = build_model(cfg, device=cuda, seed=0)
+    assert model.use_kernels
+    n = cfg.dataset.max_node_num
+    counts = torch.tensor([64, 40, 12, 5])
+    flags = torch.arange(n)[None, :] < counts[:, None]
+    mask_a, known = (torch.from_numpy(m).to(cuda) for m in inpaint_masks(flags.numpy(), 0.5))
+    gen = torch.Generator().manual_seed(3)
+    gt_a = (torch.rand(4, n, n, generator=gen) * 2 - 1).to(cuda)
+    gt_x = (torch.rand(4, n, 5, generator=gen) * 2 - 1).to(cuda)
+    flags = flags.to(cuda)
+    before = cuda_build.launches_by_kernel()
+    adjs, nodes = get_mc_sampler(cfg).sample(
+        make_denoiser(model, cfg, flags), flags, 5, 1, seed=1,
+        inpaint=dict(gt_adjs=gt_a, gt_nodes=gt_x, mask_adjs=mask_a, mask_nodes=known))
+    torch.cuda.synchronize()
+    after = cuda_build.launches_by_kernel()
+    assert all(after.get(k, 0) > before.get(k, 0)
+               for k in ("swin_attn", "token_mlp", "patch_merge", "patch_breakup", "readout"))
+    pair = mask_a & flags[:, :, None] & flags[:, None, :]
+    assert torch.equal(adjs[pair], gt_a[pair]) and torch.equal(nodes[known], gt_x[known])
+    unknown = flags & ~known
+    assert torch.isfinite(nodes).all() and not torch.equal(nodes[unknown], gt_x[unknown])
+
+
 # The backward kernels' outputs are gradients: sums over tokens whose scale
 # grows with the token count, so each is compared relative to its tensor:
 # 2e-2 of the element (a bf16 ulp is 2^-8) plus 1e-2 of the tensor's max.

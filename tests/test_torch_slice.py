@@ -13,7 +13,7 @@ import torch
 import jax
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
-from torch_parity import load_pair, model_pair, node_flags  # noqa: E402
+from torch_parity import JaxKeyNoise, load_pair, model_pair, node_flags  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COUNTS = [16, 11, 5, 1]
@@ -21,37 +21,6 @@ SEED = 7
 # continuous samples after 4 Heun steps (8 evals) at fp32: the per-eval
 # atol 2e-4 bar compounds over the evals and the s_ratio/churn updates
 SAMPLE_ATOL, SAMPLE_RTOL = 1e-3, 1e-3
-
-
-class JaxKeyNoise:
-    """The JAX sampler's draws, by its key schedule: ``rng, rng_init =
-    split(PRNGKey(seed))``, ``rng_a, rng_x = split(rng_init)`` for the
-    initial sample (edm_sampler.py:305-308, 249), then per step
-    ``rng, k1, k2 = split(rng, 3)`` for the churn noise of adjs and nodes
-    and, with the self-cond refresh on, ``rng, k3, k4 = split(rng, 3)`` for
-    its Bernoulli draws at the Euler and Heun evals (:425-428, :414)."""
-
-    def __init__(self, seed: int, num_steps: int, refresh: bool = False):
-        rng, rng_init = jax.random.split(jax.random.PRNGKey(seed))
-        self.init = dict(zip(("init_adj", "init_node"), jax.random.split(rng_init)))
-        self.steps = []
-        for _ in range(num_steps):
-            rng, k1, k2 = jax.random.split(rng, 3)
-            keys = {"churn_adj": k1, "churn_node": k2}
-            if refresh:
-                rng, k3, k4 = jax.random.split(rng, 3)
-                keys.update(refresh_euler=k3, refresh_heun=k4)
-            self.steps.append(keys)
-        self.requests = []
-
-    def normal(self, step, kind, shape):
-        self.requests.append((step, kind))
-        key = self.init[kind] if step < 0 else self.steps[step][kind]
-        return torch.from_numpy(np.array(jax.random.normal(key, tuple(shape))))
-
-    def bernoulli(self, step, kind, p):
-        self.requests.append((step, kind))
-        return bool(jax.random.bernoulli(self.steps[step][kind], p))
 
 
 def _jax_run(jcfg, jm, params, flags):
@@ -126,8 +95,15 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "for name in ('serving.generate', 'cli.train', 'train.trainer', 'data.loader',\n"
         "             'utils.checkpoint', 'ops.box_ops', 'ops.window_attention',\n"
-        "             'ops.swin_block_kernel', 'ops.swin_full_block', 'ops.mm_microbench'):\n"
+        "             'ops.swin_block_kernel', 'ops.swin_full_block', 'ops.mm_microbench',\n"
+        "             'sampling.orchestrator', 'sampling.debug', 'cli.eval',\n"
+        "             'cli.eval_samples', 'eval.sg_evaluator', 'eval.sg_statistics',\n"
+        "             'eval.native', 'utils.native_build', 'utils.visual'):\n"
         "    assert 'diffusesg_torch.' + name in sys.modules, name\n"
+        "# the card's machine has none of the plotting packages or pandas\n"
+        "lazy = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('matplotlib', 'networkx', 'PIL', 'pandas'))\n"
+        "assert not lazy, lazy\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('mb', 'scripts/microbench_int8_torch.py')\n"
         "mod = importlib.util.module_from_spec(spec)\n"
