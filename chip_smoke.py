@@ -6,8 +6,9 @@
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit), the kernels' nvcc build, and
-     the built library's SASS: every wgmma kernel (each hgemm_kernel and the
-     readout_kernel) must issue HGMMA instructions;
+     the built library's SASS: every wgmma kernel (each hgemm_kernel, the
+     readout_kernel and the fused MLP backward mlp_bwd_kernel) must issue
+     HGMMA instructions, and no other GEMM kernel may be in the library;
   2. every hand-written kernel at every Visual Genome and COCO-Stuff shape of
      the main paths (batch 16, bf16) and the four TPU kernels with an entry of
      their own (window_attention, mm_accumulate, and the pre-rolled block
@@ -18,11 +19,13 @@ Phases, each printed on its own line:
      the launch counters of the kernels it launches; kernel and plain times,
      the roofline bound from the shapes and, where a PyTorch library call
      computes the same function, the time of that library doing the same work;
-     for swin_attn, patch_merge, patch_breakup and readout also the device
-     time of each of their launches (torch.profiler) beside a yardstick of the
-     same products in PyTorch (bf16, timed only): F.layer_norm + F.linear for
-     qkv and merge, F.linear for the others, F.linear, F.gelu, F.linear for
-     readout;
+     for swin_attn, patch_merge, patch_breakup, readout, swin_attn_bwd and
+     token_mlp_bwd also the device time and count of each of their launches
+     (torch.profiler) beside a yardstick of the same products in PyTorch
+     (bf16, timed only): F.layer_norm + F.linear for qkv, merge and the qkv
+     recompute, F.linear for the others, F.linear, F.gelu, F.linear for
+     readout, torch.mm for the backward's products with an untransposed
+     weight and for its weight gradients (a^T b over the tokens);
   3. the slice: the full-width VG model (35,808,848 parameters, seeded
      weights, bf16) answers requests through ``serving.generate`` with 16 Heun
      steps; every kernel's launch count must move, the decoded graphs must be
@@ -174,25 +177,31 @@ def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-WGMMA_KERNELS = ("hgemm_kernel", "readout_kernel")
+WGMMA_KERNELS = ("hgemm_kernel", "readout_kernel", "mlp_bwd_kernel")
 
 
 def check_sass(lib_path) -> None:
     """The wgmma kernels of the built library issue wgmma: count the HGMMA
-    instructions of every hgemm_kernel instantiation and of readout_kernel
-    (cuobjdump -sass)."""
+    instructions of every hgemm_kernel instantiation (the forward and
+    backward GEMM sites), of readout_kernel and of the fused MLP backward
+    mlp_bwd_kernel (cuobjdump -sass); and the port has one GEMM: no other
+    *gemm_kernel is left in the library."""
+    import re
+
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                          timeout=300)
     if out.returncode != 0:
         fail(f"cuobjdump: {out.stderr.strip()[:200]}")
-    counts, func = {}, None
+    counts, func, others = {}, None, []
     for line in out.stdout.splitlines():
         if "Function :" in line:
             func = line.split("Function :", 1)[1].strip()
             if any(k in func for k in WGMMA_KERNELS):
                 counts[func] = 0
+            if re.search(r"(?<!h)gemm_kernel", func):
+                others.append(func)
         elif func in counts and "HGMMA" in line:
             counts[func] += 1
     for k in WGMMA_KERNELS:
@@ -200,6 +209,8 @@ def check_sass(lib_path) -> None:
         log(f"sass: {len(mine)} {k} instantiations, HGMMA instructions in each: {mine}")
         if not mine or min(mine) == 0:
             fail(f"a {k} issues no HGMMA instruction")
+    if others:
+        fail(f"a GEMM other than hgemm_kernel is in the library: {others[:3]}")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -296,6 +307,49 @@ def kernel_cases(dev):
         bias = rnd(n_out, scale=0.1) if bias else None
         return lambda: F.linear(F.layer_norm(a, (c,), g, bt, 1e-6), w, bias)
 
+    def mm_nn(m, k, n):
+        """cuBLAS doing a product that takes a Linear weight untransposed:
+        [m, k] x [k, n] (dout W2, dy Wproj, du W1, dqkv Wqkv)."""
+        a, w = rnd(m, k), lin(k, n)
+        return lambda: torch.mm(a, w)
+
+    def mm_tn(m, i, j):
+        """cuBLAS doing a weight gradient: the contraction over m tokens of
+        [m, i] and [m, j] into [i, j]."""
+        a, b_ = rnd(m, i), rnd(m, j)
+        return lambda: torch.mm(a.t(), b_)
+
+    def mlp_bwd_products(m, c):
+        """The three row-tile products of token_mlp_bwd in cuBLAS: fc1
+        recomputed, dout W2 and du W1."""
+        hn, w1, do, w2, du = rnd(m, c), lin(4 * c, c), rnd(m, c), lin(c, 4 * c), rnd(m, 4 * c)
+        return lambda: (F.linear(hn, w1), torch.mm(do, w2), torch.mm(du, w1))
+
+    # the launches of the backward kernels by their call-site tags (the fused
+    # MLP path and the chain launch different ones; a fragment that matches
+    # no launch is not printed)
+    def mlp_bwd_launches(m, c):
+        return (("fused row tile", "MlpBwdFused", mlp_bwd_products(m, c)),
+                ("fc1 recompute", "MlpBwdFc1", linear(m, c, 4 * c)),
+                ("dm = dout W2", "MlpBwdDm", mm_nn(m, c, 4 * c)),
+                ("dW2", "MlpBwdDw2", mm_tn(m, c, 4 * c)),
+                ("dW1", "MlpBwdDw1", mm_tn(m, 4 * c, c)),
+                ("column sums", "col_sums_kernel", None),
+                ("dhn = du W1", "MlpBwdDhn", mm_nn(m, 4 * c, c)),
+                ("LN2 vjp row pass", "ln_bwd_rows_kernel", None),
+                ("reductions", "reduce_partials_kernel", None))
+
+    def attn_bwd_launches(m, c):
+        return (("qkv recompute", "SwinBwdQkv", ln_linear(m, c, 3 * c)),
+                ("dattn = dy Wproj", "SwinBwdDattn", mm_nn(m, c, c)),
+                ("window core", "window_attn_bwd_kernel", None),
+                ("dWproj", "SwinBwdDwproj", mm_tn(m, c, c)),
+                ("dWqkv", "SwinBwdDwqkv", mm_tn(m, 3 * c, c)),
+                ("column sums", "col_sums_kernel", None),
+                ("dhn = dqkv Wqkv", "SwinBwdDhn", mm_nn(m, 3 * c, c)),
+                ("LN1 vjp row pass", "ln_bwd_rows_kernel", None),
+                ("reductions", "reduce_partials_kernel", None))
+
     def two_linear(m, c, hidden, n_out):
         """readout's two products and the GELU between them, in PyTorch."""
         a, w1, b1 = rnd(m, c), lin(hidden, c), rnd(hidden, scale=0.1)
@@ -330,7 +384,8 @@ def kernel_cases(dev):
                 "swin_attn_bwd", "swin_attn_bwd.cu", K5, sw.swin_attn_bwd, sw.swin_attn_bwd_plain,
                 bargs, 22 * m * c * c + 12 * m * L * c,
                 3 * m * c * 2 + 2 * b * 2 * c * 2 + 2 * 4 * c * c * 2 + 2 * heads * L * L * 4
-                + (mask.numel() * 4 if shift else 0) + 2 * 6 * c * 4, bwd_tol, path))
+                + (mask.numel() * 4 if shift else 0) + 2 * 6 * c * 4, bwd_tol, path,
+                gemms=attn_bwd_launches(m, c)))
         # token_mlp: the MLP half of every block (K8 at C=768)
         for hw, c in sorted({(hw, c) for hw, c, _, _ in blocks}, reverse=True):
             m = b * hw * hw
@@ -342,7 +397,8 @@ def kernel_cases(dev):
             bargs = (args[0].reshape(m, c), rnd(m, c)) + args[1:6]
             cases.append(Case("token_mlp_bwd", "token_mlp_bwd.cu", K7 if c == 768 else K6,
                               mk.token_mlp_bwd, mk.mlp_bwd_plain, bargs, 40 * m * c * c,
-                              3 * m * c * 2 + 2 * 8 * c * c * 2 + 2 * 7 * c * 4, bwd_tol, path))
+                              3 * m * c * 2 + 2 * 8 * c * c * 2 + 2 * 7 * c * 4, bwd_tol, path,
+                              gemms=mlp_bwd_launches(m, c)))
         grids = sorted({(hw, c) for hw, c, _, _ in blocks}, reverse=True)
         # patch_merge: every stage but the last halves its grid
         for hw, c in grids[:-1]:
@@ -453,7 +509,8 @@ def kernel_cases(dev):
 def device_ms_by(fn, frags, reps: int) -> dict:
     """Device time of one call of ``fn`` by device function (torch.profiler
     over ``reps`` calls), summed over the functions whose name holds each of
-    ``frags``."""
+    ``frags``, and the launches of those functions in one call:
+    {frag: (ms, launches)}."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -462,11 +519,12 @@ def device_ms_by(fn, frags, reps: int) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(frags, 0.0)
+    out = {f: (0.0, 0.0) for f in frags}
     for e in prof.key_averages():
         for f in frags:
             if f in e.key:
-                out[f] += e.device_time_total / 1e3 / reps
+                ms, n = out[f]
+                out[f] = (ms + e.device_time_total / 1e3 / reps, n + e.count / reps)
     return out
 
 
@@ -525,9 +583,10 @@ def check_kernels(dev, reps: int = 20):
         if case.gemms:
             parts = device_ms_by(lambda: kern(*args), [f for _, f, _ in case.gemms], reps)
             log(f"kernel {name:16s} {case.path:7s} {keys[0][1]:22s} launches: " + "; ".join(
-                f"{lbl} {parts[frag]:.4f} ms"
+                f"{lbl} {parts[frag][0]:.4f} ms" + (
+                    f" x{parts[frag][1]:g}" if parts[frag][1] != 1 else "")
                 + ("" if lib is None else f" (yardstick, bf16: {graph_ms(lib, reps):.4f} ms)")
-                for lbl, frag, lib in case.gemms if parts[frag] > 0))
+                for lbl, frag, lib in case.gemms if parts[frag][1] > 0))
         results.append(dict(name=label, route="cuda", source=SRC + case.src,
                             replaces=case.replaces, kernel=name, keys=keys, path=case.path,
                             max_abs_err=max_abs, max_err_over_max=max_of_max, max_rel_l2=max_l2, ms=ms,
@@ -1560,17 +1619,14 @@ def check_eval_slice(dev, smi: str, run_training: bool = True) -> dict:
 
 
 # which kernel each device function belongs to (demangled-name fragments,
-# first match wins); the row passes before the backward kernels' recompute
-# GEMMs (AffineSrc, RowSrc) run in no forward any more (the forwards take
-# their LayerNorms in their GEMMs' or their fused kernel's prologue), so they
-# count under the backward kernels, and are printed as parts too (PARTS)
+# first match wins): the backward kernels' GEMM sites and the fused MLP
+# backward by their call-site tags (SwinBwd*, MlpBwd*)
 OTHER = "other PyTorch ops"
 KERNEL_OF = (("window_attn_bwd_kernel", "swin_attn_bwd"), ("SwinBwd", "swin_attn_bwd"),
-             ("MlpBwd", "token_mlp_bwd"), ("GeluAndGradEpi", "token_mlp_bwd"),
+             ("MlpBwd", "token_mlp_bwd"),
              ("ln_bwd_rows_kernel", "backward row pass + reductions (both backward kernels)"),
              ("reduce_partials_kernel", "backward row pass + reductions (both backward kernels)"),
              ("col_sums_kernel", "backward row pass + reductions (both backward kernels)"),
-             ("dsg::RowSrc", "token_mlp_bwd"), ("AffineSrc", "swin_attn_bwd"),
              ("window_attn_kernel", "swin_attn"),
              ("SwinQkv", "swin_attn"), ("SwinProj", "swin_attn"),
              ("token_mlp_kernel", "token_mlp"), ("mlp_close_kernel", "token_mlp"),
@@ -1578,8 +1634,7 @@ KERNEL_OF = (("window_attn_bwd_kernel", "swin_attn_bwd"), ("SwinBwd", "swin_attn
              ("BreakupIn", "patch_breakup"), ("breakup_rows_kernel", "patch_breakup"),
              ("BreakupOut", "patch_breakup"), ("readout_kernel", "readout"))
 # device functions printed under their own names beside their kernel's total:
-# the parts of the redesigned kernels, and the backward kernels' recompute
-# row passes (label, name fragment, kernel)
+# the parts of the redesigned kernels (label, name fragment, kernel)
 PARTS = (("window core", "window_attn_kernel<", "swin_attn"),
          ("qkv GEMM", "SwinQkv", "swin_attn"), ("proj GEMM", "SwinProj", "swin_attn"),
          ("fused MLP", "token_mlp_kernel", "token_mlp"),
@@ -1587,8 +1642,14 @@ PARTS = (("window core", "window_attn_kernel<", "swin_attn"),
          ("breakup first GEMM", "BreakupIn", "patch_breakup"),
          ("breakup row pass", "breakup_rows_kernel", "patch_breakup"),
          ("breakup second GEMM", "BreakupOut", "patch_breakup"),
-         ("LN1 recompute row pass", "AffineSrc", "swin_attn_bwd"),
-         ("LN2 recompute row pass", "dsg::RowSrc", "token_mlp_bwd"))
+         ("backward window core", "window_attn_bwd_kernel", "swin_attn_bwd"),
+         ("qkv recompute", "SwinBwdQkv", "swin_attn_bwd"),
+         ("attention weight gradients", "SwinBwdDw", "swin_attn_bwd"),
+         ("dy Wproj", "SwinBwdDattn", "swin_attn_bwd"),
+         ("dqkv Wqkv", "SwinBwdDhn", "swin_attn_bwd"),
+         ("fused MLP backward", "MlpBwdFused", "token_mlp_bwd"),
+         ("MLP weight gradients", "MlpBwdDw", "token_mlp_bwd"),
+         ("MLP chain fc1 recompute", "MlpBwdFc1", "token_mlp_bwd"))
 
 
 def profile_eval(ev, eager_ms: float, tag: str) -> None:
@@ -1680,10 +1741,19 @@ def main(argv=None) -> int:
                            for w in ("in", "out"))
         + ", " + ", ".join(f"patch_merge C{c} {pr.merge_tile(c)}" for c in (96, 192, 384))
         + f", patch_merge C96 64-row panels {pr.merge_tile(96, True)}; readout (rows, "
-          f"warpgroups, blocks an SM) {rk.readout_tile()}")
+          f"warpgroups, blocks an SM) {rk.readout_tile()}; backward: "
+        + ", ".join(f"swin_attn_bwd {w} C{c} {sw.attn_bwd_tile(c, w)}"
+                    for c in (96, 192, 384, 768) for w in ("qkv", "stream", "wgrad"))
+        + ", " + ", ".join(f"token_mlp_bwd fused C{c} {mk.mlp_bwd_fused_tile(c)}"
+                           for c in (96, 192, 384, 768))
+        + ", " + ", ".join(f"token_mlp_bwd {w} C{c} {mk.mlp_bwd_tile(c, w)}"
+                           for c in (384, 768) for w in ("fc1", "stream"))
+        + ", " + ", ".join(f"token_mlp_bwd wgrad {j} columns {mk.mlp_bwd_tile(j, 'wgrad')}"
+                           for j in (96, 384, 768, 3072)))
     log("grid plans, as the library reports them: blocks of the window core an SM holds "
         + ", ".join(f"{q} L={L} {cuda_build.blocks_per_sm(q, L)}"
-                    for q in ("dsg_swin_attn_core_per_sm", "dsg_window_attention_per_sm")
+                    for q in ("dsg_swin_attn_core_per_sm", "dsg_window_attention_per_sm",
+                              "dsg_swin_attn_bwd_core_per_sm")
                     for L in (64, 100))
         + "; token_mlp (rows, hidden chunk, blocks an SM) "
         + ", ".join(f"C{c} {mk.mlp_tile(c)}" for c in (64, 96, 192, 384, 768)))

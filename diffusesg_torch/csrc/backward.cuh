@@ -1,16 +1,23 @@
 // Shared pieces of the backward kernels (token_mlp_bwd, swin_attn_bwd):
 //
-//   * launch_gemm_tn: dW[i, j] = sum_t a[t, i] * b[t, j], the contraction
-//     over the token axis (K = tokens, up to 262,144 at batch 64) with a tiny
-//     output.  K is split over gridDim.z so the grid fills the card; each
-//     split writes an fp32 partial and reduce_partials sums them;
+//   * the weight gradients dW[i, j] = sum_t a[t, i] b[t, j], a contraction
+//     over the token axis (K = tokens, up to 262,144 at batch 64) with a
+//     small output, run on the wgmma GEMM (hopper_gemm.cuh) with both
+//     operands read MN-major as TMA brings them, 64 tokens a box: the tile
+//     is 128 x 96 or 128 x 192 (`with_tokens_tile`), K is split over the
+//     grid's z so that the output tiles times the splits fill the card (the
+//     plan is Python's, from the tile and occupancy `tokens_tile` reports),
+//     and each split writes an fp32 partial;
+//   * epilogues of the backward's products on the same GEMM (the MLP's
+//     recompute and the GELU's vjp where the chain is not fused);
 //   * col_sums: per-column sums over tokens of a bf16 [T, N] matrix (the
-//     bias gradients), as per-block partials for the same reduction;
-//   * ln_bwd_rows: the row pass that closes both backward kernels: the
-//     LayerNorm vjp per token (one warp per row, statistics recomputed in
-//     fp32), the noise affine's vjp for the attention half, and the sums
-//     over tokens (d gamma, d beta, d scale, d shift) kept in registers
-//     across a block's rows and written once per block;
+//     bias gradients), as per-block partials;
+//   * ln_bwd_rows: the row pass that closes the attention half (and the MLP
+//     half where it is not fused): the LayerNorm vjp per token (one warp per
+//     row, statistics recomputed in fp32), the noise affine's vjp for the
+//     attention half, and the sums over tokens (d gamma, d beta, d scale,
+//     d shift) kept in registers across a block's rows, written once per
+//     block;
 //   * reduce_partials: out[g, i] = sum_s part[(g * S + s) * ld + off + i].
 //
 // Every reduction over tokens is two-phase (per-block fp32 partials, then
@@ -20,11 +27,13 @@
 
 #include <cuda_fp16.h>
 
-#include "common.cuh"
+#include "hopper_gemm.cuh"
 
 namespace dsg {
 
-// GEMM call sites of the backward kernels (kernel names in a profile)
+// Call sites of the backward kernels (kernel names in a profile): the fused
+// MLP row tile, and the products on the wgmma GEMM
+struct MlpBwdFused {};
 struct MlpBwdFc1 {};
 struct MlpBwdDm {};
 struct MlpBwdDw1 {};
@@ -36,10 +45,11 @@ struct SwinBwdDwproj {};
 struct SwinBwdDwqkv {};
 struct SwinBwdDhn {};
 
-__device__ __forceinline__ float gelu_erf_grad(float v) {
-  // d/dv [v * Phi(v)] = Phi(v) + v * phi(v)
+// gelu(v) = v Phi(v) and its derivative Phi(v) + v phi(v), from one erf
+__device__ __forceinline__ void gelu_and_grad(float v, float& m, float& g) {
   const float cdf = 0.5f * (1.f + erff(v * 0.70710678118654752f));
-  return cdf + v * 0.3989422804014327f * expf(-0.5f * v * v);
+  m = v * cdf;
+  g = cdf + v * 0.3989422804014327f * expf(-0.5f * v * v);
 }
 
 __device__ __forceinline__ float silu_grad(float v) {
@@ -74,94 +84,112 @@ __device__ __forceinline__ void store8h(__half* p, const float v[8]) {
 }
 
 // --------------------------------------------------------------- epilogues
-// All output widths of the backward GEMMs are multiples of 8, so the
-// epilogues store whole 16-byte vectors (the launchers check N % 8).
 
-// fc1 recomputed: u = acc + b1; m = gelu(u) in bf16 and gelu'(u) in fp16
-// (values in [-0.13, 1.13]: fp16 keeps 11 bits where bf16 keeps 8).
-struct GeluAndGradEpi {
+// fc1 recomputed (the MLP chain): u = acc + b1; m = gelu(u) in bf16 and
+// gelu'(u) in fp16 (values in [-0.13, 1.13]: fp16 keeps 11 bits where bf16
+// keeps 8).
+struct GeluAndGradEpi : hg::RowEpi {
   bf16* m;
   __half* gp;
   const float* bias;
   int N;
-  __device__ void store(int r, int n, const float* acc, int, bool) const {
-    float mv[8], gv[8];
+  __device__ void put8(int r, int n, float v[8]) const {
+    hg::add_bias8(bias, n, v);
+    float gv[8];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const float u = acc[t] + bias[n + t];
-      mv[t] = gelu_erf(u);
-      gv[t] = gelu_erf_grad(u);
-    }
+    for (int t = 0; t < 8; ++t) gelu_and_grad(v[t], v[t], gv[t]);
     const size_t base = (size_t)r * N + n;
-    store8(m + base, mv);
+    store8(m + base, v);
     store8h(gp + base, gv);
   }
 };
 
 // du = bf16(acc * gelu'(u))
-struct MulGradEpi {
+struct MulGradEpi : hg::RowEpi {
   bf16* out;
   const __half* gp;
   int N;
-  __device__ void store(int r, int n, const float* acc, int, bool) const {
+  __device__ void put8(int r, int n, float v[8]) const {
     const size_t base = (size_t)r * N + n;
-    float g[8], y[8];
+    float g[8];
     load8h(gp + base, g);
 #pragma unroll
-    for (int t = 0; t < 8; ++t) y[t] = acc[t] * g[t];
-    store8(out + base, y);
+    for (int t = 0; t < 8; ++t) v[t] *= g[t];
+    store8(out + base, v);
   }
 };
 
-// fp32 partial of split z at out + z * M * N
-struct PartialF32 {
-  float* out;
-  int N;
-  size_t MN;
-  __device__ void store(int r, int n, const float* acc, int, bool) const {
-    float* p = out + blockIdx.z * MN + (size_t)r * N + n;
-    reinterpret_cast<float4*>(p)[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-  }
-};
+// ------------------------------------------------- the weight gradients
 
-// part[z, i, j] = sum over split z's tokens t of a[t, i] * b[t, j]; a [T, M],
-// b [T, N] row-major bf16; `splits` partials of [M, N] fp32.
+// The token-axis tile of a weight gradient with J output columns: 192
+// columns a tile where they divide J, else 96; `f` gets a value of the tile.
+template <class F>
+int with_tokens_tile(int J, F f) {
+  if (J <= 0 || J % 8) return -1;
+  if (J % 192 == 0) return f(hg::TokensN192{});
+  return f(hg::TokensN96{});
+}
+
+// part[z] = a^T b over split z's tokens (a [T, I], b [T, J], fp32 partials
+// [I, J] at part + z * ld), on the tile with_tokens_tile picks.
 template <class Site>
-cudaError_t launch_gemm_tn(const void* a, const void* b, float* part, int M, int N, int T,
-                           int splits, cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || T <= 0 || M % 8 || N % 8 || splits < 1) return cudaErrorInvalidValue;
-  int kchunk = (T + splits - 1) / splits;
-  kchunk = (kchunk + kBK - 1) / kBK * kBK;
-  if ((long long)kchunk * (splits - 1) >= T) return cudaErrorInvalidValue;  // an empty split
-  dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, splits);
-  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
-  PartialF32 epi{part, N, (size_t)M * N};
-  gemm_kernel<Site, PartialF32, true, true><<<grid, kThreads, 0, stream>>>(
-      GemmA{static_cast<const bf16*>(a), nullptr, 0, 0}, epi, static_cast<const bf16*>(b), M, N,
-      T, kchunk);
-  return cudaGetLastError();
+cudaError_t launch_wgrad(const void* a, const void* b, float* part, size_t ld, int I, int J,
+                         int T, int splits, int kchunk, cudaStream_t s) {
+  const hg::PartialEpi epi{{}, part, J, ld};
+  return (cudaError_t)with_tokens_tile(J, [&](auto tile) -> int {
+    return hg::launch<decltype(tile), Site>(GemmA{static_cast<const bf16*>(a), nullptr, T, 0},
+                                            hg::NoPanel{}, epi, static_cast<const bf16*>(b), I,
+                                            J, 1, s, splits, kchunk);
+  });
+}
+
+// The tile of a weight gradient with J columns for the wrapper's split plan:
+// geom = {rows, columns, blocks an SM holds, 0}; -1 for a J no tile covers.
+template <class Site>
+int wgrad_tile(int J, int* geom) {
+  return with_tokens_tile(J, [&](auto tile) -> int {
+    return hg::tile_query<decltype(tile), Site, hg::NoPanel, hg::PartialEpi>(64, geom);
+  });
 }
 
 // ------------------------------------------------------------ reductions
 
-// out[g * N + i] = sum_{s < S} part[(g * S + s) * ld + off + i]; grid (ceil(N / 256), G)
-static __global__ void __launch_bounds__(256)
+// out[g * N + i] = sum_{s < S} part[(g * S + s) * ld + off + i]; grid
+// (ceil(N / X), G), block (X, Y): (32, 32) where S >= 128, (32, 8) where
+// S >= 8, else (256, 1).  Row lane y sums the splits s = y, y + Y, ... of
+// column i (a lane's loads in flight together), and the Y lanes' sums are
+// added in the order y = 0, 1, ..., a fixed order, so the result is the same
+// bit for bit from run to run.
+static __global__ void __launch_bounds__(1024)
 reduce_partials_kernel(const float* __restrict__ part, float* __restrict__ out, int S, int N,
                        size_t ld, int off) {
-  const int i = blockIdx.x * 256 + threadIdx.x, g = blockIdx.y;
-  if (i >= N) return;
-  const float* p = part + (size_t)g * S * ld + off + i;
+  __shared__ float red[32][33];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x, g = blockIdx.y;
   float acc = 0.f;
-  for (int s = 0; s < S; ++s) acc += p[(size_t)s * ld];
-  out[(size_t)g * N + i] = acc;
+  if (i < N) {
+    const float* p = part + (size_t)g * S * ld + off + i;
+#pragma unroll 4
+    for (int s = threadIdx.y; s < S; s += blockDim.y) acc += p[(size_t)s * ld];
+  }
+  if (blockDim.y == 1) {
+    if (i < N) out[(size_t)g * N + i] = acc;
+    return;
+  }
+  red[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < N) {
+    float v = red[0][threadIdx.x];
+    for (int y = 1; y < blockDim.y; ++y) v += red[y][threadIdx.x];
+    out[(size_t)g * N + i] = v;
+  }
 }
 
 inline cudaError_t reduce_partials(const float* part, float* out, int G, int S, int N, size_t ld,
                                    int off, cudaStream_t stream) {
-  if (G <= 0 || S <= 0 || N <= 0) return cudaErrorInvalidValue;
-  dim3 grid((N + 255) / 256, G);
-  reduce_partials_kernel<<<grid, 256, 0, stream>>>(part, out, S, N, ld, off);
+  if (G <= 0 || S <= 0 || N <= 0 || G > 65535) return cudaErrorInvalidValue;
+  const dim3 block(S >= 8 ? 32 : 256, S >= 128 ? 32 : S >= 8 ? 8 : 1),
+      grid((N + block.x - 1) / block.x, G);
+  reduce_partials_kernel<<<grid, block, 0, stream>>>(part, out, S, N, ld, off);
   return cudaGetLastError();
 }
 
@@ -214,7 +242,8 @@ inline cudaError_t col_sums(const void* x, float* part, float* out, int T, int N
 //
 // grid (bps, G): group g holds rows [g * HW, (g + 1) * HW) (a sample, for
 // the affine's per-sample sums; G = 1 for the MLP half), block x of the
-// group takes every bps-th run of 8 rows, one warp per row.
+// group takes every bps-th run of 8 * (32 / LPR) rows, LPR lanes per row (16
+// where C <= 128, so a warp holds two rows at once; else 32).
 //
 //   AFFINE = false (MLP half):   h = x;  dx = dres + LNvjp(dhn)
 //   AFFINE = true  (attention):  pre = shift + x * (scale + 1),
@@ -225,16 +254,22 @@ inline cudaError_t col_sums(const void* x, float* part, float* out, int T, int N
 //
 // part[(g * bps + x), :] = [sum dhn * hbar | sum dhn | sum dpre * x | sum dpre]
 // over the block's rows (the last two only when AFFINE), each C wide.
-template <bool AFFINE, int MAXV>
-__global__ void __launch_bounds__(256)
+template <bool AFFINE, int MAXV, int LPR>
+__global__ void __launch_bounds__(256, MAXV == 1 ? 2 : 1)
 ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ss,
                    const bf16* __restrict__ dres, const float* __restrict__ dhn,
                    const float* __restrict__ gamma, bf16* __restrict__ dx,
                    float* __restrict__ part, int HW, int C) {
-  constexpr int NC = AFFINE ? 4 : 2;
+  constexpr int NC = AFFINE ? 4 : 2, RPW = 32 / LPR;  // rows a warp holds at once
   extern __shared__ float sums[];  // [NC * C]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, sub = (threadIdx.x & 31) / LPR, lane = threadIdx.x % LPR;
   const int g = blockIdx.y;
+  // a sum over the LPR lanes of a row
+  auto row_sum = [](float v) {
+#pragma unroll
+    for (int o = LPR / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+  };
   for (int i = threadIdx.x; i < NC * C; i += 256) sums[i] = 0.f;
 
   float acc[NC][MAXV][8];
@@ -245,15 +280,34 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ss,
 #pragma unroll
       for (int t = 0; t < 8; ++t) acc[c][i][t] = 0.f;
 
-  for (int r = blockIdx.x * 8 + warp; r < HW; r += gridDim.x * 8) {
-    const size_t row = (size_t)g * HW + r;
+  for (int r0 = (blockIdx.x * 8 + warp) * RPW; r0 < HW; r0 += gridDim.x * 8 * RPW) {
+    const int r = r0 + sub;
+    const bool live = r < HW;  // the lanes of a row past HW only join the sums
+    const size_t row = (size_t)g * HW + (live ? r : r0);
+    // at C <= 256 every load of the row comes first (x, dhn, dres), so their
+    // latencies overlap; wider rows load dhn and dres where they are used
+    // (the registers of three rows in flight would not fit beside the sums)
+    constexpr bool kEarly = MAXV == 1;
+    float xr[MAXV][8], d[MAXV][8], dr[MAXV][8];
+#pragma unroll
+    for (int i = 0; i < MAXV; ++i) {
+      const int k = (i * LPR + lane) * 8;
+      if (k < C && live) {
+        load8(x + row * C + k, xr[i]);
+        if constexpr (kEarly) {
+          load8f(dhn + row * C + k, d[i]);
+          load8(dres + row * C + k, dr[i]);
+        }
+      }
+    }
     float h[MAXV][8], sc1[MAXV][8], pre[MAXV][8];
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < MAXV; ++i) {
-      const int k = (i * 32 + lane) * 8;
-      if (k < C) {
-        load8(x + row * C + k, h[i]);
+      const int k = (i * LPR + lane) * 8;
+      if (k < C && live) {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) h[i][t] = xr[i][t];
         if constexpr (AFFINE) {
           float sh[8];
           load8(ss + (size_t)g * 2 * C + k, sc1[i]);
@@ -269,27 +323,26 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ss,
         for (int t = 0; t < 8; ++t) s += h[i][t];
       }
     }
-    const float mean = warp_sum(s) / C;
+    const float mean = row_sum(s) / C;
     float q = 0.f;
 #pragma unroll
     for (int i = 0; i < MAXV; ++i) {
-      const int k = (i * 32 + lane) * 8;
-      if (k < C) {
+      const int k = (i * LPR + lane) * 8;
+      if (k < C && live) {
 #pragma unroll
         for (int t = 0; t < 8; ++t) q += (h[i][t] - mean) * (h[i][t] - mean);
       }
     }
-    const float rstd = rsqrtf(warp_sum(q) / C + kLnEps);
+    const float rstd = rsqrtf(row_sum(q) / C + kLnEps);
     // h becomes hbar; d holds dhn, then dh = dhn * gamma
-    float d[MAXV][8];
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int i = 0; i < MAXV; ++i) {
-      const int k = (i * 32 + lane) * 8;
-      if (k < C) {
+      const int k = (i * LPR + lane) * 8;
+      if (k < C && live) {
         float gm[8];
-        load8f(dhn + row * C + k, d[i]);
         load8f(gamma + k, gm);
+        if constexpr (!kEarly) load8f(dhn + row * C + k, d[i]);
 #pragma unroll
         for (int t = 0; t < 8; ++t) {
           h[i][t] = (h[i][t] - mean) * rstd;
@@ -301,47 +354,54 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ss,
         }
       }
     }
-    const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+    const float m1 = row_sum(s1) / C, m2 = row_sum(s2) / C;
 #pragma unroll
     for (int i = 0; i < MAXV; ++i) {
-      const int k = (i * 32 + lane) * 8;
-      if (k < C) {
-        float dr[8], o[8];
-        load8(dres + row * C + k, dr);
+      const int k = (i * LPR + lane) * 8;
+      if (k < C && live) {
+        float o[8];
+        if constexpr (!kEarly) {
+          load8(dres + row * C + k, dr[i]);
+          if constexpr (AFFINE) load8(x + row * C + k, xr[i]);
+        }
         if constexpr (AFFINE) {
-          float xv[8];
-          load8(x + row * C + k, xv);
 #pragma unroll
           for (int t = 0; t < 8; ++t) {
-            const float da = dr[t] + rstd * (d[i][t] - m1 - h[i][t] * m2);
+            const float da = dr[i][t] + rstd * (d[i][t] - m1 - h[i][t] * m2);
             const float dpre = da * silu_grad(pre[i][t]);
-            acc[2][i][t] += dpre * xv[t];
+            acc[2][i][t] += dpre * xr[i][t];
             acc[3][i][t] += dpre;
             o[t] = dpre * sc1[i][t];
           }
         } else {
 #pragma unroll
-          for (int t = 0; t < 8; ++t) o[t] = dr[t] + rstd * (d[i][t] - m1 - h[i][t] * m2);
+          for (int t = 0; t < 8; ++t) o[t] = dr[i][t] + rstd * (d[i][t] - m1 - h[i][t] * m2);
         }
         store8(dx + row * C + k, o);
       }
     }
   }
 
-  // the block's eight warps add their sums in warp order
+  // the block's eight warps add their sums in warp order, a warp's rows in
+  // order within it
   for (int w = 0; w < 8; ++w) {
     __syncthreads();
     if (warp == w) {
+      for (int sb = 0; sb < RPW; ++sb) {
+        if (sub == sb) {
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+          for (int c = 0; c < NC; ++c)
 #pragma unroll
-        for (int i = 0; i < MAXV; ++i) {
-          const int k = (i * 32 + lane) * 8;
-          if (k < C) {
+            for (int i = 0; i < MAXV; ++i) {
+              const int k = (i * LPR + lane) * 8;
+              if (k < C) {
 #pragma unroll
-            for (int t = 0; t < 8; ++t) sums[c * C + k + t] += acc[c][i][t];
-          }
+                for (int t = 0; t < 8; ++t) sums[c * C + k + t] += acc[c][i][t];
+              }
+            }
         }
+        __syncwarp();
+      }
     }
   }
   __syncthreads();
@@ -359,12 +419,14 @@ cudaError_t launch_ln_bwd_rows(const void* x, const void* ss, const void* dres, 
   const bf16 *xp = static_cast<const bf16*>(x), *sp = static_cast<const bf16*>(ss),
              *dp = static_cast<const bf16*>(dres);
   bf16* op = static_cast<bf16*>(dx);
-  if (C <= 256)
-    ln_bwd_rows_kernel<AFFINE, 1><<<grid, 256, smem, stream>>>(xp, sp, dp, dhn, gamma, op, part, HW, C);
+  if (C <= 128)
+    ln_bwd_rows_kernel<AFFINE, 1, 16><<<grid, 256, smem, stream>>>(xp, sp, dp, dhn, gamma, op, part, HW, C);
+  else if (C <= 256)
+    ln_bwd_rows_kernel<AFFINE, 1, 32><<<grid, 256, smem, stream>>>(xp, sp, dp, dhn, gamma, op, part, HW, C);
   else if (C <= 512)
-    ln_bwd_rows_kernel<AFFINE, 2><<<grid, 256, smem, stream>>>(xp, sp, dp, dhn, gamma, op, part, HW, C);
+    ln_bwd_rows_kernel<AFFINE, 2, 32><<<grid, 256, smem, stream>>>(xp, sp, dp, dhn, gamma, op, part, HW, C);
   else
-    ln_bwd_rows_kernel<AFFINE, 3><<<grid, 256, smem, stream>>>(xp, sp, dp, dhn, gamma, op, part, HW, C);
+    ln_bwd_rows_kernel<AFFINE, 3, 32><<<grid, 256, smem, stream>>>(xp, sp, dp, dhn, gamma, op, part, HW, C);
   return cudaGetLastError();
 }
 

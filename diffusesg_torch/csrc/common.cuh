@@ -1,53 +1,23 @@
-// Shared pieces of the Hopper kernels: a row-preparation kernel for the
-// backward kernels' LayerNorm'd recompute operands, a bf16 tile GEMM on the
-// tensor cores (WMMA 16x16x16, fp32 accumulate) with a fused per-element
-// epilogue, and small device helpers (erf-GELU, SiLU, bf16 rounding, warp
-// sums, the mma.sync pieces).
-//
-// Row preparation: one warp per row.  A source functor hands over eight
-// consecutive raw values of row m (`raw8`: the noise affine, a plain load),
-// the warp keeps the row in registers, takes LayerNorm statistics over all K
-// (two passes: mean, then the mean of squared deviations, as the reference
-// LayerNorm), and writes the normalized row once in bf16.  The forward
-// GEMMs' prologues (hg::LnPanel) repeat this arithmetic on shared memory.
-//
-// WMMA GEMM: C[m, n] = epi(m, n, sum_k A[m, k] * W[n, k]), W in the PyTorch
-// Linear layout [N, K] (the column-major B operand WMMA wants) and A = [a1 |
-// a2] row-major.  128x64 output per 128-thread block, K step 32, each warp a
-// 64x32 quadrant of 4x2 WMMA fragments, a 3-stage cp.async ring, and an
-// epilogue over an fp32 staging tile with 16-byte stores.  It serves every
-// GEMM of the backward kernels and nothing else: the forward GEMMs
-// (swin_attn, patch_merge, patch_breakup, readout) run on wgmma
-// (hopper_gemm.cuh).
-//
-// The backward kernels need two more operand layouts and a split of K:
-//   TA: A is stored [K, M] (token-major), so C = A^T-stored x B contracts
-//       over the token axis: the weight gradients dW = d(out)^T x in;
-//   TB: the second operand is stored [K, N], so C = A x W with W untransposed:
-//       the input gradients d(in) = d(out) x W.
-// With gridDim.z > 1 block z covers K range [z * kchunk, (z + 1) * kchunk) and
-// its epilogue writes an fp32 partial; ``reduce_partials`` (backward.cuh, with
-// the backward row pass and the column sums) adds the partials in a fixed
-// order, so the result is the same from run to run.
+// Shared pieces of the Hopper kernels: small device helpers (erf-GELU,
+// SiLU, bf16 rounding, warp sums, read-only loads, cp.async), the mma.sync
+// pieces of the kernels that keep tiles in registers (the window cores, the
+// fused MLP), one LayerNorm row by one warp (`ln_row`, the fused MLP's
+// prologue; the wgmma GEMM's LayerNorm prologue hg::LnPanel repeats its
+// arithmetic on shared memory), and the two-source A operand of the wgmma
+// GEMM (GemmA).  Every GEMM of the port, forward and backward, runs on that
+// GEMM (hopper_gemm.cuh) or in a kernel of its own built from its pieces.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 namespace dsg {
 
 using bf16 = __nv_bfloat16;
 
 constexpr float kLnEps = 1e-6f;  // every LayerNorm of the model (flax default)
-constexpr int kBM = 128, kBN = 64, kBK = 32, kThreads = 128, kStages = 3;
-constexpr int kLdA = kBK + 8;  // bf16 elements; rows stay 16-byte aligned
-constexpr int kLdC = kBN + 4;  // floats
-constexpr int kLdAT = kBM + 8;  // A tile stored [kBK][kBM] (TA)
-constexpr int kLdBT = kBN + 8;  // B tile stored [kBK][kBN] (TB)
 
 __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
 
@@ -103,12 +73,6 @@ __device__ __forceinline__ void ld_ro8(const bf16* p, float v[8]) {  // 16-byte 
     const float2 f = __bfloat1622float2(h[i]);
     v[2 * i] = f.x, v[2 * i + 1] = f.y;
   }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 // eight consecutive bf16 (16-byte aligned) -> float
@@ -202,7 +166,7 @@ __device__ __forceinline__ void load_b16(uint32_t b[2], const bf16* tile, int ld
   ldsm_x2(b, tile + (n0 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
 }
 
-// ------------------------------------------------------- row preparation
+// ------------------------------------------------------- a LayerNorm row
 
 // A plain row-major bf16 [M, K] source.
 struct RowSrc {
@@ -252,30 +216,7 @@ __device__ __forceinline__ void ln_row(const Src& src, int row, int K, int lane,
   }
 }
 
-// out[m, :] = bf16(LayerNorm(src row m)), one warp per row.
-template <class Src, int MAXV>
-__global__ void __launch_bounds__(256)
-ln_rows_kernel(Src src, const float* __restrict__ gamma, const float* __restrict__ beta,
-               bf16* __restrict__ out, int M, int K) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= M) return;
-  ln_row<Src, MAXV>(src, row, K, lane, gamma, beta, out + (size_t)row * K);
-}
-
-template <class Src>
-cudaError_t launch_ln_rows(const Src& src, const float* gamma, const float* beta, bf16* out,
-                           int M, int K, cudaStream_t stream) {
-  if (M <= 0 || K <= 0 || K % 8 != 0) return cudaErrorInvalidValue;
-  const dim3 grid((M + 7) / 8), block(256);
-  if (K <= 256) ln_rows_kernel<Src, 1><<<grid, block, 0, stream>>>(src, gamma, beta, out, M, K);
-  else if (K <= 512) ln_rows_kernel<Src, 2><<<grid, block, 0, stream>>>(src, gamma, beta, out, M, K);
-  else if (K <= 768) ln_rows_kernel<Src, 3><<<grid, block, 0, stream>>>(src, gamma, beta, out, M, K);
-  else if (K <= 1536) ln_rows_kernel<Src, 6><<<grid, block, 0, stream>>>(src, gamma, beta, out, M, K);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------------------------- GEMM
+// ------------------------------------------------------- the GEMM operand
 
 // A = [a1 | a2] along K, both row-major bf16 (a2 may be null with K2 = 0).
 struct GemmA {
@@ -299,188 +240,5 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
-
-template <class Site, class Epi, bool TA, bool TB>
-__global__ void __launch_bounds__(kThreads)
-gemm_kernel(GemmA A, Epi epi, const bf16* __restrict__ W, int M, int N, int K, int kchunk) {
-  using namespace nvcuda;
-  constexpr int kStageElems = (kBM + kBN) * kLdA;
-  static_assert(kBK * kLdAT <= kBM * kLdA && kBK * kLdBT <= kBN * kLdA, "stage size");
-  constexpr int kRingBytes = kStages * kStageElems * 2;
-  constexpr int kCsBytes = kBM * kLdC * 4;
-  // the cp.async ring, then (after the K loop) the fp32 output tile
-  __shared__ __align__(128) unsigned char smem[kRingBytes > kCsBytes ? kRingBytes : kCsBytes];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int kbeg = blockIdx.z * kchunk;
-  const int kend = kbeg + kchunk < K ? kbeg + kchunk : K;
-  const int ktiles = (kend - kbeg + kBK - 1) / kBK;
-
-  auto load_stage = [&](int stage, int k0) {
-    bf16* As = ring + stage * kStageElems;
-    bf16* Bs = As + kBM * kLdA;
-    if constexpr (TA) {  // A stored [K, M]: 16-byte vectors run along m
-#pragma unroll
-      for (int i = tid; i < kBK * kBM / 8; i += kThreads) {
-        const int r = i / (kBM / 8), mm = (i % (kBM / 8)) * 8;
-        const int k = k0 + r, m = m0 + mm;
-        const bool ok = m < M && k < kend;
-        cp_async16(As + r * kLdAT + mm, ok ? A.a1 + (size_t)k * M + m : A.a1, ok);
-      }
-    } else {
-#pragma unroll
-      for (int i = tid; i < kBM * kBK / 8; i += kThreads) {
-        const int r = i / (kBK / 8), kk = (i % (kBK / 8)) * 8;
-        const int m = m0 + r, k = k0 + kk;
-        const bool ok = m < M && k < kend;
-        const bf16* src = A.a1;
-        if (ok)
-          src = k < A.K1 ? A.a1 + (size_t)m * A.K1 + k : A.a2 + (size_t)m * A.K2 + (k - A.K1);
-        cp_async16(As + r * kLdA + kk, src, ok);
-      }
-    }
-    if constexpr (TB) {  // W stored [K, N]: vectors run along n
-#pragma unroll
-      for (int i = tid; i < kBK * kBN / 8; i += kThreads) {
-        const int r = i / (kBN / 8), nn = (i % (kBN / 8)) * 8;
-        const int k = k0 + r, n = n0 + nn;
-        const bool ok = n < N && k < kend;
-        cp_async16(Bs + r * kLdBT + nn, ok ? W + (size_t)k * N + n : W, ok);
-      }
-    } else {
-#pragma unroll
-      for (int i = tid; i < kBN * kBK / 8; i += kThreads) {
-        const int r = i / (kBK / 8), kk = (i % (kBK / 8)) * 8;
-        const int n = n0 + r, k = k0 + kk;
-        const bool ok = n < N && k < kend;
-        cp_async16(Bs + r * kLdA + kk, ok ? W + (size_t)n * K + k : W, ok);
-      }
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  const int wm = (warp >> 1) * 64, wn = (warp & 1) * 32;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load_stage(s, kbeg + s * kBK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kStages - 2>();  // tile kt has landed
-    __syncthreads();               // ... for every thread; stage (kt-1) is free again
-    const int nk = kt + kStages - 1;
-    if (nk < ktiles) load_stage(nk % kStages, kbeg + nk * kBK);
-    cp_async_commit();
-    const bf16* as = ring + (kt % kStages) * kStageElems;
-    const bf16* bs = as + kBM * kLdA;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      using LayA = std::conditional_t<TA, wmma::col_major, wmma::row_major>;
-      using LayB = std::conditional_t<TB, wmma::row_major, wmma::col_major>;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayA> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayB> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (TA) wmma::load_matrix_sync(fa[i], as + kk * kLdAT + wm + i * 16, kLdAT);
-        else wmma::load_matrix_sync(fa[i], as + (wm + i * 16) * kLdA + kk, kLdA);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if constexpr (TB) wmma::load_matrix_sync(fb[j], bs + kk * kLdBT + wn + j * 16, kLdBT);
-        else wmma::load_matrix_sync(fb[j], bs + (wn + j * 16) * kLdA + kk, kLdA);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring before Cs overwrites it
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * kLdC + wn + j * 16, acc[i][j], kLdC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  const bool vec_rows = N % 8 == 0;  // 16-byte aligned rows of the output
-  for (int i = tid; i < kBM * kBN / 8; i += kThreads) {
-    const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    const float4 lo = *reinterpret_cast<const float4*>(Cs + r * kLdC + c);
-    const float4 hi = *reinterpret_cast<const float4*>(Cs + r * kLdC + c + 4);
-    const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    const int cnt = N - n < 8 ? N - n : 8;
-    epi.store(m, n, v, cnt, vec_rows && cnt == 8);
-  }
-}
-
-template <class Site, class Epi>
-cudaError_t launch_gemm(const GemmA& A, const Epi& epi, const bf16* W, int M, int N,
-                        cudaStream_t stream) {
-  const int K = A.K1 + A.K2;
-  if (M <= 0 || N <= 0 || K <= 0 || A.K1 % 8 != 0 || A.K2 % 8 != 0)
-    return cudaErrorInvalidValue;
-  dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  gemm_kernel<Site, Epi, false, false><<<grid, kThreads, 0, stream>>>(A, epi, W, M, N, K, K);
-  return cudaGetLastError();
-}
-
-// C[m, n] = epi(sum_k a[m, k] * w[k, n]): a [M, K] row-major, w [K, N]
-// row-major (a Linear weight [out = K, in = N] taken untransposed).
-template <class Site, class Epi>
-cudaError_t launch_gemm_nn(const void* a, const void* w, const Epi& epi, int M, int N, int K,
-                           cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0) return cudaErrorInvalidValue;
-  dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  gemm_kernel<Site, Epi, false, true><<<grid, kThreads, 0, stream>>>(
-      rows(a, K), epi, static_cast<const bf16*>(w), M, N, K, K);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------- epilogue
-
-// y = acc + bias[n] (bias may be null), stored as OutT; `cnt` columns from
-// n, 16-byte vectors when `vec`.
-template <class OutT>
-struct Epilogue {
-  OutT* out;
-  const float* bias;
-  int N;
-  __device__ void store(int m, int n, const float* acc, int cnt, bool vec) const {
-    const size_t base = (size_t)m * N + n;
-    float y[8];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) y[t] = acc[t] + (bias && t < cnt ? bias[n + t] : 0.f);
-    if constexpr (sizeof(OutT) == 2) {
-      if (vec) store8(out + base, y);
-      else
-        for (int t = 0; t < cnt; ++t) out[base + t] = __float2bfloat16(y[t]);
-    } else {
-      if (vec) {
-        reinterpret_cast<float4*>(out + base)[0] = make_float4(y[0], y[1], y[2], y[3]);
-        reinterpret_cast<float4*>(out + base)[1] = make_float4(y[4], y[5], y[6], y[7]);
-      } else {
-        for (int t = 0; t < cnt; ++t) out[base + t] = y[t];
-      }
-    }
-  }
-};
-
-using StoreBf16 = Epilogue<bf16>;
-using StoreF32 = Epilogue<float>;
 
 }  // namespace dsg

@@ -1,11 +1,21 @@
 // A bf16 x bf16 -> fp32 GEMM on Hopper's warpgroup MMA (wgmma), with a fused
 // prologue and epilogue: C[m, n] = epi(m, n, sum_k A[m, k] * W[n, k]), W the
 // PyTorch Linear weight [N, K] (K-major, the B operand wgmma reads as it is).
+// It is the port's one GEMM.
 //
 // Call sites: swin_attn's qkv and proj GEMMs (swin_attn.cu), patch_merge's
-// product and patch_breakup's two products (patch_resample.cu).  readout
-// (readout.cu) is a kernel of its own built from the PTX pieces below.  The
-// backward kernels stay on the WMMA tile GEMM of common.cuh.
+// product and patch_breakup's two products (patch_resample.cu), and every
+// product of the backward kernels (swin_attn_bwd.cu, token_mlp_bwd.cu,
+// backward.cuh), which need two more operand layouts, both read MN-major
+// through wgmma's transpose modes for 16-bit types:
+//   * W stored [K, N] (Tile::kBMn): a Linear weight taken untransposed
+//     (dout W2, dy Wproj, du W1, dqkv Wqkv), TMA boxes of 64 N x 64 K;
+//   * the token-axis contraction dW[i, j] = sum_t a[t, i] b[t, j]
+//     (Tile::kAMn with kBMn): both operands [T, .] row-major, 64 tokens a
+//     box, K = tokens split over the grid's z into fp32 partials
+//     (PartialEpi) that reduce_partials (backward.cuh) adds in a fixed order.
+// readout (readout.cu) and the fused MLP backward (token_mlp_bwd.cu) are
+// kernels of their own built from the PTX pieces below.
 //
 // A block is one or two consumer warpgroups and one producer warp.  The
 // producer's lane 0 streams 64-wide K slices of W by TMA (cp.async.bulk.tensor,
@@ -44,7 +54,10 @@
 // 128 bytes; 16-byte chunk j of row r lies at chunk j ^ (r % 8).  Every slice
 // is 1024-byte aligned, so the pattern is the one TMA writes and wgmma reads
 // (descriptor layout type 1, SBO = 8 rows = 1024 bytes; a k16 step inside the
-// slice adds 32 bytes to the start address).
+// slice adds 32 bytes to the start address).  An MN-major box is the same
+// pattern with K as its rows: 128 bytes of 64 M (or N) elements a row, SBO
+// 1024 bytes between 8-row K groups, LBO the distance between 64-element
+// M/N boxes, a k16 step 16 rows (2048 bytes).
 #pragma once
 
 #include <cuda.h>
@@ -141,18 +154,64 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
+// descriptor of an MN-major, 128-byte-swizzled operand starting at p: rows
+// are K (128 bytes, 64 M or N elements each), 8-row groups 1024 bytes apart
+// (SBO), successive 64-element MN blocks `mn_bytes` apart (LBO); +128 per
+// k16 step (16 rows)
+__device__ __forceinline__ uint64_t mn128_desc(const void* p, unsigned mn_bytes) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(mn_bytes >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// a box of shared memory back to a 2-D bf16 tensor map at (inner, outer),
+// as one bulk group of this thread (rows or columns outside the tensor are
+// not written); bulk_wait_read<0> before the box is written again
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // element (r, k) of a swizzled panel of R rows: slice k / 64, row r, chunk
 // (k / 8) ^ (r % 8); k a multiple of 8 (one 16-byte chunk)
 __device__ __forceinline__ bf16* swizzled(bf16* panel, int R, int r, int k) {
   return panel + (k >> 6) * R * kSlice + r * kSlice + ((((k >> 3) & 7) ^ (r & 7)) << 3);
 }
 
-// D (64 x N, fp32, the accumulator layout) += A (64 x 16) B (16 x N)
-template <int N>
+// D (64 x N, fp32, the accumulator layout) += A (64 x 16) B (16 x N), both
+// from shared memory; TA / TB = 1 reads A / B MN-major (the transpose modes
+// of 16-bit types: M or N contiguous in shared memory)
+template <int N, int TA = 0, int TB = 0>
 struct Wgmma;
 
-template <>
-struct Wgmma<96> {
+template <int TA, int TB>
+struct Wgmma<64, TA, TB> {
+  __device__ static void mma(float (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<96, TA, TB> {
   __device__ static void mma(float (&d)[48], uint64_t da, uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
@@ -160,19 +219,19 @@ struct Wgmma<96> {
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-        "%48, %49, p, 1, 1, 0, 0;\n}\n"
+        "%48, %49, p, 1, 1, %51, %52;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 };
 
-template <>
-struct Wgmma<192> {
+template <int TA, int TB>
+struct Wgmma<192, TA, TB> {
   __device__ static void mma(float (&d)[96], uint64_t da, uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
@@ -183,7 +242,7 @@ struct Wgmma<192> {
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
         "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-        "%96, %97, p, 1, 1, 0, 0;\n}\n"
+        "%96, %97, p, 1, 1, %99, %100;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -196,7 +255,7 @@ struct Wgmma<192> {
           "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
           "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
           "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 };
 
@@ -221,22 +280,30 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[
 // (2: each 64 x BN/2) or one column of them along M (1: each 64 x BN; BM =
 // 64, one warpgroup, or 128, two).  kPanel: mode (a), A resident; else mode
 // (b), A streamed.  MINB: blocks an SM is meant to hold (the register budget
-// of __launch_bounds__).
-template <int BM_, int BN_, int WGN_, int STAGES_, bool PANEL_, int MINB_>
+// of __launch_bounds__).  The backward's layouts: AMN, A stored [K, M] (the
+// token-axis contraction: K = tokens; streamed in boxes of 64 M x 64 K,
+// read MN-major); BMN, W stored [K, N] (a Linear weight taken untransposed,
+// or the token-axis contraction's second operand; boxes of 64 N x 64 K,
+// read MN-major).
+template <int BM_, int BN_, int WGN_, int STAGES_, bool PANEL_, int MINB_, bool AMN_ = false,
+          bool BMN_ = false>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, WGN = WGN_, STAGES = STAGES_, MINB = MINB_;
-  static constexpr bool kPanel = PANEL_;
+  static constexpr bool kPanel = PANEL_, kAMn = AMN_, kBMn = BMN_;
   static constexpr int NW = BN / WGN;  // columns of one consumer warpgroup
   static constexpr int kGroups = BM / 64 * WGN;  // consumer warpgroups
   static constexpr int kConsumers = 128 * kGroups, kThreads = kConsumers + 32;
+  static constexpr int kWBoxes = (BN + kSlice - 1) / kSlice;  // MN-major W: 64-column boxes
   static constexpr int kAStage = kPanel ? 0 : BM * kSlice;  // bf16 elements of a slot
-  static constexpr int kWStage = BN * kSlice;
+  static constexpr int kWStage = (kBMn ? kWBoxes * kSlice : BN) * kSlice;
   static constexpr int kStageBytes = (kAStage + kWStage) * 2;
   static constexpr int kEpiLd = 36;  // floats a row of a warp's epilogue tile (16 x 32)
   static constexpr int kEpiBytes = kConsumers / 32 * 16 * kEpiLd * 4;
   static_assert((BM == 64 || (BM == 128 && WGN == 1)) && kGroups <= 2 && NW % 32 == 0 &&
                     NW <= 256,
                 "tile");
+  static_assert(!kAMn || (!kPanel && WGN == 1), "an MN-major A is streamed, 64 rows a group");
+  static_assert(!kBMn || WGN == 1 || NW % kSlice == 0, "MN-major W: whole boxes a group");
   __host__ __device__ static size_t panel_bytes(int K) {
     return kPanel ? (size_t)BM * ((K + kSlice - 1) / kSlice * kSlice) * 2 : 0;
   }
@@ -255,6 +322,12 @@ using PanelWide = Tile<64, 192, 2, 4, true, 1>;   // mode (a), K <= 768
 using PanelDeep = Tile<64, 96, 1, 2, true, 1>;
 using StreamRows = Tile<128, 96, 1, 3, false, 2>; // mode (b), any K
 using StreamLine = Tile<64, 384, 2, 3, false, 1>; // mode (b), whole rows of N <= 384
+// the backward's: A streamed, W [K, N] MN-major (dout W2, dy Wproj, du W1,
+// dqkv Wqkv), and the token-axis contraction dW = a^T b (both MN-major,
+// 96 or 192 columns a tile, K split over the grid's z)
+using StreamRowsT = Tile<128, 96, 1, 3, false, 2, false, true>;
+using TokensN96 = Tile<128, 96, 1, 4, false, 1, true, true>;
+using TokensN192 = Tile<128, 192, 1, 4, false, 1, true, true>;
 
 // An epilogue that takes the accumulators eight columns of a row at a time.
 struct RowEpi {
@@ -290,6 +363,20 @@ struct F32Epi : RowEpi {
   }
 };
 
+// The fp32 partial of K split z (the grid's z) at out + z * ld: [M, N]
+// row-major; a fixed-order reduction (reduce_partials, backward.cuh) adds the
+// splits, so the sum is the same bit for bit from run to run.
+struct PartialEpi : RowEpi {
+  float* out;
+  int N;
+  size_t ld;
+  __device__ void put8(int m, int n, float v[8]) const {
+    float4* p = reinterpret_cast<float4*>(out + blockIdx.z * ld + (size_t)m * N + n);
+    p[0] = make_float4(v[0], v[1], v[2], v[3]);
+    p[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+};
+
 // Rows of a plain row-major bf16 [M, K] matrix, as a panel's source.  A row
 // source's row m is kPieces contiguous pieces of K / kPieces elements
 // (`piece(m, q)`).
@@ -298,6 +385,7 @@ struct PlainRows {
   const bf16* a;
   int K;
   __device__ const bf16* piece(int m, int) const { return a + (size_t)m * K; }
+  __device__ void pre8(int, int, float*) const {}  // LnPanel's input is the row itself
 };
 
 // Rows [m0, m0 + R) of a row source into the swizzled panel by the block's
@@ -447,6 +535,28 @@ struct LnPanel {
   }
 };
 
+// A prologue that also writes the panel's rows [m0, m0 + R) to `out` (the
+// [M, K] bf16 operand a weight gradient reads again), in the blocks of
+// column split 0 only: the backward's recompute of hn.
+template <class Pro>
+struct StoreRows {
+  Pro pro;
+  bf16* out;
+  __device__ void fill(bf16* panel, int R, int m0, int M, int K, int warps, int warp,
+                       int lane) const {
+    pro.fill(panel, R, m0, M, K, warps, warp, lane);
+    if (blockIdx.y != 0) return;
+    consumer_sync(warps * 32);  // every row of the panel is written
+    const int vecs = K / 8;
+    for (int i = warp * 32 + lane; i < R * vecs; i += warps * 32) {
+      const int r = i / vecs, k = (i - r * vecs) * 8;
+      if (m0 + r < M)
+        *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * K + k) =
+            *reinterpret_cast<const uint4*>(swizzled(panel, R, r, k));
+    }
+  }
+};
+
 // Mode (b) has no prologue.
 struct NoPanel {
   __device__ void fill(bf16*, int, int, int, int, int, int, int) const {}
@@ -458,6 +568,7 @@ struct Maps {
 
 struct Shape {
   int M, N, K, K1, per;  // per: N tiles a block walks
+  int kchunk;            // K elements of a split: block z covers [z kchunk, (z + 1) kchunk)
 };
 
 // ------------------------------------------------------------- the kernel
@@ -478,7 +589,9 @@ hgemm_kernel(const __grid_constant__ Maps maps, const Pro pro, const Epi epi, co
   const int n_tiles = (sh.N + T::BN - 1) / T::BN;
   const int t_begin = blockIdx.y * sh.per;
   const int t_end = t_begin + sh.per < n_tiles ? t_begin + sh.per : n_tiles;
-  const int kslices = (sh.K + kSlice - 1) / kSlice;
+  const int kbeg = blockIdx.z * sh.kchunk;
+  const int kend = kbeg + sh.kchunk < sh.K ? kbeg + sh.kchunk : sh.K;
+  const int kslices = (kend - kbeg + kSlice - 1) / kSlice;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -499,15 +612,25 @@ hgemm_kernel(const __grid_constant__ Maps maps, const Pro pro, const Epi epi, co
           mbar_wait(&empty[s], ((it / T::STAGES) & 1) ^ 1);
           mbar_expect_tx(&full[s], T::kStageBytes);
           unsigned char* slot = ring + s * T::kStageBytes;
-          const int k = ks * kSlice;
-          if constexpr (!T::kPanel) {
+          const int k = kbeg + ks * kSlice;
+          if constexpr (T::kAMn) {
+#pragma unroll
+            for (int b = 0; b < T::BM / kSlice; ++b)
+              tma_load(&maps.a1, slot + b * kSlice * kSlice * 2, &full[s], m0 + b * kSlice, k);
+          } else if constexpr (!T::kPanel) {
             if (k < sh.K1) tma_load(&maps.a1, slot, &full[s], k, m0);
             else tma_load(&maps.a2, slot, &full[s], k - sh.K1, m0);
           }
           bf16* ws = reinterpret_cast<bf16*>(slot) + T::kAStage;
+          if constexpr (T::kBMn) {
 #pragma unroll
-          for (int i = 0; i < T::WGN; ++i)
-            tma_load(&maps.w, ws + i * T::NW * kSlice, &full[s], k, t * T::BN + i * T::NW);
+            for (int b = 0; b < T::kWBoxes; ++b)
+              tma_load(&maps.w, ws + b * kSlice * kSlice, &full[s], t * T::BN + b * kSlice, k);
+          } else {
+#pragma unroll
+            for (int i = 0; i < T::WGN; ++i)
+              tma_load(&maps.w, ws + i * T::NW * kSlice, &full[s], k, t * T::BN + i * T::NW);
+          }
         }
     }
     return;
@@ -531,11 +654,18 @@ hgemm_kernel(const __grid_constant__ Maps maps, const Pro pro, const Epi epi, co
       mbar_wait(&full[s], (it / T::STAGES) & 1);
       const bf16* slot = reinterpret_cast<const bf16*>(ring + s * T::kStageBytes);
       const bf16* a = T::kPanel ? panel + ks * T::BM * kSlice + row0 * kSlice : slot + row0 * kSlice;
-      const uint64_t da = sw128_desc(a), db = sw128_desc(slot + T::kAStage + col0 * kSlice);
-      const int steps = min(kSlice, sh.K - ks * kSlice) / 16;
+      // K-major operands step 32 bytes a k16, MN-major ones 16 rows of 128
+      constexpr int kStepA = T::kAMn ? 128 : 2, kStepB = T::kBMn ? 128 : 2;
+      const uint64_t da = T::kAMn ? mn128_desc(a, kSlice * kSlice * 2) : sw128_desc(a);
+      const uint64_t db = T::kBMn ? mn128_desc(slot + T::kAStage + col0 * kSlice, kSlice * kSlice * 2)
+                                  : sw128_desc(slot + T::kAStage + col0 * kSlice);
+      // an MN-major A's K rows past the tensor read as zeros, and a split's
+      // chunk is whole 64-row slices: every step of the slice runs
+      const int steps = T::kAMn ? kSlice / 16 : min(kSlice, kend - kbeg - ks * kSlice) / 16;
       fence_regs(acc);
       wgmma_fence();
-      for (int j = 0; j < steps; ++j) Wgmma<T::NW>::mma(acc, da + 2 * j, db + 2 * j);
+      for (int j = 0; j < steps; ++j)
+        Wgmma<T::NW, T::kAMn, T::kBMn>::mma(acc, da + kStepA * j, db + kStepB * j);
       wgmma_commit();
       wgmma_wait<1>();  // the previous slice's group is done: free its slot
       fence_regs(acc);
@@ -653,30 +783,39 @@ int tile_query(int K, int* geom) {
 }
 
 // C = epi(A W^T): A = [a1 | a2] ([M, K1] and [M, K2]; mode (a) reads A
-// through `pro` instead and takes K = K1), W [N, K]; each block walks `per` N
-// tiles of its rows.
+// through `pro` instead and takes K = K1), W [N, K] (or [K, N] where
+// T::kBMn); each block walks `per` N tiles of its rows.  Where T::kAMn, A
+// is a1 stored [K, M] (K = K1 tokens), and K is cut into `splits` chunks of
+// `kchunk` (a multiple of 64), one per grid z, each its own partial.
 template <class T, class Site, class Pro, class Epi>
 cudaError_t launch(const GemmA& A, const Pro& pro, const Epi& epi, const bf16* W, int M, int N,
-                   int per, cudaStream_t stream) {
+                   int per, cudaStream_t stream, int splits = 1, int kchunk = 0) {
   const int K = A.K1 + A.K2;
   const int n_tiles = (N + T::BN - 1) / T::BN;
-  if (M <= 0 || N <= 0 || N % 8 || K <= 0 || K % 16 || per <= 0 ||
+  if (splits == 1 && kchunk == 0) kchunk = K;
+  if (M <= 0 || N <= 0 || N % 8 || K <= 0 || per <= 0 || splits <= 0 || splits > 65535 ||
       T::smem_bytes(K) > (size_t)kMaxDynSmem || (Epi::kWholeRows && n_tiles != 1) ||
-      (!T::kPanel && A.K2 > 0 && A.K1 % kSlice))
+      (!T::kPanel && A.K2 > 0 && A.K1 % kSlice) || (long long)kchunk * splits < K ||
+      (long long)kchunk * (splits - 1) >= K || (splits > 1 && kchunk % kSlice))
     return cudaErrorInvalidValue;
+  if (T::kAMn ? (M % 8 || A.K2 > 0) : K % 16) return cudaErrorInvalidValue;
   Maps maps;
-  if (!make_map(&maps.w, W, K, N, T::NW)) return cudaErrorInvalidValue;
-  if constexpr (!T::kPanel) {
+  if (!(T::kBMn ? make_map(&maps.w, W, N, K, kSlice) : make_map(&maps.w, W, K, N, T::NW)))
+    return cudaErrorInvalidValue;
+  if constexpr (T::kAMn) {
+    if (!make_map(&maps.a1, A.a1, M, K, kSlice)) return cudaErrorInvalidValue;
+    maps.a2 = maps.a1;
+  } else if constexpr (!T::kPanel) {
     if (!make_map(&maps.a1, A.a1, A.K1, M, T::BM)) return cudaErrorInvalidValue;
     maps.a2 = maps.a1;
     if (A.K2 > 0 && !make_map(&maps.a2, A.a2, A.K2, M, T::BM)) return cudaErrorInvalidValue;
   }
   cudaError_t err = kernel_ready<T, Site, Pro, Epi>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + T::BM - 1) / T::BM, (n_tiles + per - 1) / per);
+  const dim3 grid((M + T::BM - 1) / T::BM, (n_tiles + per - 1) / per, splits);
   if (grid.y > 65535) return cudaErrorInvalidConfiguration;
   hgemm_kernel<T, Site, Pro, Epi><<<grid, T::kThreads, T::smem_bytes(K), stream>>>(
-      maps, pro, epi, Shape{M, N, K, A.K1, per});
+      maps, pro, epi, Shape{M, N, K, A.K1, per, kchunk});
   return cudaGetLastError();
 }
 

@@ -42,28 +42,6 @@ using namespace dsg;
 
 namespace {
 
-// Row source of the qkv panel: the raw x rows of tokens m come in, and
-// `pre8` turns them into a = silu(shift + x * (scale + 1)) rounded to bf16,
-// as AffineSrc::raw8; hg::LnPanel then takes LN1 over them in place.
-struct AffineRows {
-  static constexpr int kPieces = 1;
-  const bf16* x;
-  const bf16* ss;  // [B, 2C]  scale | shift
-  int C, HW;
-  __device__ const bf16* piece(int m, int) const { return x + (size_t)m * C; }
-  __device__ void pre8(int m, int k, float v[8]) const {
-    float sc[8], sh[8];
-    const bf16* p = ss + (size_t)(m / HW) * 2 * C + k;
-    ld_ro8(p, sc);
-    ld_ro8(p + C, sh);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) v[t] = noise_affine(v[t], sc[t], sh[t]);
-  }
-};
-
-template <int MAXV, int ROWS, int LPR>
-using AffineLnPanel = hg::LnPanel<AffineRows, MAXV, ROWS, LPR>;
-
 // proj epilogue: out = bf16(a + (acc + bproj)), a recomputed from x and
 // scale_shift (the plain version's one rounding of the residual sum)
 struct ProjEpi : hg::RowEpi {
@@ -85,20 +63,6 @@ struct ProjEpi : hg::RowEpi {
     store8(out + o, v);
   }
 };
-
-// The GEMM tile of a width C: 128-row panels up to C = 384 (two blocks an SM
-// up to C = 192), 64-row panels (K up to 768) above, or wherever `wide`
-// asks for them (the wrapper's plan, where 128-row tiles are too few to fill
-// the card: a block's LayerNorm prologue then covers half the rows); `f`
-// gets a value of the tile type and of the qkv prologue's type.
-template <class F>
-int with_tile(int C, int wide, F f) {
-  if (C % 32 || C <= 0 || C > 768) return -1;
-  if (wide || C > 384) return f(hg::PanelWide{}, AffineLnPanel<3, 2, 32>{});
-  if (C <= 128) return f(hg::PanelRows{}, AffineLnPanel<1, 4, 16>{});
-  if (C <= 256) return f(hg::PanelRows{}, AffineLnPanel<1, 4, 32>{});
-  return f(hg::PanelTall{}, AffineLnPanel<2, 4, 32>{});
-}
 
 }  // namespace
 

@@ -1,11 +1,14 @@
 // Pieces the forward and backward of the Swin attention half share: the
-// noise-affine row source, the window geometry (window 8 or 10, head_dim 32),
-// the map from a window's token to its raster row with the cyclic shift of
-// shifted windows folded in, one softmax row (the backward's), and the
-// forward window core `window_attn_kernel`, a template over the window length
-// and over where its operands lie (swin_attn.cu: packed qkv rows in raster
-// order; window_attention.cu: separate q, k, v in [window, head, token, hd]
-// order).
+// noise-affine row source and the qkv GEMM's tile (`with_tile`: the forward
+// and the backward's recompute run the same), the window geometry (window 8
+// or 10, head_dim 32), the map from a window's token to its raster row with
+// the cyclic shift of shifted windows folded in, the scores, softmax and
+// bias staging of a warp's query rows in registers (`window_scores`,
+// `window_softmax`, `stage_bias`; the backward core, swin_attn_bwd.cu, runs
+// them too), and the forward window core `window_attn_kernel`, a template
+// over the window length and over where its operands lie (swin_attn.cu:
+// packed qkv rows in raster order; window_attention.cu: separate q, k, v in
+// [window, head, token, hd] order).
 //
 // The forward core replaces the window attention of
 // diffusesg_tpu/ops/window_attention.py::_fused_kernel and of
@@ -37,7 +40,7 @@
 // A block has one warp per row tile: 4 warps at L = 64, 7 at L = 100.
 #pragma once
 
-#include "common.cuh"
+#include "hopper_gemm.cuh"
 
 namespace dsg {
 
@@ -47,21 +50,41 @@ __device__ __forceinline__ float noise_affine(float x, float scale, float shift)
   return round_bf16(silu(shift + x * (scale + 1.f)));
 }
 
-// Row source: the noise affine of row m of x.
-struct AffineSrc {
-  const bf16* x;   // [M, C]
+// Row source of the qkv panel: the raw x rows of tokens m come in, and
+// `pre8` turns them into a = silu(shift + x * (scale + 1)) rounded to bf16;
+// hg::LnPanel then takes LN1 over them in place.
+struct AffineRows {
+  static constexpr int kPieces = 1;
+  const bf16* x;
   const bf16* ss;  // [B, 2C]  scale | shift
   int C, HW;
-  __device__ void raw8(int m, int k, float v[8]) const {
-    float xv[8], sc[8], sh[8];
-    const int b = m / HW;
-    load8(x + (size_t)m * C + k, xv);
-    load8(ss + (size_t)b * 2 * C + k, sc);
-    load8(ss + (size_t)b * 2 * C + C + k, sh);
+  __device__ const bf16* piece(int m, int) const { return x + (size_t)m * C; }
+  __device__ void pre8(int m, int k, float v[8]) const {
+    float sc[8], sh[8];
+    const bf16* p = ss + (size_t)(m / HW) * 2 * C + k;
+    ld_ro8(p, sc);
+    ld_ro8(p + C, sh);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = noise_affine(xv[i], sc[i], sh[i]);
+    for (int t = 0; t < 8; ++t) v[t] = noise_affine(v[t], sc[t], sh[t]);
   }
 };
+
+template <int MAXV, int ROWS, int LPR>
+using AffineLnPanel = hg::LnPanel<AffineRows, MAXV, ROWS, LPR>;
+
+// The GEMM tile of a width C: 128-row panels up to C = 384 (two blocks an SM
+// up to C = 192), 64-row panels (K up to 768) above, or wherever `wide`
+// asks for them (the wrapper's plan, where 128-row tiles are too few to fill
+// the card: a block's LayerNorm prologue then covers half the rows); `f`
+// gets a value of the tile type and of the qkv prologue's type.
+template <class F>
+int with_tile(int C, int wide, F f) {
+  if (C % 32 || C <= 0 || C > 768) return -1;
+  if (wide || C > 384) return f(hg::PanelWide{}, AffineLnPanel<3, 2, 32>{});
+  if (C <= 128) return f(hg::PanelRows{}, AffineLnPanel<1, 4, 16>{});
+  if (C <= 256) return f(hg::PanelRows{}, AffineLnPanel<1, 4, 32>{});
+  return f(hg::PanelTall{}, AffineLnPanel<2, 4, 32>{});
+}
 
 constexpr int kHD = 32;  // head dim of every stage of both models
 constexpr int kLdQ = kHD + 8;
@@ -78,10 +101,6 @@ struct WinGeom {
   static constexpr int LP = (L + 15) / 16 * 16;  // rows and columns of the padded tiles
   static constexpr int NT = LP / 16;             // 16-row tiles = warps of a block
   static constexpr int kThreads = 32 * NT;
-  static constexpr int NC = (LP + 31) / 32;  // score columns a lane owns: lane + 32 j
-  static constexpr int LdS = LP + 4;         // fp32 score rows
-  static constexpr int LdP = LP + 8;         // bf16 probability rows
-  static constexpr int kBwdSmemBytes = 4 * LP * kLdQ * 2 + 2 * LP * LdS * 4 + 2 * LP * LdP * 2;
 };
 
 __device__ __forceinline__ size_t window_token_row(int wi, int t, int H, int W, int window,
@@ -91,35 +110,6 @@ __device__ __forceinline__ size_t window_token_row(int wi, int t, int H, int W, 
   const int y = ((wl / nww) * window + t / window + shift) % H;
   const int x = ((wl % nww) * window + t % window + shift) % W;
   return ((size_t)b * H + y) * W + x;
-}
-
-// Softmax of one score row (r < L) across a warp: p[j] is the probability of
-// column lane + 32 j (0 for a column >= L).  srow: the raw Q K^T row in shared
-// memory; rb, mk: that row of rel_bias and of the mask (null: none).
-template <class G>
-__device__ __forceinline__ void softmax_row(const float* srow, const float* rb, const float* mk,
-                                            float scale, int lane, float p[G::NC]) {
-  float mx = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < G::NC; ++j) {
-    const int c = lane + 32 * j;
-    p[j] = -INFINITY;
-    if (c < G::L) {
-      p[j] = srow[c] * scale + rb[c];
-      if (mk) p[j] += mk[c];
-      mx = fmaxf(mx, p[j]);
-    }
-  }
-  mx = warp_max(mx);
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < G::NC; ++j) {
-    p[j] = lane + 32 * j < G::L ? expf(p[j] - mx) : 0.f;
-    sum += p[j];
-  }
-  const float inv = 1.f / warp_sum(sum);
-#pragma unroll
-  for (int j = 0; j < G::NC; ++j) p[j] *= inv;
 }
 
 // Operands of the Swin block's core: packed qkv rows [M, 3C] and the output
@@ -170,6 +160,90 @@ struct FwdGeom {
   static constexpr int kBlocksPerSm = L == 64 ? 4 : 2;
 };
 
+// S = Q K^T of a warp's 16 query rows (row0..) against every key, all NN
+// column tiles of 8, in registers (mma.sync; Q and K rows in shared memory,
+// row stride kLdQ)
+template <class G>
+__device__ __forceinline__ void window_scores(float (&s)[G::NN][4], const bf16* Qs,
+                                              const bf16* Ks, int row0, int lane) {
+  uint32_t qa[2][4];
+  load_a16(qa[0], Qs, kLdQ, row0, 0, lane);
+  load_a16(qa[1], Qs, kLdQ, row0, 16, lane);
+#pragma unroll
+  for (int n = 0; n < G::NN; ++n) {
+    uint32_t kb[4];  // {b0, b1} of d 0..15, then of d 16..31
+    ldsm_x4(kb, Ks + (n * 8 + (lane & 7)) * kLdQ + (lane >> 3) * 8);
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    mma16816(s[n], qa[0], kb[0], kb[1]);
+    mma16816(s[n], qa[1], kb[2], kb[3]);
+  }
+}
+
+// softmax of rows row0 + g (elements 0, 1) and row0 + g + 8 (2, 3) of the
+// scores in place: fp32, scale S + the staged bias (row stride LdB),
+// columns >= L out; the quad of lanes 4g..4g+3 holds each row.  s becomes
+// exp(s - max) and sum the reciprocal of each row's sum: P = s * sum.
+template <class G>
+__device__ __forceinline__ void window_softmax(float (&s)[G::NN][4], float (&sum)[2],
+                                               const float* Bs, int row0, int lane,
+                                               float scale) {
+  const int g = lane >> 2, t4 = lane & 3;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < G::NN; ++n) {
+    const int c = n * 8 + 2 * t4;
+    const float2 b[2] = {*reinterpret_cast<const float2*>(Bs + (row0 + g) * G::LdB + c),
+                         *reinterpret_cast<const float2*>(Bs + (row0 + g + 8) * G::LdB + c)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float bias = e & 1 ? b[e >> 1].y : b[e >> 1].x;
+      s[n][e] = c + (e & 1) < G::L ? s[n][e] * scale + bias : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    }
+  }
+  sum[0] = sum[1] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+  }
+#pragma unroll
+  for (int n = 0; n < G::NN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = expf(s[n][e] - mx[e >> 1]);  // exp(-inf) = 0 past L
+      sum[e >> 1] += s[n][e];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+    sum[i] = 1.f / sum[i];
+  }
+}
+
+// The bias of head h and mask class cls (mask null: none) into Bs, once per
+// block: [LP][LdB] fp32, rel_bias + mask, zero past L.
+template <class G>
+__device__ __forceinline__ void stage_bias(float* Bs, const float* rel_bias, const float* mask,
+                                           int h, int cls, int tid) {
+  const float* rb = rel_bias + (size_t)h * G::L * G::L;
+  const float* mk = mask ? mask + (size_t)cls * G::L * G::L : nullptr;
+  for (int i = tid; i < G::LP * (G::LdB / 4); i += G::kThreads) {
+    const int r = i / (G::LdB / 4), c = (i % (G::LdB / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < G::L && c < G::L) {
+      v = *reinterpret_cast<const float4*>(rb + r * G::L + c);
+      if (mk) {
+        const float4 m = *reinterpret_cast<const float4*>(mk + r * G::L + c);
+        v.x += m.x, v.y += m.y, v.z += m.z, v.w += m.w;
+      }
+    }
+    *reinterpret_cast<float4*>(Bs + r * G::LdB + c) = v;
+  }
+}
+
 // out = softmax(scale Q K^T + rel_bias[h] (+ mask[c])) V.  grid (classes *
 // blocks per class, heads), FwdGeom::kThreads threads, kSmemBytes of dynamic
 // shared memory.  Block (x, h) serves head h and mask class c = x % classes
@@ -186,7 +260,7 @@ __global__ void __launch_bounds__(FwdGeom<L>::kThreads, FwdGeom<L>::kBlocksPerSm
 window_attn_kernel(Lay lay, const float* __restrict__ rel_bias, const float* __restrict__ mask,
                    int n_windows, int classes, int wpb, float scale) {
   using G = FwdGeom<L>;
-  constexpr int LP = G::LP, NN = G::NN, LdB = G::LdB;
+  constexpr int LP = G::LP, NN = G::NN;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);
   float* Bs = reinterpret_cast<float*>(ring + 2 * G::kStageElems);
@@ -215,23 +289,8 @@ window_attn_kernel(Lay lay, const float* __restrict__ rel_bias, const float* __r
   };
   load(0);
 
-  // the bias of this head and class, once: [LP][LdB] fp32, zero past L
-  {
-    const float* rb = rel_bias + (size_t)h * L * L;
-    const float* mk = mask ? mask + (size_t)cls * L * L : nullptr;
-    for (int i = tid; i < LP * (LdB / 4); i += G::kThreads) {
-      const int r = i / (LdB / 4), c = (i % (LdB / 4)) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < L && c < L) {
-        v = *reinterpret_cast<const float4*>(rb + r * L + c);
-        if (mk) {
-          const float4 m = *reinterpret_cast<const float4*>(mk + r * L + c);
-          v.x += m.x, v.y += m.y, v.z += m.z, v.w += m.w;
-        }
-      }
-      *reinterpret_cast<float4*>(Bs + r * LdB + c) = v;
-    }
-  }
+  // the bias of this head and class, once
+  stage_bias<G>(Bs, rel_bias, mask, h, cls, tid);
 
   for (int j = 0; j < count; ++j) {
     if (j + 1 < count) load(j + 1);
@@ -242,55 +301,9 @@ window_attn_kernel(Lay lay, const float* __restrict__ rel_bias, const float* __r
     const bf16* Ks = Qs + LP * kLdQ;
     const bf16* Vs = Ks + LP * kLdQ;
 
-    // S = Q K^T for this warp's 16 rows, all NN column tiles, in registers
-    uint32_t qa[2][4];
-    load_a16(qa[0], Qs, kLdQ, row0, 0, lane);
-    load_a16(qa[1], Qs, kLdQ, row0, 16, lane);
-    float s[NN][4];
-#pragma unroll
-    for (int n = 0; n < NN; ++n) {
-      uint32_t kb[4];  // {b0, b1} of d 0..15, then of d 16..31
-      ldsm_x4(kb, Ks + (n * 8 + (lane & 7)) * kLdQ + (lane >> 3) * 8);
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      mma16816(s[n], qa[0], kb[0], kb[1]);
-      mma16816(s[n], qa[1], kb[2], kb[3]);
-    }
-
-    // softmax of rows row0 + g (elements 0, 1) and row0 + g + 8 (2, 3): fp32,
-    // columns >= L out; the quad of lanes 4g..4g+3 holds each row
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < NN; ++n) {
-      const int c = n * 8 + 2 * t4;
-      const float2 b[2] = {*reinterpret_cast<const float2*>(Bs + (row0 + g) * LdB + c),
-                           *reinterpret_cast<const float2*>(Bs + (row0 + g + 8) * LdB + c)};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float bias = e & 1 ? b[e >> 1].y : b[e >> 1].x;
-        s[n][e] = c + (e & 1) < L ? s[n][e] * scale + bias : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-#pragma unroll
-    for (int n = 0; n < NN; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - mx[e >> 1]);  // exp(-inf) = 0 past L
-        sum[e >> 1] += s[n][e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      sum[i] = 1.f / sum[i];
-    }
+    float s[NN][4], sum[2];
+    window_scores<G>(s, Qs, Ks, row0, lane);
+    window_softmax<G>(s, sum, Bs, row0, lane, scale);
 
     // O = bf16(P) V: P's accumulator tiles 2c, 2c+1 are the A fragment of
     // k step c; tile NN (past the last) is zero

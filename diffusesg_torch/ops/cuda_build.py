@@ -11,7 +11,8 @@ rebuilds and an unchanged one loads at once.
 adds one where it launches its kernel and nowhere else.
 
 Helpers of the wrappers live here too: ``split_count`` plans the grids of
-the backward kernels' reductions (the wrapper allocates their partials),
+the backward kernels' reductions and ``token_split`` the token split of
+their weight gradients (the wrapper allocates their partials),
 ``wave_split`` the column splits of the forward kernels whose row tiles are
 too few to fill the card (``gemm_plan`` and ``wide_panels`` apply it to the
 Hopper GEMM of csrc/hopper_gemm.cuh), ``sm_count`` and ``blocks_per_sm`` give the forward
@@ -45,8 +46,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "dsg_swin_attn": [_P] * 13 + [_I] * 11 + [_P],
     "dsg_token_mlp": [_P] * 9 + [_I] * 5 + [_P],
-    "dsg_swin_attn_bwd": [_P] * 30 + [_I] * 13 + [_P],
-    "dsg_token_mlp_bwd": [_P] * 23 + [_I] * 7 + [_P],
+    "dsg_swin_attn_bwd": [_P] * 28 + [_I] * 17 + [_P],
+    "dsg_token_mlp_bwd": [_P] * 20 + [_I] * 13 + [_P],
     "dsg_readout": [_P] * 6 + [_I] * 5 + [_P],
     "dsg_patch_merge": [_P] * 5 + [_I] * 7 + [_P],
     "dsg_patch_breakup": [_P, _P, _I, _I] + [_P] * 9 + [_I] * 6 + [_P],
@@ -55,10 +56,13 @@ _SIGNATURES = {
     # the forward grid plans' queries: a kernel's tile and its occupancy
     "dsg_token_mlp_tile": [_I, ctypes.POINTER(_I)],
     "dsg_swin_attn_gemm_tile": [_I, _I, _I, ctypes.POINTER(_I)],
+    "dsg_swin_attn_bwd_tile": [_I, _I, _I, ctypes.POINTER(_I)],
+    "dsg_token_mlp_bwd_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_patch_breakup_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_patch_merge_tile": [_I, _I, ctypes.POINTER(_I)],
     "dsg_readout_tile": [ctypes.POINTER(_I)],
     "dsg_swin_attn_core_per_sm": [_I],
+    "dsg_swin_attn_bwd_core_per_sm": [_I],
     "dsg_window_attention_per_sm": [_I],
 }
 
@@ -66,6 +70,9 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 # blocks a split reduction aims for: four per SM of the H100's 132
 TARGET_BLOCKS = 528
+# tokens of a box of the token-axis contraction (csrc/backward.cuh), and the
+# fewest a split of it takes unless there are fewer
+TOKEN_BOX, TOKEN_SPLIT_MIN = 64, 512
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -95,6 +102,18 @@ def split_count(parallel: int, length: int, min_len: int, align: int = 1) -> int
     chunk = -(-length // want)
     chunk = -(-chunk // align) * align
     return -(-length // chunk)
+
+
+def token_split(tiles: int, tokens: int, per_sm: int, sms: int = 132) -> tuple[int, int]:
+    """(splits, chunk) of a token-axis contraction (the weight gradients of
+    csrc/backward.cuh) whose output is ``tiles`` blocks: the ``tokens`` cut
+    into chunks of whole 64-token boxes, at least ``TOKEN_SPLIT_MIN`` tokens
+    each, so that tiles x splits fill about one wave of resident blocks
+    (``sms`` x ``per_sm``); block z covers [z chunk, (z + 1) chunk), and no
+    split is empty."""
+    want = max(1, min(sms * per_sm // max(tiles, 1), tokens // TOKEN_SPLIT_MIN))
+    chunk = -(-(-(-tokens // want)) // TOKEN_BOX) * TOKEN_BOX
+    return -(-tokens // chunk), chunk
 
 
 def wave_split(row_tiles: int, col_tiles: int, per_sm: int, sms: int) -> tuple[int, int]:

@@ -8,7 +8,9 @@ dimension is split across blocks), which serves every
 Swin block's MLP half (the TPU's ``fused_mlp_block`` and the MLP half of
 ``fused_swin_block_v3``), and its backward the kernel ``token_mlp_bwd``
 (csrc/token_mlp_bwd.cu; the TPU's ``_mlp_bwd_kernel`` and, at C = 768,
-``_mlp_bwd_export_kernel``).  On a CPU tensor both run the plain versions
+``_mlp_bwd_export_kernel``): one fused row-tile launch where the library has
+a tile for C (C96, C192), else a chain of wgmma GEMMs, then the two weight
+gradients (``mlp_bwd_plan``).  On a CPU tensor both run the plain versions
 below.  The forward saves ``x`` and the parameters and nothing else; the
 backward recomputes.  Weights are in the PyTorch Linear layout ([out, in]).
 """
@@ -162,16 +164,62 @@ def token_mlp_fwd(x, ln_gamma, ln_beta, w1, b1, w2, b2):
     return out.reshape(x.shape)
 
 
+def mlp_bwd_tile(width: int, which: str, wide: bool = False) -> tuple[int, ...]:
+    """A tile of ``token_mlp_bwd`` from the library (csrc/token_mlp_bwd.cu
+    ``dsg_token_mlp_bwd_tile``): "fused" the fused row tile at C (rows,
+    hidden chunk, blocks an SM, 1), "fc1" (64-row panels if ``wide``) and
+    "stream" the chain's recompute and streamed products at C, "wgrad" the
+    weight gradients' tile at ``width`` output columns (rows, columns,
+    blocks an SM, 0).  Raises ValueError where no tile covers the width (for
+    "fused": where the chain takes C)."""
+    which_i = ("fused", "fc1", "stream", "wgrad").index(which)
+    return cuda_build.tile_of("dsg_token_mlp_bwd_tile", width, which_i, int(wide))
+
+
+def mlp_bwd_fused_tile(c: int) -> tuple[int, ...] | None:
+    """The fused row tile at C, or None where the chain takes C."""
+    try:
+        return mlp_bwd_tile(c, "fused")
+    except ValueError:
+        return None
+
+
 def mlp_bwd_splits(m: int, c: int, hidden: int) -> dict[str, int]:
-    """Grid plan of ``token_mlp_bwd``'s reductions over the ``m`` tokens: the
-    split-K count of the two weight-gradient GEMMs (128 x 64 output tiles),
-    the row splits of the two bias sums (256 columns per block) and the
-    blocks of the closing row pass (8 rows per block and step)."""
-    tiles = -(-c // 128) * -(-hidden // 64)
-    return dict(w=cuda_build.split_count(tiles, m, 256, 32),
-                b1=cuda_build.split_count(-(-hidden // 256), m, 64),
+    """The reductions over the ``m`` tokens that the chain of ``token_mlp_bwd``
+    (C where no fused tile covers) runs beside its GEMMs: the row splits of
+    the two bias sums (256 columns per block) and the blocks of the closing
+    row pass (8 rows per block and step)."""
+    return dict(b1=cuda_build.split_count(-(-hidden // 256), m, 64),
                 b2=cuda_build.split_count(-(-c // 256), m, 64),
                 ln=min(cuda_build.TARGET_BLOCKS, -(-m // 8)))
+
+
+def mlp_bwd_plan(m: int, c: int, hidden: int, sms: int = 132) -> dict[str, int]:
+    """Grid plan of ``token_mlp_bwd`` over ``m`` tokens at width C: ``fused``
+    (one row-tile launch of ``blocks`` blocks, each walking every hidden
+    chunk) where the library has a fused tile for C, else the chain's
+    fc1's panels (``wide``, as ``swin_block_v3.attn_gemm_plan``) and the
+    column splits of its three GEMMs (``gemm_plan``: ``fc1``, ``dm``,
+    ``dhn``) and ``mlp_bwd_splits``; and for both the token split of the two
+    weight gradients (``w`` splits of ``kchunk`` tokens, one plan for both,
+    from the larger of their tile counts)."""
+    wt1, wt2 = mlp_bwd_tile(c, "wgrad"), mlp_bwd_tile(hidden, "wgrad")
+    tiles = max(-(-hidden // wt1[0]) * -(-c // wt1[1]), -(-c // wt2[0]) * -(-hidden // wt2[1]))
+    splits, chunk = cuda_build.token_split(tiles, m, min(wt1[2], wt2[2]), sms)
+    plan = dict(fused=0, blocks=0, wide=0, fc1=1, dm=1, dhn=1, w=splits, kchunk=chunk, b1=1, b2=1,
+                ln=1)
+    fused = mlp_bwd_fused_tile(c)
+    if fused is not None:
+        plan.update(fused=1, blocks=-(-m // fused[0]))
+    else:
+        stream = mlp_bwd_tile(c, "stream")
+        wide = cuda_build.wide_panels(m, hidden, lambda wd: mlp_bwd_tile(c, "fc1", wd), sms)
+        plan.update(wide=int(wide),
+                    fc1=cuda_build.gemm_plan(m, hidden, mlp_bwd_tile(c, "fc1", wide), sms)["tiles"],
+                    dm=cuda_build.gemm_plan(m, hidden, stream, sms)["tiles"],
+                    dhn=cuda_build.gemm_plan(m, c, stream, sms)["tiles"],
+                    **mlp_bwd_splits(m, c, hidden))
+    return plan
 
 
 def token_mlp_bwd(x, dout, ln_gamma, ln_beta, w1, b1, w2):
@@ -186,35 +234,40 @@ def token_mlp_bwd(x, dout, ln_gamma, ln_beta, w1, b1, w2):
     xf, g, bt, w1, b1, w2 = _checked(x, ln_gamma, ln_beta, w1, b1, w2)
     m, c = xf.shape
     hidden = w1.shape[0]
-    if c > 768:
-        raise ValueError(f"token_mlp_bwd covers C <= 768, got {c}")
+    if c > 768 or c % 32 or hidden % 64:
+        raise ValueError(f"token_mlp_bwd covers C <= 768 (a multiple of 32) and a hidden width "
+                         f"that is a multiple of 64; got C={c} hidden={hidden}")
     do = cuda_build.require(dout, torch.bfloat16, "dout").reshape(m, c)
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
-    sp = mlp_bwd_splits(m, c, hidden)
-    hn = torch.empty((m, c), dtype=bf, device=dev)
-    mid, du = (torch.empty((m, hidden), dtype=bf, device=dev) for _ in range(2))
-    gp = torch.empty((m, hidden), dtype=torch.float16, device=dev)
-    dhn = torch.empty((m, c), dtype=f32, device=dev)
-    part_w1, part_w2 = (torch.empty((sp["w"], c * hidden), dtype=f32, device=dev)
-                        for _ in range(2))
-    part_b1 = torch.empty((sp["b1"], hidden), dtype=f32, device=dev)
-    part_b2 = torch.empty((sp["b2"], c), dtype=f32, device=dev)
-    part_ln = torch.empty((sp["ln"], 2 * c), dtype=f32, device=dev)
-    dx = torch.empty((m, c), dtype=bf, device=dev)
-    dgb = torch.empty((2, c), dtype=f32, device=dev)
-    dw1 = torch.empty((hidden, c), dtype=f32, device=dev)
-    dw2 = torch.empty((c, hidden), dtype=f32, device=dev)
-    db1 = torch.empty((hidden,), dtype=f32, device=dev)
-    db2 = torch.empty((c,), dtype=f32, device=dev)
+    plan = mlp_bwd_plan(m, c, hidden, cuda_build.sm_count(dev))
+
+    def buf(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    hn, mid, du = buf(m, c, dtype=bf), buf(m, hidden, dtype=bf), buf(m, hidden, dtype=bf)
+    part_w = buf(plan["w"], 2 * c * hidden)
+    gp = dhn = part_vec = part_b1 = part_b2 = part_ln = None
+    if plan["fused"]:
+        part_vec = buf(2 * plan["blocks"], hidden + 3 * c)
+    else:
+        gp, dhn = buf(m, hidden, dtype=torch.float16), buf(m, c)
+        part_b1, part_b2 = buf(plan["b1"], hidden), buf(plan["b2"], c)
+        part_ln = buf(plan["ln"], 2 * c)
+    dx = buf(m, c, dtype=bf)
+    dw = buf(2, c * hidden)
+    vecs = buf(hidden + 3 * c)  # db1 | dgamma | dbeta | db2
     p = cuda_build.ptr
     rc = cuda_build.lib().dsg_token_mlp_bwd(
         p(xf), p(do), p(g), p(bt), p(w1), p(b1), p(w2),
-        p(hn), p(mid), p(gp), p(du), p(dhn), p(part_w1), p(part_w2), p(part_b1), p(part_b2),
-        p(part_ln), p(dx), p(dgb), p(dw1), p(db1), p(dw2), p(db2),
-        m, c, hidden, sp["w"], sp["b1"], sp["b2"], sp["ln"], cuda_build.stream_ptr(dev))
+        p(hn), p(mid), p(gp), p(du), p(dhn), p(part_w), p(part_vec), p(part_b1), p(part_b2),
+        p(part_ln), p(dx), p(dw), p(vecs),
+        m, c, hidden, plan["fused"], plan["wide"], plan["fc1"], plan["dm"], plan["dhn"], plan["w"],
+        plan["kchunk"], plan["b1"], plan["b2"], plan["ln"], cuda_build.stream_ptr(dev))
     cuda_build.check(rc, NAME_BWD)
     cuda_build.count_launch(NAME_BWD, f"C{c}")
-    return dx.reshape(x.shape), dgb[0], dgb[1], dw1.to(bf), db1, dw2.to(bf), db2
+    db1, dgamma, dbeta, db2 = vecs.split([hidden, c, c, c])
+    return (dx.reshape(x.shape), dgamma, dbeta, dw[0].view(hidden, c).to(bf), db1,
+            dw[1].view(c, hidden).to(bf), db2)
 
 
 class _TokenMlp(torch.autograd.Function):

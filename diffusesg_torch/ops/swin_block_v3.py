@@ -49,6 +49,13 @@ def window_core_plan(n_windows: int, num_heads: int, classes: int, per_sm: int,
     return -(-per_class // blocks)
 
 
+def core_blocks(n_windows: int, classes: int, wpb: int) -> int:
+    """Blocks per head of a window-core grid of ``classes`` mask classes
+    with runs of ``wpb`` windows (``window_core_plan``): the backward core
+    writes one d(rel_bias) partial per block."""
+    return classes * -(-(n_windows // classes) // wpb)
+
+
 def attn_gemm_tile(c: int, which: str, wide: bool = False) -> tuple[int, ...]:
     """The tile of ``swin_attn``'s qkv or proj GEMM at width C (64-row panels
     if ``wide``), from the library (csrc/swin_attn.cu ``with_tile``): rows,
@@ -281,20 +288,37 @@ def swin_attn_fwd(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, r
 
 
 def attn_bwd_splits(b: int, h: int, w: int, c: int, num_heads: int, window: int) -> dict[str, int]:
-    """Grid plan of ``swin_attn_bwd``'s reductions: split-K counts of the two
-    weight-gradient GEMMs over the B*H*W tokens (128 x 64 output tiles), row
-    splits of the two bias sums, the blocks per head of the window core
-    (each walks several windows and keeps d(rel_bias) in registers) and the
+    """The reductions of ``swin_attn_bwd`` beside its GEMMs and its window
+    core: row splits of the two bias sums over the B*H*W tokens and the
     blocks per sample of the closing row pass."""
     m = b * h * w
-    tiles = lambda rows, cols: -(-rows // 128) * -(-cols // 64)  # noqa: E731
-    n_windows = b * (h // window) * (w // window)
-    return dict(wqkv=cuda_build.split_count(tiles(3 * c, c), m, 256, 32),
-                wproj=cuda_build.split_count(tiles(c, c), m, 256, 32),
-                bqkv=cuda_build.split_count(-(-3 * c // 256), m, 64),
+    return dict(bqkv=cuda_build.split_count(-(-3 * c // 256), m, 64),
                 bproj=cuda_build.split_count(-(-c // 256), m, 64),
-                core=min(n_windows, max(1, cuda_build.TARGET_BLOCKS // num_heads)),
                 rows=min(-(-h * w // 8), max(1, -(-cuda_build.TARGET_BLOCKS // b))))
+
+
+def attn_bwd_tile(c: int, which: str, wide: bool = False) -> tuple[int, ...]:
+    """A tile of ``swin_attn_bwd``'s GEMMs at width C from the library
+    (csrc/swin_attn_bwd.cu ``dsg_swin_attn_bwd_tile``): "qkv" the recompute
+    (64-row panels if ``wide``), "stream" dy Wproj and dqkv Wqkv, "wgrad" the
+    weight gradients; rows, columns, blocks an SM holds, 0."""
+    return cuda_build.tile_of("dsg_swin_attn_bwd_tile", c,
+                              ("qkv", "stream", "wgrad").index(which), int(wide))
+
+
+def attn_bwd_gemm_plan(m: int, c: int, sms: int = 132) -> dict[str, int]:
+    """Grid plan of ``swin_attn_bwd``'s GEMMs over ``m`` tokens at width C:
+    the qkv recompute's panels and column split as the forward's
+    (``wide_panels``, ``gemm_plan``), the column splits of the two streamed
+    products, and the token split of the two weight gradients (``w``
+    splits of ``kchunk`` tokens, planned on dWqkv's tiles)."""
+    wide = cuda_build.wide_panels(m, 3 * c, lambda wd: attn_bwd_tile(c, "qkv", wd), sms)
+    stream, wt = attn_bwd_tile(c, "stream"), attn_bwd_tile(c, "wgrad")
+    splits, chunk = cuda_build.token_split(-(-3 * c // wt[0]) * -(-c // wt[1]), m, wt[2], sms)
+    return dict(wide=int(wide),
+                qkv=cuda_build.gemm_plan(m, 3 * c, attn_bwd_tile(c, "qkv", wide), sms)["tiles"],
+                dattn=cuda_build.gemm_plan(m, c, stream, sms)["tiles"],
+                dhn=cuda_build.gemm_plan(m, c, stream, sms)["tiles"], w=splits, kchunk=chunk)
 
 
 def swin_attn_bwd(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias, mask,
@@ -325,7 +349,14 @@ def _swin_attn_bwd_kernel(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wpr
     if dy.shape != x.shape:
         raise ValueError(f"dy{tuple(dy.shape)} does not match x{tuple(x.shape)}")
     m, L = b * h * w, window * window
+    sms = cuda_build.sm_count(dev)
     sp = attn_bwd_splits(b, h, w, c, num_heads, window)
+    gp = attn_bwd_gemm_plan(m, c, sms)
+    # the backward core's grid as the forward's: runs of one mask class
+    n_win = b * (h // window) * (w // window)
+    classes = (h // window) * (w // window) if mask is not None else 1
+    per_sm = cuda_build.blocks_per_sm("dsg_swin_attn_bwd_core_per_sm", L)
+    wpb = window_core_plan(n_win, num_heads, classes, per_sm, sms)
 
     def buf(*shape, dtype=f32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -333,24 +364,26 @@ def _swin_attn_bwd_kernel(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wpr
     hn, dattn, attn = (buf(m, c, dtype=bf) for _ in range(3))
     qkv, dqkv = (buf(m, 3 * c, dtype=bf) for _ in range(2))
     dhn = buf(m, c)
-    part_wqkv, part_wproj = buf(sp["wqkv"], 3 * c * c), buf(sp["wproj"], c * c)
+    part_w = buf(gp["w"], 4 * c * c)
     part_bqkv, part_bproj = buf(sp["bqkv"], 3 * c), buf(sp["bproj"], c)
-    part_rel = buf(sp["core"], num_heads, L, L)
+    part_rel = buf(core_blocks(n_win, classes, wpb), num_heads, L, L)
     part_rows = buf(b * sp["rows"], 4 * c)
     dx = torch.empty_like(x)
     dss, dgb = buf(b, 2 * c), buf(2, c)
-    dwqkv, dbqkv, dwproj, dbproj = buf(3 * c, c), buf(3 * c), buf(c, c), buf(c)
+    dw, dbqkv, dbproj = buf(4 * c * c), buf(3 * c), buf(c)  # dw: dWqkv then dWproj
     drel = buf(num_heads, L, L)
     p = cuda_build.ptr
     rc = cuda_build.lib().dsg_swin_attn_bwd(
         p(x), p(ss), p(dy), p(g), p(bt), p(wqkv), p(bqkv), p(wproj), p(rel), p(mask),
-        p(hn), p(qkv), p(dattn), p(attn), p(dqkv), p(dhn), p(part_wqkv), p(part_wproj),
-        p(part_bqkv), p(part_bproj), p(part_rel), p(part_rows),
-        p(dx), p(dss), p(dgb), p(dwqkv), p(dbqkv), p(dwproj), p(dbproj), p(drel),
-        b, h, w, c, num_heads, window, shift, sp["wqkv"], sp["wproj"], sp["bqkv"], sp["bproj"],
-        sp["core"], sp["rows"], cuda_build.stream_ptr(dev))
+        p(hn), p(qkv), p(dattn), p(attn), p(dqkv), p(dhn), p(part_w), p(part_bqkv),
+        p(part_bproj), p(part_rel), p(part_rows),
+        p(dx), p(dss), p(dgb), p(dw), p(dbqkv), p(dbproj), p(drel),
+        b, h, w, c, num_heads, window, shift, gp["wide"], gp["qkv"], gp["dattn"], gp["dhn"],
+        gp["w"], gp["kchunk"], sp["bqkv"], sp["bproj"], wpb, sp["rows"],
+        cuda_build.stream_ptr(dev))
     cuda_build.check(rc, NAME_BWD)
     cuda_build.count_launch(NAME_BWD, _shape_key(h, w, c, shift))
+    dwqkv, dwproj = dw[:3 * c * c].view(3 * c, c), dw[3 * c * c:].view(c, c)
     grads = dx, dss.to(bf), dgb[0], dgb[1], dwqkv.to(bf), dbqkv, dwproj.to(bf), dbproj, drel
     return grads, (hn.view(b, h, w, c), qkv.view(b, h, w, 3 * c), dattn.view(b, h, w, c))
 

@@ -5,6 +5,9 @@ fp32 inputs from a numpy seed.  Forward: atol 2e-4 / rtol 1e-3.  Backward:
 rtol 2e-3 + atol 2e-3 * max|ref| per leaf, the bar of
 tests/test_torch_train_ops.py.  The static tables are exact.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,9 @@ from diffusesg_torch.ops import swin_block_v3 as sw
 
 ATOL, RTOL = 2e-4, 1e-3
 WINDOW, L = 10, 100
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
+import h100_tiles  # noqa: E402
 # (grid, shift): the three geometries of the COCO model's stages
 GEOMETRIES = [(20, 0), (20, 5), (10, 0)]
 ATTN_NAMES = ["dx", "dss", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwproj", "dbproj", "drel"]
@@ -135,18 +141,28 @@ def test_window_10_static_tables_match_jax(window, shift, h):
 
 @pytest.mark.parametrize("b,hw,c,heads", [(64, 40, 96, 3), (16, 20, 192, 6), (4, 10, 384, 12),
                                           (1, 10, 384, 12), (5, 40, 96, 3)])
-def test_backward_grid_plans_cover_the_coco_shapes(b, hw, c, heads):
+def test_backward_grid_plans_cover_the_coco_shapes(monkeypatch, b, hw, c, heads):
+    """The backward kernels' plans at COCO-Stuff shapes, the tiles from a
+    stub of the H100 library (tests/helpers/h100_tiles.py)."""
+    h100_tiles.install(monkeypatch)
     plan = sw.attn_bwd_splits(b, hw, hw, c, heads, WINDOW)
     n_windows = b * (hw // WINDOW) ** 2
-    assert 1 <= plan["core"] <= n_windows and 1 <= plan["rows"] <= -(-hw * hw // 8)
+    assert 1 <= plan["rows"] <= -(-hw * hw // 8)
     assert all(v >= 1 for v in plan.values())
+    classes = (hw // WINDOW) ** 2 if hw > WINDOW else 1
+    wpb = sw.window_core_plan(n_windows, heads, classes, cuda_build.blocks_per_sm(
+        "dsg_swin_attn_bwd_core_per_sm", L))
+    assert 1 <= sw.core_blocks(n_windows, classes, wpb) <= n_windows
     m = b * hw * hw
-    for key, align in (("wqkv", 32), ("wproj", 32), ("bqkv", 1), ("bproj", 1)):
+    gemm = sw.attn_bwd_gemm_plan(m, c)
+    for key, align in (("bqkv", 1), ("bproj", 1)):
         chunk = -(-m // plan[key])
         chunk = -(-chunk // align) * align
         assert chunk * (plan[key] - 1) < m, (key, plan[key])  # no split is empty
-    mlp = mk.mlp_bwd_splits(m, c, 4 * c)
-    assert 1 <= mlp["ln"] <= cuda_build.TARGET_BLOCKS and mlp["w"] >= 1
+    assert gemm["kchunk"] * (gemm["w"] - 1) < m <= gemm["kchunk"] * gemm["w"]
+    mlp = mk.mlp_bwd_plan(m, c, 4 * c)
+    assert mlp["w"] >= 1 and mlp["fused"] == (c in (96, 192))
+    assert mlp["fused"] or 1 <= mlp["ln"] <= cuda_build.TARGET_BLOCKS
 
 
 @pytest.mark.parametrize("window,c,heads,match", [

@@ -257,6 +257,24 @@ def test_token_mlp_bwd_kernel(cuda, c, m):
                  _vec(cuda, 4 * c), _lin(cuda, c, 4 * c))
 
 
+# token_mlp_bwd at every VG and COCO width and token count of batch 1 (the
+# fused row tile at C96 and C192, the chain at C384 and C768, K7), and
+# ragged token counts: not a multiple of the fused tile's 128 rows, nor of
+# the GEMMs' 64 or 128, nor of the weight gradients' 64-token boxes
+MLP_BWD_SHAPES = [(96, 4096), (192, 1024), (384, 256), (768, 64), (96, 1600), (192, 400),
+                  (384, 100), (96, 1000), (192, 300), (96, 33), (768, 100), (384, 4500)]
+
+
+@pytest.mark.parametrize("c,m", MLP_BWD_SHAPES)
+def test_token_mlp_bwd_kernel_model_shapes(cuda, c, m):
+    torch.manual_seed(c + m)
+    args = (_rnd(cuda, m, c), _rnd(cuda, m, c), _vec(cuda, c, 1.0), _vec(cuda, c),
+            _lin(cuda, 4 * c, c), _vec(cuda, 4 * c), _lin(cuda, c, 4 * c))
+    _check_grads("token_mlp_bwd", mk.token_mlp_bwd, mk.mlp_bwd_plain, *args)
+    again = mk.token_mlp_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(again, mk.token_mlp_bwd(*args)))
+
+
 def test_backward_through_a_two_stage_model_runs_the_backward_kernels(cuda):
     """One ``backward()`` of a two-stage bf16 model: every parameter gets a
     finite gradient within 1e-1 relative L2 of the fp32 plain model's on the
@@ -347,6 +365,23 @@ def test_swin_attn_bwd_kernel_window_10(cuda, hw, heads, shift, b):
 # at C768 the plan splits N across blocks, each redoing its rows' prologue.
 MODEL_ATTN_SHAPES = [(64, 3, 8, 0), (32, 6, 8, 0), (16, 12, 8, 0), (16, 12, 8, 4), (8, 24, 8, 0),
                      (40, 3, 10, 0), (20, 6, 10, 0), (20, 6, 10, 5), (10, 12, 10, 0)]
+
+
+@pytest.mark.parametrize("hw,heads,window,shift", MODEL_ATTN_SHAPES)
+@pytest.mark.parametrize("b", [1, 3])
+def test_swin_attn_bwd_kernel_model_shapes(cuda, hw, heads, window, shift, b):
+    """swin_attn_bwd at every VG and COCO stage, batch 1 and 3 (COCO's token
+    counts are ragged: 100, 300, 1200, 4800 rows), bit-equal between two
+    launches."""
+    torch.manual_seed(hw + heads + b + 1)
+    c = 32 * heads
+    a = _attn_args(cuda, b, hw, heads, window, shift)
+    bargs = a[:2] + (_rnd(cuda, b, hw, hw, c),) + a[2:7] + a[8:]
+    _check_grads("swin_attn_bwd", sw.swin_attn_bwd, sw.swin_attn_bwd_plain, *bargs, heads,
+                 window, shift)
+    again = sw.swin_attn_bwd(*bargs, heads, window, shift)
+    assert all(torch.equal(x, y)
+               for x, y in zip(again, sw.swin_attn_bwd(*bargs, heads, window, shift)))
 
 
 @pytest.mark.parametrize("hw,heads,window,shift", MODEL_ATTN_SHAPES)

@@ -14,15 +14,22 @@ blocks.  On the card the wrappers read the blocks an SM holds, and the tiles,
 from the built library; here the plans get the H100 build's values, the
 GEMM tiles through a stub of the library's queries.
 """
+import os
+import sys
+
 import pytest
 
 from diffusesg_torch.ops import cuda_build
 from diffusesg_torch.ops import patch_resample as pr
 from diffusesg_torch.ops import readout_kernel as rk
 from diffusesg_torch.ops import swin_block_v3 as sw
+from diffusesg_torch.ops import mlp_block_kernel as mk
 from diffusesg_torch.ops.mlp_block_kernel import mlp_fwd_plan
 from diffusesg_torch.ops.cuda_build import gemm_plan
 from diffusesg_torch.ops.swin_block_v3 import window_core_plan
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
+import h100_tiles  # noqa: E402
 
 H100_SMS = 132
 # blocks of the window core an SM holds on the H100, by window length
@@ -136,73 +143,12 @@ def test_mlp_fwd_plan_splits_where_the_rows_do_not_fill_the_card():
 
 # ------------------------------------------------------------ the Hopper GEMM
 
-def _attn_tile(c, which, wide=0):
-    """What the H100 build reports for swin_attn's GEMMs (rows, columns,
-    blocks an SM, 0): 128-row panels up to C384 (two blocks an SM while the
-    panel is at most 48 KB), 64-row panels at C768 or where asked for."""
-    if c <= 384 and not wide:
-        return (128, 96, 2 if c <= 192 else 1, 0)
-    return (64, 192, 1, 0)
-
-
-def _breakup_tile(cin, dim, which):
-    """The same for patch_breakup: the first product holds whole rows up to
-    4c = 384 (the fused path), else 128 x 96 tiles; the second is a panel GEMM
-    over c."""
-    if which == 1:
-        return _attn_tile(dim // 4, 0)
-    return (64, 384, 1, 1) if dim <= 384 else (128, 96, 2, 0)
-
-
-def _merge_tile(c, wide=0):
-    """The same for patch_merge (K = 4C): 128-row panels up to K = 384 unless
-    asked for 64, 64-row panels up to 768, the one-warpgroup 64 x 96 tile up
-    to 1536; one block an SM (the panel takes most of the shared memory)."""
-    if 4 * c > 768:
-        return (64, 96, 1, 0)
-    if 4 * c > 384 or wide:
-        return (64, 192, 1, 0)
-    return (128, 96, 1, 0)
-
-
-READOUT_TILE = (64, 2, 2, 0)  # rows a tile, warpgroups a block, blocks an SM
-
-
-class _StubLib:
-    """The library's tile queries, answering as the H100 build."""
-
-    def __init__(self):
-        self.calls = []
-
-    def _fill(self, geom, values):
-        for i, v in enumerate(values):
-            geom[i] = v
-        return 0
-
-    def dsg_swin_attn_gemm_tile(self, c, which, wide, geom):
-        self.calls.append(("attn", c, which, wide))
-        return self._fill(geom, _attn_tile(c, which, wide))
-
-    def dsg_patch_breakup_tile(self, cin, dim, which, geom):
-        self.calls.append(("breakup", cin, dim, which))
-        return self._fill(geom, _breakup_tile(cin, dim, which))
-
-    def dsg_patch_merge_tile(self, c, wide, geom):
-        self.calls.append(("merge", c, wide))
-        return self._fill(geom, _merge_tile(c, wide))
-
-    def dsg_readout_tile(self, geom):
-        self.calls.append(("readout",))
-        return self._fill(geom, READOUT_TILE)
-
-
 @pytest.fixture
 def stub_lib(monkeypatch):
-    stub = _StubLib()
-    cuda_build.tile_of.cache_clear()
-    monkeypatch.setattr(cuda_build, "lib", lambda: stub)
+    stub = h100_tiles.install(monkeypatch)
     yield stub
     cuda_build.tile_of.cache_clear()
+    cuda_build.blocks_per_sm.cache_clear()
 
 
 ATTN_STAGES = [(64, 96), (32, 192), (16, 384), (8, 768), (40, 96), (20, 192), (10, 384)]
@@ -336,3 +282,103 @@ def test_readout_plan_covers_every_tile_once(stub_lib, m):
     assert all(range(x * groups, tiles, workers) for x in range(blocks)), "a block without work"
     if tiles >= H100_SMS * per_sm * groups:
         assert blocks == H100_SMS * per_sm  # ... and all of it where the tiles fill it
+
+
+# ------------------------------------------------------ the backward kernels
+
+def _weight_gradients(b):
+    """(tokens, plan) of every weight-gradient launch pair of one VG and one
+    COCO training step at batch b: swin_attn_bwd's dWqkv / dWproj and
+    token_mlp_bwd's dW1 / dW2 at each stage, the tiles through the wrappers'
+    library queries."""
+    out = []
+    for hw, c in ATTN_STAGES:
+        m = b * hw * hw
+        out += [(m, sw.attn_bwd_gemm_plan(m, c, H100_SMS)),
+                (m, mk.mlp_bwd_plan(m, c, 4 * c, H100_SMS))]
+    return out
+
+
+@pytest.mark.parametrize("b", [16, 64])
+def test_token_split_covers_every_token_once(stub_lib, b):
+    """The weight gradients' K split (hgemm_kernel: block z covers tokens
+    [z kchunk, min((z + 1) kchunk, T))): every token once, no split empty,
+    chunks of whole 64-token boxes."""
+    for m, plan in _weight_gradients(b):
+        splits, chunk = plan["w"], plan["kchunk"]
+        parts = [range(z * chunk, min((z + 1) * chunk, m)) for z in range(splits)]
+        assert all(len(p) > 0 for p in parts), (m, plan)
+        assert sorted(t for p in parts for t in p) == list(range(m))
+        assert splits == 1 or chunk % 64 == 0
+
+
+@pytest.mark.parametrize("b", [16, 64])
+def test_token_split_aims_at_one_wave(stub_lib, b):
+    """The output tiles times the splits stay within one wave of resident
+    blocks (or the tiles alone where they pass it), and each split takes at
+    least cuda_build.TOKEN_SPLIT_MIN tokens where it can."""
+    for hw, c in ATTN_STAGES:
+        m = b * hw * hw
+        wt = sw.attn_bwd_tile(c, "wgrad")
+        tiles = -(-3 * c // wt[0]) * -(-c // wt[1])
+        splits, chunk = cuda_build.token_split(tiles, m, wt[2], H100_SMS)
+        assert (splits, chunk) == tuple(sw.attn_bwd_gemm_plan(m, c, H100_SMS)[k]
+                                        for k in ("w", "kchunk"))
+        assert tiles * splits <= max(H100_SMS * wt[2], tiles), (m, c)
+        assert splits == 1 or chunk >= cuda_build.TOKEN_SPLIT_MIN
+
+
+# (tokens, C): the fused MLP backward at every VG and COCO width it covers,
+# batch 16 and 64, and ragged token counts
+FUSED_CASES = [(16 * 4096, 96), (16 * 1024, 192), (16 * 1600, 96), (16 * 400, 192),
+               (64 * 4096, 96), (64 * 1024, 192), (64 * 1600, 96), (64 * 400, 192),
+               (1, 96), (300, 96), (1000, 192), (129, 192)]
+
+
+@pytest.mark.parametrize("m,c", FUSED_CASES)
+def test_fused_mlp_bwd_plan_covers_every_row_tile_and_hidden_chunk_once(stub_lib, m, c):
+    """mlp_bwd_kernel: block x owns rows [x BM, min((x + 1) BM, M)) and walks
+    every hidden chunk of BH once; its column sums are rows 2x and 2x + 1 of
+    the partials the wrapper allocates (2 * blocks)."""
+    hidden = 4 * c
+    plan = mk.mlp_bwd_plan(m, c, hidden, H100_SMS)
+    rows, chunk = mk.mlp_bwd_tile(c, "fused")[:2]
+    assert plan["fused"] == 1 and hidden % chunk == 0
+    blocks = plan["blocks"]
+    row_parts = [range(x * rows, min((x + 1) * rows, m)) for x in range(blocks)]
+    assert all(len(p) > 0 for p in row_parts), "a block without rows"
+    assert sorted(r for p in row_parts for r in p) == list(range(m))
+    pairs = [(x, j) for x in range(blocks) for j in range(hidden // chunk)]
+    assert len(set(pairs)) == blocks * (hidden // chunk)
+
+
+def test_backward_tiles_come_from_the_library(stub_lib):
+    assert mk.mlp_bwd_fused_tile(96) == h100_tiles.FUSED_MLP_BWD_TILE
+    assert mk.mlp_bwd_fused_tile(384) is None  # the chain takes C384 and C768
+    assert mk.mlp_bwd_tile(3072, "wgrad") == (128, 192, 1, 0)
+    assert sw.attn_bwd_tile(96, "wgrad") == (128, 96, 1, 0)
+    assert sw.attn_bwd_tile(384, "qkv", True) == sw.attn_gemm_tile(384, "qkv", True)
+    assert ("mlp_bwd", 96, 0, 0) in stub_lib.calls and ("attn_bwd", 96, 2, 0) in stub_lib.calls
+    plan = mk.mlp_bwd_plan(16 * 256, 384, 1536, H100_SMS)
+    assert plan["fused"] == 0 and plan["fc1"] >= 1 and plan["dm"] >= 1 and plan["dhn"] >= 1
+    # the chain's fc1 takes 64-row panels where 128-row ones would split N
+    # beyond the blocks an SM holds, as swin_attn's qkv GEMM does
+    assert plan["wide"] == 1 and ("mlp_bwd", 384, 1, 1) in stub_lib.calls
+
+
+# (windows, heads, mask classes, L): the backward core's launches of one VG
+# and one COCO training step at batch 64, on its own blocks an SM
+BWD_WINDOW_CASES = [(64 * 64, 3, 1, 64), (64 * 16, 6, 1, 64), (64 * 4, 12, 1, 64),
+                    (64 * 4, 12, 4, 64), (64, 24, 1, 64), (64 * 16, 3, 1, 100),
+                    (64 * 4, 6, 1, 100), (64 * 4, 6, 4, 100), (64, 12, 1, 100), (1, 2, 1, 100)]
+
+
+@pytest.mark.parametrize("n_windows,heads,classes,L", BWD_WINDOW_CASES)
+def test_backward_core_plan_covers_every_window_once(stub_lib, n_windows, heads, classes, L):
+    """The backward window core takes the forward core's plan on its own
+    occupancy; its d(rel_bias) partials are one per block (core_blocks)."""
+    per_sm = cuda_build.blocks_per_sm("dsg_swin_attn_bwd_core_per_sm", L)
+    wpb = window_core_plan(n_windows, heads, classes, per_sm, H100_SMS)
+    runs = window_runs(n_windows, classes, wpb)
+    assert len(runs) == sw.core_blocks(n_windows, classes, wpb)
+    assert all(runs) and sorted(w for r in runs for w in r) == list(range(n_windows))

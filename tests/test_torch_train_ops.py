@@ -8,6 +8,9 @@ atol 2e-3 * max|ref| (the bar of tests/test_backward_kernels.py, scaled to
 the leaf because sums over tokens grow with the token count); against
 autograd in fp64, 1e-9 relative to max|ref|.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +29,9 @@ from diffusesg_torch.ops import mlp_block_kernel as mk
 from diffusesg_torch.ops import swin_block_v3 as sw
 from diffusesg_torch.ops.patch_resample import patch_breakup, patch_merge
 from diffusesg_torch.ops.readout_kernel import readout_mlp
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
+import h100_tiles  # noqa: E402
 
 RTOL, ATOL_FRAC = 2e-3, 2e-3
 
@@ -130,6 +136,31 @@ def test_swin_attn_bwd_plain_matches_pallas_backward_in_interpret_mode(shift):
         jv3.INTERPRET = False
     assert want is not None
     _compare_attn(_port_attn_bwd(p, heads, shift), want, shift)
+
+
+@pytest.mark.parametrize("n,c", [(256, 32), (96, 64)])
+def test_mlp_bwd_plain_matches_pallas_backward_in_interpret_mode(n, c):
+    """The counterpart of the attention half's check above: the MLP half's
+    plain backward against the Pallas kernel ``mlp_bwd_call`` in interpret
+    mode.  The kernel takes the tanh-form GELU derivative against the erf
+    forward (``_gelu_tanh_grad``); the port takes the exact erf derivative,
+    the vjp of its forward and of the JAX XLA composition.  So the bar is
+    the JAX suite's own for that kernel, 5e-3 (tests/test_backward_kernels.py),
+    relative to each leaf's max as above."""
+    p = _mlp_case(n, c, seed=7 + c)
+    jmlp.INTERPRET = True
+    try:
+        want = jmlp.mlp_bwd_call(*(jnp.asarray(p[k]) for k in
+                                   ("x", "g", "b", "w1", "b1", "w2", "ct")))
+    finally:
+        jmlp.INTERPRET = False
+    assert want is not None
+    got = mk.mlp_bwd_plain(_t(p["x"]), _t(p["ct"]), _t(p["g"]), _t(p["b"]), _t(p["w1"]).T,
+                           _t(p["b1"]), _t(p["w2"]).T)
+    for name, a, b in zip(MLP_NAMES, got, want):
+        b = np.asarray(b).reshape(-1) if name in ("dgamma", "dbeta", "db1", "db2") else b
+        _close(a, np.asarray(b).T if name in ("dw1", "dw2") else b, name, rtol=5e-3,
+               atol_frac=5e-3)
 
 
 def _max_rel(got, want):
@@ -276,10 +307,22 @@ def test_split_count_leaves_no_part_empty(parallel, length, min_len, align):
 
 @pytest.mark.parametrize("b,hw,c,heads", [(64, 64, 96, 3), (16, 16, 384, 12), (4, 8, 768, 24),
                                           (2, 16, 64, 2)])
-def test_backward_grid_plans_cover_the_vg_shapes(b, hw, c, heads):
+def test_backward_grid_plans_cover_the_vg_shapes(monkeypatch, b, hw, c, heads):
+    """The backward kernels' plans at VG shapes, the tiles from a stub of the
+    H100 library: the reductions beside the GEMMs, the backward window
+    core's blocks, the token split of the weight gradients (whole 64-token
+    boxes, none empty) and the MLP's fused or chained plan."""
+    h100_tiles.install(monkeypatch)
     plan = sw.attn_bwd_splits(b, hw, hw, c, heads, 8)
-    n_windows = b * (hw // 8) ** 2
-    assert 1 <= plan["core"] <= n_windows and 1 <= plan["rows"] <= -(-hw * hw // 8)
+    n_windows, m = b * (hw // 8) ** 2, b * hw * hw
+    assert 1 <= plan["rows"] <= -(-hw * hw // 8)
     assert all(v >= 1 for v in plan.values())
-    mlp = mk.mlp_bwd_splits(b * hw * hw, c, 4 * c)
-    assert 1 <= mlp["ln"] <= cuda_build.TARGET_BLOCKS and mlp["w"] >= 1
+    wpb = sw.window_core_plan(n_windows, heads, 1, cuda_build.blocks_per_sm(
+        "dsg_swin_attn_bwd_core_per_sm", 64))
+    assert 1 <= sw.core_blocks(n_windows, 1, wpb) <= n_windows
+    for gemm in (sw.attn_bwd_gemm_plan(m, c), mk.mlp_bwd_plan(m, c, 4 * c)):
+        splits, chunk = gemm["w"], gemm["kchunk"]
+        assert splits >= 1 and chunk % 64 == 0 and chunk * (splits - 1) < m <= chunk * splits
+    mlp = mk.mlp_bwd_plan(m, c, 4 * c)
+    assert mlp["fused"] == (c in (96, 192))
+    assert mlp["fused"] or 1 <= mlp["ln"] <= cuda_build.TARGET_BLOCKS
