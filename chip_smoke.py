@@ -9,6 +9,8 @@ Phases, each printed on its own line:
      the built library's SASS: every wgmma kernel (each hgemm_kernel, the
      readout_kernel and the fused MLP backward mlp_bwd_kernel) must issue
      HGMMA instructions, and no other GEMM kernel may be in the library;
+     the micro-benchmark's mm_accumulate_wgmma must issue HGMMA (bf16) and
+     IGMMA (int8) and no WMMA-era HMMA / IMMA;
   2. every hand-written kernel at every Visual Genome and COCO-Stuff shape of
      the main paths (batch 16, bf16) and the four TPU kernels with an entry of
      their own (window_attention, mm_accumulate, and the pre-rolled block
@@ -25,7 +27,11 @@ Phases, each printed on its own line:
      (bf16, timed only): F.layer_norm + F.linear for qkv, merge and the qkv
      recompute, F.linear for the others, F.linear, F.gelu, F.linear for
      readout, torch.mm for the backward's products with an untransposed
-     weight and for its weight gradients (a^T b over the tokens);
+     weight and for its weight gradients (a^T b over the tokens); for
+     mm_accumulate one torch.bmm over stride-0 batches and torch.matmul
+     looped (bf16), torch._int_mm looped (int8), each doing as many products
+     as the kernel, and its time at 128 products, which must be at least
+     1.6x its time at 64;
   3. the slice: the full-width VG model (35,808,848 parameters, seeded
      weights, bf16) answers requests through ``serving.generate`` with 16 Heun
      steps; every kernel's launch count must move, the decoded graphs must be
@@ -83,6 +89,7 @@ Exits non-zero without a result when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
@@ -178,6 +185,10 @@ def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
 
 
 WGMMA_KERNELS = ("hgemm_kernel", "readout_kernel", "mlp_bwd_kernel")
+MM_KERNEL = "mm_accumulate_wgmma"  # K12: an instantiation per type, tile and K tail
+# the warpgroup MMA of each K12 instantiation: HGMMA for bf16 operands,
+# IGMMA for int8 ones; WMMA-era mma.sync (HMMA, IMMA) in none
+MM_SASS = {"bf16": "HGMMA", "int8": "IGMMA"}
 
 
 def check_sass(lib_path) -> None:
@@ -185,7 +196,9 @@ def check_sass(lib_path) -> None:
     instructions of every hgemm_kernel instantiation (the forward and
     backward GEMM sites), of readout_kernel and of the fused MLP backward
     mlp_bwd_kernel (cuobjdump -sass); and the port has one GEMM: no other
-    *gemm_kernel is left in the library."""
+    *gemm_kernel is left in the library.  K12's mm_accumulate_wgmma: every
+    bf16 instantiation issues HGMMA and every int8 one IGMMA, none issues a
+    WMMA-era HMMA or IMMA, and no mm_accumulate_kernel is left."""
     import re
 
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -194,7 +207,7 @@ def check_sass(lib_path) -> None:
                          timeout=300)
     if out.returncode != 0:
         fail(f"cuobjdump: {out.stderr.strip()[:200]}")
-    counts, func, others = {}, None, []
+    counts, func, others, mm_ops, old_mm = {}, None, [], {}, []
     for line in out.stdout.splitlines():
         if "Function :" in line:
             func = line.split("Function :", 1)[1].strip()
@@ -202,8 +215,14 @@ def check_sass(lib_path) -> None:
                 counts[func] = 0
             if re.search(r"(?<!h)gemm_kernel", func):
                 others.append(func)
+            if MM_KERNEL in func:
+                mm_ops[func] = collections.Counter()
+            if "mm_accumulate_kernel" in func:
+                old_mm.append(func)
         elif func in counts and "HGMMA" in line:
             counts[func] += 1
+        elif func in mm_ops:
+            mm_ops[func].update(re.findall(r"\b([A-Z]*MMA)\b", line))
     for k in WGMMA_KERNELS:
         mine = sorted(n for f, n in counts.items() if k in f)
         log(f"sass: {len(mine)} {k} instantiations, HGMMA instructions in each: {mine}")
@@ -211,6 +230,17 @@ def check_sass(lib_path) -> None:
             fail(f"a {k} issues no HGMMA instruction")
     if others:
         fail(f"a GEMM other than hgemm_kernel is in the library: {others[:3]}")
+    if old_mm:
+        fail(f"the WMMA-era mm_accumulate_kernel is still in the library: {old_mm[:2]}")
+    by_type = {t: [ops for f, ops in mm_ops.items() if ("bfloat16" in f) == (t == "bf16")]
+               for t in MM_SASS}
+    for t, want in MM_SASS.items():
+        log(f"sass: {len(by_type[t])} {MM_KERNEL} {t} instantiations (tile x K tail), {want} "
+            f"instructions in each: {sorted(ops[want] for ops in by_type[t])}, HMMA or IMMA in "
+            f"any: {sum(ops['HMMA'] + ops['IMMA'] for ops in by_type[t])}")
+        if not by_type[t] or any(ops[want] == 0 or ops["HMMA"] or ops["IMMA"]
+                                 for ops in by_type[t]):
+            fail(f"a {t} {MM_KERNEL} does not issue {want}, or issues HMMA / IMMA")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -230,7 +260,10 @@ class Case:
     kernels doing the same work (a yardstick, timed only); ``gemms`` names a
     kernel's launches to time one by one, each with a yardstick of its
     products in PyTorch (cuBLAS; timed only); ``graph_plain`` is False for a plain version that
-    leaves the card and cannot be captured."""
+    leaves the card and cannot be captured.  ``yardsticks`` are further
+    library calls doing the same work (name -> callable; timed only);
+    ``more_work`` are arguments with twice the work, whose time must be at
+    least 1.6x the case's (a kernel that skips work fails it)."""
     name: str
     src: str
     replaces: str
@@ -247,6 +280,8 @@ class Case:
     products: dict = None
     peak: float = H100_BF16_FLOPS
     graph_plain: bool = True
+    yardsticks: dict = None
+    more_work: tuple = None
 
 
 def kernel_cases(dev):
@@ -476,9 +511,13 @@ def kernel_cases(dev):
                           counts=("swin_attn", "token_mlp")))
     # mm_accumulate (K12): 64 accumulated products at the four shapes, bf16
     # (relative to the fp32 product) and int8 (exact).  The kernel computes
-    # 64 * copies products, so the library yardstick is as many library
-    # products (cuBLAS calls, back to back in one graph); the plain version is
-    # one fp32 product scaled by 64 (``products`` in the kernels line).
+    # 64 * copies products, so each library yardstick does as many library
+    # products: for bf16 one torch.bmm over operands expanded to a batch of
+    # 64 * copies with stride 0 (library_ms), and torch.matmul called that
+    # many times back to back in one graph (yardstick_ms); for int8
+    # torch._int_mm that many times (no batched form).  The plain version is
+    # one fp32 product scaled by 64 (``products`` in the kernels line).  Each
+    # case is timed again at 128 products (``more_work``).
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def looped(product, a, b_, n):
@@ -486,6 +525,29 @@ def kernel_cases(dev):
             for _ in range(n):
                 product(a, b_)
         return run
+
+    def batched(a, b_, n):
+        """torch.bmm over a and b_ expanded to a batch of n (stride 0); where
+        bmm copies such operands (its peak memory passes its output by at
+        least half an operand), the copy is made here, outside the timed
+        call, and said."""
+        ea, eb = a.expand(n, *a.shape), b_.expand(n, *b_.shape)
+        torch.bmm(ea, eb)  # cuBLAS's workspace, once
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out_bytes = torch.bmm(ea, eb).nbytes
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base - out_bytes
+        copied = extra >= min(ea.numel(), eb.numel()) * a.element_size() // 2
+        log(f"kernel mm_accumulate: torch.bmm over a{tuple(ea.shape)} b{tuple(eb.shape)} with "
+            f"stride-0 batches allocates {extra} bytes beyond its output: "
+            + ("it copies them, so the yardstick runs on contiguous copies made before timing"
+               if copied else "no copy"))
+        if copied:
+            ea, eb = ea.contiguous(), eb.contiguous()
+        return lambda: torch.bmm(ea, eb)
+
     for m, k, n in mm.SHAPES:
         _, copies = mm.grid_plan(m, n, sms)
         a8 = torch.randint(-127, 127, (m, k), generator=gen, device=dev, dtype=torch.int8)
@@ -494,15 +556,19 @@ def kernel_cases(dev):
         cases.append(Case("mm_accumulate", "mm_microbench.cu", K12, mm.mm_accumulate,
                           mm.mm_accumulate_plain, (abf, bbf, 64), mm.operations(m, k, n, 64, copies),
                           (m * k + k * n) * 2 + m * n * 4, (0.0, 1e-3, 1e-4), "entries",
-                          library=looped(torch.matmul, abf, bbf, 64 * copies),
-                          products=dict(kernel=64 * copies, plain=1, library=64 * copies)))
+                          library=batched(abf, bbf, 64 * copies),
+                          yardsticks={"torch.matmul looped": looped(torch.matmul, abf, bbf,
+                                                                    64 * copies)},
+                          products=dict(kernel=64 * copies, plain=1, library=64 * copies,
+                                        yardsticks=64 * copies),
+                          more_work=(abf, bbf, 128)))
         int_mm = getattr(torch, "_int_mm", None)
         cases.append(Case("mm_accumulate", "mm_microbench.cu", K12, mm.mm_accumulate,
                           mm.mm_accumulate_plain, (a8, b8, 64), mm.operations(m, k, n, 64, copies),
                           (m * k + k * n) + m * n * 4, (0.0, 0.0, 0.0), "entries",
                           library=looped(int_mm, a8, b8, 64 * copies) if int_mm else None,
                           products=dict(kernel=64 * copies, plain=1, library=64 * copies),
-                          peak=H100_INT8_OPS, graph_plain=False))
+                          peak=H100_INT8_OPS, graph_plain=False, more_work=(a8, b8, 128)))
     return cases
 
 
@@ -578,6 +644,16 @@ def check_kernels(dev, reps: int = 20):
                 log(f"kernel {name} {keys[0][1]}: no library call ({str(exc)[:80]})")
             else:
                 library_ms = graph_ms(case.library, reps)
+        extra = {}
+        if case.yardsticks:
+            extra["yardstick_ms"] = {k: graph_ms(f, reps) for k, f in case.yardsticks.items()}
+        if case.more_work is not None:
+            more_ms = graph_ms(lambda: kern(*case.more_work), reps)
+            extra["more_work_ms"] = more_ms
+            log(f"kernel {name:16s} {case.path:7s} {keys[0][1]:22s} 2x the work: {more_ms:.4f} "
+                f"ms, {more_ms / ms:.3f}x the time (at least 1.6x)")
+            if not more_ms >= 1.6 * ms:
+                fail(f"{name} {keys[0][1]}: 2x the work took only {more_ms / ms:.3f}x the time")
         bound_ms, bound_by = bound(case.flops, case.nbytes, case.peak)
         label = f"{name}@{case.path} {keys[0][1]}"
         if case.gemms:
@@ -592,8 +668,9 @@ def check_kernels(dev, reps: int = 20):
                             max_abs_err=max_abs, max_err_over_max=max_of_max, max_rel_l2=max_l2, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=library_ms,
-                            **({"products": case.products} if case.products else {})))
+                            **({"products": case.products} if case.products else {}), **extra))
         lib = "-" if library_ms is None else f"{library_ms:.4f}"
+        lib += "".join(f" {k}={v:.4f}" for k, v in extra.get("yardstick_ms", {}).items())
         log(f"kernel {name:16s} {case.path:7s} {keys[0][1]:22s} outputs={len(outs)} "
             f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
             f"max_err/max|ref|={max_of_max:.3e} max_rel_l2={max_l2:.3e} tol=atol {atol}+rtol {rtol}+{rel_max}*max "
@@ -1729,6 +1806,7 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s -> {cuda_build.build_dir()}")
     check_sass(cuda_build.build())
     from diffusesg_torch.ops import mlp_block_kernel as mk
+    from diffusesg_torch.ops import mm_microbench as mm
     from diffusesg_torch.ops import patch_resample as pr
     from diffusesg_torch.ops import readout_kernel as rk
     from diffusesg_torch.ops import swin_block_v3 as sw
@@ -1749,7 +1827,10 @@ def main(argv=None) -> int:
         + ", " + ", ".join(f"token_mlp_bwd {w} C{c} {mk.mlp_bwd_tile(c, w)}"
                            for c in (384, 768) for w in ("fc1", "stream"))
         + ", " + ", ".join(f"token_mlp_bwd wgrad {j} columns {mk.mlp_bwd_tile(j, 'wgrad')}"
-                           for j in (96, 384, 768, 3072)))
+                           for j in (96, 384, 768, 3072))
+        + "; mm_accumulate (rows, columns, blocks an SM, shared bytes): "
+        + ", ".join(f"{m}x{k}x{n} {t} {mm.kernel_tile(n, k, t == 'int8')}"
+                    for m, k, n in mm.SHAPES for t in ("bf16", "int8")))
     log("grid plans, as the library reports them: blocks of the window core an SM holds "
         + ", ".join(f"{q} L={L} {cuda_build.blocks_per_sm(q, L)}"
                     for q in ("dsg_swin_attn_core_per_sm", "dsg_window_attention_per_sm",

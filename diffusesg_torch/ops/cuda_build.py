@@ -61,6 +61,7 @@ _SIGNATURES = {
     "dsg_patch_breakup_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_patch_merge_tile": [_I, _I, ctypes.POINTER(_I)],
     "dsg_readout_tile": [ctypes.POINTER(_I)],
+    "dsg_mm_accumulate_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_swin_attn_core_per_sm": [_I],
     "dsg_swin_attn_bwd_core_per_sm": [_I],
     "dsg_window_attention_per_sm": [_I],

@@ -1,14 +1,18 @@
 """Accumulated matrix products, bf16 against int8: a tensor-core micro-benchmark.
 
 Counterpart of scripts/microbench_int8.py::mm_kernel: ``repeats`` products
-``a[m, k] @ b[k, n]`` accumulated into two independent accumulator sets and
-summed, so the result is ``repeats * (a @ b)``: bf16 operands give fp32, int8
-operands give int32 (exact while |sum| < 2^31).  On a CUDA tensor it is the
-hand-written kernel ``mm_accumulate`` (csrc/mm_microbench.cu); on a CPU
-tensor the plain version.  The kernel computes the whole output ``copies``
-times over a grid of ``tiles * copies`` blocks, a multiple of the card's SM
-count (``grid_plan``), as the TPU grid of 16 programs computes it 16 times;
-``scripts/microbench_int8_torch.py`` turns its time into T(FL)OP/s.
+``a[m, k] @ b[k, n]`` accumulated, so the result is ``repeats * (a @ b)``:
+bf16 operands give fp32, int8 operands give int32 (exact while |sum| < 2^31).
+On a CUDA tensor it is the hand-written wgmma kernel ``mm_accumulate``
+(csrc/mm_microbench.cu); on a CPU tensor the plain version.
+
+The work is fixed by ``grid_plan``: the whole output is computed ``copies``
+times, the count that makes 64 x 64 tiles x copies a multiple of the card's
+SM count, as the TPU grid of 16 programs computes it 16 times; so
+``operations`` and the T(FL)OP/s of ``scripts/microbench_int8_torch.py``
+keep their meaning whatever tile the kernel runs.  The kernel's own tile
+(``kernel_tile``, from the library) and its persistent grid over the work
+items (tile, copy) are ``kernel_plan``'s.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import torch
 from . import cuda_build
 
 NAME = "mm_accumulate"
-TILE = 64  # output tile of one block (csrc/mm_microbench.cu kTile)
+TILE = 64  # the tile that defines the work (copies), not the kernel's
 SHAPES = ((512, 768, 768), (1024, 96, 96), (1024, 96, 288), (2048, 128, 128))
 
 
@@ -29,8 +33,8 @@ def mm_accumulate_plain(a, b, repeats: int = 64):
 
 
 def grid_plan(m: int, n: int, sm_count: int) -> tuple[int, int]:
-    """(tiles, copies): output tiles of one product, and how often the whole
-    product is computed so that the grid is a multiple of ``sm_count``."""
+    """(tiles, copies): 64 x 64 tiles of one product, and how often the whole
+    product is computed so that tiles x copies is a multiple of ``sm_count``."""
     tiles = -(-m // TILE) * -(-n // TILE)
     copies = 1
     while (tiles * copies) % sm_count:
@@ -43,6 +47,26 @@ def operations(m: int, k: int, n: int, repeats: int, copies: int) -> int:
     return 2 * m * k * n * repeats * copies
 
 
+def kernel_tile(n: int, k: int, is_int8: bool) -> tuple[int, ...]:
+    """The kernel's tile at these widths, from the library: (rows, columns,
+    blocks an SM holds, dynamic shared memory bytes a block); ValueError
+    where no tile divides ``n``."""
+    return cuda_build.tile_of("dsg_mm_accumulate_tile", n, k, int(is_int8))
+
+
+def kernel_plan(m: int, n: int, tile: tuple[int, ...], sms: int) -> dict[str, int]:
+    """The kernel's grid (csrc/mm_microbench.cu, dsg_mm_accumulate): ``tiles``
+    output tiles of ``tile[0]`` x ``tile[1]``, ``copies`` from ``grid_plan``,
+    ``items`` = tiles x copies, and ``grid`` persistent blocks (at most one
+    wave of resident blocks) of which block x walks items x, x + grid, ...;
+    item i is tile i % tiles of copy i // tiles."""
+    rows, cols, per_sm = tile[:3]
+    tiles = -(-m // rows) * (n // cols)
+    copies = grid_plan(m, n, sms)[1]
+    items = tiles * copies
+    return dict(tiles=tiles, copies=copies, items=items, grid=min(items, sms * per_sm))
+
+
 def mm_accumulate(a, b, repeats: int = 64):
     """a [m, k], b [k, n], both bf16 or both int8 -> [m, n] fp32 or int32."""
     if a.device.type == "cpu":
@@ -52,12 +76,13 @@ def mm_accumulate(a, b, repeats: int = 64):
     a = cuda_build.require(a, a.dtype, "a")
     b = cuda_build.require(b, a.dtype, "b")
     (m, k), n = a.shape, b.shape[1]
-    if b.shape[0] != k or m % 16 or n % 16 or k % 32 or repeats < 2 or repeats % 2:
-        raise ValueError(f"mm_accumulate takes m, n multiples of 16, k a multiple of 32 and an "
-                         f"even repeats; got a{tuple(a.shape)} b{tuple(b.shape)} x{repeats}")
     is_int8 = a.dtype == torch.int8
+    if b.shape[0] != k or m < 1 or k % 32 or repeats < 1:
+        raise ValueError(f"mm_accumulate takes k a multiple of 32 and repeats >= 1; got "
+                         f"a{tuple(a.shape)} b{tuple(b.shape)} x{repeats}")
+    kernel_tile(n, k, is_int8)  # raises ValueError where no tile divides n
     out = torch.empty((m, n), dtype=torch.int32 if is_int8 else torch.float32, device=a.device)
-    _, copies = grid_plan(m, n, torch.cuda.get_device_properties(a.device).multi_processor_count)
+    _, copies = grid_plan(m, n, cuda_build.sm_count(a.device))
     p = cuda_build.ptr
     rc = cuda_build.lib().dsg_mm_accumulate(p(a), p(b), p(out), m, n, k, copies, repeats,
                                             int(is_int8), cuda_build.stream_ptr(a.device))

@@ -6,10 +6,12 @@ of scripts/microbench_int8.py).
 
 Decides whether an int8 inference path is worth building on this card: the
 H100 advertises twice the bf16 tensor-core rate for int8 (1,979 TOP/s against
-989 TFLOP/s).  Each launch accumulates 64 products per output tile at the
-model's actual shapes; the whole output is computed ``copies`` times so the
-grid is a multiple of the card's SM count.  Prints the card's name and power
-limit first, then ms and T(FL)OP/s per shape and type and the int8 speed-up.
+989 TFLOP/s).  Each launch accumulates 64 products at the model's actual
+shapes; the whole output is computed ``copies`` times (the 64 x 64 plan of
+``mm.grid_plan``), and the wgmma kernel walks those (tile, copy) items with
+persistent blocks.  Prints the card's name and power limit first, then ms
+and T(FL)OP/s per shape and type, the kernel's tile and grid, and the int8
+speed-up.
 Needs a CUDA device; exits non-zero without one.
 """
 import os
@@ -33,7 +35,8 @@ def run(m, k, n, dtype, dev, iters=5):
     else:
         a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
-    tiles, copies = mm.grid_plan(m, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    tile = mm.kernel_tile(n, k, dtype == torch.int8)
+    plan = mm.kernel_plan(m, n, tile, torch.cuda.get_device_properties(dev).multi_processor_count)
     mm.mm_accumulate(a, b, R)  # builds the kernels on the first call
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -43,10 +46,11 @@ def run(m, k, n, dtype, dev, iters=5):
     end.record()
     end.synchronize()
     dt = start.elapsed_time(end) / iters / 1e3
-    ops = mm.operations(m, k, n, R, copies)
+    ops = mm.operations(m, k, n, R, plan["copies"])
     name = "int8" if dtype == torch.int8 else "bfloat16"
     print(f"[{m}x{k}x{n}] {name}: {dt * 1e3:.3f} ms -> {ops / dt / 1e12:.1f} T(FL)OP/s "
-          f"(grid {tiles} tiles x {copies} copies = {tiles * copies} blocks)", flush=True)
+          f"({plan['tiles']} tiles of {tile[0]}x{tile[1]} x {plan['copies']} copies = "
+          f"{plan['items']} items over {plan['grid']} blocks)", flush=True)
     return ops / dt
 
 

@@ -84,6 +84,14 @@ class StubLib:
     def dsg_swin_attn_bwd_core_per_sm(self, L):
         return BWD_CORE_PER_SM.get(L, -1)
 
+    # the int8 / bf16 micro-benchmark's (csrc/mm_microbench.cu)
+    def dsg_mm_accumulate_tile(self, n, k, is_int8, geom):
+        self.calls.append(("mm", n, k, is_int8))
+        if n <= 0 or k <= 0 or k % 32:
+            return -1
+        tile = mm_tile(n, is_int8)
+        return -1 if tile is None else self._fill(geom, tile)
+
 
 # the backward's tiles: the streamed products (dy Wproj, dqkv Wqkv, dout W2,
 # du W1), the fused MLP row tile (rows, hidden chunk, blocks an SM, 1), the
@@ -96,6 +104,19 @@ BWD_CORE_PER_SM = {64: 2, 100: 1}
 
 def tokens_tile(j):
     return (128, 192 if j % 192 == 0 else 96, 1, 0)
+
+
+def mm_tile(n, is_int8):
+    """What the H100 build reports for mm_accumulate (rows, columns, blocks
+    an SM, dynamic shared memory bytes): 128 rows, the widest of 256, 128,
+    96, 64, 32 and 16 columns that divides n, a ring of four 128-byte K slots of A
+    (128 rows) and B (int8: n rows transposed; bf16: 64-column boxes of 64
+    K rows), one block an SM; None where no tile divides n."""
+    cols = next((c for c in (256, 128, 96, 64, 32, 16) if n % c == 0), None)
+    if cols is None:
+        return None
+    b_bytes = cols * 128 if is_int8 else -(-cols // 64) * 64 * 128
+    return (128, cols, 1, 1024 + 4 * (128 * 128 + b_bytes))
 
 
 def install(monkeypatch):

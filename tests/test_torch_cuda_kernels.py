@@ -461,17 +461,27 @@ def test_pre_rolled_block_entries(cuda, hw, heads, window):
     assert all(after[k] == before.get(k, 0) + 1 for k in ("swin_attn_bwd", "token_mlp_bwd"))
 
 
-@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (128, 96, 48), (1024, 96, 288)])
-def test_mm_accumulate_kernel(cuda, m, k, n):
+# the four shapes of scripts/microbench_int8.py, a K = 96 case whose rows
+# end inside a tile, and the 64- and 16-column tiles
+@pytest.mark.parametrize("repeats", [2, 128])
+@pytest.mark.parametrize("m,k,n", [(512, 768, 768), (1024, 96, 96), (1024, 96, 288),
+                                   (2048, 128, 128), (192, 96, 192), (64, 64, 64),
+                                   (128, 96, 48)])
+def test_mm_accumulate_kernel(cuda, m, k, n, repeats):
+    """int8 exact, bf16 within 1e-3 of the fp32 product's max; the tile the
+    library reports divides n and fits the shared memory."""
     from diffusesg_torch.ops import mm_microbench as mm
     torch.manual_seed(m + n)
     a8 = torch.randint(-127, 127, (m, k), device=cuda, dtype=torch.int8)
     b8 = torch.randint(-127, 127, (k, n), device=cuda, dtype=torch.int8)
-    got = mm.mm_accumulate(a8, b8, 64)
-    assert got.dtype == torch.int32 and torch.equal(got, mm.mm_accumulate_plain(a8, b8, 64))
+    got = mm.mm_accumulate(a8, b8, repeats)
+    assert got.dtype == torch.int32 and torch.equal(got, mm.mm_accumulate_plain(a8, b8, repeats))
     a, b = _rnd(cuda, m, k), _rnd(cuda, k, n)
-    got, ref = mm.mm_accumulate(a, b, 64), mm.mm_accumulate_plain(a, b, 64)
+    got, ref = mm.mm_accumulate(a, b, repeats), mm.mm_accumulate_plain(a, b, repeats)
     assert got.dtype == torch.float32
     assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+    for is_int8 in (False, True):
+        rows, cols, per_sm, smem = mm.kernel_tile(n, k, is_int8)
+        assert n % cols == 0 and per_sm >= 1 and smem <= 232_448
     with pytest.raises(ValueError, match="mm_accumulate takes"):
         mm.mm_accumulate(a[:, :24].contiguous(), b[:24].contiguous(), 64)

@@ -7,7 +7,8 @@
 the Hopper GEMM (csrc/hopper_gemm.cuh) that runs swin_attn's qkv and proj,
 patch_merge's product and patch_breakup's two products; ``readout_plan``
 (ops/readout_kernel.py) the persistent grid of ``readout_kernel``
-(csrc/readout.cu).  The partitions below repeat the kernels' index
+(csrc/readout.cu); ``kernel_plan`` (ops/mm_microbench.py) the persistent
+grid of ``mm_accumulate_wgmma`` (csrc/mm_microbench.cu) over its work items.  The partitions below repeat the kernels' index
 math: every window, hidden chunk and column tile must be covered exactly once
 by a block that has work, and the grid must aim at one wave of resident
 blocks.  On the card the wrappers read the blocks an SM holds, and the tiles,
@@ -20,6 +21,7 @@ import sys
 import pytest
 
 from diffusesg_torch.ops import cuda_build
+from diffusesg_torch.ops import mm_microbench as mm
 from diffusesg_torch.ops import patch_resample as pr
 from diffusesg_torch.ops import readout_kernel as rk
 from diffusesg_torch.ops import swin_block_v3 as sw
@@ -382,3 +384,64 @@ def test_backward_core_plan_covers_every_window_once(stub_lib, n_windows, heads,
     runs = window_runs(n_windows, classes, wpb)
     assert len(runs) == sw.core_blocks(n_windows, classes, wpb)
     assert all(runs) and sorted(w for r in runs for w in r) == list(range(n_windows))
+
+
+# ----------------------------------------------- the micro-benchmark (K12)
+
+MM_COPIES = {(512, 768, 768): 11, (1024, 96, 96): 33, (1024, 96, 288): 33, (2048, 128, 128): 33}
+SMEM_PER_BLOCK = 232_448  # the H100's shared memory a block can use
+
+
+@pytest.mark.parametrize("is_int8", [False, True])
+@pytest.mark.parametrize("m,k,n", list(mm.SHAPES) + [(192, 96, 192), (64, 64, 64),
+                                                    (128, 96, 48)])
+def test_mm_plan_covers_every_item_once(stub_lib, m, k, n, is_int8):
+    """mm_accumulate_wgmma: block x walks items x, x + grid, ...; item i is
+    output tile i % tiles of copy i // tiles, and tile t covers rows
+    [(t // tiles_n) rows, + rows) and columns [(t % tiles_n) cols, + cols).
+    Every (tile, copy) once, every block with work, at most one wave; the
+    tiles of a copy cover every output element once."""
+    tile = mm.kernel_tile(n, k, is_int8)
+    rows, cols, per_sm = tile[:3]
+    plan = mm.kernel_plan(m, n, tile, H100_SMS)
+    tiles, items, grid = plan["tiles"], plan["items"], plan["grid"]
+    walked = [i for x in range(grid) for i in range(x, items, grid)]
+    assert sorted(walked) == list(range(items)) and items == tiles * plan["copies"]
+    assert 0 < grid <= H100_SMS * per_sm and all(range(x, items, grid) for x in range(grid))
+    assert sorted((i % tiles, i // tiles) for i in walked) == sorted(
+        (t, c) for t in range(tiles) for c in range(plan["copies"]))
+    tiles_n = n // cols
+    cover = [(r, col) for t in range(tiles)
+             for r in range(t // tiles_n * rows, min(t // tiles_n * rows + rows, m))
+             for col in range(t % tiles_n * cols, t % tiles_n * cols + cols)]
+    assert sorted(cover) == [(r, col) for r in range(m) for col in range(n)]
+
+
+@pytest.mark.parametrize("tile", [None, (128, 64, 1, 0), (64, 96, 2, 0), (128, 256, 1, 0)])
+@pytest.mark.parametrize("m,k,n", mm.SHAPES)
+def test_mm_copies_keep_the_work_whatever_the_tile(stub_lib, m, k, n, tile):
+    """The copies, hence mm.operations() and the bound, are the 64 x 64
+    plan's at the four shapes (11 / 33 / 33 / 33), whatever tile the kernel
+    runs (None: the library's)."""
+    for is_int8 in (False, True):
+        t = tile if tile is not None and n % tile[1] == 0 else mm.kernel_tile(n, k, is_int8)
+        plan = mm.kernel_plan(m, n, t, H100_SMS)
+        assert plan["copies"] == MM_COPIES[(m, k, n)] == mm.grid_plan(m, n, H100_SMS)[1]
+        assert mm.operations(m, k, n, 64, plan["copies"]) == 2 * m * k * n * 64 * MM_COPIES[
+            (m, k, n)]
+
+
+@pytest.mark.parametrize("is_int8", [False, True])
+@pytest.mark.parametrize("m,k,n", mm.SHAPES)
+def test_mm_tile_divides_n_and_fits_shared_memory(stub_lib, m, k, n, is_int8):
+    """No column is computed on padding, and a block's ring fits the card."""
+    rows, cols, per_sm, smem = mm.kernel_tile(n, k, is_int8)
+    assert n % cols == 0 and cols % 8 == 0 and cols <= 256 and rows == 128
+    assert per_sm >= 1 and 0 < smem <= SMEM_PER_BLOCK
+    assert ("mm", n, k, int(is_int8)) in stub_lib.calls
+
+
+@pytest.mark.parametrize("n,k", [(40, 96), (8, 96), (96, 24), (96, 0)])
+def test_mm_tile_refuses_what_no_tile_covers(stub_lib, n, k):
+    with pytest.raises(ValueError, match="no tile covers"):
+        mm.kernel_tile(n, k, True)
