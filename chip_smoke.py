@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # every phase, as a CI check
     python3 chip_smoke.py --no-slice # build + kernels vs plain only
-    python3 chip_smoke.py --no-train # phases 1-3, 5, 7 and 8 (from a seeded checkpoint)
+    python3 chip_smoke.py --no-train # phases 1-3, 5 and 7-9 (8 from a seeded checkpoint)
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit), the kernels' nvcc build, and
@@ -80,8 +80,27 @@ Phases, each printed on its own line:
      the fp32 plain model on the card (relative L2 5e-2), the final samples'
      distance as a reading; seconds of
      sampling + decode and of metrics + artifacts, graphs/s, peak memory and
-     whether plots were written (the card's machine has no matplotlib).
-Launch counts are set to 0 before each of phases 3-8 and read after it.
+     whether plots were written (the card's machine has no matplotlib);
+  9. the serving slice on the full-width VG model (seeded weights, bf16,
+     kernels on; 16 Heun steps, a served batch of 16): a reference-schema
+     ``.pth`` of it (``module.model.`` prefixes, the two buffers the
+     reference saves, 5 EMA sets) through ``cli.import_ckpt``, bit-equal in
+     the run dir; ``cli.serve``'s loader, ``BatchingSampler`` and ``serve``
+     in this process: warm-up, a burst of 8 unseeded ``/v1/generate``
+     requests packed into fewer batches with every answer in range, a
+     seeded request twice identical and equal to the serving core at that
+     seed (its all-False padding rows zero, the other rows bit-equal with
+     them filled instead), ``/v1/complete`` with its pinned parts verbatim,
+     ``/healthz``; every forward kernel launched and no backward kernel;
+     ``chunk_steps=4`` equal to the unchunked run; ``cli.serve
+     --export_to`` and ``load_artifact`` equal to the live server, an
+     artifact for the CPU refused; ``python -m diffusesg_torch.cli.serve``
+     as a process from the run dir and from the artifact (``/v1/complete``
+     501 there) answering the seeded request as this process did; readings:
+     graphs/s through HTTP at batch 16 and 64, batch latency p50 / p95, the
+     warm-up seconds, the served FLOP/s and its share of the bf16 peak
+     (``utils/perf.py``), peak memory.
+Launch counts are set to 0 before each of phases 3-9 and read after it.
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Exits non-zero without a result when no CUDA device is present.
@@ -1695,6 +1714,367 @@ def check_eval_slice(dev, smi: str, run_training: bool = True) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 9
+
+SERVE_STEPS = 16
+SERVE_BATCH = 16
+SERVE_SEED = 11
+SERVE_UP_S = 120  # how long a cli.serve process may take to answer /healthz
+
+
+def _reference_pth(model, cfg, path: str):
+    """A checkpoint in the reference's schema (trainer_utils.py:168-185) from
+    the seeded model: ``model`` under ``module.model.`` with the two buffers
+    the reference saves, one ``model_ema_beta_*`` set per beta of the config
+    that differs from the raw weights, the config dict and the epoch.
+    Returns (raw state dict, {beta: EMA state dict})."""
+    gen = torch.Generator().manual_seed(9)
+    raw = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    bufs = {k: v.detach().cpu() for k, v in model.named_buffers()}
+
+    def ref(sd):
+        return {"module.model." + k: v for k, v in {**sd, **bufs}.items()}
+    ckpt = {"model": ref(raw), "config": cfg.to_dict(), "epoch": 3}
+    emas = {}
+    for i, beta in enumerate(sorted(cfg.train.ema_coef)):
+        emas[beta] = {k: v + 1e-3 * (i + 1) * torch.randn(v.shape, generator=gen)
+                      for k, v in raw.items()}
+        ckpt[f"model_ema_beta_{beta:.4f}"] = ref(emas[beta])
+    torch.save(ckpt, path)
+    return raw, emas
+
+
+def _http(url: str, payload=None, timeout: float = 300.0):
+    """(status, JSON body) of one request to a server on this machine."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=None if payload is None else json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _burst(base: str, bodies: list) -> tuple[list, float]:
+    """The requests sent at once, one thread each; (answers, wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        answers = list(pool.map(lambda b: _http(base + "/v1/generate", b), bodies))
+    return answers, time.perf_counter() - t0
+
+
+def _in_thread(batcher):
+    """``serve(batcher, port)`` in a thread on a free port; (httpd, base URL)."""
+    import threading
+
+    from diffusesg_torch.serving import serve
+    httpd = serve(batcher, _free_port())
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def _serve_process(argv: list, what: str):
+    """``python -m diffusesg_torch.cli.serve`` with its default device, up
+    and answering /healthz; (process, base URL, seconds to come up)."""
+    port = _free_port()
+    log_path = os.path.join("build", "smoke_runs", "serve", f"{what}.log")
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "diffusesg_torch.cli.serve", *argv,
+                                 "--port", str(port)], stdout=out, stderr=subprocess.STDOUT)
+    base, t0 = f"http://127.0.0.1:{port}", time.perf_counter()
+    while True:
+        if proc.poll() is not None:
+            with open(log_path) as f:
+                fail(f"cli.serve {what} exited with {proc.returncode}: {f.read()[-2000:]}")
+        try:
+            code, health = _http(base + "/healthz", timeout=2)
+            if code == 200 and health.get("status") == "ok":
+                return proc, base, time.perf_counter() - t0
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > SERVE_UP_S:
+            proc.kill()
+            fail(f"cli.serve {what} did not answer /healthz in {SERVE_UP_S} s")
+        time.sleep(0.5)
+
+
+def _stop(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+
+
+def check_serving(dev, smi: str) -> dict:
+    """Phase 9, the serving slice on the card; returns its launch counts."""
+    import numpy as np
+
+    from diffusesg_torch.cli import import_ckpt
+    from diffusesg_torch.cli import serve as serve_cli
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.ops import cuda_build
+    from diffusesg_torch.serving import BatchingSampler, fixed_batch, load_artifact
+    from diffusesg_torch.serving.export import make_serving_fn
+    from diffusesg_torch.serving.server import _graph_dict
+    from diffusesg_torch.utils.checkpoint import latest_checkpoint, read_checkpoint
+    from diffusesg_torch.utils.perf import device_peak_tflops, estimate_model_flops
+
+    root = os.path.join("build", "smoke_runs", "serve")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = load_config(VG["config"])
+
+    # 1. a reference-schema .pth of the seeded model -> cli.import_ckpt
+    t0 = time.perf_counter()
+    seeded = build_model(cfg, device="cpu", seed=0)
+    pth, run = os.path.join(root, "reference.pth"), os.path.join(root, "run")
+    raw, emas = _reference_pth(seeded, cfg, pth)
+    names = [k for k, _ in seeded.named_parameters()]
+    del seeded
+    path = import_ckpt.main([pth, "-o", run])
+    payload = read_checkpoint(latest_checkpoint(os.path.join(run, "models_ckpt")))
+    same = (all(torch.equal(payload["params"][k], v) for k, v in raw.items())
+            and payload["ema_betas"] == sorted(emas)
+            and all(torch.equal(t, emas[b][k]) for b, ema in zip(payload["ema_betas"],
+                                                                  payload["ema_params"])
+                    for k, t in zip(names, ema)))
+    log(f"serve: cli.import_ckpt of a reference-schema .pth ({len(emas)} EMA sets, "
+        f"module.model. prefixes, relative_position_index and attn_mask buffers) -> {path} in "
+        f"{time.perf_counter() - t0:.1f} s; weights and EMA sets bit-equal to what went in: "
+        f"{same}")
+    if not same:
+        fail("the imported run dir does not hold the weights that went in")
+    del payload, raw, emas
+
+    # 2. cli.serve's loader, BatchingSampler and serve() in this process
+    argv = ["-p", run, "--num_steps", str(SERVE_STEPS), "--batch_size", str(SERVE_BATCH)]
+    fn, complete_fn, batch, n, scfg, bounds, (model, sampler) = serve_cli._load_from_checkpoint(
+        serve_cli.build_serve_parser().parse_args(argv))
+    if (not model.use_kernels or model.dtype != torch.bfloat16 or batch != SERVE_BATCH
+            or sampler.num_steps != SERVE_STEPS):
+        fail(f"cli.serve's loader built {model.dtype} kernels={model.use_kernels} batch {batch}")
+    calls = collections.Counter()  # sampler batches run while the counts are read
+
+    def counted(f, kind):
+        def call(*args, **kw):
+            calls[kind] += 1
+            return f(*args, **kw)
+        return call
+    gen = counted(fn, "generate")
+    batcher = BatchingSampler(gen, batch, n, linger_ms=50.0,
+                              complete_fn=counted(complete_fn, "complete"),
+                              num_node_types=bounds[0], num_edge_types=bounds[1])
+    httpd, base = _in_thread(batcher)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        batcher.warmup()
+        warm_s = time.perf_counter() - t0
+
+        rng = np.random.default_rng(0)
+        bodies = [{"num_graphs": int(k), "num_nodes": [int(c) for c in rng.integers(1, n + 1, k)]}
+                  for k in rng.integers(1, 5, 8)]
+        answers, _ = _burst(base, bodies)
+        code, stats = _http(base + "/v1/stats")
+        in_box, ok = [], True
+        for body, (code, ans) in zip(bodies, answers):
+            graphs = ans.get("graphs", [])
+            ok &= code == 200 and [len(g["nodes"]) for g in graphs] == body["num_nodes"]
+            for g, c in zip(graphs, body["num_nodes"]):
+                ok &= (len(g["bboxes"]) == c and all(0 <= t < bounds[0] for t in g["nodes"])
+                       and all(0 <= i < c and 0 <= j < c and 1 <= p < bounds[1]
+                               for i, j, p in g["edges"]))
+                in_box += [0.0 <= v <= 1.0 for bb in g["bboxes"] for v in bb]
+        log(f"serve: a burst of {len(bodies)} unseeded /v1/generate requests of "
+            f"{[len(b['num_nodes']) for b in bodies]} graphs ({sum(len(b['num_nodes']) for b in bodies)} "
+            f"in all) answered in {stats['batches']} batches of {batch}; every answer in range: "
+            f"{ok}; box coordinates in [0, 1]: {np.mean(in_box):.1%}")
+        if not ok or not stats["batches"] < len(bodies):
+            fail("the burst's answers are out of range, or the server did not pack them")
+
+        counts = [n, 23, 5]
+        seeded = {"num_graphs": len(counts), "num_nodes": counts, "seed": SERVE_SEED}
+        (c1, a1), (c2, a2) = _http(base + "/v1/generate", seeded), _http(base + "/v1/generate",
+                                                                          seeded)
+        flags = np.zeros((batch, n), bool)
+        for i, c in enumerate(counts):
+            flags[i, :c] = True
+        adj, node, bbox = gen(SERVE_SEED, flags)
+        direct = [_graph_dict(adj[i], node[i], bbox[i], flags[i]) for i in range(len(counts))]
+        padded_zero = not (adj[len(counts):].any() or node[len(counts):].any()
+                           or bbox[len(counts):].any())
+        filled = flags.copy()
+        filled[len(counts):, :n] = True
+        same_rows = all(np.array_equal(a[:len(counts)], b[:len(counts)])
+                        for a, b in zip((adj, node, bbox), gen(SERVE_SEED, filled)))
+        a1.pop("latency_ms", None), a2.pop("latency_ms", None)
+        log(f"serve: the seeded request twice gives identical JSON: {a1 == a2}; equal to the "
+            f"serving core called at seed {SERVE_SEED} with the same padded flags: "
+            f"{a1.get('graphs') == direct}; the {batch - len(counts)} all-False rows decode to "
+            f"zeros: {padded_zero}; the requested rows bit-equal with those rows filled "
+            f"instead: {same_rows}")
+        if not (c1 == c2 == 200 and a1 == a2 and a1["graphs"] == direct and padded_zero
+                and same_rows):
+            fail("seeded serving is not deterministic, or padding rows leak")
+
+        known = [{"index": i, "type": t} for i, t in enumerate((3, 17, 42, 99))]
+        known[0]["bbox"] = [0.25, 0.5, 0.125, 0.2]
+        code, comp = _http(base + "/v1/complete", {"num_nodes": 12, "seed": 5,
+                                                   "known_nodes": known,
+                                                   "known_edges": [[0, 1, 7]]})
+        g = comp["graphs"][0] if code == 200 else {}
+        pinned = (code == 200 and g["nodes"][:4] == [3, 17, 42, 99] and [0, 1, 7] in g["edges"]
+                  and np.allclose(g["bboxes"][0], known[0]["bbox"], rtol=0, atol=1e-5))
+        code_h, health = _http(base + "/healthz")
+        log(f"serve: /v1/complete with 4 pinned node types, one pinned box and one pinned edge: "
+            f"pinned parts verbatim {pinned} ({len(g.get('nodes', []))} nodes); /healthz "
+            f"{code_h} {health}")
+        if not pinned or code_h != 200 or health.get("batch_size") != batch:
+            fail("completion did not return its pinned parts, or /healthz failed")
+
+        launches = dict(cuda_build.LAUNCHES)
+        by_kernel = cuda_build.launches_by_kernel()
+        n_batches = sum(calls.values())
+        log(f"serve: launches of phase 9's server ({n_batches} sampler batches of {batch}: "
+            f"{dict(calls)}) {json.dumps(by_kernel, sort_keys=True)}; per batch "
+            + ", ".join(f"{k} {v / n_batches:g}" for k, v in sorted(by_kernel.items())))
+        for name in FORWARD_KERNELS:
+            if by_kernel.get(name, 0) == 0:
+                fail(f"the server never launched {name}")
+        if any(k.endswith("_bwd") for k in by_kernel):
+            fail(f"the server launched a backward kernel: {by_kernel}")
+
+        chunked = fixed_batch(make_serving_fn(model, sampler, scfg, chunk_steps=4), batch, n, dev)
+        same_chunk = all(np.array_equal(a, b) for a, b in zip(chunked(SERVE_SEED, flags),
+                                                              (adj, node, bbox)))
+        log(f"serve: chunk_steps=4 over {SERVE_STEPS} steps equals the unchunked run at seed "
+            f"{SERVE_SEED}: {same_chunk}")
+        if not same_chunk:
+            fail("chunked sampling differs from the unchunked run")
+
+        # 3. cli.serve --export_to, load_artifact; an artifact for the CPU is refused
+        art = os.path.join(root, "artifact")
+        serve_cli.main(argv + ["--export_to", art])
+        art_fn, meta = load_artifact(art)
+        same_art = all(np.array_equal(a, b) for a, b in zip(art_fn(SERVE_SEED, flags),
+                                                            (adj, node, bbox)))
+        cpu_art = os.path.join(root, "artifact_cpu")
+        os.makedirs(cpu_art)
+        with open(os.path.join(cpu_art, "meta.json"), "w") as f:
+            json.dump(dict(meta, platforms=["cpu"]), f)
+        try:
+            load_artifact(cpu_art)
+            refused = False
+        except RuntimeError:
+            refused = True
+        log(f"serve: cli.serve --export_to -> {art} ({meta['format']}, platforms "
+            f"{meta['platforms']}, batch {meta['batch_size']}, {meta['num_steps']} steps); the "
+            f"artifact's graphs at seed {SERVE_SEED} equal the live server's: {same_art}; an "
+            f"artifact for the CPU refused on the card: {refused}")
+        if not (same_art and refused):
+            fail("the artifact does not serve the live server's graphs, or a CPU artifact loaded")
+        del art_fn
+
+        # 5. readings: graphs/s through HTTP under bursts that fill the batch
+        full = {"num_graphs": 4, "num_nodes": n}
+        rates = {batch: [64 / _burst(base, [full] * 16)[1] for _ in range(2)]}
+        _, lat = _http(base + "/v1/stats")
+        # the host's share after the sampler: a batch's graphs as JSON
+        out = gen(SERVE_SEED, np.ones((batch, n), bool))
+        t0 = time.perf_counter()
+        graphs = [_graph_dict(out[0][i], out[1][i], out[2][i], np.ones(n, bool))
+                  for i in range(batch)]
+        dict_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        json.dumps({"graphs": graphs})
+        dumps_s = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    big = BatchingSampler(fixed_batch(make_serving_fn(model, sampler, scfg), 64, n, dev), 64, n,
+                          linger_ms=200.0)
+    httpd, base64 = _in_thread(big)
+    try:
+        t0 = time.perf_counter()
+        big.warmup()
+        warm64 = time.perf_counter() - t0
+        rates[64] = [64 / _burst(base64, [full] * 16)[1] for _ in range(2)]
+        _, stats64 = _http(base64 + "/v1/stats")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        big.close()
+    flops = estimate_model_flops(scfg)["total"]
+    # Heun: a second eval in every step but the last, unless it reuses the
+    # first (heun_reuse_xhat without self-conditioning)
+    second = sampler.self_condition or not sampler.heun_reuse_xhat
+    evals = sampler.num_steps + (sampler.num_steps - 1 if second else 0)
+    peak_tflops = device_peak_tflops(torch.cuda.get_device_name(0))
+    mean = {b: sum(r) / len(r) for b, r in rates.items()}
+    share = ", ".join(f"batch {b} {r * evals * flops / 1e12:.3f} TFLOP/s"
+                      + (f" ({r * evals * flops / (peak_tflops * 1e12):.3%} of "
+                         f"{peak_tflops:g})" if peak_tflops else "")
+                      for b, r in mean.items())
+    log(f"serve: readings (eager, {SERVE_STEPS} Heun steps, {evals} denoiser evals a graph, "
+        f"{flops / 1e9:.3f} GFLOP an eval a graph by utils/perf.estimate_model_flops) on {smi}: "
+        f"graphs/s through HTTP under two bursts of 16 requests x 4 full graphs "
+        f"{' and '.join(f'{r:.2f}' for r in rates[batch])} at batch {batch}, "
+        f"{' and '.join(f'{r:.2f}' for r in rates[64])} at batch 64 (the two bursts in "
+        f"{stats64['batches']} batches there); "
+        f"/v1/stats batch latency p50 {lat['latency_ms_p50']:.1f} ms, p95 "
+        f"{lat['latency_ms_p95']:.1f} ms at batch {batch} ({lat['batches']} batches), "
+        f"p50 {stats64['latency_ms_p50']:.1f} ms at batch 64; {batch} full graphs "
+        f"({sum(len(g['edges']) for g in graphs)} edges) to dicts {dict_s * 1e3:.1f} ms "
+        f"(server._graph_dict) and to JSON {dumps_s * 1e3:.1f} ms; first batch (warm-up, one "
+        f"generation + one completion batch) {warm_s:.2f} s at batch {batch}, {warm64:.2f} s "
+        f"(generation) at batch 64; served, from the mean rates, {share}; peak memory "
+        f"{peak:.2f} GiB at batch {batch}")
+
+    # 4. the entry point as users run it, as a process: checkpoint, then artifact
+    procs = []
+    try:
+        proc, url, up_s = _serve_process(argv, "checkpoint")
+        procs.append(proc)
+        code, ans = _http(url + "/v1/generate", seeded)
+        same_ckpt = code == 200 and ans["graphs"] == a1["graphs"]
+        apart = [64 / _burst(url, [full] * 16)[1] for _ in range(2)]
+        _stop(proc)
+        proc, url, up_art = _serve_process(["--from_artifact", art], "artifact")
+        procs.append(proc)
+        code, ans = _http(url + "/v1/generate", seeded)
+        same_art = code == 200 and ans["graphs"] == a1["graphs"]
+        code_c, _ = _http(url + "/v1/complete", {"num_nodes": 3})
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                _stop(p)
+    log(f"serve: python -m diffusesg_torch.cli.serve -p <run dir> up in {up_s:.1f} s, the "
+        f"seeded request equals the in-process answer: {same_ckpt}; reading: graphs/s under "
+        f"two bursts of 16 requests x 4 full graphs with the server in its own process, batch "
+        f"{SERVE_BATCH}: {' and '.join(f'{r:.2f}' for r in apart)} on {smi}; --from_artifact up in "
+        f"{up_art:.1f} s, equal: {same_art}, /v1/complete answers {code_c}")
+    if not (same_ckpt and same_art and code_c == 501):
+        fail("cli.serve as a process does not answer as the in-process server does")
+    return launches
+
+
 # which kernel each device function belongs to (demangled-name fragments,
 # first match wins): the backward kernels' GEMM sites and the fused MLP
 # backward by their call-site tags (SwinBwd*, MlpBwd*)
@@ -1784,7 +2164,7 @@ def profile_call(fn, what: str, eager_ms: float) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 8")
+    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 9")
     ap.add_argument("--no-train", action="store_true",
                     help="skip phases 4 and 6, and phase 8's training run")
     args = ap.parse_args(argv)
@@ -1841,7 +2221,7 @@ def main(argv=None) -> int:
 
     results, entry_cases = check_kernels(dev)
     # launch counts per path: {path: (sampling or entries run, training run)}
-    counts, eval_counts = {}, {}
+    counts, eval_counts, serve_counts = {}, {}, {}
     if not args.no_slice:
         vg, _ = check_slice(dev, smi, VG)
         vg_train = {} if args.no_train else check_training(dev, smi, VG)
@@ -1854,16 +2234,18 @@ def main(argv=None) -> int:
         counts = dict(vg=(vg, vg_train), coco=(coco, coco_train), entries=(entries, {}))
         check_small_config(dev)
         eval_counts = check_eval_slice(dev, smi, run_training=not args.no_train)
+        serve_counts = check_serving(dev, smi)
     # launches: of the path's sampling (or entries) run for the forward
     # kernels, of its training run for the backward kernels; launches_train:
-    # of the training run; launches_eval: of phase 8 (the VG forward
-    # kernels).  A case that moves several counters (an entry over two
-    # kernels) reports the least of them.
+    # of the training run; launches_eval: of phase 8 and launches_serve: of
+    # phase 9 (the VG forward kernels).  A case that moves several counters
+    # (an entry over two kernels) reports the least of them.
     for r in results:
         keys, kernel, path = r.pop("keys"), r.pop("kernel"), r.pop("path")
         run, train = counts.get(path, ({}, {}))
         r["launches_train"] = min(train.get(k, 0) for k in keys)
         r["launches_eval"] = min(eval_counts.get(k, 0) for k in keys) if path == "vg" else 0
+        r["launches_serve"] = min(serve_counts.get(k, 0) for k in keys) if path == "vg" else 0
         r["launches"] = (r["launches_train"] if kernel.endswith("_bwd")
                          else min(run.get(k, 0) for k in keys))
         if r["launches"] == 0 and not (args.no_slice or (args.no_train and

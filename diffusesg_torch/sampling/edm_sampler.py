@@ -1,8 +1,8 @@
 """EDM stochastic Heun/Euler sampler for joint node + adjacency diffusion.
 
 Counterpart of diffusesg_tpu/sampling/edm_sampler.py (``sample`` with
-``init_*``, interim snapshots and inpainting; ``chunk_steps`` waits for the
-serving slice, ``sample_adj`` for the adj-only path).  The per-step
+``init_*``, interim snapshots, inpainting and ``chunk_steps``;
+``sample_adj``, the adj-only path, is not ported).  The per-step
 coefficients are computed host-side in float64 exactly as the JAX package
 does and handed to the loop as float32 values; the JAX
 ``lax.scan`` is a Python loop here and the ``lax.cond`` on ``is_heun`` a host
@@ -217,9 +217,17 @@ class NodeAdjEDMSampler:
     @torch.no_grad()
     def sample(self, denoiser_fn: DenoiserFn, node_flags, num_node_chan: int,
                num_edge_chan: int, noise=None, seed: int = 0, init_adjs=None, init_nodes=None,
-               num_interim: int = 0, inpaint: dict | None = None):
+               num_interim: int = 0, inpaint: dict | None = None,
+               chunk_steps: int | None = None):
         """Run the reverse diffusion; returns (adjs, nodes) in float32, or
         (adjs, nodes, interim_a, interim_x) when ``num_interim`` > 0.
+
+        ``chunk_steps`` runs the step loop in chunks of at most that many
+        steps, with a ``torch.cuda.synchronize`` after each chunk on a CUDA
+        device: the counterpart of the JAX package's separate device programs
+        per chunk (edm_sampler.py:271-358), a point of progress and
+        pre-emption.  The draws are keyed by step and kind, so the output is
+        bit-equal to the unchunked loop's.
 
         ``noise`` is the source of random draws (default: ``TorchNoise`` from
         ``seed`` on the flags' device).  ``init_adjs`` / ``init_nodes``
@@ -272,6 +280,9 @@ class NodeAdjEDMSampler:
                 return call(*base)
             return base
 
+        if chunk_steps is not None and chunk_steps < 1:
+            raise ValueError(f"chunk_steps must be at least 1, got {chunk_steps}")
+        sync = chunk_steps is not None and node_flags.device.type == "cuda"
         for i, row in enumerate(self.step_coefficients()):
             (noise_coef, s_ratio, h, A_hat, B_hat, A_prime, B_prime, sigma_hat, inv_s_hat,
              is_heun, sigma_prime, inv_s_prime) = (float(v) for v in row)
@@ -321,6 +332,8 @@ class NodeAdjEDMSampler:
                 sc_a, sc_x = den_a, den_x
             if i in slot_of_step:
                 interim_a[slot_of_step[i]], interim_x[slot_of_step[i]] = adjs, nodes
+            if sync and ((i + 1) % chunk_steps == 0 or i + 1 == self.num_steps):
+                torch.cuda.synchronize(node_flags.device)  # the chunk's end
         if has_inpaint:
             # the exact known values in the output (edm_sampler.py:352-355)
             adjs, nodes = self._apply_inpaint(noise, self.num_steps, node_flags, ip, adjs,

@@ -98,7 +98,9 @@ def test_port_imports_no_jax():
         "             'ops.swin_block_kernel', 'ops.swin_full_block', 'ops.mm_microbench',\n"
         "             'sampling.orchestrator', 'sampling.debug', 'cli.eval',\n"
         "             'cli.eval_samples', 'eval.sg_evaluator', 'eval.sg_statistics',\n"
-        "             'eval.native', 'utils.native_build', 'utils.visual'):\n"
+        "             'eval.native', 'utils.native_build', 'utils.visual',\n"
+        "             'serving.server', 'serving.export', 'cli.serve', 'cli.import_ckpt',\n"
+        "             'utils.torch_import', 'utils.perf'):\n"
         "    assert 'diffusesg_torch.' + name in sys.modules, name\n"
         "# the card's machine has none of the plotting packages or pandas\n"
         "lazy = sorted(k for k in sys.modules if k.split('.')[0] in "
@@ -153,6 +155,13 @@ def test_entry_points_need_the_card_unless_asked():
     model = build_model(tcfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         generate(model, get_mc_sampler(tcfg), tcfg, [3])
+    # cli.serve's loader and load_artifact default to the card too
+    from diffusesg_torch.cli.serve import _load_from_checkpoint, build_serve_parser
+    from diffusesg_torch.serving.export import load_artifact
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _load_from_checkpoint(build_serve_parser().parse_args(["-p", "no_such_run"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_artifact("no_such_artifact")
 
 
 def test_coco_entry_points_and_the_microbench_need_the_card_unless_asked():
