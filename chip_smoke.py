@@ -100,7 +100,25 @@ Phases, each printed on its own line:
      graphs/s through HTTP at batch 16 and 64, batch latency p50 / p95, the
      warm-up seconds, the served FLOP/s and its share of the bf16 peak
      (``utils/perf.py``), peak memory.
-Launch counts are set to 0 before each of phases 3-9 and read after it.
+  10. data parallel (``torch.distributed``, world 1 through NCCL: the card's
+     machine has one card, and NCCL refuses two ranks on one): the
+     rendezvous from torchrun's variables must start an NCCL group; the
+     full-width VG model (bf16, kernels on, batch 64) takes 2 steps through
+     the ``shard_map`` step, bit-equal to the single-device step on the
+     same draws (parameters, Adam, the EMAs, the metrics), each step 12
+     launches of each backward kernel, and 2 through the ``gspmd`` + ZeRO-1
+     step, within tests/test_torch_train_step.py's bars of it, its
+     checkpoint (gathered to rank 0) restoring bit-equal in a
+     single-device state; ``go_training`` runs 2 epochs of 2 steps with
+     the group up (the data-parallel loop; at world 1 the single-device
+     steps), every VG kernel launched, and its rank-0 checkpoint restores
+     bit-equal in a single-device trainer; ``sg_go_sampling`` with the
+     sanity check gives the same rows and metrics with the group up and
+     after it is destroyed; readings (not gated): ms per step single-device
+     against both data-parallel steps and the ``gspmd`` step without
+     ZeRO-1, ZeRO's optimizer step against the Adam inside it, one
+     all-reduce of the flat fp32 gradient, peak memory with ZeRO-1.
+Launch counts are set to 0 before each of phases 3-10 and read after it.
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Exits non-zero without a result when no CUDA device is present.
@@ -1166,8 +1184,8 @@ def check_training(dev, smi: str, spec=VG, find_largest_batch: bool = True):
     from diffusesg_torch.ops import cuda_build
     from diffusesg_torch.sampling.edm_sampler import TorchNoise
     from diffusesg_torch.train import (create_train_state, ema_effective_decay, go_training,
-                                       make_eval_step, make_optimizer, make_train_step,
-                                       train_step_config_from)
+                                       make_optimizer, make_train_step, train_step_config_from)
+    from diffusesg_torch.train import trainer
     from diffusesg_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
     from diffusesg_torch.utils.logging_utils import set_seed_and_logger
 
@@ -1226,8 +1244,12 @@ def check_training(dev, smi: str, spec=VG, find_largest_batch: bool = True):
 
     cuda_build.reset_launches()
     t0 = time.perf_counter()
-    state = go_training(model, state, watched_step, make_eval_step(model, step_cfg), cfg, bundle,
-                        mc_sampler=None, noise=TorchNoise(0, dev))
+    trainer.make_train_step = lambda *_: watched_step  # go_training builds its step there
+    try:
+        state = go_training(model, state, step_cfg, cfg, bundle, mc_sampler=None,
+                            noise=TorchNoise(0, dev))
+    finally:
+        trainer.make_train_step = make_train_step
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda_build.LAUNCHES)
@@ -1454,8 +1476,8 @@ def _in_training_sampling(cfg, dev, bundle):
     from diffusesg_torch.models import build_model
     from diffusesg_torch.sampling import get_mc_sampler
     from diffusesg_torch.sampling.edm_sampler import TorchNoise
-    from diffusesg_torch.train import (create_train_state, go_training, make_eval_step,
-                                       make_optimizer, make_train_step, train_step_config_from)
+    from diffusesg_torch.train import (create_train_state, go_training, make_optimizer,
+                                       train_step_config_from)
     from diffusesg_torch.train import trainer
 
     model = build_model(cfg, device=dev, seed=0)
@@ -1488,8 +1510,8 @@ def _in_training_sampling(cfg, dev, bundle):
     trainer.sg_go_sampling = watched
     t0 = time.perf_counter()
     try:
-        go_training(model, state, make_train_step(model, step_cfg), make_eval_step(model, step_cfg),
-                    cfg, bundle, mc_sampler=get_mc_sampler(cfg), noise=noise)
+        go_training(model, state, step_cfg, cfg, bundle, mc_sampler=get_mc_sampler(cfg),
+                    noise=noise)
     finally:
         trainer.sg_go_sampling = real
     torch.cuda.synchronize()
@@ -2075,6 +2097,286 @@ def check_serving(dev, smi: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 10
+
+DP_STEPS = 2
+BACKWARD_KERNELS = ("swin_attn_bwd", "token_mlp_bwd")
+_UNSTABLE_FRAC = 4e-3  # tests/test_torch_train_step.py: Adam's update sign may flip below it
+
+
+def _dp_config(exp_dir):
+    """The full-width VG config (kernels on, bf16) at batch 64 on synthetic
+    graphs: two epochs of two steps, a checkpoint at epoch 0, a test set of
+    64 graphs."""
+    from diffusesg_torch.config import load_config
+    cfg = load_config(VG["config"])
+    with cfg.unlocked():
+        cfg.seed = 0
+        cfg.exp_dir = exp_dir
+        cfg.mcmc.num_steps = EVAL_STEPS
+        cfg.train.batch_size = TRAIN_BATCH
+        cfg.test.batch_size = TRAIN_BATCH
+        cfg.test.eval_size = TRAIN_BATCH
+        cfg.train.max_epoch = 2
+        cfg.dataset.synthetic_num_train = 2 * TRAIN_BATCH
+        cfg.dataset.synthetic_num_test = TRAIN_BATCH
+    return cfg
+
+
+def _train_states(cfg, dev, n):
+    """``n`` training states of the seeded model, each on its own copy."""
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.train import create_train_state, make_optimizer
+    opt = make_optimizer(cfg.train.lr_init, cfg.train.lr_dacey, 1, cfg.train.weight_decay)
+    return [create_train_state(build_model(cfg, device=dev, seed=0), list(cfg.train.ema_coef), opt)
+            for _ in range(n)]
+
+
+def _state_diffs(a, b, b_emas=None, b_opt=None) -> dict:
+    """Largest absolute differences of two training states: parameters, the
+    EMAs (``b_emas``: b's whole EMAs, gathered) and Adam's moments (``b_opt``:
+    the optimizer that holds b's)."""
+    b_emas = b.ema_params if b_emas is None else b_emas
+    b_opt = b.opt if b_opt is None else b_opt
+
+    @torch.no_grad()
+    def worst(xs, ys):
+        return max(float((x - y).abs().max()) for x, y in zip(xs, ys))
+    moments = [worst([a.opt.state[p][k] for p in a.params()],
+                     [b_opt.state[q][k] for q in b.params()])
+               for k in ("exp_avg", "exp_avg_sq")]
+    steps = {int(a.opt.state[p]["step"]) for p in a.params()} | {
+        int(b_opt.state[q]["step"]) for q in b.params()}
+    return {"params": worst(a.params(), b.params()),
+            "emas": max(worst(x, y) for x, y in zip(a.ema_params, b_emas)),
+            "adam": max(moments), "adam_steps": sorted(steps), "step": (a.step, b.step)}
+
+
+def check_data_parallel(dev, smi: str) -> dict:
+    """Phase 10: the data-parallel path at world 1 through NCCL; returns the
+    launch counts of its ``go_training`` run."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from diffusesg_torch.data import load_data
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.ops import cuda_build
+    from diffusesg_torch.parallel.distributed import (load_kernels, maybe_initialize_distributed,
+                                                      shutdown)
+    from diffusesg_torch.parallel.mesh import current_world
+    from diffusesg_torch.parallel.shardmap_dp import make_shardmap_train_step
+    from diffusesg_torch.parallel.sharded_step import make_sharded_train_step, shard_train_state
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.sampling.edm_sampler import TorchNoise
+    from diffusesg_torch.sampling.orchestrator import sg_go_sampling
+    from diffusesg_torch.train import (create_train_state, ema_slice, go_training, make_optimizer,
+                                       make_train_step, train_step_config_from)
+    from diffusesg_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from diffusesg_torch.utils.logging_utils import set_seed_and_logger
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    exp_dir = os.path.join("build", "smoke_runs", "dp")
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    cfg = _dp_config(exp_dir)
+    try:
+        t0 = time.perf_counter()
+        if not maybe_initialize_distributed("cuda") or dist.get_backend() != "nccl":
+            fail("maybe_initialize_distributed did not start an NCCL process group")
+        world = current_world()
+        load_kernels()
+        log(f"dp: NCCL process group of {world.size} on {world.device} in "
+            f"{time.perf_counter() - t0:.2f} s (rendezvous, barrier, kernels loaded)")
+        set_seed_and_logger(cfg, mode="train", comment="smoke_dp", log_level="WARNING")
+        bundle = load_data(cfg, data_root="/nonexistent")
+        step_cfg = train_step_config_from(cfg)
+        batch = tuple(torch.from_numpy(a[:TRAIN_BATCH]).to(dev) for a in
+                      (bundle.train.adjs, bundle.train.nodes, bundle.train.node_flags))
+
+        # the shard_map step against the single-device step, and the gspmd +
+        # ZeRO-1 step against it, from one start and the same draws
+        one, sm, gs = _train_states(cfg, dev, 3)
+        single = make_train_step(one.model, step_cfg)
+        shard_map = make_shardmap_train_step(sm.model, step_cfg, world)
+        gs = shard_train_state(gs, world)
+        gspmd = make_sharded_train_step(gs.model, step_cfg, world)
+        # the rank's stream, folded where it is made, and the same draws for
+        # the other two steps
+        noise_one, noise_sm, noise_gs, probe = (TorchNoise(4, dev).fold_in(world.rank)
+                                                for _ in range(4))
+        coins = [probe.bernoulli(i, "self_cond", 0.5) for i in range(DP_STEPS)]
+        metrics_equal, bwd, losses, unstable = True, [], [], None
+        for i in range(DP_STEPS):
+            before = [p.detach().clone() for p in one.params()]
+            one, m1 = single(one, noise_one, *batch)
+            counts0 = cuda_build.launches_by_kernel()
+            sm, m2 = shard_map(sm, noise_sm, *batch)
+            counts1 = cuda_build.launches_by_kernel()
+            gs, m3 = gspmd(gs, noise_gs, *batch)
+            bwd.append(tuple(counts1.get(k, 0) - counts0.get(k, 0) for k in BACKWARD_KERNELS))
+            metrics_equal &= all(torch.equal(m1[k], m2[k]) for k in m1)
+            losses.append((float(m1["loss"]), float(m3["loss"])))
+            with torch.no_grad():  # the training step test's stable elements
+                eff = [p.grad + cfg.train.weight_decay * w for p, w in zip(one.params(), before)]
+                masks = [e.abs() <= _UNSTABLE_FRAC * e.abs().max() for e in eff]
+            unstable = masks if unstable is None else [a | b for a, b in zip(unstable, masks)]
+        torch.cuda.synchronize()
+        same = _state_diffs(one, sm)
+        bit_equal = metrics_equal and all(same[k] == 0.0 for k in ("params", "emas", "adam"))
+        log(f"dp: shard_map step at world 1, {DP_STEPS} steps at batch {TRAIN_BATCH} (full VG, "
+            f"bf16, kernels on; self-conditioning coins {coins}) against the single-device step "
+            f"on the same draws: bit-equal {bit_equal} ({same}; metrics equal {metrics_equal}); "
+            f"backward launches per step (swin_attn_bwd, token_mlp_bwd) {bwd}")
+        if not bit_equal:
+            fail("the shard_map step at world 1 differs from the single-device step")
+        if set(bwd) != {(VG["blocks"], VG["blocks"])}:
+            fail(f"each data-parallel step must launch each backward kernel {VG['blocks']} times")
+
+        lr = cfg.train.lr_init
+        gathered = [list(ema_slice(gs, k).values()) for k in range(len(gs.ema_betas))]
+        worst_stable, worst_unstable = 0.0, 0.0
+        with torch.no_grad():
+            for got, want in ([(gs.params(), one.params())]
+                              + list(zip(gathered, one.ema_params))):
+                for g, w, mask in zip(got, want, unstable):
+                    diff = (g - w).abs()
+                    room = 1e-4 * w.abs() + 0.05 * lr
+                    worst_stable = max(worst_stable, float(((diff - room) * ~mask).max()))
+                    worst_unstable = max(worst_unstable, float((diff * mask).max()))
+        loss_ok = all(abs(a - b) <= 2e-4 * abs(a) for a, b in losses)
+        within = loss_ok and worst_stable <= 0.0 and worst_unstable <= 2.5 * lr * DP_STEPS
+        gs_diff = _state_diffs(one, gs, gathered, gs.opt.optim)
+        log(f"dp: gspmd + ZeRO-1 step at world 1 against the single-device step: losses "
+            f"{losses}, parameters and EMAs within tests/test_torch_train_step.py's bars "
+            f"{within} (stable elements' worst excess over 1e-4 |w| + 0.05 lr {worst_stable:.3e}, "
+            f"unstable elements' worst {worst_unstable:.3e} against {2.5 * lr * DP_STEPS:.3e}; "
+            f"{gs_diff})")
+        if not within:
+            fail("the gspmd + ZeRO-1 step is outside the training step's bars")
+        path = save_checkpoint(os.path.join(cfg.model_ckpt_dir, "zero"), gs, {"epoch": 0})
+        other = create_train_state(
+            build_model(cfg, device=dev, seed=1), list(cfg.train.ema_coef),
+            make_optimizer(cfg.train.lr_init, cfg.train.lr_dacey, 1, cfg.train.weight_decay))
+        restore_checkpoint(path, other)
+        back = _state_diffs(other, gs, gathered, gs.opt.optim)
+        restored = (back["params"] == back["emas"] == back["adam"] == 0.0
+                    and back["step"] == (DP_STEPS, DP_STEPS))
+        log(f"dp: the gspmd + ZeRO-1 state's checkpoint (consolidated to rank 0 through NCCL) "
+            f"restored in a single-device state bit-equal: {restored} ({back})")
+        if not restored:
+            fail("the ZeRO-1 checkpoint does not restore bit-equal on one device")
+        del other
+
+        # readings: ms per step, the all-reduce of the flat gradient, peak memory
+        # in turns, single, shard_map, gspmd, then back: the host moves eager times
+        # the split of the gspmd step: the same step over a whole state (no
+        # ZeRO), and ZeRO's optimizer step against the Adam inside it
+        gspmd_whole = make_sharded_train_step(sm.model, step_cfg, world)
+        runs = dict(single=lambda: single(one, noise_one, *batch),
+                    shard_map=lambda: shard_map(sm, noise_sm, *batch),
+                    gspmd=lambda: gspmd(gs, noise_gs, *batch),
+                    gspmd_without_zero=lambda: gspmd_whole(sm, noise_sm, *batch),
+                    zero_opt_step=gs.opt.step, adam_in_zero=gs.opt.optim.step)
+        step_ms = collections.defaultdict(list)
+        for name in list(runs) + list(runs)[::-1]:
+            step_ms[name].append(time_ms(runs[name], 5))
+        n_tensors = len(gs.params())
+        flat = torch.zeros(sum(p.numel() for p in one.params()), dtype=torch.float32, device=dev)
+        ms_ar = time_ms(lambda: dist.all_reduce(flat), 20)
+        grad_mb = flat.numel() * flat.element_size() / 1e6
+        # the other steps hold their models: free them before the peak reading
+        del one, sm, single, shard_map, gspmd_whole, runs, flat, gathered, unstable, before, eff
+        del masks
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gspmd(gs, noise_gs, *batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"dp: ms per training step at batch {TRAIN_BATCH} (eager, world 1, in turns "
+            f"there and back; zero_opt_step is ZeRO's optimizer step, Adam on the rank's "
+            f"partition and one broadcast for each of the {n_tensors} parameter tensors, "
+            f"adam_in_zero the Adam inside it alone): "
+            + ", ".join(f"{k} {' / '.join(f'{t:.3f}' for t in v)}" for k, v in step_ms.items())
+            + f"; one NCCL all-reduce of the flat fp32 gradient ({grad_mb:.1f} MB) {ms_ar:.3f} "
+            f"ms; peak {peak:.2f} GiB of a gspmd + ZeRO-1 step alone (the other states and "
+            f"the gathered EMAs freed); on {smi}")
+        del gs
+        torch.cuda.empty_cache()
+
+        # go_training with the process group up: the data-parallel loop, and at
+        # world 1 the single-device steps (a mean over one rank is the
+        # identity, ZeRO-1 over one rank shards nothing)
+        (state,) = _train_states(cfg, dev, 1)
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        state = go_training(state.model, state, step_cfg, cfg, bundle, noise=TorchNoise(0, dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+        path = save_checkpoint(os.path.join(cfg.model_ckpt_dir, "dp_final"), state, {"epoch": 1})
+        other = create_train_state(
+            build_model(cfg, device=dev, seed=1), list(cfg.train.ema_coef),
+            make_optimizer(cfg.train.lr_init, cfg.train.lr_dacey, 1, cfg.train.weight_decay))
+        restore_checkpoint(path, other)
+        back = _state_diffs(other, state)
+        ckpts = sorted(os.listdir(cfg.model_ckpt_dir))
+        restored = (back["params"] == back["emas"] == back["adam"] == 0.0
+                    and back["step"] == (2 * DP_STEPS, 2 * DP_STEPS))
+        by_kernel = cuda_build.launches_by_kernel()
+        log(f"dp: go_training, 2 epochs of {DP_STEPS} steps at batch {TRAIN_BATCH} with the NCCL "
+            f"group up (the data-parallel loop; at world 1 the single-device steps) in "
+            f"{wall:.2f} s; "
+            f"checkpoints {ckpts}; the rank-0 checkpoint restored in a single-device trainer "
+            f"bit-equal: {restored} ({back}); launches {json.dumps(by_kernel, sort_keys=True)}")
+        if not restored:
+            fail("the data-parallel checkpoint does not restore bit-equal on one device")
+        if "00000.pt" not in ckpts:
+            fail(f"go_training wrote checkpoints {ckpts}")
+        missing = [k for k in FORWARD_KERNELS + BACKWARD_KERNELS if not by_kernel.get(k)]
+        if missing:
+            fail(f"the data-parallel training run launched no {missing}")
+        del other, state
+        torch.cuda.empty_cache()
+
+        # sg_go_sampling with the sanity check, with the process group up
+        model = build_model(cfg, device=dev, seed=1)
+        with_group = sg_go_sampling(model, None, get_mc_sampler(cfg), cfg, bundle, eval_mode=True,
+                                    sanity_check=True)
+        rows_dp = _latest_samples(cfg.logdir)
+    finally:
+        shutdown()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    without = sg_go_sampling(model, None, get_mc_sampler(cfg), cfg, bundle, eval_mode=True,
+                             sanity_check=True)
+    rows_one = _latest_samples(cfg.logdir)
+    same_rows = (sorted(rows_dp) == sorted(rows_one)
+                 and all(np.array_equal(rows_dp[k], rows_one[k]) for k in rows_one))
+    same_metrics = ({k: v for k, v in with_group.items() if not k.startswith("_")}
+                    == {k: v for k, v in without.items() if not k.startswith("_")})
+    log(f"dp: sg_go_sampling with the sanity check on {TRAIN_BATCH} graphs with the NCCL group "
+        f"up and after it is destroyed: the same rows {same_rows}, the same metrics "
+        f"{same_metrics}; the process group destroyed: {not dist.is_initialized()}")
+    if not (same_rows and same_metrics):
+        fail("sg_go_sampling under the process group differs from the run without one")
+    return launches
+
+
+def _latest_samples(logdir) -> dict:
+    import glob
+
+    import numpy as np
+    runs = sorted(glob.glob(os.path.join(logdir, "sampling_during_evaluation", "*")),
+                  key=os.path.getmtime)
+    with np.load(os.path.join(runs[-1], "final_samples_array_before_eval.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
 # which kernel each device function belongs to (demangled-name fragments,
 # first match wins): the backward kernels' GEMM sites and the fused MLP
 # backward by their call-site tags (SwinBwd*, MlpBwd*)
@@ -2164,9 +2466,9 @@ def profile_call(fn, what: str, eager_ms: float) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 9")
+    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 10")
     ap.add_argument("--no-train", action="store_true",
-                    help="skip phases 4 and 6, and phase 8's training run")
+                    help="skip phases 4, 6 and 10, and phase 8's training run")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2221,7 +2523,7 @@ def main(argv=None) -> int:
 
     results, entry_cases = check_kernels(dev)
     # launch counts per path: {path: (sampling or entries run, training run)}
-    counts, eval_counts, serve_counts = {}, {}, {}
+    counts, eval_counts, serve_counts, dp_counts = {}, {}, {}, {}
     if not args.no_slice:
         vg, _ = check_slice(dev, smi, VG)
         vg_train = {} if args.no_train else check_training(dev, smi, VG)
@@ -2235,17 +2537,24 @@ def main(argv=None) -> int:
         check_small_config(dev)
         eval_counts = check_eval_slice(dev, smi, run_training=not args.no_train)
         serve_counts = check_serving(dev, smi)
+        if not args.no_train:
+            dp_counts = check_data_parallel(dev, smi)
     # launches: of the path's sampling (or entries) run for the forward
     # kernels, of its training run for the backward kernels; launches_train:
     # of the training run; launches_eval: of phase 8 and launches_serve: of
-    # phase 9 (the VG forward kernels).  A case that moves several counters
-    # (an entry over two kernels) reports the least of them.
+    # phase 9 (the VG forward kernels); launches_dp: of phase 10's
+    # data-parallel go_training run (the VG forward and backward kernels).
+    # A case that moves several counters (an entry over two kernels) reports
+    # the least of them.
     for r in results:
         keys, kernel, path = r.pop("keys"), r.pop("kernel"), r.pop("path")
         run, train = counts.get(path, ({}, {}))
         r["launches_train"] = min(train.get(k, 0) for k in keys)
         r["launches_eval"] = min(eval_counts.get(k, 0) for k in keys) if path == "vg" else 0
         r["launches_serve"] = min(serve_counts.get(k, 0) for k in keys) if path == "vg" else 0
+        r["launches_dp"] = min(dp_counts.get(k, 0) for k in keys) if path == "vg" else 0
+        if dp_counts and path == "vg" and r["launches_dp"] == 0:
+            fail(f"{r['name']} was never launched on the data-parallel path")
         r["launches"] = (r["launches_train"] if kernel.endswith("_bwd")
                          else min(run.get(k, 0) for k in keys))
         if r["launches"] == 0 and not (args.no_slice or (args.no_train and

@@ -19,7 +19,8 @@ def build_train_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--comment", default="")
     p.add_argument("-l", "--log_level", default="INFO")
     p.add_argument("--device", default="cuda",
-                   help="cuda (default; fails without a card) or cpu (plain versions)")
+                   help="cuda (default: card 0, or cuda:LOCAL_RANK and NCCL under a torchrun "
+                        "rendezvous; fails without a card) or cpu (plain versions; gloo)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--dataset_name", default=None)
     p.add_argument("--max_node_num", type=int, default=None)
@@ -57,7 +58,8 @@ def build_eval_parser() -> argparse.ArgumentParser:
                    help="defaults to config.yaml next to the checkpoints")
     p.add_argument("-m", "--comment", default="", help="run-dir name suffix")
     p.add_argument("--device", default="cuda",
-                   help="cuda (default; fails without a card) or cpu (plain versions)")
+                   help="cuda (default: card 0, or cuda:LOCAL_RANK and NCCL under a torchrun "
+                        "rendezvous; fails without a card) or cpu (plain versions; gloo)")
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--eval_size", type=int, default=None)
     p.add_argument("--num_steps", type=int, default=None)

@@ -1,9 +1,11 @@
 """Evaluation entry point: python -m diffusesg_torch.cli.eval -p <ckpt-or-run-dir>
 
-Counterpart of diffusesg_tpu/cli/eval.py (reference: DiffuseSG/eval.py:80-101)
-on one device: find the checkpoints, and for each (checkpoint x EMA weight)
-sample, decode and score the test set, appending rows to eval_results.csv.
-Runs on ``cuda`` unless ``--device cpu`` (the plain versions on the CPU).
+Counterpart of diffusesg_tpu/cli/eval.py (reference: DiffuseSG/eval.py:80-101):
+find the checkpoints, and for each (checkpoint x EMA weight) sample, decode
+and score the test set, appending rows to eval_results.csv.  Runs on
+``cuda`` unless ``--device cpu`` (the plain versions on the CPU).  Under
+``torchrun`` each process samples its shard of the eval set and rank 0
+alone scores and writes.
 """
 from __future__ import annotations
 
@@ -39,18 +41,35 @@ def select_ema_indices(betas, use_ema, ema_weights=None) -> list[int]:
 
 
 def main(argv=None) -> list[dict]:
-    from ..config import load_config
-    from ..data import load_data
-    from ..models import build_model
-    from ..sampling import get_mc_sampler
-    from ..sampling.orchestrator import sg_go_sampling
-    from ..utils.checkpoint import load_weights, read_checkpoint, select_checkpoints
+    import torch.distributed as dist
+
+    from ..parallel.distributed import maybe_initialize_distributed, shutdown
     from ..utils.device import resolve_device
-    from ..utils.logging_utils import ScalarWriter, set_seed_and_logger
-    from .common import build_eval_parser, find_eval_config
+    from .common import build_eval_parser
 
     args = build_eval_parser().parse_args(argv)
     device = resolve_device(args.device)  # fails here when the card is absent
+    # the rendezvous first; a group this call starts, it also ends
+    own_group = not dist.is_initialized() and maybe_initialize_distributed(device)
+    try:
+        return _evaluate(args, device)
+    finally:
+        if own_group:
+            shutdown()
+
+
+def _evaluate(args, device) -> list[dict]:
+    from ..config import load_config
+    from ..data import load_data
+    from ..models import build_model
+    from ..parallel.distributed import load_kernels
+    from ..parallel.mesh import current_world, is_main_process, sync_hosts
+    from ..sampling import get_mc_sampler
+    from ..sampling.orchestrator import sg_go_sampling
+    from ..utils.checkpoint import load_weights, read_checkpoint, select_checkpoints
+    from ..utils.logging_utils import ScalarWriter, set_seed_and_logger
+    from .common import find_eval_config
+
     config_file = args.config_file or find_eval_config(args.model_path)
     overrides = {}
     if args.batch_size is not None:
@@ -70,8 +89,10 @@ def main(argv=None) -> list[dict]:
 
     bundle = load_data(config, eval_mode=True, data_root=args.data_root)
     model = build_model(config, device=device, seed=config.seed).eval()
+    if current_world() is not None and model.use_kernels and device.type == "cuda":
+        load_kernels()
     mc_sampler = get_mc_sampler(config)
-    writer = ScalarWriter(config.logdir)
+    writer = ScalarWriter(config.logdir, enabled=is_main_process())
 
     # checkpoint discovery (reference: arg_parser.py:144-184)
     if os.path.isdir(os.path.join(args.model_path, "models_ckpt")):
@@ -99,12 +120,15 @@ def main(argv=None) -> list[dict]:
                 sampling_params = {"model_nm": model_nm, "weight_kw": kw,
                                    "model_path": ckpt_path}
                 logging.info("eval ckpt=%s ema=%s", ckpt_path, kw)
-                results.append(sg_go_sampling(
+                metrics = sg_go_sampling(
                     model, None, mc_sampler, config, bundle,
                     epoch=int(payload.get("extra", {}).get("epoch", 0) or 0), eval_mode=True,
                     sanity_check=args.sanity_check, sampling_params=sampling_params,
                     writer=writer, skip_eval=args.skip_eval,
-                    random_node_num=args.random_node_num, inpaint_frac=args.inpaint_frac))
+                    random_node_num=args.random_node_num, inpaint_frac=args.inpaint_frac)
+                if is_main_process():
+                    results.append(metrics)
+                sync_hosts()
     finally:
         writer.close()
     logging.info("evaluation complete")

@@ -37,7 +37,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="served batch (default: config test batch)")
     p.add_argument("--devices", type=int, default=0,
                    help="devices to serve on: 0 or 1 = one card; more waits for the "
-                        "multi-device slice")
+                        "tensor-parallel and sharded-serving slice")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu (plain versions)")
     p.add_argument("--num_steps", type=int, default=None,
@@ -57,8 +57,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
 
 def _check_devices(ndev: int) -> None:
     if ndev > 1:
-        raise SystemExit(f"--devices {ndev}: serving on more than one card waits for the "
-                         "multi-device slice of the port (torch.distributed); use 0 or 1")
+        raise SystemExit(f"--devices {ndev}: serving across cards waits for the port's "
+                         "multi-device serving slice (tensor parallel, sharded serving); "
+                         "use 0 or 1")
 
 
 def ema_index(betas, ema: str | None) -> int:

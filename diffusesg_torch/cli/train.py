@@ -6,6 +6,12 @@ plain versions on the CPU).  The config's ``tpu.use_pallas_attention`` picks
 the hand-written kernels or the plain versions on the card, as it picks the
 Pallas kernels or XLA in the JAX package.  With ``--data_root`` pointing nowhere the
 synthetic scene graphs of ``data/synthetic.py`` are used.
+
+Data parallel, one process per card:
+``torchrun --nproc_per_node N -m diffusesg_torch.cli.train -c cfg.yaml ...``
+(NCCL, each process on ``cuda:LOCAL_RANK``); the same with ``--device cpu``
+runs N processes on the CPU over gloo.  ``train.batch_size`` is then the
+global batch.
 """
 from __future__ import annotations
 
@@ -14,18 +20,36 @@ import os
 
 
 def main(argv=None):
-    from ..data import Batches, load_data
-    from ..models import build_model, count_params
-    from ..sampling import get_mc_sampler
-    from ..train import (create_train_state, go_training, make_eval_step, make_optimizer,
-                         make_train_step, train_step_config_from)
-    from ..utils.checkpoint import latest_checkpoint, restore_checkpoint
+    import torch.distributed as dist
+
+    from ..parallel.distributed import maybe_initialize_distributed, shutdown
     from ..utils.device import resolve_device
-    from ..utils.logging_utils import ScalarWriter, set_seed_and_logger
-    from .common import build_train_parser, config_from_args
+    from .common import build_train_parser
 
     args = build_train_parser().parse_args(argv)
     device = resolve_device(args.device)  # fails here when the card is absent
+    # the rendezvous first: every later step may be collective; a group this
+    # call starts, it also ends
+    own_group = not dist.is_initialized() and maybe_initialize_distributed(device)
+    try:
+        return _train(args, device)
+    finally:
+        if own_group:
+            shutdown()
+
+
+def _train(args, device):
+    from ..data import Batches, load_data
+    from ..models import build_model, count_params
+    from ..parallel.distributed import load_kernels
+    from ..parallel.mesh import current_world, is_main_process, per_host_batch_size
+    from ..sampling import get_mc_sampler
+    from ..train import (create_train_state, go_training, make_optimizer,
+                         train_step_config_from)
+    from ..utils.checkpoint import latest_checkpoint, restore_checkpoint
+    from ..utils.logging_utils import ScalarWriter, set_seed_and_logger
+    from .common import config_from_args
+
     config = config_from_args(args, "train")
     set_seed_and_logger(config, mode="train", comment=args.comment, log_level=args.log_level)
 
@@ -34,10 +58,17 @@ def main(argv=None):
     logging.info("model parameters: %s; %s in %s (tpu.use_pallas_attention, "
                  "tpu.compute_dtype)", f"{count_params(model):,}",
                  "hand-written kernels" if model.use_kernels else "plain versions", model.dtype)
+    world = current_world()
+    if world is not None and model.use_kernels and device.type == "cuda":
+        load_kernels()
 
-    # the schedule's steps per epoch are the steps the loop runs per epoch
-    # (the reference steps its scheduler once per epoch)
-    steps_per_epoch = max(1, len(Batches(bundle.train, int(config.train.batch_size))))
+    # the schedule's steps per epoch are the steps the loop runs per epoch on
+    # each rank: its shard in per-rank batches (the reference steps its
+    # scheduler once per epoch)
+    rank, nproc = (0, 1) if world is None else (world.rank, world.size)
+    steps_per_epoch = max(1, len(Batches(
+        bundle.train, per_host_batch_size(int(config.train.batch_size), nproc),
+        process_index=rank, process_count=nproc)))
     optimizer = make_optimizer(config.train.lr_init, config.train.lr_dacey, steps_per_epoch,
                                config.train.weight_decay)
     state = create_train_state(model, list(config.train.ema_coef), optimizer)
@@ -62,12 +93,9 @@ def main(argv=None):
             start_epoch = int(extra.get("epoch", -1)) + 1
             logging.info("continuing at epoch %d", start_epoch)
 
-    step_cfg = train_step_config_from(config)
-    train_step = make_train_step(model, step_cfg)
-    eval_step = make_eval_step(model, step_cfg)
-    writer = ScalarWriter(config.logdir)
+    writer = ScalarWriter(config.logdir, enabled=is_main_process())
     try:
-        state = go_training(model, state, train_step, eval_step, config, bundle,
+        state = go_training(model, state, train_step_config_from(config), config, bundle,
                             mc_sampler=get_mc_sampler(config), writer=writer,
                             start_epoch=start_epoch)
     finally:

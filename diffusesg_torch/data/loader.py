@@ -3,9 +3,9 @@
 Counterpart of diffusesg_tpu/data/loader.py (the reference's DataLoader +
 DistributedSampler): data already lives in dense numpy arrays, so batching
 is pure indexing; with several processes each iterates its own strided
-shard; ``split_eval_set`` picks the sampling orchestrator's eval set.  The
-C++ batch assembler of the JAX package (data/native) and the eval-side
-``shard_for_process`` wait for the multi-device slice.
+shard, and ``shard_for_process`` gives each its strided shard of the eval
+set; ``split_eval_set`` picks the sampling orchestrator's eval set.  The
+C++ batch assembler of the JAX package (data/native) is not ported.
 """
 from __future__ import annotations
 
@@ -76,6 +76,27 @@ class Batches:
     def __len__(self):
         n = len(self._filled(self._host_indices()))
         return n // self.batch_size if self.drop_remainder else -(-n // self.batch_size)
+
+
+def shard_for_process(data: SceneGraphData, process_index: int,
+                      process_count: int) -> SceneGraphData:
+    """This process's strided shard of a packed dataset (the eval-side
+    DistributedSampler, reference: utils/dataloader.py:26-29;
+    diffusesg_tpu/data/loader.py:178-198).  Every process gets exactly
+    ceil(n / process_count) rows: a shorter shard is wrap-padded at its end
+    with its own first rows, so the gathered results have one shape on every
+    rank and the orchestrator's trim can drop the pads."""
+    if process_count <= 1:
+        return data
+    per = -(-len(data) // process_count)
+    sel = np.arange(process_index, len(data), process_count)
+    if len(sel) < per:
+        sel = np.concatenate([sel, sel[: per - len(sel)]])
+    return SceneGraphData(
+        adjs=data.adjs[sel], nodes=data.nodes[sel], node_flags=data.node_flags[sel],
+        image_ids=data.image_ids[sel],
+        pkl_data=[data.pkl_data[i] for i in sel] if data.pkl_data else [],
+        num_node_type=data.num_node_type, num_edge_type=data.num_edge_type)
 
 
 def split_eval_set(data: SceneGraphData, total_samples: int, seed: int = 0) -> SceneGraphData:

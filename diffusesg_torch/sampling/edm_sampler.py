@@ -38,12 +38,19 @@ class TorchNoise:
     (the known entries re-noised at the step's sigma_hat); ``bernoulli(step, kind, p)`` with kind in
     refresh_euler / refresh_heun.  Training draws through the same source:
     kinds sigma, noise_adj, noise_node (``normal``, or ``uniform`` for the
-    vp/ve sigma distributions) and self_cond (``bernoulli``)."""
+    vp/ve sigma distributions) and self_cond (``bernoulli``).
+    ``fold_in(index)`` is a new source of its own for ``index`` (a rank's
+    stream), the counterpart of ``jax.random.fold_in``."""
 
     def __init__(self, seed: int, device: torch.device | str):
+        self.seed = int(seed)
         self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        self.host_gen = torch.Generator().manual_seed(int(seed) + 1)
+        self.gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.host_gen = torch.Generator().manual_seed(self.seed + 1)
+
+    def fold_in(self, index: int) -> "TorchNoise":
+        seed = np.random.SeedSequence([self.seed, int(index)]).generate_state(1)[0]
+        return TorchNoise(int(seed), self.device)
 
     def normal(self, step: int, kind: str, shape) -> torch.Tensor:
         return torch.randn(tuple(shape), generator=self.gen, device=self.device)

@@ -1,4 +1,4 @@
-"""Sampling + evaluation orchestrator, on one device.
+"""Sampling + evaluation orchestrator, on one device or data parallel.
 
 Counterpart of diffusesg_tpu/sampling/orchestrator.py (the reference's
 sg_go_sampling, DiffuseSG/runner/sampler/sampler_node_adj.py:24-723): draws
@@ -6,8 +6,10 @@ samples with the EDM sampler (plain, the ground-truth sanity check, or
 inpainting), decodes them to integer scene graphs on the sampling device,
 moves each batch's decoded tensors to the host once, computes the metric
 suite on numpy, and writes the npz / csv / txt artifacts with the JAX
-package's keys and columns.  The mesh, ``shard_map`` and multi-host branches
-wait for the multi-device slice.
+package's keys and columns.  With several processes each samples its
+strided shard of the eval set from a stream of its own, the results are
+gathered in rank order and trimmed of the shards' wrap-padding, and rank 0
+alone computes the metrics and writes.
 """
 from __future__ import annotations
 
@@ -22,11 +24,12 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..data.loader import split_eval_set
+from ..data.loader import shard_for_process, split_eval_set
 from ..eval import SceneGraphEvaluator
 from ..models.channels import resolve_sampling_channels
 from ..models.precond import precond_forward
 from ..ops.box_ops import box_cxcywh_to_xyxy
+from ..parallel.mesh import current_world, gather_to_host, is_main_process, sync_hosts
 from .decode import decode_samples
 from .edm_sampler import NodeAdjEDMSampler, TorchNoise
 
@@ -92,6 +95,33 @@ def inpaint_masks(flags: np.ndarray, inpaint_frac: float):
     return known[:, :, None] & known[:, None, :], known
 
 
+# the outputs with one row per sampled graph (the interim snapshots keep a
+# capped slice of each batch instead)
+PER_SAMPLE = ("raw_a", "raw_x", "q_adj", "q_adj_gt", "q_node", "q_node_gt", "flags",
+              "flags_gt", "bbox", "bbox_gt", "image_ids")
+
+
+def process_padding_keep(total: int, n_proc: int) -> np.ndarray:
+    """Rows of the rank-order gather of ``shard_for_process``'s shards that
+    are real, not wrap-padding: rank p contributed ceil(total / n_proc) rows
+    of which the first total // n_proc (+1 for the first total % n_proc
+    ranks) are real (diffusesg_tpu/sampling/orchestrator.py:399-405)."""
+    k_per = -(-total // n_proc)
+    return np.concatenate([
+        np.arange(p * k_per, p * k_per + total // n_proc + (1 if p < total % n_proc else 0))
+        for p in range(n_proc)])
+
+
+def trim_process_padding(res: dict, total: int, n_proc: int) -> dict:
+    """The gathered per-sample outputs without the wrap-padding and in the
+    eval set's order (row j of rank p's shard is eval row p + j * n_proc), so
+    a data-parallel pass returns, row for row, what one process returns."""
+    keep = process_padding_keep(total, n_proc)
+    k_per = -(-total // n_proc)
+    rows = keep[np.argsort(keep // k_per + (keep % k_per) * n_proc)]
+    return {k: (v[rows] if k in PER_SAMPLE else v) for k, v in res.items()}
+
+
 def sg_go_sampling(model, params, mc_sampler: NodeAdjEDMSampler, config, bundle,
                    epoch: int = 0, eval_mode: bool = False, sanity_check: bool = False,
                    sampling_params: dict | None = None, writer=None,
@@ -100,11 +130,18 @@ def sg_go_sampling(model, params, mc_sampler: NodeAdjEDMSampler, config, bundle,
     """Sample, decode, evaluate; returns the metric dict and writes the
     artifacts (orchestrator.py:165-427).
 
-    Sampling runs on the model's device.  ``params``: see ``make_sample_fn``.
+    Sampling runs on the model's device.  ``params``: see ``make_sample_fn``;
+    with several processes every rank passes the whole weights (the
+    trainer's ``ema_slice`` gathers a ZeRO-1 EMA), samples its shard of the
+    eval set and joins the gather; rank 0 returns the metrics, the others an
+    empty dict.
     ``bundle`` is the SceneGraphBundle of ``data.load_data``.
     ``noise_factory(batch_index)`` gives each batch's noise source (default:
     one ``TorchNoise`` seeded from ``config.seed + epoch`` on the sampling
-    device for the whole call).  ``inpaint_frac`` turns the pass into
+    device for the whole call, with several processes folded once with the
+    rank, each rank's stream its own as under the JAX ``shard_map``
+    sampler; a caller's factory gives each rank its own sources).
+    ``inpaint_frac`` turns the pass into
     conditional completion: the first ceil(n_valid * frac) valid nodes of
     every test graph, their labels, boxes and the edges among them, are
     pinned to the ground truth (``inpaint_masks``).
@@ -136,7 +173,13 @@ def sg_go_sampling(model, params, mc_sampler: NodeAdjEDMSampler, config, bundle,
     total_samples = min(len(test_data), total_samples)
     eval_set = split_eval_set(test_data, total_samples, seed=config.seed)
     dev = next(model.parameters()).device
-    logging.info("sampling %d graphs (batch %d) on %s", total_samples, batch_size, dev)
+    world = current_world()
+    multi = world is not None and world.size > 1
+    if multi:
+        # each rank samples its strided shard (the reference's DDP eval split)
+        eval_set = shard_for_process(eval_set, world.rank, world.size)
+    logging.info("sampling %d graphs (batch %d) on %s%s", total_samples, batch_size, dev,
+                 f", {len(eval_set)} on rank {world.rank}" if multi else "")
 
     def _pad(a: np.ndarray) -> np.ndarray:
         """Repeat-pad to the full batch (outputs are trimmed back)."""
@@ -149,6 +192,8 @@ def sg_go_sampling(model, params, mc_sampler: NodeAdjEDMSampler, config, bundle,
 
     if noise_factory is None:
         shared = TorchNoise(int(config.seed) + epoch, dev)
+        if multi:
+            shared = shared.fold_in(world.rank)
 
         def noise_factory(bi):
             return shared
@@ -259,6 +304,14 @@ def sg_go_sampling(model, params, mc_sampler: NodeAdjEDMSampler, config, bundle,
     logging.info("sampling + decode done in %.1fs", t_sampled - t_start)
 
     res = {k: np.concatenate(v, 0) for k, v in out.items() if v}
+    if multi:
+        # every rank's rows (reference: sampler_node_adj.py:331-345), one
+        # shape on each rank thanks to the shards' wrap-padding
+        sync_hosts()
+        res = trim_process_padding({k: gather_to_host(v, world) for k, v in res.items()},
+                                   total_samples, world.size)
+    if not is_main_process():
+        return {}
     metrics = evaluate_samples(res, config, bundle, raw_num_node_type, raw_num_adj_type,
                                flag_node_only, flag_binary_edge, flag_bbox, skip_eval)
     write_artifacts(res, metrics, config, bundle, epoch, eval_mode, sanity_check,

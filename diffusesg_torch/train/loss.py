@@ -58,11 +58,15 @@ class NodeAdjRainbowLoss:
         return loss_adj * self.edge_loss_weight, loss_node * self.node_loss_weight
 
 
-def bbox_iou_aux_loss(pred_node, target_node, node_flags, weights, iou_loss_type: str = "iou"):
+def bbox_iou_aux_loss(pred_node, target_node, node_flags, weights, iou_loss_type: str = "iou",
+                      total_valid=None):
     """Auxiliary IoU loss on the trailing bbox slice [..., -4:] (reference:
     trainer_node_adj.py:130-159) -> [B], already multiplied by the EDM
     weights.  As in the reference, each sample's loss is divided by the TOTAL
-    number of valid nodes in the batch, not by its own."""
+    number of valid nodes in the batch, not by its own: this batch's count,
+    or ``total_valid`` when given (the global batch's count under the
+    ``gspmd`` mode; the ``shard_map`` mode divides by the local shard's, as
+    the reference's DDP ranks do)."""
     pred_xyxy = box_cxcywh_to_xyxy((pred_node[..., -4:] + 1.0) / 2.0).clamp(0.0, 1.0)
     tgt_xyxy = box_cxcywh_to_xyxy((target_node[..., -4:] + 1.0) / 2.0).clamp(0.0, 1.0)
 
@@ -80,5 +84,6 @@ def bbox_iou_aux_loss(pred_node, target_node, node_flags, weights, iou_loss_type
         raise NotImplementedError(f"unknown iou_loss_type {iou_loss_type}")
 
     flags_f = node_flags.float()
-    per_sample = (per_node * flags_f).sum(-1) / flags_f.sum()
+    total = flags_f.sum() if total_valid is None else total_valid
+    per_sample = (per_node * flags_f).sum(-1) / total
     return per_sample * weights

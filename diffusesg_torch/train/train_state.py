@@ -47,8 +47,12 @@ class TrainState:
     model: nn.Module                       # owns the parameters
     spec: OptimizerSpec
     opt: torch.optim.Adam
-    ema_params: list[list[torch.Tensor]]   # [K][P], aligned with model.parameters()
+    ema_params: list[list[torch.Tensor | None]]  # [K][P], aligned with model.parameters()
     ema_betas: list[float]                 # sorted ascending, like the reference
+    # ZeRO-1 (parallel/sharded_step.py): the rank that holds each parameter's
+    # Adam moments and EMAs, the other ranks' EMA entries None; None when
+    # this process holds the whole state
+    owners: list[int] | None = None
 
     def params(self) -> list[torch.Tensor]:
         return list(self.model.parameters())
@@ -78,9 +82,15 @@ def ema_effective_decay(beta: float, step: int) -> float:
 @torch.no_grad()
 def update_emas(state: TrainState) -> None:
     """ema <- ema * d + p * (1 - d) for each of the K copies, d from the
-    warm-up ramp at ``state.step`` completed updates."""
+    warm-up ramp at ``state.step`` completed updates (under ZeRO-1 the
+    copies of the parameters this rank owns)."""
     params = [p.detach() for p in state.model.parameters()]
-    for beta, ema in zip(state.ema_betas, state.ema_params):
+    held = range(len(params))
+    if state.owners is not None and state.ema_params:  # ZeRO-1: the copies this rank holds
+        held = [i for i, e in enumerate(state.ema_params[0]) if e is not None]
+    params = [params[i] for i in held]
+    for beta, full in zip(state.ema_betas, state.ema_params):
+        ema = [full[i] for i in held]
         decay = ema_effective_decay(beta, state.step)
         if decay == 0.0:
             torch._foreach_copy_(ema, params)
@@ -90,5 +100,9 @@ def update_emas(state: TrainState) -> None:
 
 def ema_slice(state: TrainState, idx: int) -> dict[str, torch.Tensor]:
     """EMA copy #idx as a name -> tensor dict (``torch.func.functional_call``
-    and ``load_state_dict`` both take it)."""
-    return dict(zip(state.param_names(), state.ema_params[idx]))
+    and ``load_state_dict`` both take it).  Under ZeRO-1 the copy is gathered
+    from the ranks that own its parts: a COLLECTIVE, every rank calls it."""
+    if state.owners is None:
+        return dict(zip(state.param_names(), state.ema_params[idx]))
+    from ..parallel.sharded_step import gather_emas
+    return dict(zip(state.param_names(), gather_emas(state, [idx])[0]))

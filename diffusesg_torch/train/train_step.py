@@ -2,9 +2,13 @@
 
 Counterpart of diffusesg_tpu/train/train_step.py: sigma draw, noising,
 preconditioned forward with stochastic self-conditioning, rainbow + IoU
-losses, backward, clip, Adam and the K EMA updates, on one device (the
-multi-device ``axis_name`` waits for the multi-device slice).  Metrics stay
-on the device: nothing in a step reads a value back to the host.
+losses, backward, clip, Adam and the K EMA updates.  On one device, or on
+each rank of a data-parallel world (``world``, the counterpart of the JAX
+step's ``axis_name``): the gradients and the scalar metrics are averaged
+over the ranks between the backward and the clip, as ``lax.pmean`` averages
+them there; parallel/shardmap_dp.py and parallel/sharded_step.py build the
+two data-parallel steps on it.  Metrics stay on the device: nothing in a
+step reads a value back to the host.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from ..diffusion.edm import NodeAdjEDMObjective
 from ..models.channels import get_node_adj_num_type
 from ..models.precond import precond_forward_train
 from ..ops.attribute_code import attribute_int_to_one_hot
+from ..parallel.mesh import all_reduce_grads, all_reduce_sum
 from .loss import NodeAdjRainbowLoss, bbox_iou_aux_loss
 from .train_state import TrainState, update_emas
 
@@ -52,11 +57,17 @@ def encode_one_hot_batch(adjs_gt, nodes_gt, node_flags, cfg: TrainStepConfig):
     return adjs_gt, nodes_gt
 
 
-def make_loss_fn(model, cfg: TrainStepConfig):
+def make_loss_fn(model, cfg: TrainStepConfig, global_world=None):
     """loss(params, noise, step, batch) -> (scalar, aux dict).  ``params`` is
     None for the model's own parameters or a name -> tensor dict (an EMA
     copy) applied with ``torch.func.functional_call``; ``noise`` is the
-    source of the step's random draws."""
+    source of the step's random draws.
+
+    ``global_world`` (a ``parallel.mesh.World``) makes this rank's part of
+    the loss of the global batch (the ``gspmd`` mode): the IoU loss divides
+    by the global count of valid nodes and the batch mean is the local sum
+    over the global batch, every rank feeding as many rows.  The count is of
+    flags, so the all-reduce that forms it carries no gradient."""
     objective = NodeAdjEDMObjective(precond=cfg.precond, sigma_dist=cfg.sigma_dist,
                                     symmetric_noise=cfg.symmetric_noise)
     rainbow = NodeAdjRainbowLoss(cfg.edge_loss_weight, cfg.node_loss_weight)
@@ -74,12 +85,19 @@ def make_loss_fn(model, cfg: TrainStepConfig):
         loss_adj, loss_node = rainbow(D_a, D_x, ob.net_target_a, ob.net_target_x, node_flags,
                                       loss_weight=ob.weights)
         if cfg.iou_loss_weight > 0.0 and not cfg.flag_node_only:
+            total_valid = None
+            if global_world is not None:
+                total_valid = all_reduce_sum(node_flags.float().sum(), global_world)
             iou = bbox_iou_aux_loss(D_x, ob.net_target_x, node_flags, ob.weights,
-                                    cfg.iou_loss_type)
+                                    cfg.iou_loss_type, total_valid)
             loss_node = loss_node + cfg.iou_loss_weight * iou
         if cfg.flag_node_only:
             loss_node = loss_node * 0.0
-        loss = loss_adj.mean() + loss_node.mean()
+        if global_world is None:
+            loss = loss_adj.mean() + loss_node.mean()
+        else:
+            rows = global_world.size * loss_adj.shape[0]
+            loss = loss_adj.sum() / rows + loss_node.sum() / rows
         return loss, {"loss_adj": loss_adj, "loss_node": loss_node, "sigmas": ob.sigmas}
 
     return loss_fn
@@ -106,24 +124,47 @@ def train_step_config_from(config) -> TrainStepConfig:
         num_edge_type=info["num_adj_type"])
 
 
-def _metrics(loss, aux):
-    return {"loss": loss.detach(),
-            "loss_adj": aux["loss_adj"].detach().mean(),
-            "loss_node": aux["loss_node"].detach().mean(),
-            "loss_adj_per_sample": aux["loss_adj"].detach(),
-            "loss_node_per_sample": aux["loss_node"].detach(),
+def _metrics(loss, aux, world=None, reduce: str = "mean"):
+    """The step's metrics: scalars averaged over the ranks of ``world``
+    (``reduce`` "mean"), or summed there when each rank's loss is already its
+    part of the global mean ("sum", the ``gspmd`` mode); the per-sample
+    vectors stay local."""
+    loss_adj, loss_node = aux["loss_adj"].detach(), aux["loss_node"].detach()
+    scalars = [loss.detach(), loss_adj.mean(), loss_node.mean()]
+    if world is not None:
+        if reduce == "sum":
+            rows = world.size * loss_adj.shape[0]
+            scalars[1:] = [loss_adj.sum() / rows, loss_node.sum() / rows]
+        packed = torch.stack(scalars)
+        scalars = list(all_reduce_sum(packed, world, mean=reduce == "mean").unbind())
+    return {"loss": scalars[0],
+            "loss_adj": scalars[1],
+            "loss_node": scalars[2],
+            "loss_adj_per_sample": loss_adj,
+            "loss_node_per_sample": loss_node,
             "sigmas": aux["sigmas"].detach()}
 
 
-def make_train_step(model, cfg: TrainStepConfig):
+def make_train_step(model, cfg: TrainStepConfig, world=None):
     """(state, noise, batch) -> (state, metrics).  The state is updated in
-    place (parameters, Adam moments, EMAs, step) and returned."""
-    loss_fn = make_loss_fn(model, cfg)
+    place (parameters, Adam moments, EMAs, step) and returned.  With
+    ``world`` the step runs on this rank's slice of the batch and averages
+    the gradients (every parameter's, zeros where this rank's graph left
+    none) and the scalar metrics over the ranks before the clip."""
+    return build_train_step(make_loss_fn(model, cfg), world, reduce="mean")
+
+
+def build_train_step(loss_fn, world=None, reduce: str = "mean"):
+    """The step around ``loss_fn``: backward, the all-reduce of the
+    gradients over ``world`` (``reduce`` "mean" or "sum"), clip, Adam with
+    the epoch's learning rate, the EMAs."""
 
     def train_step(state: TrainState, noise, adjs_gt, nodes_gt, node_flags):
         state.opt.zero_grad(set_to_none=True)
         loss, aux = loss_fn(None, noise, state.step, adjs_gt, nodes_gt, node_flags)
         loss.backward()
+        if world is not None:
+            all_reduce_grads(state.params(), world, mean=reduce == "mean")
         torch.nn.utils.clip_grad_norm_(state.params(), state.spec.max_grad_norm)
         lr = state.spec.lr(state.step)
         for group in state.opt.param_groups:
@@ -131,17 +172,21 @@ def make_train_step(model, cfg: TrainStepConfig):
         state.opt.step()
         update_emas(state)
         state.step += 1
-        return state, _metrics(loss, aux)
+        return state, _metrics(loss, aux, world, reduce)
 
     return train_step
 
 
-def make_eval_step(model, cfg: TrainStepConfig):
-    """The same losses without an update (the reference's 'test' mode)."""
-    loss_fn = make_loss_fn(model, cfg)
+def make_eval_step(model, cfg: TrainStepConfig, world=None):
+    """The same losses without an update (the reference's 'test' mode); with
+    ``world`` the scalar metrics are averaged over the ranks."""
+    return build_eval_step(make_loss_fn(model, cfg), world, reduce="mean")
 
+
+def build_eval_step(loss_fn, world=None, reduce: str = "mean"):
     @torch.no_grad()
     def eval_step(params, noise, step: int, adjs_gt, nodes_gt, node_flags):
-        return _metrics(*loss_fn(params, noise, step, adjs_gt, nodes_gt, node_flags))
+        loss, aux = loss_fn(params, noise, step, adjs_gt, nodes_gt, node_flags)
+        return _metrics(loss, aux, world, reduce)
 
     return eval_step

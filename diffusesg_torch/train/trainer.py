@@ -1,10 +1,13 @@
-"""Training orchestrator: the epoch loop, on one device.
+"""Training orchestrator: the epoch loop, on one device or data parallel.
 
 Counterpart of diffusesg_tpu/train/trainer.py: epoch loop over prefetched
 batches, epoch-end metric fetch, per-interval test pass on the smallest-beta
 EMA, rolling and best checkpoints, loss logging, in-training sampling with
 the largest-beta EMA every ``train.sample_interval`` epochs, and a preempt
-checkpoint on SIGTERM/SIGINT.
+checkpoint on SIGTERM/SIGINT.  With a process group up it runs the JAX
+trainer's multi-process branches: per-rank batches of the rank's shard, the
+``shard_map`` or ``gspmd`` step, metrics gathered in rank order, rank 0
+alone writing logs and checkpoints, the preempt flag OR-ed over the ranks.
 """
 from __future__ import annotations
 
@@ -17,27 +20,54 @@ import numpy as np
 import torch
 
 from ..data.loader import Batches, pad_batch, prefetch_to_device
+from ..parallel.mesh import (any_rank, current_world, fetch_to_host, is_main_process,
+                             per_host_batch_size, resolve_spmd_mode, sync_hosts)
 from ..sampling.edm_sampler import TorchNoise
 from ..sampling.orchestrator import sg_go_sampling
 from ..utils.checkpoint import list_checkpoints, save_checkpoint
 from ..utils.logging_utils import LossTxtLogger, ScalarWriter
 from .train_state import TrainState, ema_slice
+from .train_step import TrainStepConfig, make_eval_step, make_train_step
 
 
-def _fetch(metrics: list[dict]) -> list[dict]:
-    """Device metrics of many steps -> numpy, in one blocking pass."""
-    return [{k: v.float().cpu().numpy() for k, v in m.items()} for m in metrics]
+def _steps(model, state, config, step_cfg, world, noise):
+    """(state, train_step, eval_step, noise) of this run.  One process, or a
+    world of one (a mean over one rank is the identity and ZeRO-1 over one
+    rank shards nothing): the single-device steps.  Several: those of
+    ``tpu.spmd_mode``; ``shard_map`` keeps the state replicated and draws
+    from the rank's stream, ``gspmd`` shards Adam and the EMAs and draws the
+    global batch's."""
+    if world is None or world.size == 1:
+        return state, make_train_step(model, step_cfg), make_eval_step(model, step_cfg), noise
+    from ..parallel.shardmap_dp import make_shardmap_eval_step, make_shardmap_train_step
+    from ..parallel.sharded_step import (make_sharded_eval_step, make_sharded_train_step,
+                                         shard_train_state)
+    mode = resolve_spmd_mode(config, world.size)
+    logging.info("data parallel over %d processes, spmd_mode %s", world.size, mode)
+    if mode == "shard_map":
+        return (state, make_shardmap_train_step(model, step_cfg, world),
+                make_shardmap_eval_step(model, step_cfg, world), noise.fold_in(world.rank))
+    return (shard_train_state(state, world), make_sharded_train_step(model, step_cfg, world),
+            make_sharded_eval_step(model, step_cfg, world), noise)
 
 
-def go_training(model, state: TrainState, train_step, eval_step, config, bundle,
+def go_training(model, state: TrainState, step_cfg: TrainStepConfig, config, bundle,
                 mc_sampler=None, writer: ScalarWriter | None = None, start_epoch: int = 0,
                 noise=None):
     """Run the training loop; returns the final TrainState.
 
+    The steps are built from ``step_cfg`` (``train_step_config_from``).
     ``start_epoch`` continues an interrupted run (cli/train.py --resume).
     ``noise`` is the source of the steps' random draws (default: a
     ``TorchNoise`` seeded from ``config.seed`` and ``start_epoch``, so a
-    resumed run draws a stream of its own).
+    resumed run draws a stream of its own; the same on every rank).
+
+    With a process group up (parallel/distributed.py) the loop is data
+    parallel: ``config.train.batch_size`` is the global batch, each rank
+    feeds ``per_host_batch_size`` rows of its strided shard, and
+    ``tpu.spmd_mode`` picks the step (parallel/mesh.py ``resolve_spmd_mode``;
+    a world of one runs the single-device step).  Every rank must call it;
+    rank 0 alone writes the loss log and the checkpoints.
 
     With ``mc_sampler`` set, every ``train.sample_interval`` epochs the
     largest-beta EMA samples the eval set through ``sg_go_sampling`` (epoch
@@ -45,18 +75,25 @@ def go_training(model, state: TrainState, train_step, eval_step, config, bundle,
     ``functional_call``, so the model's parameters, Adam's state and the
     training noise stream are left as they were.
 
-    On SIGTERM/SIGINT the loop finishes the current step, writes
+    On SIGTERM/SIGINT the loop finishes the current step (one process) or
+    the current epoch (several, so that every rank leaves its collectives
+    together; any rank's signal stops them all), writes
     ``models_ckpt/preempt.pt`` with the epoch to re-run, and returns.
     """
     device = next(model.parameters()).device
-    logging.info("training on %s", device)
-    batch_size = int(config.train.batch_size)
-    train_batches = Batches(bundle.train, batch_size, shuffle=True, seed=config.seed)
-    test_batches = Batches(bundle.test, batch_size, shuffle=False)
+    world = current_world()
+    rank, nproc = (0, 1) if world is None else (world.rank, world.size)
+    logging.info("training on %s, process %d of %d", device, rank, nproc)
+    batch_size = per_host_batch_size(int(config.train.batch_size), nproc)
     if noise is None:
         noise = TorchNoise(int(config.seed) + 1000 + 7919 * start_epoch, device)
+    state, train_step, eval_step, noise = _steps(model, state, config, step_cfg, world, noise)
+    train_batches = Batches(bundle.train, batch_size, shuffle=True, seed=config.seed,
+                            process_index=rank, process_count=nproc)
+    test_batches = Batches(bundle.test, batch_size, shuffle=False, process_index=rank,
+                           process_count=nproc)
 
-    loss_txt = LossTxtLogger(config.logdir)
+    loss_txt = LossTxtLogger(config.logdir, enabled=is_main_process())
     lowest = {"epoch": -1, "loss": float("inf")}
     save_interval = config.train.save_interval
     sample_interval = config.train.sample_interval
@@ -69,7 +106,8 @@ def go_training(model, state: TrainState, train_step, eval_step, config, bundle,
 
     def on_signal(signum, frame):
         preempt["flag"] = True
-        logging.warning("signal %d: will checkpoint and exit after this step", signum)
+        logging.warning("signal %d: will checkpoint and exit after this %s", signum,
+                        "step" if nproc == 1 else "epoch")
 
     old_handlers = {}
     try:
@@ -88,11 +126,11 @@ def go_training(model, state: TrainState, train_step, eval_step, config, bundle,
             for batch in prefetch_to_device(train_batches, device, transform=to_full_batch):
                 state, metrics = train_step(state, noise, *batch)
                 ep_metrics.append(metrics)
-                if preempt["flag"]:
+                if preempt["flag"] and nproc == 1:
                     broke_mid_epoch = True
                     break
 
-            fetched = _fetch(ep_metrics)
+            fetched = fetch_to_host(ep_metrics, world)
             dt = time.time() - t0
             ep_loss_a = float(np.mean([m["loss_adj"] for m in fetched])) if fetched else 0.0
             ep_loss_x = float(np.mean([m["loss_node"] for m in fetched])) if fetched else 0.0
@@ -106,7 +144,7 @@ def go_training(model, state: TrainState, train_step, eval_step, config, bundle,
                 writer.add_scalar("train_epoch/regression_loss_node", ep_loss_x, epoch)
                 writer.add_scalar("train_epoch/time_s", dt, epoch)
 
-            if preempt["flag"]:
+            if any_rank(preempt["flag"], world):
                 resume_epoch = epoch - 1 if broke_mid_epoch else epoch
                 save_checkpoint(os.path.join(config.model_ckpt_dir, "preempt"), state,
                                 extra={"epoch": resume_epoch, "preempted": True})
@@ -124,15 +162,23 @@ def go_training(model, state: TrainState, train_step, eval_step, config, bundle,
                                   for a in arrays)
                     test_metrics.append(eval_step(test_params, noise, state.step, *batch))
                     real_rows.append(n_real)
+
+                def trim(v, n_real):
+                    """Drop the repeat-pad rows: every rank padded its own
+                    tail from n_real rows (the same on every rank, the shards
+                    being of one length), and the gather joined the ranks'
+                    rows, so the mean covers the dataset once."""
+                    return v.reshape((nproc, -1) + v.shape[1:])[:, :n_real].reshape(
+                        (-1,) + v.shape[1:])
+
                 sums_a, sums_x, count = 0.0, 0.0, 0
-                for t, n_real in zip(_fetch(test_metrics), real_rows):
-                    # the repeat-pad rows are dropped: the mean covers the dataset once
-                    la = t["loss_adj_per_sample"][:n_real]
-                    lx = t["loss_node_per_sample"][:n_real]
+                for t, n_real in zip(fetch_to_host(test_metrics, world), real_rows):
+                    la = trim(t["loss_adj_per_sample"], n_real)
+                    lx = trim(t["loss_node_per_sample"], n_real)
                     sums_a += float(np.sum(la))
                     sums_x += float(np.sum(lx))
                     count += len(la)
-                    loss_txt.write("test", epoch, t["sigmas"][:n_real], la, lx)
+                    loss_txt.write("test", epoch, trim(t["sigmas"], n_real), la, lx)
                 te_loss_a, te_loss_x = sums_a / max(count, 1), sums_x / max(count, 1)
                 te_loss = te_loss_a + te_loss_x
                 logging.info("epoch %05d | test loss %.6f", epoch, te_loss)
@@ -148,12 +194,14 @@ def go_training(model, state: TrainState, train_step, eval_step, config, bundle,
                     save_checkpoint(os.path.join(config.model_save_dir, "best"), state, extra)
                 # a numeric checkpoint of this run supersedes a stale preempt one
                 pre = os.path.join(config.model_ckpt_dir, "preempt.pt")
-                if os.path.exists(pre) and any(
+                if is_main_process() and os.path.exists(pre) and any(
                         os.path.basename(c)[:-3].isdigit()
                         and int(os.path.basename(c)[:-3]) >= start_epoch
                         for c in list_checkpoints(config.model_ckpt_dir)):
                     os.remove(pre)
                     logging.info("dropped superseded preempt checkpoint")
+            if world is not None:
+                sync_hosts()
 
             # in-training sampling with the largest-beta EMA
             # (reference: trainer_node_adj.py:262-284)

@@ -8,7 +8,10 @@ checkpoint, ``torch.save`` of
 
 written to a temporary file in the same directory and renamed into place, so
 a reader never sees a partial checkpoint.  Saves are synchronous;
-asynchronous saves wait.
+asynchronous saves wait.  A ZeRO-1 state (parallel/sharded_step.py) is
+gathered to rank 0 first, which alone writes, so a data-parallel checkpoint
+has the single-device format and resumes on one device and the other way
+round.
 
 Layout on disk:
   <run_dir>/models_ckpt/<epoch>.pt   rolling per-interval checkpoints
@@ -32,19 +35,40 @@ SUFFIX = ".pt"
 
 
 def save_checkpoint(path: str, state: "TrainState", extra: dict | None = None) -> str:
-    """Write ``state`` (+ metadata) to ``path`` (``.pt`` appended if missing)."""
+    """Write ``state`` (+ metadata) to ``path`` (``.pt`` appended if missing).
+    With a process group up, rank 0 writes and every rank returns after the
+    write: a COLLECTIVE (the ZeRO-1 state's Adam moments and EMAs are
+    gathered to rank 0 with ``consolidate_state_dict(to=0)`` and one
+    broadcast per rank)."""
+    import torch.distributed as dist
     if not path.endswith(SUFFIX):
         path += SUFFIX
     path = os.path.abspath(path)
+    distributed = dist.is_initialized()
+    if state.owners is not None:
+        from ..parallel.sharded_step import gather_emas
+        state.opt.consolidate_state_dict(to=0)
+        emas = gather_emas(state, range(len(state.ema_params)), to=0)
+    else:
+        emas = state.ema_params
+    if not distributed or dist.get_rank() == 0:
+        _write(path, {
+            "step": int(state.step),
+            "params": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+            "ema_params": [[t.detach().cpu() for t in ema] for ema in emas],
+            "ema_betas": list(state.ema_betas),
+            "opt_state": state.opt.state_dict(),
+            "extra": dict(extra or {}),
+        })
+    if distributed:
+        from ..parallel.distributed import barrier
+        barrier()
+    return path
+
+
+def _write(path: str, payload: dict) -> None:
+    """``torch.save`` to a temporary file beside ``path``, renamed into place."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    payload = {
-        "step": int(state.step),
-        "params": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-        "ema_params": [[t.detach().cpu() for t in ema] for ema in state.ema_params],
-        "ema_betas": list(state.ema_betas),
-        "opt_state": state.opt.state_dict(),
-        "extra": dict(extra or {}),
-    }
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), prefix=".tmp-", suffix=SUFFIX)
     try:
         with os.fdopen(fd, "wb") as f:
@@ -54,7 +78,6 @@ def save_checkpoint(path: str, state: "TrainState", extra: dict | None = None) -
         if os.path.exists(tmp):
             os.remove(tmp)
         raise
-    return path
 
 
 def read_checkpoint(path: str) -> dict:
@@ -82,7 +105,8 @@ def load_weights(model: torch.nn.Module, payload: dict, ema_index: int = -1) -> 
 def restore_checkpoint(path: str, state: "TrainState") -> dict:
     """Load the checkpoint at ``path`` into ``state`` in place (parameters,
     EMAs, Adam state, step); returns its ``extra`` metadata.  Raises when the
-    checkpoint does not match the model."""
+    checkpoint does not match the model.  A ZeRO-1 state takes its own
+    partition of the Adam moments and the EMAs of the parameters it owns."""
     payload = read_checkpoint(path)
     if len(payload["ema_params"]) != len(state.ema_params):
         raise ValueError(f"checkpoint holds {len(payload['ema_params'])} EMAs, the state "
@@ -93,7 +117,8 @@ def restore_checkpoint(path: str, state: "TrainState") -> dict:
             if len(ema) != len(saved):
                 raise ValueError("checkpoint EMA does not match the model's parameters")
             for dst, src in zip(ema, saved):
-                dst.copy_(src)
+                if dst is not None:  # None: another rank's ZeRO-1 part
+                    dst.copy_(src)
     state.opt.load_state_dict(payload["opt_state"])
     state.ema_betas = [float(b) for b in payload["ema_betas"]]
     state.step = int(payload["step"])

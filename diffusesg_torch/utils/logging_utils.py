@@ -1,7 +1,7 @@
 """Run-directory setup, seeding, logging and metric writers.
 
-Counterpart of diffusesg_tpu/utils/logging_utils.py for one process: a
-timestamped logdir with the resolved config, a log file plus stdout, txt
+Counterpart of diffusesg_tpu/utils/logging_utils.py: a timestamped logdir
+with the resolved config, a log file per process plus stdout on rank 0, txt
 loss logs, and a JSONL scalar writer (TensorBoard attached when importable).
 """
 from __future__ import annotations
@@ -22,13 +22,23 @@ from ..config import save_config
 def set_seed_and_logger(config, mode: str = "train", comment: str = "",
                         log_level: str = "INFO") -> str:
     """Seed the host RNGs, create the logdir, attach log handlers; returns
-    the logdir and records it (and the checkpoint dirs) in ``config``."""
-    seed = int(config.seed)
+    the logdir and records it (and the checkpoint dirs) in ``config``.
+
+    With a process group up the seed is offset by the rank, as the
+    reference's per-rank offset (arg_parser.py:293-294), every rank takes
+    rank 0's time stamp (one run dir), logs to ``process_<rank>.log`` and
+    only rank 0 prints and writes ``config.yaml``."""
+    import torch.distributed as dist
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    seed = int(config.seed) + rank
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
 
-    stamp = time.strftime("%b-%d-%H-%M-%S")
+    stamp = [time.strftime("%b-%d-%H-%M-%S")]
+    if dist.is_initialized():
+        dist.broadcast_object_list(stamp, src=0)
+    stamp = stamp[0]
     run_name = f"{config.dataset.name}_{mode}_{stamp}" + (f"_{comment}" if comment else "")
     logdir = os.path.join(config.exp_dir, config.exp_name, run_name)
     os.makedirs(logdir, exist_ok=True)
@@ -39,12 +49,14 @@ def set_seed_and_logger(config, mode: str = "train", comment: str = "",
     os.makedirs(config.model_ckpt_dir, exist_ok=True)
     os.makedirs(config.model_save_dir, exist_ok=True)
 
-    handlers = [logging.FileHandler(os.path.join(logdir, "process_0.log")),
-                logging.StreamHandler(sys.stdout)]
+    handlers = [logging.FileHandler(os.path.join(logdir, f"process_{rank}.log"))]
+    if rank == 0:
+        handlers.append(logging.StreamHandler(sys.stdout))
     level = getattr(logging, str(log_level).upper(), logging.INFO)
     logging.basicConfig(level=level, handlers=handlers, force=True,
                         format="%(asctime)s %(levelname)s %(message)s")
-    save_config(config, os.path.join(logdir, "config.yaml"))
+    if rank == 0:
+        save_config(config, os.path.join(logdir, "config.yaml"))
     return logdir
 
 

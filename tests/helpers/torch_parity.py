@@ -8,6 +8,8 @@ are carried across with ``diffusesg_torch.utils.weights``.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 # fp32 parity bar the JAX package met against the PyTorch reference
@@ -166,6 +168,41 @@ class JaxTrainNoise:
         import jax
         return bool(jax.random.bernoulli(self._key(step, kind), p))
 
+    def fold_in(self, index):
+        """The draws of shard ``index`` under the JAX ``shard_map`` step, which
+        folds the axis index into every step key (shardmap_dp.py:62-64)."""
+        import jax
+        return JaxTrainNoise([jax.random.fold_in(k, index) for k in self.keys])
+
+
+def tiny_overrides(cfg):
+    """The tiny config of __graft_entry__.py:18-27: vg_small_test at N=16,
+    embed 48, depths (1, 1), fp32, the kernels off."""
+    with cfg.unlocked():
+        cfg.dataset.max_node_num = 16
+        cfg.model.feature_dims = [48]
+        cfg.model.depths = [1, 1]
+        cfg.tpu.compute_dtype = "float32"
+        cfg.tpu.use_pallas_attention = False
+    return cfg
+
+
+def tiny_port_model(tcfg, seed: int = 1, scale: float = 0.15):
+    """The port's model for ``tcfg`` on the CPU, every parameter redrawn as
+    N(0, scale^2) from a seeded numpy generator (as ``randomized_params``
+    does for a flax tree), so processes that import no JAX build the same
+    weights; ``diffusesg_torch.utils.weights.state_dict_to_flax`` carries
+    them to the JAX package."""
+    import torch
+    from diffusesg_torch.models import make_model
+    model = make_model(tcfg)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for _, p in sorted(model.named_parameters()):
+            p.copy_(torch.from_numpy((rng.standard_normal(tuple(p.shape)) * scale)
+                                     .astype(np.float32)))
+    return model
+
 
 def clean_batch(batch: int, n: int, counts, seed: int = 0, node_chan: int = 5):
     """(adjs [B,N,N], nodes [B,N,C], flags) in the ddpm range, padding zeroed;
@@ -179,3 +216,61 @@ def clean_batch(batch: int, n: int, counts, seed: int = 0, node_chan: int = 5):
     nodes[..., -2:] = rng.uniform(-0.8, -0.2, (batch, n, 2))    # sizes 0.1 .. 0.4
     nodes = (nodes * flags[:, :, None]).astype(np.float32)
     return adjs, nodes, flags
+
+
+DP_CHILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_dp_child.py")
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def free_port() -> int:
+    """A port nothing listens on, from a socket bound to port 0."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(args, log_dir: str, world: int = 2, env=None):
+    """Start ``world`` ranks of tests/helpers/torch_dp_child.py with ``args``,
+    torchrun's rendezvous variables set, each rank's output in a file of
+    ``log_dir`` (a pipe that nobody drains would stall the collectives);
+    returns [(process, log path)]."""
+    import subprocess
+    import sys
+    port = free_port()
+    os.makedirs(log_dir, exist_ok=True)
+    base = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH",)}
+    base.update(JAX_PLATFORMS="cpu", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                WORLD_SIZE=str(world), OMP_NUM_THREADS="1", DSG_DIST_TIMEOUT="120",
+                **(env or {}))
+    ranks = []
+    for r in range(world):
+        path = os.path.join(log_dir, f"rank{r}.log")
+        with open(path, "w") as log:
+            proc = subprocess.Popen([sys.executable, DP_CHILD, *args], cwd=REPO, stdout=log,
+                                    stderr=subprocess.STDOUT,
+                                    env=dict(base, RANK=str(r), LOCAL_RANK=str(r)))
+        ranks.append((proc, path))
+    return ranks
+
+
+def wait_ranks(ranks, timeout: float = 240.0) -> list[str]:
+    """Wait for the ranks of ``start_ranks``; kill them all when one fails or
+    the time is up; returns their outputs, and raises unless each exited 0
+    and printed CHILD_OK."""
+    import time
+    deadline = time.time() + timeout
+    pending = list(ranks)
+    while pending and time.time() < deadline:
+        pending = [(p, f) for p, f in pending if p.poll() is None]
+        if any(p.returncode not in (None, 0) for p, _ in ranks):
+            break
+        time.sleep(0.1)
+    for p, _ in ranks:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    outs = [open(f).read() for _, f in ranks]
+    for r, ((p, _), out) in enumerate(zip(ranks, outs)):
+        assert p.returncode == 0 and f"CHILD_OK {r}" in out, f"rank {r} rc {p.returncode}:\n{out}"
+    return outs

@@ -199,8 +199,8 @@ def test_go_training_samples_without_touching_the_training_state(tmp_path, monke
     from diffusesg_torch.models import build_model
     from diffusesg_torch.sampling import get_mc_sampler
     from diffusesg_torch.sampling.edm_sampler import TorchNoise
-    from diffusesg_torch.train import (create_train_state, go_training, make_eval_step,
-                                       make_optimizer, make_train_step, train_step_config_from)
+    from diffusesg_torch.train import (create_train_state, go_training, make_optimizer,
+                                       train_step_config_from)
     from diffusesg_torch.train import trainer
     from diffusesg_torch.utils.logging_utils import set_seed_and_logger
     _no_plots(monkeypatch)
@@ -237,9 +237,7 @@ def test_go_training_samples_without_touching_the_training_state(tmp_path, monke
         calls.append((kw["epoch"], kw["sanity_check"], kw["sampling_params"]["weight_kw"], same))
         return out
     monkeypatch.setattr(trainer, "sg_go_sampling", watched)
-    step_cfg = train_step_config_from(cfg)
-    state = go_training(model, state, make_train_step(model, step_cfg),
-                        make_eval_step(model, step_cfg), cfg, bundle,
+    state = go_training(model, state, train_step_config_from(cfg), cfg, bundle,
                         mc_sampler=get_mc_sampler(cfg), noise=noise)
     assert state.step == 4
     assert calls == [(0, True, "0.999", True), (1, False, "0.999", True)]

@@ -100,7 +100,8 @@ def test_port_imports_no_jax():
         "             'cli.eval_samples', 'eval.sg_evaluator', 'eval.sg_statistics',\n"
         "             'eval.native', 'utils.native_build', 'utils.visual',\n"
         "             'serving.server', 'serving.export', 'cli.serve', 'cli.import_ckpt',\n"
-        "             'utils.torch_import', 'utils.perf'):\n"
+        "             'utils.torch_import', 'utils.perf', 'parallel.distributed',\n"
+        "             'parallel.mesh', 'parallel.shardmap_dp', 'parallel.sharded_step'):\n"
         "    assert 'diffusesg_torch.' + name in sys.modules, name\n"
         "# the card's machine has none of the plotting packages or pandas\n"
         "lazy = sorted(k for k in sys.modules if k.split('.')[0] in "

@@ -287,13 +287,13 @@ def test_preempt_signal_checkpoints_and_resume_continues(tmp_path):
             return inner(state, noise, *batch)
         return step
 
-    import diffusesg_torch.train as train_pkg
+    from diffusesg_torch.train import trainer  # go_training builds its steps there
     old_handler = signal.getsignal(signal.SIGTERM)
-    train_pkg.make_train_step = flaky
+    trainer.make_train_step = flaky
     try:
         state = cli.main(_cli_args(str(tmp_path), "--max_epoch", "4"))
     finally:
-        train_pkg.make_train_step = real
+        trainer.make_train_step = real
     assert signal.getsignal(signal.SIGTERM) == old_handler  # handlers restored
     assert state.step == 3  # stopped after the step in flight
     run = _run_dir(str(tmp_path))
