@@ -118,7 +118,29 @@ Phases, each printed on its own line:
      against both data-parallel steps and the ``gspmd`` step without
      ZeRO-1, ZeRO's optimizer step against the Adam inside it, one
      all-reduce of the flat fp32 gradient, peak memory with ZeRO-1.
-Launch counts are set to 0 before each of phases 3-10 and read after it.
+  11. the rest of the multi-device stack and the training leftovers: (a) the
+     full-width VG model (seeded weights, bf16, kernels on; 16 Heun steps,
+     batch 16) served across the device list [cuda:0, cuda:0] by
+     ``make_sharded_serving_fn`` in both ``spmd_mode``s: each shard's
+     decoded graphs bit-equal to the single-device core on its rows with its
+     draws (its rows of the whole batch's draws under ``gspmd``, the stream
+     folded with its index under ``shard_map``), each forward kernel as many
+     launches on each shard as that core's, ``gspmd``'s samples against the
+     whole batch on one card at phase 3's bar (relative L2 5e-2; decoded
+     agreement a reading); readings: graphs/s of two shards and of one batch;
+     (b) an artifact over two devices refused on this one-card process and
+     served over [cuda:0, cuda:0], and ``cli.serve --devices 2`` exiting
+     with the JAX package's message; (c) two tensor-parallel steps at grid
+     (1, 1) through NCCL (full VG width, bf16, kernels off, batch 16)
+     bit-equal to the single-device plain step, the tensor-parallel
+     collectives counted and no kernel launched, its checkpoint (gathered
+     over the model group) restored bit-equal on one device; (d) the host ms
+     of a synchronous and an asynchronous save of that state, and an
+     asynchronous save drained after the state took another step restoring
+     the state at the save bit-equal; (e) phase 4's synthetic data through
+     the native batcher (g++, built here) equal to the numpy path over two
+     epochs.
+Launch counts are set to 0 before each of phases 3-11 and read after it.
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Exits non-zero without a result when no CUDA device is present.
@@ -1883,7 +1905,7 @@ def check_serving(dev, smi: str) -> dict:
 
     # 2. cli.serve's loader, BatchingSampler and serve() in this process
     argv = ["-p", run, "--num_steps", str(SERVE_STEPS), "--batch_size", str(SERVE_BATCH)]
-    fn, complete_fn, batch, n, scfg, bounds, (model, sampler) = serve_cli._load_from_checkpoint(
+    fn, complete_fn, batch, n, scfg, bounds, (model, sampler, *_) = serve_cli._load_from_checkpoint(
         serve_cli.build_serve_parser().parse_args(argv))
     if (not model.use_kernels or model.dtype != torch.bfloat16 or batch != SERVE_BATCH
             or sampler.num_steps != SERVE_STEPS):
@@ -2367,6 +2389,365 @@ def check_data_parallel(dev, smi: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 11
+
+MULTI_STEPS = 16
+MULTI_BATCH = 16
+MULTI_SEED = 21
+MULTI_TRAIN_BATCH = 16
+SHARD_KERNELS = ("swin_attn", "token_mlp", "patch_merge", "patch_breakup", "readout")
+
+
+def _sharded_serving(dev, smi: str) -> dict:
+    """Phase 11 (a) and (b): the full VG model served across two shards of
+    one card in both modes, and the refusals of more cards than the process
+    has; returns the launches of one shard of the ``gspmd`` run."""
+    import numpy as np
+
+    from diffusesg_torch.cli import serve as serve_cli
+    from diffusesg_torch.config import load_config, save_config
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.models.channels import resolve_sampling_channels
+    from diffusesg_torch.ops import cuda_build
+    from diffusesg_torch.parallel.mesh import World
+    from diffusesg_torch.parallel.sharded_step import GlobalRows
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.sampling.edm_sampler import TorchNoise
+    from diffusesg_torch.serving.export import (export_sampler, fixed_batch, load_artifact,
+                                                local_devices, make_denoiser,
+                                                make_sharded_serving_fn, make_serving_fn,
+                                                save_artifact)
+
+    cfg = load_config(VG["config"])
+    with cfg.unlocked():
+        cfg.mcmc.num_steps = MULTI_STEPS
+    model = build_model(cfg, device=dev, seed=0).eval()
+    if not model.use_kernels or model.dtype != torch.bfloat16:
+        fail("phase 11 serves the VG model with its kernels in bf16")
+    sampler = get_mc_sampler(cfg)
+    n = int(cfg.dataset.max_node_num)
+    devices, per = [dev, dev], MULTI_BATCH // 2
+    rng = np.random.default_rng(3)
+    counts = [n] * 4 + [int(c) for c in rng.integers(5, n + 1, MULTI_BATCH - 4)]
+    flags = np.zeros((MULTI_BATCH, n), bool)
+    for i, c in enumerate(counts):
+        flags[i, :c] = True
+    core = fixed_batch(make_serving_fn(model, sampler, cfg), per, n, dev)
+    whole = fixed_batch(make_serving_fn(model, sampler, cfg), MULTI_BATCH, n, dev)
+    per_shard = {}
+    fns = {}
+    for mode in ("gspmd", "shard_map"):
+        fn = fns[mode] = make_sharded_serving_fn(model, sampler, cfg, devices, mode)
+        fn(MULTI_SEED, flags)  # the first call builds nothing new; warm the allocator
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        out = fn(MULTI_SEED, flags)
+        torch.cuda.synchronize()
+        launched = cuda_build.launches_by_kernel()
+        if (any(launched.get(k, 0) == 0 for k in SHARD_KERNELS)
+                or any(v % 2 for v in cuda_build.LAUNCHES.values())):
+            fail(f"{mode}: the shards launched {launched}; each forward kernel must launch "
+                 "as often on each shard")
+        shard = {k: launched[k] // 2 for k in SHARD_KERNELS}
+        if mode == "gspmd":
+            per_shard = {k: v // 2 for k, v in cuda_build.LAUNCHES.items()}
+        cuda_build.reset_launches()
+        single = core(MULTI_SEED, flags[:per], noise=GlobalRows(TorchNoise(MULTI_SEED, dev),
+                                                                 World(0, 2, dev)))
+        if cuda_build.launches_by_kernel() != {k: shard[k] for k in SHARD_KERNELS}:
+            fail(f"{mode}: one shard's launches {shard} are not the single-device core's on "
+                 f"its rows {cuda_build.launches_by_kernel()}")
+        same = []
+        for i in range(2):
+            draws = (GlobalRows(TorchNoise(MULTI_SEED, dev), World(i, 2, dev))
+                     if mode == "gspmd" else TorchNoise(MULTI_SEED, dev).fold_in(i))
+            want = single if (i == 0 and mode == "gspmd") else core(
+                MULTI_SEED, flags[i * per:(i + 1) * per], noise=draws)
+            same.append(all(np.array_equal(g[i * per:(i + 1) * per], w)
+                            for g, w in zip(out, want)))
+        log(f"multi: {mode} over 2 shards of {dev} (VG, bf16, kernels on, {MULTI_STEPS} Heun "
+            f"steps, batch {MULTI_BATCH}): each shard's decoded graphs bit-equal to the "
+            f"single-device core on its rows with its draws {same}; launches per shard "
+            f"{json.dumps(shard, sort_keys=True)}")
+        if not all(same):
+            fail(f"a {mode} shard differs from the single-device core on its rows")
+
+    # gspmd against the whole batch on one card, at phase 3's bar: the raw
+    # samples (token_mlp splits its hidden by row count, so not bit-equal)
+    info = resolve_sampling_channels(cfg)
+    flags_t = torch.from_numpy(flags).to(dev)
+    with torch.inference_mode():
+        full = sampler.sample(make_denoiser(model, cfg, flags_t), flags_t, info["num_node_chan"],
+                              info["num_adj_chan"], noise=TorchNoise(MULTI_SEED, dev))
+        parts = [sampler.sample(make_denoiser(model, cfg, flags_t[i * per:(i + 1) * per]),
+                                flags_t[i * per:(i + 1) * per], info["num_node_chan"],
+                                info["num_adj_chan"],
+                                noise=GlobalRows(TorchNoise(MULTI_SEED, dev), World(i, 2, dev)))
+                 for i in range(2)]
+    rels = [float((torch.cat([p[k] for p in parts]) - full[k]).norm() / full[k].norm())
+            for k in range(2)]
+    dec_whole = whole(MULTI_SEED, flags)
+    dec_sharded = fns["gspmd"](MULTI_SEED, flags)
+    agree = [float(np.mean(a == b)) for a, b in zip(dec_whole[:2], dec_sharded[:2])]
+    log(f"multi: gspmd's samples against the whole batch of {MULTI_BATCH} on one card, relative "
+        f"L2 adj {rels[0]:.3e} node {rels[1]:.3e} (limit 5e-2); decoded edge and node types "
+        f"equal in {agree[0]:.2%} and {agree[1]:.2%} of entries (a reading)")
+    if not max(rels) < 5e-2:
+        fail("gspmd serving disagrees with the single-device sampler on the whole batch")
+
+    # readings: graphs/s, two shards on one card against one batch, in turns
+    runs = dict(one_batch=lambda: whole(MULTI_SEED, flags),
+                gspmd=lambda: fns["gspmd"](MULTI_SEED, flags),
+                shard_map=lambda: fns["shard_map"](MULTI_SEED, flags))
+    secs = collections.defaultdict(list)
+    for name in list(runs) + list(runs)[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+    log(f"multi: graphs/s at batch {MULTI_BATCH}, {MULTI_STEPS} Heun steps, decoded, host to "
+        f"host (in turns there and back): " + ", ".join(
+            f"{k} {' / '.join(f'{MULTI_BATCH / s:.2f}' for s in v)}" for k, v in secs.items())
+        + f" on {smi}")
+
+    # (b) the refusals: an artifact over two cards, and cli.serve --devices 2
+    # on a run dir of the seeded weights (config.yaml and one checkpoint)
+    root = os.path.join("build", "smoke_runs", "multi")
+    shutil.rmtree(root, ignore_errors=True)
+    run = os.path.join(root, "run")
+    os.makedirs(os.path.join(run, "models_ckpt"))
+    save_config(cfg, os.path.join(run, "config.yaml"))
+    torch.save({"step": 0, "params": {k: v.cpu() for k, v in model.state_dict().items()},
+                "ema_params": [], "ema_betas": [], "extra": {}},
+               os.path.join(run, "models_ckpt", "00000.pt"))
+    art = os.path.join(root, "art2")
+    save_artifact(art, export_sampler(model, sampler, cfg, MULTI_BATCH, num_devices=2), cfg,
+                  MULTI_BATCH)
+    local = len(local_devices("cuda"))
+    try:
+        load_artifact(art, device="cuda")
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    served, _ = load_artifact(art, device="cuda", devices=devices)
+    same_art = all(np.array_equal(a, b) for a, b in zip(served(MULTI_SEED, flags), dec_sharded))
+    try:
+        serve_cli.main(["-p", run, "--devices", "2", "--batch_size", str(MULTI_BATCH),
+                        "--num_steps", str(MULTI_STEPS)])
+        cli_exit = None
+    except SystemExit as e:
+        cli_exit = str(e)
+    log(f"multi: an artifact over 2 devices on this process of {local} card(s): refused with "
+        f"{refused!r}; served over [{dev}, {dev}] equal to the gspmd function {same_art}; "
+        f"cli.serve --devices 2 exits with {cli_exit!r}")
+    want_exit = f"--devices 2 but only {local} local devices"
+    if local < 2 and (refused is None or "spans 2 devices" not in refused
+                      or cli_exit != want_exit):
+        fail("a process with one card must refuse an artifact over two and --devices 2")
+    if not same_art:
+        fail("the artifact over two devices serves otherwise than the gspmd function")
+    del model, fns, runs
+    torch.cuda.empty_cache()
+    return per_shard
+
+
+class _CountingDist:
+    """``torch.distributed`` with its collectives counted, for the tensor
+    parallel module to call while phase 11 (c) reads which ones launched."""
+
+    def __init__(self, dist, counts):
+        self._dist, self._counts = dist, counts
+
+    def __getattr__(self, name):
+        attr = getattr(self._dist, name)
+        if name in ("all_reduce", "all_gather"):
+            def counted(*args, **kw):
+                self._counts[name] += 1
+                return attr(*args, **kw)
+            return counted
+        return attr
+
+
+def _tensor_parallel_and_checkpoints(dev, smi: str) -> None:
+    """Phase 11 (c) and (d): two tensor-parallel steps at grid (1, 1)
+    through NCCL against the single-device plain step, and an asynchronous
+    checkpoint drained and restored."""
+    import torch.distributed as dist
+
+    from diffusesg_torch.data import load_data
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.ops import cuda_build
+    from diffusesg_torch.parallel import tp as tp_mod
+    from diffusesg_torch.parallel.distributed import maybe_initialize_distributed, shutdown
+    from diffusesg_torch.parallel.mesh import make_grid
+    from diffusesg_torch.parallel.sharded_step import make_sharded_train_step
+    from diffusesg_torch.parallel.tp import shard_tp_state
+    from diffusesg_torch.sampling.edm_sampler import TorchNoise
+    from diffusesg_torch.train import (create_train_state, make_optimizer, make_train_step,
+                                       train_step_config_from)
+    from diffusesg_torch.utils.checkpoint import (restore_checkpoint, save_checkpoint,
+                                                  wait_for_async_saves)
+
+    exp_dir = os.path.join("build", "smoke_runs", "multi")
+    ckpt_dir = os.path.join(exp_dir, "models_ckpt")
+    cfg = _dp_config(exp_dir)
+    with cfg.unlocked():
+        cfg.tpu.use_pallas_attention = False  # tensor parallelism runs the plain composition
+    bundle = load_data(cfg, data_root="/nonexistent")
+    batch = tuple(torch.from_numpy(a[:MULTI_TRAIN_BATCH]).to(dev) for a in
+                  (bundle.train.adjs, bundle.train.nodes, bundle.train.node_flags))
+    step_cfg = train_step_config_from(cfg)
+    opt = make_optimizer(cfg.train.lr_init, cfg.train.lr_dacey, 1, cfg.train.weight_decay)
+
+    def fresh(seed=0):
+        return create_train_state(build_model(cfg, device=dev, seed=seed),
+                                  list(cfg.train.ema_coef), opt)
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    counts = collections.Counter()
+    try:
+        if not maybe_initialize_distributed("cuda") or dist.get_backend() != "nccl":
+            fail("phase 11 did not start an NCCL process group")
+        grid = make_grid(1, 1)
+        one, tp_state = fresh(), fresh()
+        if one.model.use_kernels or one.model.dtype != torch.bfloat16:
+            fail("phase 11 (c) runs the VG model's plain composition in bf16")
+        single = make_train_step(one.model, step_cfg)
+        tp_state = shard_tp_state(tp_state, grid)
+        tp_step = make_sharded_train_step(tp_state.model, step_cfg, grid, tp=True)
+        noise_one, noise_tp = TorchNoise(6, dev), TorchNoise(6, dev)
+        probe = TorchNoise(6, dev)
+        coins = [probe.bernoulli(i, "self_cond", 0.5) for i in range(2)]
+        cuda_build.reset_launches()
+        tp_mod.dist = _CountingDist(dist, counts)
+        metrics_equal = True
+        try:
+            for _ in range(2):
+                one, m1 = single(one, noise_one, *batch)
+                tp_state, m2 = tp_step(tp_state, noise_tp, *batch)
+                metrics_equal &= all(torch.equal(m1[k], m2[k]) for k in m1)
+        finally:
+            tp_mod.dist = dist
+        torch.cuda.synchronize()
+        diffs = _state_diffs(one, tp_state)
+        bit_equal = metrics_equal and all(diffs[k] == 0.0 for k in ("params", "emas", "adam"))
+        n_split = sum(k in ("qkv", "rows", "cols") for k in tp_state.tp.kinds)
+        log(f"multi: tensor parallel at grid (1, 1) through NCCL, full VG width in bf16 with "
+            f"the kernels off, 2 steps at batch {MULTI_TRAIN_BATCH} (self-conditioning coins "
+            f"{coins}): bit-equal to the single-device plain step {bit_equal} ({diffs}; "
+            f"metrics equal {metrics_equal}); {n_split} split leaves; collectives of the tensor "
+            f"parallel module launched {dict(counts)} (f and g, the model-group sums); "
+            f"kernel launches {cuda_build.launches_by_kernel()}")
+        if not bit_equal:
+            fail("the tensor-parallel step at grid (1, 1) differs from the single-device step")
+        if counts["all_reduce"] < 2 * 2 * VG["blocks"] or cuda_build.launches_by_kernel():
+            fail("the tensor-parallel steps did not run their collectives, or ran a kernel")
+        path = save_checkpoint(os.path.join(ckpt_dir, "tp"), tp_state, {"epoch": 0})
+        other = fresh(1)
+        restore_checkpoint(path, other)
+        back = _state_diffs(other, one)
+        restored = back["params"] == back["emas"] == back["adam"] == 0.0
+        log(f"multi: the tensor-parallel state's checkpoint (gathered over the model group) "
+            f"restored in a single-device state bit-equal to the single-device run: "
+            f"{restored} ({back})")
+        if not restored:
+            fail("the tensor-parallel checkpoint does not restore bit-equal on one device")
+        del tp_state, other
+    finally:
+        shutdown()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # (d) asynchronous saves: host ms to return, and the drained file holds the
+    # state at the save although the state moved on
+    params = [p.detach().clone() for p in one.params()]
+    emas = [[e.clone() for e in ema] for ema in one.ema_params]
+    moments = [{k: one.opt.state[p][k].clone() for k in ("exp_avg", "exp_avg_sq")}
+               for p in one.params()]
+    host_ms = collections.defaultdict(list)
+    for kind in ("sync", "async", "async", "sync"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(ckpt_dir, f"{kind}"), one, {"epoch": 1},
+                        asynchronous=kind == "async")
+        host_ms[kind].append(1e3 * (time.perf_counter() - t0))
+        if kind == "async":
+            t0 = time.perf_counter()
+            wait_for_async_saves()
+            host_ms["async drain"].append(1e3 * (time.perf_counter() - t0))
+    save_checkpoint(os.path.join(ckpt_dir, "moving"), one, {"epoch": 2},
+                    asynchronous=True)
+    one, _ = single(one, noise_one, *batch)  # the state moves on while the write is in flight
+    wait_for_async_saves()
+    other = fresh(1)
+    extra = restore_checkpoint(os.path.join(ckpt_dir, "moving.pt"), other)
+    same = (extra == {"epoch": 2}
+            and all(torch.equal(a, b) for a, b in zip(other.params(), params))
+            and all(torch.equal(a, b) for x, y in zip(other.ema_params, emas)
+                    for a, b in zip(x, y))
+            and all(torch.equal(other.opt.state[q][k], m[k])
+                    for q, m in zip(other.params(), moments) for k in m))
+    size = os.path.getsize(os.path.join(ckpt_dir, "moving.pt")) / 2 ** 20
+    log(f"multi: checkpoint of {size:.0f} MiB, host ms until the save returns (in turns "
+        f"there and back) " + ", ".join(f"{k} {' / '.join(f'{t:.1f}' for t in v)}"
+                                        for k, v in host_ms.items())
+        + f"; an asynchronous save drained after the state took another step restores the "
+          f"state at the save bit-equal: {same}; on {smi}")
+    if not same:
+        fail("the drained asynchronous checkpoint differs from the state at the save")
+    del one, other, params, emas, moments
+    torch.cuda.empty_cache()
+
+
+def _native_batches() -> None:
+    """Phase 11 (e): phase 4's data through the native batcher and numpy."""
+    import numpy as np
+
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.data import Batches, load_data
+    from diffusesg_torch.data.native import get_lib
+
+    cfg = load_config(VG["config"])
+    with cfg.unlocked():
+        cfg.seed = 0
+        cfg.dataset.synthetic_num_train = 4 * TRAIN_BATCH
+        cfg.dataset.synthetic_num_test = TRAIN_BATCH
+    bundle = load_data(cfg, data_root="/nonexistent")
+    lib = get_lib()
+    equal, n_batches = lib is not None, 0
+    for kw in (dict(shuffle=True), dict(shuffle=False, drop_remainder=True)):
+        nat = Batches(bundle.train, TRAIN_BATCH, seed=0, native=True, **kw)
+        ref = Batches(bundle.train, TRAIN_BATCH, seed=0, native=False, **kw)
+        for epoch in (0, 1):
+            nat.set_epoch(epoch)
+            ref.set_epoch(epoch)
+            got, want = list(nat), list(ref)
+            n_batches += len(got)
+            equal &= len(got) == len(want) and all(
+                g.dtype == w.dtype and np.array_equal(g, w)
+                for gb, wb in zip(got, want) for g, w in zip(gb, wb))
+    log(f"multi: the native batcher (built: {lib is not None}) over phase 4's "
+        f"{len(bundle.train)} graphs, {n_batches} batches of {TRAIN_BATCH} in two epochs, "
+        f"shuffled and in order: equal to the numpy path {equal}")
+    if not equal:
+        fail("the native batcher's batches differ from the numpy path's, or it did not build")
+
+
+def check_multi_device(dev, smi: str) -> dict:
+    """Phase 11; returns the launches of one shard of the sharded serving."""
+    per_shard = _sharded_serving(dev, smi)
+    _tensor_parallel_and_checkpoints(dev, smi)
+    _native_batches()
+    return per_shard
+
+
 def _latest_samples(logdir) -> dict:
     import glob
 
@@ -2466,7 +2847,7 @@ def profile_call(fn, what: str, eager_ms: float) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 10")
+    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 11")
     ap.add_argument("--no-train", action="store_true",
                     help="skip phases 4, 6 and 10, and phase 8's training run")
     args = ap.parse_args(argv)
@@ -2523,7 +2904,7 @@ def main(argv=None) -> int:
 
     results, entry_cases = check_kernels(dev)
     # launch counts per path: {path: (sampling or entries run, training run)}
-    counts, eval_counts, serve_counts, dp_counts = {}, {}, {}, {}
+    counts, eval_counts, serve_counts, dp_counts, shard_counts = {}, {}, {}, {}, {}
     if not args.no_slice:
         vg, _ = check_slice(dev, smi, VG)
         vg_train = {} if args.no_train else check_training(dev, smi, VG)
@@ -2539,11 +2920,14 @@ def main(argv=None) -> int:
         serve_counts = check_serving(dev, smi)
         if not args.no_train:
             dp_counts = check_data_parallel(dev, smi)
+        shard_counts = check_multi_device(dev, smi)
     # launches: of the path's sampling (or entries) run for the forward
     # kernels, of its training run for the backward kernels; launches_train:
     # of the training run; launches_eval: of phase 8 and launches_serve: of
     # phase 9 (the VG forward kernels); launches_dp: of phase 10's
-    # data-parallel go_training run (the VG forward and backward kernels).
+    # data-parallel go_training run (the VG forward and backward kernels);
+    # launches_shard: of one shard of phase 11's gspmd serving (the VG
+    # forward kernels).
     # A case that moves several counters (an entry over two kernels) reports
     # the least of them.
     for r in results:
@@ -2553,6 +2937,7 @@ def main(argv=None) -> int:
         r["launches_eval"] = min(eval_counts.get(k, 0) for k in keys) if path == "vg" else 0
         r["launches_serve"] = min(serve_counts.get(k, 0) for k in keys) if path == "vg" else 0
         r["launches_dp"] = min(dp_counts.get(k, 0) for k in keys) if path == "vg" else 0
+        r["launches_shard"] = min(shard_counts.get(k, 0) for k in keys) if path == "vg" else 0
         if dp_counts and path == "vg" and r["launches_dp"] == 0:
             fail(f"{r['name']} was never launched on the data-parallel path")
         r["launches"] = (r["launches_train"] if kernel.endswith("_bwd")

@@ -67,7 +67,7 @@ def _evaluate(args, device) -> list[dict]:
     from ..sampling import get_mc_sampler
     from ..sampling.orchestrator import sg_go_sampling
     from ..utils.checkpoint import load_weights, read_checkpoint, select_checkpoints
-    from ..utils.logging_utils import ScalarWriter, set_seed_and_logger
+    from ..utils.logging_utils import ScalarWriter, backup_code, set_seed_and_logger
     from .common import find_eval_config
 
     config_file = args.config_file or find_eval_config(args.model_path)
@@ -86,6 +86,7 @@ def _evaluate(args, device) -> list[dict]:
         with config.unlocked():
             config.test.test_pkl = args.test_pkl
     set_seed_and_logger(config, mode="eval", comment=args.comment, log_level=args.log_level)
+    backup_code(config.logdir)  # the reference backs up the code on eval too (eval.py:86)
 
     bundle = load_data(config, eval_mode=True, data_root=args.data_root)
     model = build_model(config, device=device, seed=config.seed).eval()

@@ -1,6 +1,6 @@
 """Serving entry point: python -m diffusesg_torch.cli.serve -p <ckpt-or-run-dir>
 
-Counterpart of diffusesg_tpu/cli/serve.py on one device.  Three modes:
+Counterpart of diffusesg_tpu/cli/serve.py.  Three modes:
 
 * serve from a checkpoint (default): load the weights (the largest-beta EMA
   unless ``--ema`` says otherwise), warm the sampler up, open the HTTP
@@ -11,8 +11,11 @@ Counterpart of diffusesg_tpu/cli/serve.py on one device.  Three modes:
   (``/v1/complete`` answers 501).
 
 Runs on ``cuda`` unless ``--device cpu`` (the plain versions on the CPU).
-``--devices`` 0 or 1 serves on one card; more waits for the multi-device
-slice of the port.
+``--devices`` picks the cards of this process to serve on, by the JAX
+package's rule (0: every card when the batch divides over them, 1: one
+card, N: N cards); over N > 1 cards each serves its block of the batch
+(``serving.export.make_sharded_serving_fn``, ``tpu.spmd_mode``), and
+``--export_to`` with an explicit ``--devices N`` writes an artifact over N.
 """
 from __future__ import annotations
 
@@ -36,8 +39,8 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=None,
                    help="served batch (default: config test batch)")
     p.add_argument("--devices", type=int, default=0,
-                   help="devices to serve on: 0 or 1 = one card; more waits for the "
-                        "tensor-parallel and sharded-serving slice")
+                   help="local devices to serve on: 0 = auto (all local devices when the "
+                        "batch divides evenly), 1 = single device, N = N devices")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu (plain versions)")
     p.add_argument("--num_steps", type=int, default=None,
@@ -55,11 +58,21 @@ def build_serve_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_devices(ndev: int) -> None:
-    if ndev > 1:
-        raise SystemExit(f"--devices {ndev}: serving across cards waits for the port's "
-                         "multi-device serving slice (tensor parallel, sharded serving); "
-                         "use 0 or 1")
+def resolve_devices(ndev_flag: int, batch: int, local: list) -> list:
+    """--devices -> the devices to serve on, from this process's ``local``
+    devices (diffusesg_tpu/cli/serve.py:53-70, the same rule and messages):
+    0 = auto (all local devices when the batch divides evenly), 1 = one
+    device, N = the first N."""
+    n_local = len(local)
+    if ndev_flag == 0:
+        ndev = n_local if (n_local > 1 and batch % n_local == 0) else 1
+    else:
+        ndev = ndev_flag
+        if ndev > n_local:
+            raise SystemExit(f"--devices {ndev} but only {n_local} local devices")
+        if batch % ndev:
+            raise SystemExit(f"--batch_size {batch} must be divisible by --devices {ndev}")
+    return list(local[:ndev])
 
 
 def ema_index(betas, ema: str | None) -> int:
@@ -76,20 +89,23 @@ def _load_from_checkpoint(args, build_fns: bool = True):
     """Load the weights and build the serving functions on ``args.device``.
 
     Returns (serve_fn, complete_fn, batch, max_node_num, config,
-    (num_node_types, num_edge_types), (model, sampler)); the functions are
-    the numpy contract of ``serving.export.fixed_batch``, None under
+    (num_node_types, num_edge_types), (model, sampler, devices, spmd_mode));
+    the functions are the numpy contract of ``serving.export.fixed_batch``
+    (over ``devices`` when there are several), None under
     ``build_fns=False`` (the --export_to path)."""
     from ..config import load_config
     from ..models import make_model
     from ..models.channels import resolve_sampling_channels
+    from ..parallel.mesh import resolve_spmd_mode
     from ..sampling import get_mc_sampler
-    from ..serving.export import fixed_batch, make_completion_fn, make_serving_fn
+    from ..serving.export import (fixed_batch, fixed_sharded_batch, local_devices,
+                                  make_completion_fn, make_serving_fn,
+                                  make_sharded_completion_fn, make_sharded_serving_fn)
     from ..utils.checkpoint import latest_checkpoint, load_weights, read_checkpoint
     from ..utils.device import resolve_device
     from .common import find_eval_config
 
     device = resolve_device(args.device)  # fails here when the card is absent
-    _check_devices(args.devices)
     config_file = args.config_file or find_eval_config(args.model_path)
     overrides = {}
     if args.num_steps is not None:
@@ -117,14 +133,26 @@ def _load_from_checkpoint(args, build_fns: bool = True):
     sampler = get_mc_sampler(config)
     batch = int(args.batch_size or config.test.batch_size or config.train.batch_size)
     n = int(config.dataset.max_node_num)
+    local = [device] if device.index is not None else local_devices(device)
+    devices = resolve_devices(args.devices, batch, local)
+    spmd_mode = resolve_spmd_mode(config, len(devices))
+    if devices[0] != device:
+        model = model.to(devices[0])
     serve_fn = complete_fn = None
-    if build_fns:
-        serve_fn = fixed_batch(make_serving_fn(model, sampler, config), batch, n, device)
-        complete_fn = fixed_batch(make_completion_fn(model, sampler, config), batch, n, device)
+    if build_fns and len(devices) > 1:
+        logging.info("serving on %d devices (spmd_mode=%s)", len(devices), spmd_mode)
+        serve_fn = fixed_sharded_batch(
+            make_sharded_serving_fn(model, sampler, config, devices, spmd_mode), batch, n)
+        complete_fn = fixed_sharded_batch(
+            make_sharded_completion_fn(model, sampler, config, devices, spmd_mode), batch, n)
+    elif build_fns:
+        serve_fn = fixed_batch(make_serving_fn(model, sampler, config), batch, n, devices[0])
+        complete_fn = fixed_batch(make_completion_fn(model, sampler, config), batch, n,
+                                  devices[0])
     info = resolve_sampling_channels(config)
     bounds = (int(info["raw_num_node_type"]),
               int(info["raw_num_adj_type"] if not info["flag_binary_edge"] else 2))
-    return serve_fn, complete_fn, batch, n, config, bounds, (model, sampler)
+    return serve_fn, complete_fn, batch, n, config, bounds, (model, sampler, devices, spmd_mode)
 
 
 def main(argv=None):
@@ -139,23 +167,29 @@ def main(argv=None):
     bounds = (None, None)
     if args.from_artifact:
         from ..serving.export import load_artifact
-        _check_devices(args.devices)
         fn, meta = load_artifact(args.from_artifact, device=args.device)
         batch, max_n = int(meta["batch_size"]), int(meta["max_node_num"])
+        if args.devices not in (0, int(meta.get("num_devices", 1))):
+            logging.warning("--devices %d ignored: the artifact is served over %d device(s); "
+                            "re-export with a matching --devices to change it", args.devices,
+                            int(meta.get("num_devices", 1)))
         logging.info("loaded artifact %s (%s)", args.from_artifact, meta)
     else:
         if not args.model_path:
             raise SystemExit("need -p/--model_path or --from_artifact")
-        fn, complete_fn, batch, max_n, config, bounds, (model, sampler) = \
+        fn, complete_fn, batch, max_n, config, bounds, (model, sampler, devices, spmd_mode) = \
             _load_from_checkpoint(args, build_fns=not args.export_to)
 
     if args.export_to:
         if config is None:
             raise SystemExit("--export_to needs a checkpoint, not an artifact")
         from ..serving.export import export_sampler, save_artifact
-        save_artifact(args.export_to, export_sampler(model, sampler, config, batch), config,
-                      batch)
-        logging.info("exported sampler artifact to %s", args.export_to)
+        # an artifact over several devices only on an explicit --devices N > 1:
+        # it refuses to load on fewer, so auto must keep the portable default
+        ndev = len(devices) if args.devices > 1 else 1
+        save_artifact(args.export_to, export_sampler(model, sampler, config, batch, ndev,
+                                                     spmd_mode), config, batch)
+        logging.info("exported sampler artifact to %s (%d device(s))", args.export_to, ndev)
         return
 
     if args.data_root is not None and config is not None:

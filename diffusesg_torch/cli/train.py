@@ -47,11 +47,12 @@ def _train(args, device):
     from ..train import (create_train_state, go_training, make_optimizer,
                          train_step_config_from)
     from ..utils.checkpoint import latest_checkpoint, restore_checkpoint
-    from ..utils.logging_utils import ScalarWriter, set_seed_and_logger
+    from ..utils.logging_utils import ScalarWriter, backup_code, set_seed_and_logger
     from .common import config_from_args
 
     config = config_from_args(args, "train")
     set_seed_and_logger(config, mode="train", comment=args.comment, log_level=args.log_level)
+    backup_code(config.logdir)
 
     bundle = load_data(config, eval_mode=False, data_root=args.data_root)
     model = build_model(config, device=device, seed=config.seed).train()

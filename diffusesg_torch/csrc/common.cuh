@@ -12,12 +12,43 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 
 namespace dsg {
 
 using bf16 = __nv_bfloat16;
 
 constexpr float kLnEps = 1e-6f;  // every LayerNorm of the model (flax default)
+
+// A set-up step kept once per device.  A kernel's opt-in to more than 48 KB
+// of dynamic shared memory (cudaFuncSetAttribute) and an occupancy query
+// hold for the calling thread's current device only, so a process that
+// drives several cards runs each once on each card.  `once(f)` runs
+// f(value) the first time it is called on a device and returns its result
+// (and the int it left in `value`) every time after.
+struct PerDevice {
+  static constexpr int kMaxDevices = 64;
+  std::mutex mu;
+  bool done[kMaxDevices] = {};
+  cudaError_t err[kMaxDevices] = {};
+  int value[kMaxDevices] = {};
+
+  template <class F>
+  cudaError_t once(F&& f, int* out = nullptr) {
+    int dev = 0;
+    const cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(mu);
+    if (!done[dev]) {
+      err[dev] = f(value[dev]);
+      done[dev] = true;
+    }
+    if (out) *out = value[dev];
+    return err[dev];
+  }
+};
 
 __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
 

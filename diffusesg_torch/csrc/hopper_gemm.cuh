@@ -853,12 +853,14 @@ inline bool make_map(CUtensorMap* map, const void* p, int inner, int rows, int b
 }
 
 // the kernel of one site, its shared memory allowed up to kMaxDynSmem once
+// on each device
 template <class T, class Site, class Pro, class Epi>
 cudaError_t kernel_ready() {
-  static const cudaError_t err =
-      cudaFuncSetAttribute(hgemm_kernel<T, Site, Pro, Epi>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
-  return err;
+  static PerDevice ready;
+  return ready.once([](int&) {
+    return cudaFuncSetAttribute(hgemm_kernel<T, Site, Pro, Epi>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+  });
 }
 
 // The tile of a site for the wrapper's plan: {BM, BN, blocks an SM holds at

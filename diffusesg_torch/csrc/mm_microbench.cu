@@ -424,12 +424,12 @@ inline bool make_map_s8(CUtensorMap* map, const void* p, int inner, int rows, in
          CUDA_SUCCESS;
 }
 
-// the kernel of one tile, its shared memory allowed once, and the blocks an
-// SM holds
+// the kernel of one tile, its shared memory allowed once on each device, and
+// the blocks an SM of that device holds
 template <class C>
 cudaError_t occupancy(int* per_sm) {
-  static int n = 0;
-  static const cudaError_t err = [] {
+  static PerDevice ready;
+  return ready.once([](int& n) {
     cudaError_t e = cudaFuncSetAttribute(mm_accumulate_wgmma<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)C::smem_bytes());
@@ -437,9 +437,7 @@ cudaError_t occupancy(int* per_sm) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, mm_accumulate_wgmma<C>, C::kThreads,
                                                         C::smem_bytes());
     return e;
-  }();
-  *per_sm = n;
-  return err;
+  }, per_sm);
 }
 
 template <class C>

@@ -175,9 +175,11 @@ readout_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 }
 
 cudaError_t readout_ready() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      readout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-  return err;
+  static PerDevice ready;
+  return ready.once([](int&) {
+    return cudaFuncSetAttribute(readout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kSmemBytes);
+  });
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }

@@ -262,10 +262,12 @@ window_attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ da
 
 template <int L>
 cudaError_t window_attn_bwd_opt_in() {
-  static const cudaError_t err =
-      cudaFuncSetAttribute(window_attn_bwd_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           BwdGeom<L>::kSmemBytes);
-  return err;
+  static PerDevice ready;
+  return ready.once([](int&) {
+    return cudaFuncSetAttribute(window_attn_bwd_kernel<L>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                BwdGeom<L>::kSmemBytes);
+  });
 }
 
 // Blocks of the backward core an SM holds at window length L (the card's

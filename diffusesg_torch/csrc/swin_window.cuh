@@ -355,13 +355,15 @@ window_attn_kernel(Lay lay, const float* __restrict__ rel_bias, const float* __r
 }
 
 // Opt the forward core into its dynamic shared memory, which passes the
-// 48 KB static limit (once; the result is kept).
+// 48 KB static limit (once on each device; the result is kept).
 template <int L, class Lay>
 cudaError_t window_attn_opt_in() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      window_attn_kernel<L, Lay>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      FwdGeom<L>::kSmemBytes);
-  return err;
+  static PerDevice ready;
+  return ready.once([](int&) {
+    return cudaFuncSetAttribute(window_attn_kernel<L, Lay>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                FwdGeom<L>::kSmemBytes);
+  });
 }
 
 // Blocks of the forward core an SM holds, as the card reports it for the

@@ -289,12 +289,15 @@ mlp_close_kernel(const float* __restrict__ part, int splits, const float* __rest
   store8(out + e, xv);
 }
 
-// Opt the kernel into its dynamic shared memory (once; the result is kept).
+// Opt the kernel into its dynamic shared memory (once on each device; the
+// result is kept).
 template <class T>
 cudaError_t token_mlp_opt_in() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      token_mlp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
-  return err;
+  static PerDevice ready;
+  return ready.once([](int&) {
+    return cudaFuncSetAttribute(token_mlp_kernel<T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  });
 }
 
 // geom = {BM, BH, blocks an SM holds as the card reports it for the kernel's

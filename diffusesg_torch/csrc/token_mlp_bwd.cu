@@ -360,10 +360,12 @@ mlp_bwd_kernel(const __grid_constant__ MlpBwdMaps maps, const bf16* __restrict__
 
 template <class T>
 cudaError_t fused_ready() {
-  static const cudaError_t err =
-      cudaFuncSetAttribute(mlp_bwd_kernel<T, MlpBwdFused>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmemBytes);
-  return err;
+  static PerDevice ready;
+  return ready.once([](int&) {
+    return cudaFuncSetAttribute(mlp_bwd_kernel<T, MlpBwdFused>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)T::kSmemBytes);
+  });
 }
 
 template <class T>

@@ -5,13 +5,15 @@ DistributedSampler): data already lives in dense numpy arrays, so batching
 is pure indexing; with several processes each iterates its own strided
 shard, and ``shard_for_process`` gives each its strided shard of the eval
 set; ``split_eval_set`` picks the sampling orchestrator's eval set.  The
-C++ batch assembler of the JAX package (data/native) is not ported.
+row gather runs in the C++ batch assembler of ``data/native`` where the
+host has a CPU to spare for it (the JAX package's rule), in numpy otherwise.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import itertools
+import os
 from typing import Iterator
 
 import numpy as np
@@ -36,6 +38,12 @@ class Batches:
     repeat_to_batch: bool = True
     process_index: int = 0
     process_count: int = 1
+    # gather the rows in the C++ engine of data/native (bit-equal batches,
+    # assembled by threads off the interpreter lock a few batches ahead).
+    # None = auto: on when more than one CPU is available to this process
+    # (on one CPU its thread only takes the consumer's cycles); numpy when
+    # the library does not build or DSG_NATIVE_LOADER=0 (JAX loader.py:37-45)
+    native: bool | None = None
 
     def __post_init__(self):
         self._epoch = 0
@@ -63,9 +71,28 @@ class Batches:
             return np.tile(idx, bs // n)
         return idx
 
+    def _use_native(self) -> bool:
+        use = self.native
+        if use is None:
+            try:
+                use = len(os.sched_getaffinity(0)) > 1
+            except AttributeError:  # no affinity outside Linux
+                use = (os.cpu_count() or 1) > 1
+        if not use:
+            return False
+        from .native import get_lib
+        return get_lib() is not None
+
     def __iter__(self) -> Iterator[tuple]:
         idx = self._filled(self._host_indices())
         bs = self.batch_size
+        if self._use_native():
+            from .native import iter_batches_native
+            if self.drop_remainder:
+                idx = idx[:len(idx) // bs * bs]
+            yield from iter_batches_native([self.data.adjs, self.data.nodes,
+                                            self.data.node_flags, self.data.image_ids], idx, bs)
+            return
         for start in range(0, len(idx), bs):
             sel = idx[start:start + bs]
             if self.drop_remainder and len(sel) < bs:

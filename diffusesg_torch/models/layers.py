@@ -141,7 +141,10 @@ class WindowAttention(nn.Module):
 class SwinBlock(nn.Module):
     """One Swin block with noise conditioning (reference:
     diffusesg.py:158-277): attention half then MLP half, as ONE call of
-    ``ops.swin_block_v3.fused_swin_block`` (or of ``swin_block_plain``)."""
+    ``ops.swin_block_v3.fused_swin_block`` (or of ``swin_block_plain``).
+    Under tensor parallelism (``parallel.tp.shard_model`` sets ``tp``) its
+    parameters are this rank's shards and it runs ``swin_block_plain`` over
+    them, between the model group's collectives."""
 
     def __init__(self, dim: int, input_resolution, num_heads: int, window_size: int,
                  shift_size: int, mlp_ratio: float = 4.0, dtype=torch.float32,
@@ -163,6 +166,7 @@ class SwinBlock(nn.Module):
         mask = (torch.from_numpy(shifted_window_attn_mask(h, w, window, shift))
                 if shift > 0 else None)
         self.register_buffer("attn_mask", mask, persistent=False)
+        self.tp = None  # parallel.tp.BlockSplit under tensor parallelism
 
     def forward(self, x, emb):
         h, w = self.input_resolution
@@ -170,6 +174,15 @@ class SwinBlock(nn.Module):
         dt = self.dtype
         scale_shift = dense(emb, self.affine, dt)
         a, m = self.attn, self.mlp
+        if self.tp is not None:
+            t = self.tp
+            out = swin_block_plain(
+                x.reshape(b, h, w, c).to(dt), scale_shift, self.norm1.weight, self.norm1.bias,
+                a.qkv.weight.to(dt), a.qkv.bias, a.proj.weight.to(dt), t.attn_bias(a.proj.bias),
+                t.heads_of(a.rel_bias()), self.attn_mask, self.norm2.weight, self.norm2.bias,
+                m.fc1.weight.to(dt), m.fc1.bias, m.fc2.weight.to(dt), t.mlp_bias(m.fc2.bias),
+                t.heads, self.window, self.shift, attn_tp=t.attn, mlp_tp=t.mlp)
+            return out.reshape(b, L, c)
         block = fused_swin_block if self.use_kernels else swin_block_plain
         out = block(
             x.reshape(b, h, w, c).to(dt), scale_shift, self.norm1.weight, self.norm1.bias,

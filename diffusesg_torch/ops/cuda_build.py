@@ -8,7 +8,10 @@ package, keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once.
 
 ``LAUNCHES`` counts kernel launches per kernel name and shape; each wrapper
-adds one where it launches its kernel and nowhere else.
+adds one where it launches its kernel and nowhere else.  Every launch goes
+through ``launch``, which makes the operands' card current: the library
+launches on the calling thread's current device and opts each kernel in to
+its shared memory once on each device.
 
 Helpers of the wrappers live here too: ``split_count`` plans the grids of
 the backward kernels' reductions and ``token_split`` the token split of
@@ -279,6 +282,17 @@ def ptr(t: torch.Tensor | None):
 
 def stream_ptr(device: torch.device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, device: torch.device, entry: str, *args) -> None:
+    """Call the library's ``entry`` with ``args`` and ``device``'s current
+    stream, with ``device`` the current one: the library launches on the
+    calling thread's current device and opts each kernel in to its shared
+    memory once on each device, so the operands' card must be current.
+    Raises when the launch fails (``name`` the kernel's)."""
+    with torch.cuda.device(device):
+        rc = getattr(lib(), entry)(*args, stream_ptr(device))
+    check(rc, name)
 
 
 def check(rc: int, name: str) -> None:

@@ -61,12 +61,20 @@ def gelu_erf_grad(u):
             + u * torch.exp(-0.5 * u * u) / math.sqrt(2.0 * math.pi))
 
 
-def mlp_block_plain(x, ln_gamma, ln_beta, w1, b1, w2, b2):
-    """x [..., C] -> same shape (reference: mlp_block_xla, exact erf GELU)."""
+def mlp_block_plain(x, ln_gamma, ln_beta, w1, b1, w2, b2, tp=None):
+    """x [..., C] -> same shape (reference: mlp_block_xla, exact erf GELU).
+    ``tp`` (a ``parallel.tp.ModelGroup``) runs this rank's hidden columns of
+    an MLP split over a model group (``w1`` / ``b1`` their rows, ``w2``
+    their columns, ``b2`` None but on model rank 0), between Megatron's f
+    and g."""
     h = layer_norm(x, ln_gamma, ln_beta).to(x.dtype)
+    if tp is not None:
+        h = tp.enter(h)
     h = F.linear(up(h), up(w1), up(b1))
     h = F.gelu(h).to(x.dtype)
-    out = F.linear(up(h), up(w2), up(b2))
+    out = F.linear(up(h), up(w2), None if b2 is None else up(b2))
+    if tp is not None:
+        out = tp.leave(out)
     return x + out.to(x.dtype)
 
 
@@ -156,10 +164,9 @@ def token_mlp_fwd(x, ln_gamma, ln_beta, w1, b1, w2, b2):
         part = torch.empty((plan["splits"], m, c), dtype=torch.float32, device=x.device)
     out = torch.empty_like(xf)
     p = cuda_build.ptr
-    rc = cuda_build.lib().dsg_token_mlp(
-        p(xf), p(g), p(bt), p(w1), p(b1), p(w2), p(b2), p(part), p(out), m, c, hidden,
-        plan["splits"], plan["chunks"], cuda_build.stream_ptr(x.device))
-    cuda_build.check(rc, NAME)
+    cuda_build.launch(NAME, x.device, "dsg_token_mlp",
+                      p(xf), p(g), p(bt), p(w1), p(b1), p(w2), p(b2), p(part), p(out), m, c,
+                      hidden, plan["splits"], plan["chunks"])
     cuda_build.count_launch(NAME, f"C{c}")
     return out.reshape(x.shape)
 
@@ -257,13 +264,13 @@ def token_mlp_bwd(x, dout, ln_gamma, ln_beta, w1, b1, w2):
     dw = buf(2, c * hidden)
     vecs = buf(hidden + 3 * c)  # db1 | dgamma | dbeta | db2
     p = cuda_build.ptr
-    rc = cuda_build.lib().dsg_token_mlp_bwd(
+    cuda_build.launch(
+        NAME_BWD, dev, "dsg_token_mlp_bwd",
         p(xf), p(do), p(g), p(bt), p(w1), p(b1), p(w2),
         p(hn), p(mid), p(gp), p(du), p(dhn), p(part_w), p(part_vec), p(part_b1), p(part_b2),
         p(part_ln), p(dx), p(dw), p(vecs),
         m, c, hidden, plan["fused"], plan["wide"], plan["fc1"], plan["dm"], plan["dhn"], plan["w"],
-        plan["kchunk"], plan["b1"], plan["b2"], plan["ln"], cuda_build.stream_ptr(dev))
-    cuda_build.check(rc, NAME_BWD)
+        plan["kchunk"], plan["b1"], plan["b2"], plan["ln"])
     cuda_build.count_launch(NAME_BWD, f"C{c}")
     db1, dgamma, dbeta, db2 = vecs.split([hidden, c, c, c])
     return (dx.reshape(x.shape), dgamma, dbeta, dw[0].view(hidden, c).to(bf), db1,

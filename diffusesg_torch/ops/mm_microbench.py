@@ -84,8 +84,7 @@ def mm_accumulate(a, b, repeats: int = 64):
     out = torch.empty((m, n), dtype=torch.int32 if is_int8 else torch.float32, device=a.device)
     _, copies = grid_plan(m, n, cuda_build.sm_count(a.device))
     p = cuda_build.ptr
-    rc = cuda_build.lib().dsg_mm_accumulate(p(a), p(b), p(out), m, n, k, copies, repeats,
-                                            int(is_int8), cuda_build.stream_ptr(a.device))
-    cuda_build.check(rc, NAME)
+    cuda_build.launch(NAME, a.device, "dsg_mm_accumulate", p(a), p(b), p(out), m, n, k, copies,
+                      repeats, int(is_int8))
     cuda_build.count_launch(NAME, f"{m}x{k}x{n} {'int8' if is_int8 else 'bf16'}")
     return out

@@ -71,10 +71,8 @@ def patch_merge_fwd(x, ln_g, ln_b, w):
     out = torch.empty((b, h // 2, ww // 2, c_out), dtype=torch.bfloat16, device=x.device)
     plan = merge_plan(b * (h // 2) * (ww // 2), c, c_out, cuda_build.sm_count(x.device))
     p = cuda_build.ptr
-    rc = cuda_build.lib().dsg_patch_merge(p(x), p(g), p(bt), p(w), p(out), b, h, ww, c, c_out,
-                                          plan["wide"], plan["tiles"],
-                                          cuda_build.stream_ptr(x.device))
-    cuda_build.check(rc, "patch_merge")
+    cuda_build.launch("patch_merge", x.device, "dsg_patch_merge", p(x), p(g), p(bt), p(w),
+                      p(out), b, h, ww, c, c_out, plan["wide"], plan["tiles"])
     cuda_build.count_launch("patch_merge", f"{h}x{ww}xC{c}")
     return out
 
@@ -150,11 +148,10 @@ def patch_breakup_fwd(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
     scattered = torch.empty((4 * m, c), dtype=bf, device=x.device)
     out = torch.empty((b, 2 * h, 2 * ww, c), dtype=bf, device=x.device)
     p = cuda_build.ptr
-    rc = cuda_build.lib().dsg_patch_breakup(
+    cuda_build.launch(
+        "patch_breakup", x.device, "dsg_patch_breakup",
         p(x), p(skip), c1, c2, p(w_in), p(g1), p(b1), p(g2), p(b2), p(w_out), p(y),
-        p(scattered), p(out), b, h, ww, dim, plan_in["tiles"], plan_out["tiles"],
-        cuda_build.stream_ptr(x.device))
-    cuda_build.check(rc, "patch_breakup")
+        p(scattered), p(out), b, h, ww, dim, plan_in["tiles"], plan_out["tiles"])
     cuda_build.count_launch("patch_breakup", f"{h}x{ww}xC{c1 + c2}->{c}")
     return out
 

@@ -62,10 +62,8 @@ def readout_mlp_fwd(x, w1, b1, w2, b2):
     out = torch.empty((m, n_out), dtype=torch.float32, device=x.device)
     blocks = readout_plan(m, readout_tile(), cuda_build.sm_count(x.device))
     p = cuda_build.ptr
-    rc = cuda_build.lib().dsg_readout(
-        p(x), p(w1), p(b1), p(w2), p(b2), p(out), m, c, hidden, n_out, blocks,
-        cuda_build.stream_ptr(x.device))
-    cuda_build.check(rc, NAME)
+    cuda_build.launch(NAME, x.device, "dsg_readout",
+                      p(x), p(w1), p(b1), p(w2), p(b2), p(out), m, c, hidden, n_out, blocks)
     cuda_build.count_launch(NAME, f"C{c}->{n_out}")
     return out
 

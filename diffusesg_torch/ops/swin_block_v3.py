@@ -102,10 +102,17 @@ def _scores(q, k, rel_bias, mask):
 
 
 def swin_attn_block_plain(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj,
-                          rel_bias, mask, num_heads: int, window: int, shift: int = 0):
+                          rel_bias, mask, num_heads: int, window: int, shift: int = 0,
+                          tp=None):
     """Attention half, x [B, H, W, C] (unrolled), scale_shift [B, 2C],
     rel_bias [nH, L, L], mask [nW, L, L] or None (reference:
-    swin_attn_block_xla, with the roll of layers.SwinBlock around it)."""
+    swin_attn_block_xla, with the roll of layers.SwinBlock around it).
+
+    ``tp`` (a ``parallel.tp.ModelGroup``) runs this rank's heads of a block
+    split over a model group: ``wqkv`` / ``bqkv`` their q, k and v rows,
+    ``wproj`` their columns, ``rel_bias`` their tables, ``bproj`` None but on
+    model rank 0; the LayerNorm's output enters the group (Megatron's f) and
+    the projection's partial sums leave it (g)."""
     if shift > 0:
         x = torch.roll(x, (-shift, -shift), dims=(1, 2))
     b, h, w, c = x.shape
@@ -113,12 +120,18 @@ def swin_attn_block_plain(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, 
     scale, sh = up(scale_shift)[:, None, None, :].chunk(2, dim=-1)
     a = F.silu(sh + up(x) * (scale + 1.0)).to(dt)
     hn = layer_norm(a, ln_gamma, ln_beta).to(dt)
+    if tp is not None:
+        hn = tp.enter(hn)
 
     qkv = F.linear(up(_to_windows(hn, window)), up(wqkv), up(bqkv)).to(dt)
     q, k, v = (_heads(up(t), num_heads) for t in qkv.chunk(3, dim=-1))
     probs = torch.softmax(_scores(q, k, rel_bias, mask), dim=-1).to(dt)
-    out = (up(probs) @ v).to(dt).transpose(1, 2).reshape(-1, window * window, c)
-    out = _from_windows(F.linear(up(out), up(wproj), up(bproj)), b, h, w, window)
+    out = (up(probs) @ v).to(dt).transpose(1, 2).reshape(-1, window * window,
+                                                         q.shape[1] * q.shape[3])
+    out = F.linear(up(out), up(wproj), None if bproj is None else up(bproj))
+    if tp is not None:
+        out = tp.leave(out)
+    out = _from_windows(out, b, h, w, window)
     y = (up(a) + out).to(dt)
     if shift > 0:
         y = torch.roll(y, (shift, shift), dims=(1, 2))
@@ -278,11 +291,11 @@ def swin_attn_fwd(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, r
     wpb = window_core_plan(b * n_win, num_heads, n_win if mask is not None else 1, per_sm, sms)
     plan = attn_gemm_plan(m, c, sms)
     p = cuda_build.ptr
-    rc = cuda_build.lib().dsg_swin_attn(
+    cuda_build.launch(
+        NAME, x.device, "dsg_swin_attn",
         p(x), p(ss), p(g), p(bt), p(wqkv), p(bqkv), p(wproj), p(bproj), p(rel), p(mask),
         p(qkv), p(attn), p(out), b, h, w, c, num_heads, window, shift, wpb, plan["wide"],
-        plan["qkv"], plan["proj"], cuda_build.stream_ptr(x.device))
-    cuda_build.check(rc, NAME)
+        plan["qkv"], plan["proj"])
     cuda_build.count_launch(NAME, _shape_key(h, w, c, shift))
     return out
 
@@ -373,15 +386,14 @@ def _swin_attn_bwd_kernel(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wpr
     dw, dbqkv, dbproj = buf(4 * c * c), buf(3 * c), buf(c)  # dw: dWqkv then dWproj
     drel = buf(num_heads, L, L)
     p = cuda_build.ptr
-    rc = cuda_build.lib().dsg_swin_attn_bwd(
+    cuda_build.launch(
+        NAME_BWD, dev, "dsg_swin_attn_bwd",
         p(x), p(ss), p(dy), p(g), p(bt), p(wqkv), p(bqkv), p(wproj), p(rel), p(mask),
         p(hn), p(qkv), p(dattn), p(attn), p(dqkv), p(dhn), p(part_w), p(part_bqkv),
         p(part_bproj), p(part_rel), p(part_rows),
         p(dx), p(dss), p(dgb), p(dw), p(dbqkv), p(dbproj), p(drel),
         b, h, w, c, num_heads, window, shift, gp["wide"], gp["qkv"], gp["dattn"], gp["dhn"],
-        gp["w"], gp["kchunk"], sp["bqkv"], sp["bproj"], wpb, sp["rows"],
-        cuda_build.stream_ptr(dev))
-    cuda_build.check(rc, NAME_BWD)
+        gp["w"], gp["kchunk"], sp["bqkv"], sp["bproj"], wpb, sp["rows"])
     cuda_build.count_launch(NAME_BWD, _shape_key(h, w, c, shift))
     dwqkv, dwproj = dw[:3 * c * c].view(3 * c, c), dw[3 * c * c:].view(c, c)
     grads = dx, dss.to(bf), dgb[0], dgb[1], dwqkv.to(bf), dbqkv, dwproj.to(bf), dbproj, drel
@@ -418,13 +430,15 @@ def swin_attn(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, rel_b
 
 def swin_block_plain(x, scale_shift, ln1_g, ln1_b, wqkv, bqkv, wproj, bproj, rel_bias, mask,
                      ln2_g, ln2_b, w1, b1, w2, b2, num_heads: int, window: int,
-                     shift: int = 0):
+                     shift: int = 0, attn_tp=None, mlp_tp=None):
     """Whole block, plain: ``swin_attn_block_plain`` then ``mlp_block_plain``
     (reference: swin_attn_block_xla and mlp_block_xla, the model's path with
-    its kernels switched off); differentiated by autograd."""
+    its kernels switched off); differentiated by autograd.  ``attn_tp`` /
+    ``mlp_tp``: the model group each half is split over (tensor parallel,
+    parallel/tp.py), None for a half that is not."""
     y = swin_attn_block_plain(x, scale_shift, ln1_g, ln1_b, wqkv, bqkv, wproj, bproj, rel_bias,
-                              mask, num_heads, window, shift)
-    return mlp_block_plain(y, ln2_g, ln2_b, w1, b1, w2, b2)
+                              mask, num_heads, window, shift, tp=attn_tp)
+    return mlp_block_plain(y, ln2_g, ln2_b, w1, b1, w2, b2, tp=mlp_tp)
 
 
 def fused_swin_block(x, scale_shift, ln1_g, ln1_b, wqkv, bqkv, wproj, bproj, rel_bias, mask,

@@ -60,10 +60,9 @@ def window_attention_fwd(q, k, v, rel_bias, mask=None, scale: float = 1.0):
     per_sm = cuda_build.blocks_per_sm("dsg_window_attention_per_sm", L)
     wpb = window_core_plan(nwb, nh, mask_n, per_sm, cuda_build.sm_count(q.device))
     p = cuda_build.ptr
-    rc = cuda_build.lib().dsg_window_attention(
-        p(q), p(k), p(v), p(rel), p(mask), p(out), nwb, nh, L, hd, mask_n, wpb, float(scale),
-        cuda_build.stream_ptr(q.device))
-    cuda_build.check(rc, NAME)
+    cuda_build.launch(NAME, q.device, "dsg_window_attention",
+                      p(q), p(k), p(v), p(rel), p(mask), p(out), nwb, nh, L, hd, mask_n, wpb,
+                      float(scale))
     cuda_build.count_launch(NAME, f"{nwb}x{nh}xL{L}" + (" mask" if mask is not None else ""))
     return out
 

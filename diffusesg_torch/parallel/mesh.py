@@ -2,20 +2,28 @@
 
 Counterpart of diffusesg_tpu/parallel/mesh.py, one card per process:
   * the 1-D data mesh          -> ``World``: rank, size, device, group
+  * ``make_mesh_2d`` (tp.py)   -> ``make_grid``: the (data, model) process grid,
+                                  a ``World`` of the data group with its model
+                                  group (parallel/tp.py)
   * ``resolve_spmd_mode``      -> the same choice of ``shard_map`` or ``gspmd``
   * ``per_host_batch_size``    -> the same formula, the world size for the
                                   process count
   * ``gather_to_host``         -> an ``all_gather`` joined in rank order
   * ``sync_hosts``, ``is_main_process``
 
-The JAX package's ZeRO layout (``zero1_sharding``, the largest divisible
-axis of every leaf) has no counterpart: the port's ZeRO-1 is
+The JAX package's GSPMD layout helpers have no counterpart under one
+process per card: ``make_mesh`` is the process group itself, ``replicated``
+/ ``replicate_tree`` are each rank's own copy of the model,
+``batch_sharding`` / ``shard_batch`` are each rank's rows of the batch
+(``data/loader.Batches`` with ``process_index``), and ``zero1_sharding`` /
+``largest_divisible_axis`` (the largest divisible axis of every leaf) are
 ``ZeroRedundancyOptimizer``, which assigns whole parameters to ranks
 (parallel/sharded_step.py).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -26,12 +34,17 @@ from .distributed import barrier
 
 @dataclasses.dataclass(frozen=True)
 class World:
-    """The data-parallel world of this process (the default process group):
-    ``size`` processes, one card (or the CPU) each, ``rank`` this one's place
-    in it, ``device`` where its collectives run."""
+    """The data-parallel world of this process: ``size`` processes, one card
+    (or the CPU) each, ``rank`` this one's place in it, ``device`` where its
+    collectives run, ``group`` their process group (None: the default one).
+    On a (data, model) grid (``make_grid``) it is the data group, and
+    ``model`` the process's model group (parallel/tp.py ``ModelGroup``); a
+    plain data-parallel world is the grid (world, 1), with no model group."""
     rank: int
     size: int
     device: torch.device
+    group: Any = None
+    model: Any = None
 
 
 def current_world() -> World | None:
@@ -42,6 +55,25 @@ def current_world() -> World | None:
     device = (torch.device("cuda", torch.cuda.current_device())
               if dist.get_backend() == "nccl" else torch.device("cpu"))
     return World(rank=dist.get_rank(), size=dist.get_world_size(), device=device)
+
+
+def make_grid(dp: int, tp: int) -> World:
+    """This process's place in a (data ``dp``, model ``tp``) grid over the
+    process group (the counterpart of ``make_mesh_2d``, tp.py:52-60): the
+    model axis innermost, so consecutive ranks share a model group and the
+    data groups are strided by ``tp``.  COLLECTIVE: every rank creates every
+    group, in the same order (``dist.new_group``)."""
+    from .tp import ModelGroup
+    world = current_world()
+    size = 1 if world is None else world.size
+    if world is None or dp * tp != size:
+        raise ValueError(f"a {dp}x{tp} grid needs {dp * tp} processes in a process group, "
+                         f"have {size if world is not None else 'none'}")
+    data_groups = [dist.new_group([d * tp + m for d in range(dp)]) for m in range(tp)]
+    model_groups = [dist.new_group([d * tp + m for m in range(tp)]) for d in range(dp)]
+    d, m = divmod(world.rank, tp)
+    return World(rank=d, size=dp, device=world.device, group=data_groups[m],
+                 model=ModelGroup(rank=m, size=tp, group=model_groups[d]))
 
 
 def resolve_spmd_mode(config, world_size: int) -> str:
@@ -88,7 +120,7 @@ def gather_to_host(x, world: World | None = None) -> np.ndarray:
         return t.cpu().numpy()
     src = _wire(t.contiguous(), world)
     parts = [torch.empty_like(src) for _ in range(world.size)]
-    dist.all_gather(parts, src)
+    dist.all_gather(parts, src, group=world.group)
     out = torch.cat([p if t.ndim else p.reshape(1) for p in parts]).cpu()
     return out.to(torch.bool).numpy() if t.dtype == torch.bool else out.numpy()
 
@@ -116,7 +148,7 @@ def all_reduce_sum(x: torch.Tensor, world: World, mean: bool = False) -> torch.T
     """The sum (or mean) of ``x`` over the ranks, as a new tensor; ``x`` is
     read, not written, and no gradient passes."""
     out = x.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=world.group)
     return out.div_(world.size) if mean else out
 
 
@@ -143,7 +175,7 @@ def all_reduce_grads(params, world: World, mean: bool = True) -> None:
         last = i + 1 == len(params)
         if size >= BUCKET_BYTES or last or params[i + 1].grad.dtype != p.grad.dtype:
             flat = torch.cat([g.reshape(-1) for g in bucket])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=world.group)
             if mean:
                 flat.div_(world.size)
             torch._foreach_copy_(bucket, [v.view_as(g) for v, g in zip(
@@ -157,7 +189,7 @@ def any_rank(flag: bool, world: World | None = None) -> bool:
     if world is None:
         return bool(flag)
     t = _wire(torch.tensor([int(bool(flag))], dtype=torch.int32), world)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=world.group)
     return bool(t.item())
 
 

@@ -64,7 +64,7 @@ def shard_train_state(state: TrainState, world: World) -> TrainState:
     None.  COLLECTIVE."""
     group = state.opt.param_groups[0]
     zero = ZeroRedundancyOptimizer(
-        state.params(), optimizer_class=torch.optim.Adam,
+        state.params(), optimizer_class=torch.optim.Adam, process_group=world.group,
         lr=group["lr"], betas=group["betas"], eps=group["eps"],
         weight_decay=group["weight_decay"])
     if state.opt.state:
@@ -72,7 +72,7 @@ def shard_train_state(state: TrainState, world: World) -> TrainState:
     held = {id(p) for g in zero.optim.param_groups for p in g["params"]}
     mine = [i for i, p in enumerate(state.params()) if id(p) in held]
     per_rank = [None] * world.size
-    dist.all_gather_object(per_rank, mine)
+    dist.all_gather_object(per_rank, mine, group=world.group)
     owners = [0] * len(state.params())
     for rank, idxs in enumerate(per_rank):
         for i in idxs:
@@ -80,7 +80,8 @@ def shard_train_state(state: TrainState, world: World) -> TrainState:
     emas = [[e if owners[i] == world.rank else None for i, e in enumerate(ema)]
             for ema in state.ema_params]
     return TrainState(step=state.step, model=state.model, spec=state.spec, opt=zero,
-                      ema_params=emas, ema_betas=list(state.ema_betas), owners=owners)
+                      ema_params=emas, ema_betas=list(state.ema_betas), owners=owners,
+                      tp=state.tp)
 
 
 @torch.no_grad()
@@ -88,8 +89,9 @@ def gather_emas(state: TrainState, idxs, to: int | None = None) -> list[list[tor
     """EMA copies ``idxs`` whole, each a list aligned with the parameters,
     from the ranks that own their parts: one broadcast of a flat buffer per
     rank.  With ``to`` only that rank keeps the result (the others get
-    empty lists).  COLLECTIVE."""
-    world_size, rank = dist.get_world_size(), dist.get_rank()
+    empty lists).  Ranks are those of the ZeRO-1 group.  COLLECTIVE."""
+    group = state.opt.process_group
+    world_size, rank = dist.get_world_size(group), dist.get_rank(group)
     params = state.params()
     out = [[None] * len(params) for _ in idxs]
     for src in range(world_size):
@@ -101,7 +103,7 @@ def gather_emas(state: TrainState, idxs, to: int | None = None) -> list[list[tor
         else:
             n = len(idxs) * sum(params[i].numel() for i in owned)
             flat = torch.empty(n, dtype=params[owned[0]].dtype, device=params[owned[0]].device)
-        dist.broadcast(flat, src=src)
+        dist.broadcast(flat, src=dist.get_global_rank(group, src), group=group)
         if to is not None and rank != to:
             continue
         parts = iter(flat.split([params[i].numel() for _ in idxs for i in owned]))
@@ -111,12 +113,27 @@ def gather_emas(state: TrainState, idxs, to: int | None = None) -> list[list[tor
     return out if to is None or rank == to else [[] for _ in idxs]
 
 
-def make_sharded_train_step(model, cfg: TrainStepConfig, world: World):
+def make_sharded_train_step(model, cfg: TrainStepConfig, world: World, tp: bool = False):
     """(state, noise, adjs, nodes, flags) -> (state, metrics) on this rank's
     rows of the global batch, ``state`` from ``shard_train_state``: the
     loss of the global batch, the gradients summed over ``world``, clip,
     the ZeRO-1 Adam step, the owned EMAs.  The scalar metrics are those of
-    the global batch; the per-sample vectors stay local."""
+    the global batch; the per-sample vectors stay local.
+
+    ``tp`` (sharded_step.py:21-83, ``tp=True``): ``world`` is a grid's data
+    group (``mesh.make_grid``) and ``state`` from ``tp.shard_tp_state``;
+    the model runs split over the model group, the gradients are summed
+    over the data group and then, for the leaves each model rank computes
+    in part, over the model group, and the clip takes the global norm
+    (``tp.finish_grads``).  A data group of one is the single-device step's
+    loss and metrics."""
+    if tp:
+        from .tp import finish_grads
+        data = world if world.size > 1 else None
+        step = build_train_step(make_loss_fn(model, cfg, global_world=data), data,
+                                reduce="sum" if data is not None else "mean",
+                                finish_grads=finish_grads)
+        return lambda state, noise, *batch: step(state, GlobalRows(noise, world), *batch)
     step = build_train_step(make_loss_fn(model, cfg, global_world=world), world, reduce="sum")
 
     def sharded_step(state, noise, adjs, nodes, flags):

@@ -1,8 +1,8 @@
 """EDM stochastic Heun/Euler sampler for joint node + adjacency diffusion.
 
 Counterpart of diffusesg_tpu/sampling/edm_sampler.py (``sample`` with
-``init_*``, interim snapshots, inpainting and ``chunk_steps``;
-``sample_adj``, the adj-only path, is not ported).  The per-step
+``init_*``, interim snapshots, inpainting and ``chunk_steps``, and
+``sample_adj``, the adj-only path).  The per-step
 coefficients are computed host-side in float64 exactly as the JAX package
 does and handed to the loop as float32 values; the JAX
 ``lax.scan`` is a Python loop here and the ``lax.cond`` on ``is_heun`` a host
@@ -60,6 +60,16 @@ class TorchNoise:
 
     def bernoulli(self, step: int, kind: str, p: float) -> bool:
         return bool(torch.rand((), generator=self.host_gen) < p)
+
+
+def run_steps(steps):
+    """Run a generator of steps (``NodeAdjEDMSampler.sample_steps``) to its
+    end; what it returns."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            return done.value
 
 
 def _np_schedules(schedule: str):
@@ -221,7 +231,6 @@ class NodeAdjEDMSampler:
             init_nodes = init_nodes[..., 0]
         return init_adjs, init_nodes
 
-    @torch.no_grad()
     def sample(self, denoiser_fn: DenoiserFn, node_flags, num_node_chan: int,
                num_edge_chan: int, noise=None, seed: int = 0, init_adjs=None, init_nodes=None,
                num_interim: int = 0, inpaint: dict | None = None,
@@ -252,6 +261,19 @@ class NodeAdjEDMSampler:
         the entry is known).  After each step's churn the known entries are
         re-noised from the ground truth at sigma_hat; the output carries the
         exact known values."""
+        return run_steps(self.sample_steps(
+            denoiser_fn, node_flags, num_node_chan, num_edge_chan, noise=noise, seed=seed,
+            init_adjs=init_adjs, init_nodes=init_nodes, num_interim=num_interim,
+            inpaint=inpaint, chunk_steps=chunk_steps))
+
+    @torch.no_grad()
+    def sample_steps(self, denoiser_fn: DenoiserFn, node_flags, num_node_chan: int,
+                     num_edge_chan: int, noise=None, seed: int = 0, init_adjs=None,
+                     init_nodes=None, num_interim: int = 0, inpaint: dict | None = None,
+                     chunk_steps: int | None = None):
+        """``sample`` as a generator: it yields after each step and returns
+        what ``sample`` returns, so that one thread can advance several
+        samplings a step each in turn (``serving/export.py``'s shards)."""
         noise = noise if noise is not None else TorchNoise(seed, node_flags.device)
         num_interim = min(num_interim, self.num_steps)
         if init_adjs is None or init_nodes is None:
@@ -341,6 +363,7 @@ class NodeAdjEDMSampler:
                 interim_a[slot_of_step[i]], interim_x[slot_of_step[i]] = adjs, nodes
             if sync and ((i + 1) % chunk_steps == 0 or i + 1 == self.num_steps):
                 torch.cuda.synchronize(node_flags.device)  # the chunk's end
+            yield
         if has_inpaint:
             # the exact known values in the output (edm_sampler.py:352-355)
             adjs, nodes = self._apply_inpaint(noise, self.num_steps, node_flags, ip, adjs,
@@ -348,6 +371,45 @@ class NodeAdjEDMSampler:
         if num_interim > 0:
             return adjs, nodes, interim_a, interim_x
         return adjs, nodes
+
+    @staticmethod
+    def _adj_only_joint(denoiser_fn, node_flags):
+        """An adj-only denoiser in the joint signature: the nodes ride along
+        as an inert dummy modality (edm_sampler.py:503-508)."""
+        def joint_fn(adjs, nodes, sigmas, sc_a, sc_x):
+            return denoiser_fn(adjs, node_flags, sigmas, sc_a), torch.zeros_like(nodes)
+        return joint_fn
+
+    @torch.no_grad()
+    def sample_adj(self, denoiser_fn, node_flags, noise=None, seed: int = 0, init_adjs=None,
+                   num_interim: int = 0, chunk_steps: int | None = None):
+        """Adj-only sampling (edm_sampler.py:510-532; the reference's adj-only
+        EDMSampler.sample, edm.py:121-230): one [B, N, N] modality from a
+        symmetric folded-normal init, the joint path's churn, Heun and
+        self-conditioning.  ``denoiser_fn``: (adjs, node_flags, sigmas[B],
+        self_cond) -> D_adj, the adj-only preconditioned model
+        (``models.precond.precond_forward_adj``).  Returns adjs, or (adjs,
+        interim_adjs) when ``num_interim`` > 0."""
+        noise = noise if noise is not None else TorchNoise(seed, node_flags.device)
+        if init_adjs is None:
+            init_adjs = self.gen_init_sample_adj(noise, node_flags)
+        dummy_nodes = init_adjs.new_zeros(node_flags.shape[:2])
+        out = self.sample(self._adj_only_joint(denoiser_fn, node_flags), node_flags, 1, 1,
+                          noise=noise, init_adjs=init_adjs, init_nodes=dummy_nodes,
+                          num_interim=num_interim, chunk_steps=chunk_steps)
+        if num_interim > 0:
+            return out[0], out[2]
+        return out[0]
+
+    def gen_init_sample_adj(self, noise, node_flags, folded_norm: bool = True):
+        """Symmetric (by default folded) normal init of the adj-only path,
+        masked (edm_sampler.py:534-544; the reference's
+        GeneralSampler.gen_init_sample): the draw ``init_adj`` at step -1."""
+        b, n = node_flags.shape[:2]
+        init = sym_from_normal(noise.normal(-1, "init_adj", (b, n, n)))
+        if folded_norm:
+            init = init.abs()
+        return mask_adjs(init, node_flags)
 
     def _apply_inpaint(self, noise, step: int, node_flags, ip, adjs_v, nodes_v, sigma: float):
         """Replace the known entries with the ground truth re-noised at

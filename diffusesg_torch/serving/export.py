@@ -1,7 +1,8 @@
-"""The serving core, its numpy contract, and the sampler artifact.
+"""The serving core, its numpy contract, serving across devices, and the
+sampler artifact.
 
-Counterpart of diffusesg_tpu/serving/export.py on one device.  The core is
-end to end, sampling and decode:
+Counterpart of diffusesg_tpu/serving/export.py.  The core is end to end,
+sampling and decode:
 
     (seed, node_flags[B, N]) -> (adj_types int32[B, N, N], node_types int32[B, N],
                                  bboxes float32[B, N, 4])
@@ -13,6 +14,17 @@ and the tests call those); ``fixed_batch`` binds either to one batch size,
 device and numpy in and out, the contract ``serving/server.py`` calls, as
 the JAX package's compiled program is bound to one batch.
 
+``make_sharded_serving_fn`` / ``make_sharded_completion_fn`` serve one batch
+across several devices of this process: a replica of the model on each, the
+batch split into contiguous row blocks in device order (``P("data")``), each
+block through the single-device core on its device, one thread stepping
+every block's sampler in turn, the blocks joined in row order.  They return
+``fixed_batch``'s numpy contract.
+``spmd_mode`` keeps the JAX package's two semantics: ``gspmd``, each block's
+draws are its rows of the whole batch's (the single-device function over
+the whole batch); ``shard_map``, block i draws from the seed's stream folded
+with i.
+
 The artifact is a directory: ``sampler.pt`` (the served weights, the chosen
 EMA in the model's dtype, and the resolved config) and ``meta.json`` (the JAX
 artifact's keys, ``format`` ``diffusesg_torch.serving/1``).  It differs from
@@ -20,12 +32,15 @@ the JAX artifact: that one is a compiled program (``jax.export``) that runs
 without the model code; this one carries weights and config, not a program,
 because the kernels launch through ctypes and no torch serialization carries
 them.  The serving host therefore needs ``diffusesg_torch`` installed, and
-``load_artifact`` rebuilds the model and the sampler from the config.  The
-sharded serving functions and the executable cache (``save_compiled`` /
-``load_compiled``) are not ported.
+``load_artifact`` rebuilds the model and the sampler from the config; an
+artifact over N > 1 devices (``num_devices``, ``spmd_mode``) is served by the
+sharded function on N devices.  The executable cache (``save_compiled`` /
+``load_compiled``) is not ported.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 from functools import partial
@@ -37,7 +52,7 @@ from ..models.channels import resolve_sampling_channels
 from ..models.precond import precond_forward
 from ..ops.attribute_code import attribute_converter
 from ..sampling.decode import decode_samples
-from ..sampling.edm_sampler import NodeAdjEDMSampler
+from ..sampling.edm_sampler import NodeAdjEDMSampler, TorchNoise, run_steps
 from ..utils.device import resolve_device
 
 ARTIFACT_WEIGHTS = "sampler.pt"
@@ -67,21 +82,67 @@ def _decoder(config, what: str):
     return info, n_edge_type, decode
 
 
+def _serving_steps(model, sampler: NodeAdjEDMSampler, config, chunk_steps: int | None = None):
+    """The serving core as a generator of sampler steps (``sample_steps``)
+    that returns (adj_types, node_types, bboxes)."""
+    info, _, decode = _decoder(config, "serving")
+
+    def steps(seed: int, node_flags: torch.Tensor, noise=None):
+        adjs, nodes = yield from sampler.sample_steps(
+            make_denoiser(model, config, node_flags), node_flags, info["num_node_chan"],
+            info["num_adj_chan"], noise=noise, seed=seed, chunk_steps=chunk_steps)
+        dec = decode(adjs, nodes, node_flags)
+        return dec.adj_types, dec.node_types, dec.bboxes
+    return steps
+
+
+def _completion_steps(model, sampler: NodeAdjEDMSampler, config):
+    """The completion core (``make_completion_fn``) as a generator of
+    sampler steps."""
+    info, n_edge_type, decode = _decoder(config, "completion serving")
+    node_enc, edge_enc = config.train.node_encoding, config.train.edge_encoding
+    n_node_type = info["raw_num_node_type"]
+
+    def steps(seed: int, node_flags, known_node, mask_node, known_bbox, mask_bbox,
+              known_adj, mask_adj, noise=None):
+        x = attribute_converter(known_node.float(), node_flags, "int", node_enc, n_node_type,
+                                flag_nodes=True, flag_in_ddpm_range=False,
+                                flag_out_ddpm_range=True)
+        if x.ndim == 2:  # ddpm encodes channel-less; bits / one_hot carry C
+            x = x[..., None]
+        gt_x = torch.cat([x, (known_bbox.float() - 0.5) * 2.0], dim=-1)
+        gt_a = attribute_converter(known_adj.float(), node_flags, "int", edge_enc,
+                                   n_edge_type, flag_adjs=True, flag_in_ddpm_range=False,
+                                   flag_out_ddpm_range=True)
+        type_chan = gt_x.shape[-1] - 4
+        m_x = torch.cat([mask_node[..., None].expand(*mask_node.shape, type_chan),
+                         mask_bbox[..., None].expand(*mask_bbox.shape, 4)], dim=-1)
+        inpaint = {"gt_adjs": gt_a, "gt_nodes": gt_x, "mask_adjs": mask_adj,
+                   "mask_nodes": m_x}
+        adjs, nodes = yield from sampler.sample_steps(
+            make_denoiser(model, config, node_flags), node_flags, info["num_node_chan"],
+            info["num_adj_chan"], noise=noise, seed=seed, inpaint=inpaint)
+        dec = decode(adjs, nodes, node_flags)
+        return dec.adj_types, dec.node_types, dec.bboxes
+    return steps
+
+
+def _run(steps):
+    """Run a core's generator of steps to its end."""
+    # inference mode is thread-local: entered here, so a serving worker
+    # thread runs the model under it too
+    with torch.inference_mode():
+        return run_steps(steps)
+
+
 def make_serving_fn(model, sampler: NodeAdjEDMSampler, config, chunk_steps: int | None = None):
     """(seed, node_flags, noise=None) -> (adj_types, node_types, bboxes) on
     the flags' device.  ``noise`` replaces the default ``TorchNoise(seed)``;
     ``chunk_steps`` is the sampler's (bit-equal output)."""
-    info, _, decode = _decoder(config, "serving")
+    steps = _serving_steps(model, sampler, config, chunk_steps)
 
     def serve(seed: int, node_flags: torch.Tensor, noise=None):
-        # inference mode is thread-local: entered here, so a serving worker
-        # thread runs the model under it too
-        with torch.inference_mode():
-            adjs, nodes = sampler.sample(make_denoiser(model, config, node_flags), node_flags,
-                                         info["num_node_chan"], info["num_adj_chan"],
-                                         noise=noise, seed=seed, chunk_steps=chunk_steps)
-            dec = decode(adjs, nodes, node_flags)
-        return dec.adj_types, dec.node_types, dec.bboxes
+        return _run(steps(seed, node_flags, noise=noise))
     return serve
 
 
@@ -100,37 +161,30 @@ def make_completion_fn(model, sampler: NodeAdjEDMSampler, config):
 
     Node-type and box knowledge are masked independently (a per-channel
     node mask)."""
-    info, n_edge_type, decode = _decoder(config, "completion serving")
-    node_enc, edge_enc = config.train.node_encoding, config.train.edge_encoding
-    n_node_type = info["raw_num_node_type"]
+    steps = _completion_steps(model, sampler, config)
 
     def complete(seed: int, node_flags, known_node, mask_node, known_bbox, mask_bbox,
                  known_adj, mask_adj, noise=None):
-        with torch.inference_mode():
-            x = attribute_converter(known_node.float(), node_flags, "int", node_enc, n_node_type,
-                                    flag_nodes=True, flag_in_ddpm_range=False,
-                                    flag_out_ddpm_range=True)
-            if x.ndim == 2:  # ddpm encodes channel-less; bits / one_hot carry C
-                x = x[..., None]
-            gt_x = torch.cat([x, (known_bbox.float() - 0.5) * 2.0], dim=-1)
-            gt_a = attribute_converter(known_adj.float(), node_flags, "int", edge_enc,
-                                       n_edge_type, flag_adjs=True, flag_in_ddpm_range=False,
-                                       flag_out_ddpm_range=True)
-            type_chan = gt_x.shape[-1] - 4
-            m_x = torch.cat([mask_node[..., None].expand(*mask_node.shape, type_chan),
-                             mask_bbox[..., None].expand(*mask_bbox.shape, 4)], dim=-1)
-            inpaint = {"gt_adjs": gt_a, "gt_nodes": gt_x, "mask_adjs": mask_adj,
-                       "mask_nodes": m_x}
-            adjs, nodes = sampler.sample(make_denoiser(model, config, node_flags), node_flags,
-                                         info["num_node_chan"], info["num_adj_chan"],
-                                         noise=noise, seed=seed, inpaint=inpaint)
-            dec = decode(adjs, nodes, node_flags)
-        return dec.adj_types, dec.node_types, dec.bboxes
+        return _run(steps(seed, node_flags, known_node, mask_node, known_bbox, mask_bbox,
+                          known_adj, mask_adj, noise=noise))
     return complete
 
 
 _ARG_DTYPES = (torch.bool, torch.int32, torch.bool, torch.float32, torch.bool, torch.int32,
                torch.bool)
+
+
+def _to_device(arrays, device):
+    """The numpy batch arguments as tensors of the contract's dtypes on
+    ``device``."""
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+            for a, dt in zip(arrays, _ARG_DTYPES)]
+
+
+def _to_numpy(out):
+    adj, node, bbox = out
+    return (adj.to(torch.int32).cpu().numpy(), node.to(torch.int32).cpu().numpy(),
+            bbox.float().cpu().numpy())
 
 
 def fixed_batch(fn, batch_size: int, max_node_num: int, device):
@@ -146,35 +200,202 @@ def fixed_batch(fn, batch_size: int, max_node_num: int, device):
         if flags.shape != (batch_size, max_node_num):
             raise ValueError(f"this sampler serves node flags of shape "
                              f"({batch_size}, {max_node_num}), got {flags.shape}")
-        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
-                for a, dt in zip((flags, *known), _ARG_DTYPES)]
-        adj, node, bbox = fn(int(seed), *args, noise=noise)
-        return (adj.to(torch.int32).cpu().numpy(), node.to(torch.int32).cpu().numpy(),
-                bbox.float().cpu().numpy())
+        return _to_numpy(fn(int(seed), *_to_device((flags, *known), dev), noise=noise))
     return call
+
+
+class _SharedDraws:
+    """The whole batch's draws for the shards of one ``gspmd`` call: each
+    made once from ``noise``, when the first shard asks for it (shard 0,
+    which steps first, so in the sampler's order and the stream is the
+    single-device function's), and dropped once every shard has taken it.
+    A draw on a card is made on the stream of the shard that asks first;
+    an event recorded there orders the other shards' reads after it."""
+
+    def __init__(self, noise, shards: int):
+        self.noise, self.shards = noise, shards
+        self.cache: dict = {}
+
+    def take(self, method: str, step, kind, arg):
+        key = (method, step, kind)
+        entry = self.cache.get(key)
+        if entry is None:
+            value = getattr(self.noise, method)(step, kind, arg)
+            ready = None
+            if isinstance(value, torch.Tensor) and value.is_cuda:
+                ready = torch.cuda.current_stream(value.device).record_event()
+            entry = self.cache[key] = [value, ready, 0]
+        entry[2] += 1
+        if entry[2] == self.shards:
+            del self.cache[key]
+        return entry[0], entry[1]
+
+
+class _DrawsOn:
+    """The shared draws as one shard's device and stream see them."""
+
+    def __init__(self, shared: _SharedDraws, device: torch.device):
+        self.shared, self.device = shared, device
+
+    def _tensor(self, method, step, kind, shape):
+        value, ready = self.shared.take(method, step, kind, tuple(shape))
+        if ready is not None:
+            # this shard's stream on the draw's card waits for the draw, and
+            # the allocator keeps its memory until this stream is done with it
+            stream = torch.cuda.current_stream(value.device)
+            stream.wait_event(ready)
+            value.record_stream(stream)
+        return value.to(self.device)
+
+    def normal(self, step, kind, shape):
+        return self._tensor("normal", step, kind, shape)
+
+    def uniform(self, step, kind, shape):
+        return self._tensor("uniform", step, kind, shape)
+
+    def bernoulli(self, step, kind, p):
+        return self.shared.take("bernoulli", step, kind, p)[0]
+
+
+def _shard_noise(spmd_mode: str, noise, seed: int, devices, index: int):
+    """The draws of shard ``index`` of ``len(devices)``: under ``gspmd`` its
+    rows of the whole batch's draws (``noise`` a ``_SharedDraws``), under
+    ``shard_map`` ``noise`` (default ``TorchNoise(seed)`` on its device)
+    folded with ``index`` (export.py:114-120)."""
+    from ..parallel.mesh import World
+    from ..parallel.sharded_step import GlobalRows
+    dev = torch.device(devices[index])
+    if spmd_mode == "gspmd":
+        return GlobalRows(_DrawsOn(noise, dev), World(rank=index, size=len(devices), device=dev))
+    return (noise if noise is not None else TorchNoise(seed, dev)).fold_in(index)
+
+
+def _devices(devices) -> list[torch.device]:
+    """``devices`` as torch devices, a card without an index as the
+    current one."""
+    out = [torch.device(d) for d in devices]
+    return [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in out]
+
+
+def _on(device: torch.device, stream):
+    """Make ``device`` and ``stream`` current (nothing on the CPU)."""
+    ctx = contextlib.ExitStack()
+    if device.type == "cuda":
+        ctx.enter_context(torch.cuda.device(device))
+        ctx.enter_context(torch.cuda.stream(stream))
+    return ctx
+
+
+def _sharded(cores, devices, batch_args: int, spmd_mode: str):
+    """The numpy contract of ``cores`` (one core of steps per device, on
+    that device's replica) over the batch split across ``devices``.  One
+    thread advances every shard a sampler step in turn, each on its device
+    and on a stream of its own: the launches are asynchronous, so the cards
+    work at once, and no second thread contends for the interpreter lock."""
+    if spmd_mode not in ("gspmd", "shard_map"):
+        raise ValueError(f"unknown spmd_mode {spmd_mode!r}")
+    devices = _devices(devices)
+    n = len(devices)
+    streams = [torch.cuda.Stream(d) if d.type == "cuda" else None for d in devices]
+
+    def call(seed, node_flags, *known, noise=None):
+        flags = np.asarray(node_flags)
+        batch = flags.shape[0]
+        if batch % n:
+            raise ValueError(f"a batch of {batch} does not split over {n} devices")
+        if len(known) != batch_args - 1:
+            raise TypeError(f"expected {batch_args} batch arguments, got {1 + len(known)}")
+        per = batch // n
+        base = noise
+        if spmd_mode == "gspmd":
+            base = _SharedDraws(noise if noise is not None else TorchNoise(seed, devices[0]), n)
+        arrays = [flags, *(np.asarray(a) for a in known)]
+        runs, outs = [], [None] * n
+        with torch.inference_mode():
+            for i, dev in enumerate(devices):
+                with _on(dev, streams[i]):
+                    rows = _to_device([a[i * per:(i + 1) * per] for a in arrays], dev)
+                runs.append(cores[i](int(seed), *rows,
+                                     noise=_shard_noise(spmd_mode, base, int(seed), devices, i)))
+            pending = list(range(n))
+            while pending:
+                for i in list(pending):
+                    with _on(devices[i], streams[i]):
+                        try:
+                            next(runs[i])
+                        except StopIteration as done:
+                            outs[i] = done.value
+                            pending.remove(i)
+            parts = []
+            for i, out in enumerate(outs):
+                with _on(devices[i], streams[i]):
+                    parts.append(_to_numpy(out))
+        return tuple(np.concatenate([p[k] for p in parts]) for k in range(3))
+    return call
+
+
+def _replicas(model, devices):
+    """One copy of ``model`` per distinct device of ``devices`` (``model``
+    itself where it already lies), in the order of ``devices``."""
+    home = next(model.parameters()).device
+    devices = _devices(devices)
+    copies = {}
+    for d in devices:
+        if d not in copies:
+            copies[d] = model if d == home else copy.deepcopy(model).to(d)
+    return [copies[d] for d in devices]
+
+
+def make_sharded_serving_fn(model, sampler: NodeAdjEDMSampler, config, devices,
+                            spmd_mode: str = "gspmd"):
+    """Serving across ``devices`` (export.py:93-133): ``(seed, node_flags
+    bool[B, N], noise=None)`` -> numpy (adj, node, bbox), B a multiple of
+    ``len(devices)``; a replica of ``model`` on each device.  ``gspmd``
+    equals the single-device function over the whole batch (``noise`` its
+    draws, default ``TorchNoise(seed)`` on the first device); ``shard_map``
+    runs block i on ``noise.fold_in(i)`` (default ``TorchNoise(seed)`` on its
+    device).  A device may be listed twice: its blocks share its replica."""
+    cores = [_serving_steps(m, sampler, config) for m in _replicas(model, devices)]
+    return _sharded(cores, devices, 1, spmd_mode)
+
+
+def make_sharded_completion_fn(model, sampler: NodeAdjEDMSampler, config, devices,
+                               spmd_mode: str = "gspmd"):
+    """Completion across ``devices`` (export.py:223-254), as
+    ``make_sharded_serving_fn``: the 8-argument form of ``fixed_batch``
+    (every tensor argument batch-major)."""
+    cores = [_completion_steps(m, sampler, config) for m in _replicas(model, devices)]
+    return _sharded(cores, devices, 7, spmd_mode)
 
 
 def _aval(dtype: str, shape) -> str:
     return f"{dtype}[{','.join(str(int(d)) for d in shape)}]"
 
 
-def export_sampler(model, sampler: NodeAdjEDMSampler, config, batch_size: int) -> dict:
+def export_sampler(model, sampler: NodeAdjEDMSampler, config, batch_size: int,
+                   num_devices: int = 1, spmd_mode: str = "gspmd") -> dict:
     """The artifact's contents at a fixed batch size: the model's weights
     (whatever weights it holds: load the chosen EMA first), the resolved
     config, the platform the model sits on and the contract's shapes.  The
     artifact rebuilds its sampler from the config, so ``sampler`` must be
-    the one ``get_mc_sampler(config)`` gives."""
+    the one ``get_mc_sampler(config)`` gives.  ``num_devices`` > 1 makes an
+    artifact served across that many devices in ``spmd_mode``
+    (export.py:257-275); the batch must split over them."""
     from ..sampling import get_mc_sampler
 
     if get_mc_sampler(config) != sampler:
         raise ValueError("the artifact rebuilds its sampler from the config, and this "
                          "sampler differs from the config's")
+    if num_devices > 1 and batch_size % num_devices:
+        raise ValueError(f"batch_size {batch_size} must divide over the {num_devices} devices")
     n = int(config.dataset.max_node_num)
     return {
         "state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()},
         "config": config.to_dict(),
         "platforms": [next(model.parameters()).device.type],
-        "num_devices": 1,
+        "num_devices": int(num_devices),
+        "spmd_mode": spmd_mode,
         "in_avals": [_aval("int32", ()), _aval("bool", (batch_size, n))],
         "out_avals": [_aval("int32", (batch_size, n, n)), _aval("int32", (batch_size, n)),
                       _aval("float32", (batch_size, n, 4))],
@@ -182,9 +403,11 @@ def export_sampler(model, sampler: NodeAdjEDMSampler, config, batch_size: int) -
 
 
 def save_artifact(path: str, exported: dict, config, batch_size: int) -> None:
-    """Write ``sampler.pt`` (weights + config) and ``meta.json`` to ``path``/."""
+    """Write ``sampler.pt`` (weights, config and ``spmd_mode``) and
+``meta.json`` (the JAX artifact's keys) to ``path``/."""
     os.makedirs(path, exist_ok=True)
-    torch.save({"state_dict": exported["state_dict"], "config": exported["config"]},
+    torch.save({"state_dict": exported["state_dict"], "config": exported["config"],
+                "spmd_mode": exported.get("spmd_mode", "gspmd")},
                os.path.join(path, ARTIFACT_WEIGHTS))
     meta = {
         "format": ARTIFACT_FORMAT,
@@ -203,12 +426,14 @@ def save_artifact(path: str, exported: dict, config, batch_size: int) -> None:
         json.dump(meta, f, indent=2)
 
 
-def load_artifact(path: str, device: str | torch.device = "cuda"):
+def load_artifact(path: str, device: str | torch.device = "cuda", devices=None):
     """Load an artifact -> (callable, meta): the numpy contract
     ``(seed, node_flags bool[B, N]) -> (adj, node, bbox)`` at the artifact's
     batch, on ``device`` (``cuda`` unless the caller asks for the CPU).
     Raises when the artifact was exported for another platform or for more
-    devices than this process sees (export.py:313-330)."""
+    devices than this process sees (export.py:313-330).  An artifact over N
+    > 1 devices is served across the first N of ``devices`` (default: the
+    process's cards, or the one CPU)."""
     from ..config import ConfigDict
     from ..models import make_model
     from ..sampling import get_mc_sampler
@@ -222,15 +447,42 @@ def load_artifact(path: str, device: str | torch.device = "cuda"):
                            f"{meta.get('platforms')} but this process runs on '{dev.type}'; "
                            "re-export on the target platform")
     ndev = int(meta.get("num_devices", 1))
-    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if ndev > visible:
+    visible = list(devices) if devices is not None else local_devices(dev)
+    if ndev > len(visible):
         raise RuntimeError(f"serving artifact at {path} spans {ndev} devices but this "
-                           f"process has {visible}; re-export for {visible}")
+                           f"process has {len(visible)}; re-export for {len(visible)}")
     blob = torch.load(os.path.join(path, ARTIFACT_WEIGHTS), map_location="cpu",
                       weights_only=True)
     config = ConfigDict(blob["config"]).lock()
     model = make_model(config)
     model.load_state_dict(blob["state_dict"], strict=True)
+    batch, n = int(meta["batch_size"]), int(meta["max_node_num"])
+    if ndev > 1:
+        model = model.to(visible[0]).eval()
+        fn = make_sharded_serving_fn(model, get_mc_sampler(config), config, visible[:ndev],
+                                     blob.get("spmd_mode", "gspmd"))
+        return fixed_sharded_batch(fn, batch, n), meta
     model = model.to(dev).eval()
     fn = make_serving_fn(model, get_mc_sampler(config), config)
-    return fixed_batch(fn, int(meta["batch_size"]), int(meta["max_node_num"]), dev), meta
+    return fixed_batch(fn, batch, n, dev), meta
+
+
+def local_devices(device: str | torch.device = "cuda") -> list[torch.device]:
+    """The devices a serving process drives (the JAX package's
+    ``jax.local_devices()``): every card of this process for ``cuda``, the
+    one CPU for ``cpu``."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]
+
+
+def fixed_sharded_batch(fn, batch_size: int, max_node_num: int):
+    """A sharded numpy contract bound to one batch size, as ``fixed_batch``."""
+    def call(seed, node_flags, *known, noise=None):
+        shape = np.shape(node_flags)
+        if shape != (batch_size, max_node_num):
+            raise ValueError(f"this sampler serves node flags of shape "
+                             f"({batch_size}, {max_node_num}), got {shape}")
+        return fn(seed, node_flags, *known, noise=noise)
+    return call

@@ -53,6 +53,9 @@ class TrainState:
     # Adam moments and EMAs, the other ranks' EMA entries None; None when
     # this process holds the whole state
     owners: list[int] | None = None
+    # tensor parallel (parallel/tp.py): how each parameter is split over the
+    # model group; None when no parameter is
+    tp: object | None = None
 
     def params(self) -> list[torch.Tensor]:
         return list(self.model.parameters())

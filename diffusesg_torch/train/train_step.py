@@ -154,10 +154,11 @@ def make_train_step(model, cfg: TrainStepConfig, world=None):
     return build_train_step(make_loss_fn(model, cfg), world, reduce="mean")
 
 
-def build_train_step(loss_fn, world=None, reduce: str = "mean"):
+def build_train_step(loss_fn, world=None, reduce: str = "mean", finish_grads=None):
     """The step around ``loss_fn``: backward, the all-reduce of the
-    gradients over ``world`` (``reduce`` "mean" or "sum"), clip, Adam with
-    the epoch's learning rate, the EMAs."""
+    gradients over ``world`` (``reduce`` "mean" or "sum"), clip (or
+    ``finish_grads(state)``, which clips: the tensor-parallel step's),
+    Adam with the epoch's learning rate, the EMAs."""
 
     def train_step(state: TrainState, noise, adjs_gt, nodes_gt, node_flags):
         state.opt.zero_grad(set_to_none=True)
@@ -165,7 +166,10 @@ def build_train_step(loss_fn, world=None, reduce: str = "mean"):
         loss.backward()
         if world is not None:
             all_reduce_grads(state.params(), world, mean=reduce == "mean")
-        torch.nn.utils.clip_grad_norm_(state.params(), state.spec.max_grad_norm)
+        if finish_grads is not None:
+            finish_grads(state)
+        else:
+            torch.nn.utils.clip_grad_norm_(state.params(), state.spec.max_grad_norm)
         lr = state.spec.lr(state.step)
         for group in state.opt.param_groups:
             group["lr"] = lr

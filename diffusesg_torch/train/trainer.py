@@ -14,6 +14,7 @@ from __future__ import annotations
 import logging
 import os
 import signal
+import sys
 import time
 
 import numpy as np
@@ -24,7 +25,7 @@ from ..parallel.mesh import (any_rank, current_world, fetch_to_host, is_main_pro
                              per_host_batch_size, resolve_spmd_mode, sync_hosts)
 from ..sampling.edm_sampler import TorchNoise
 from ..sampling.orchestrator import sg_go_sampling
-from ..utils.checkpoint import list_checkpoints, save_checkpoint
+from ..utils.checkpoint import list_checkpoints, save_checkpoint, wait_for_async_saves
 from ..utils.logging_utils import LossTxtLogger, ScalarWriter
 from .train_state import TrainState, ema_slice
 from .train_step import TrainStepConfig, make_eval_step, make_train_step
@@ -79,6 +80,13 @@ def go_training(model, state: TrainState, step_cfg: TrainStepConfig, config, bun
     the current epoch (several, so that every rank leaves its collectives
     together; any rank's signal stops them all), writes
     ``models_ckpt/preempt.pt`` with the epoch to re-run, and returns.
+
+    ``tpu.async_checkpointing`` (default on, as in the JAX package) writes
+    the rolling and best checkpoints in the background while the next epoch
+    runs; the preempt checkpoint is written before the return.  On the way
+    out the writes in flight are drained: a failed one fails the run, unless
+    the loop is already unwinding from another error, which then propagates
+    (the failed write is logged).
     """
     device = next(model.parameters()).device
     world = current_world()
@@ -97,6 +105,7 @@ def go_training(model, state: TrainState, step_cfg: TrainStepConfig, config, bun
     lowest = {"epoch": -1, "loss": float("inf")}
     save_interval = config.train.save_interval
     sample_interval = config.train.sample_interval
+    async_ckpt = bool(config.tpu.get("async_checkpointing", True)) if "tpu" in config else True
 
     def to_full_batch(item):
         return pad_batch(item[:3], batch_size)[0]
@@ -187,13 +196,19 @@ def go_training(model, state: TrainState, step_cfg: TrainStepConfig, config, bun
                     writer.add_scalar("test_epoch/regression_loss_node", te_loss_x, epoch)
 
                 extra = {"epoch": epoch, "test_loss": te_loss}
-                save_checkpoint(os.path.join(config.model_ckpt_dir, f"{epoch:05d}"), state, extra)
+                save_checkpoint(os.path.join(config.model_ckpt_dir, f"{epoch:05d}"), state, extra,
+                                asynchronous=async_ckpt)
                 if te_loss < lowest["loss"] and epoch >= min(save_interval,
                                                              config.train.max_epoch - 1):
                     lowest.update(epoch=epoch, loss=te_loss)
-                    save_checkpoint(os.path.join(config.model_save_dir, "best"), state, extra)
-                # a numeric checkpoint of this run supersedes a stale preempt one
+                    save_checkpoint(os.path.join(config.model_save_dir, "best"), state, extra,
+                                    asynchronous=async_ckpt)
+                # a numeric checkpoint of this run supersedes a stale preempt
+                # one, once it is finalized: where a preempt file lies, the
+                # save just made is waited for, so that it counts
                 pre = os.path.join(config.model_ckpt_dir, "preempt.pt")
+                if is_main_process() and os.path.exists(pre):
+                    wait_for_async_saves()
                 if is_main_process() and os.path.exists(pre) and any(
                         os.path.basename(c)[:-3].isdigit()
                         and int(os.path.basename(c)[:-3]) >= start_epoch
@@ -216,5 +231,16 @@ def go_training(model, state: TrainState, step_cfg: TrainStepConfig, config, bun
     finally:
         for sig, handler in old_handlers.items():
             signal.signal(sig, handler)
+        # read before the try below, whose except clause would see its own error
+        unwinding = sys.exc_info()[0] is not None
+        try:
+            wait_for_async_saves()
+        except Exception:
+            # on the normal path a failed write fails the run (the checkpoint
+            # on disk is not there); during an unwind the original error wins
+            if not unwinding:
+                loss_txt.close()
+                raise
+            logging.exception("asynchronous checkpoint write failed during unwind")
         loss_txt.close()
     return state

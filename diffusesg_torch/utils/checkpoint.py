@@ -7,11 +7,18 @@ checkpoint, ``torch.save`` of
      parameters), "ema_betas", "opt_state" (Adam's state_dict), "extra"}
 
 written to a temporary file in the same directory and renamed into place, so
-a reader never sees a partial checkpoint.  Saves are synchronous;
-asynchronous saves wait.  A ZeRO-1 state (parallel/sharded_step.py) is
-gathered to rank 0 first, which alone writes, so a data-parallel checkpoint
-has the single-device format and resumes on one device and the other way
-round.
+a reader never sees a partial checkpoint.  A ZeRO-1 state
+(parallel/sharded_step.py) is gathered to rank 0 first, which alone writes,
+so a data-parallel checkpoint has the single-device format and resumes on
+one device and the other way round.
+
+An asynchronous save (``tpu.async_checkpointing``, the JAX package's orbax
+async saves) copies the state to host memory and returns; one background
+writer thread does the write and the rename, in the order the saves were
+made.  ``wait_for_async_saves`` drains it and raises the first failed
+write; ``restore_checkpoint`` and ``read_checkpoint`` wait first, and
+``list_checkpoints`` / ``latest_checkpoint`` see only finalized files
+(``is_finalized_checkpoint``), never a write in flight.
 
 Layout on disk:
   <run_dir>/models_ckpt/<epoch>.pt   rolling per-interval checkpoints
@@ -23,6 +30,8 @@ from __future__ import annotations
 
 import os
 import tempfile
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -32,44 +41,118 @@ if TYPE_CHECKING:  # utils <-> train would import each other at run time
     from ..train.train_state import TrainState
 
 SUFFIX = ".pt"
+TMP_PREFIX = ".tmp-"
+
+# the background writer of asynchronous saves, and the writes not yet drained
+_writer: ThreadPoolExecutor | None = None
+_pending: list[Future] = []
+_pending_lock = threading.Lock()
 
 
-def save_checkpoint(path: str, state: "TrainState", extra: dict | None = None) -> str:
+def _to_host(t):
+    """A host copy of ``t`` (a tensor, or lists and dicts of them) that no
+    later step can change."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().to("cpu", copy=True)
+    if isinstance(t, dict):
+        return {k: _to_host(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_to_host(v) for v in t)
+    return t
+
+
+def save_checkpoint(path: str, state: "TrainState", extra: dict | None = None,
+                    asynchronous: bool = False) -> str:
     """Write ``state`` (+ metadata) to ``path`` (``.pt`` appended if missing).
     With a process group up, rank 0 writes and every rank returns after the
-    write: a COLLECTIVE (the ZeRO-1 state's Adam moments and EMAs are
+    write (or, asynchronously, once it is queued): a COLLECTIVE (the ZeRO-1 state's Adam moments and EMAs are
     gathered to rank 0 with ``consolidate_state_dict(to=0)`` and one
-    broadcast per rank)."""
+    broadcast per rank; a tensor-parallel state's shards over its model
+    group, parallel/tp.py).
+
+    ``asynchronous``: return once the state is copied to host memory; the
+    background writer writes it (``wait_for_async_saves`` drains it)."""
     import torch.distributed as dist
     if not path.endswith(SUFFIX):
         path += SUFFIX
     path = os.path.abspath(path)
     distributed = dist.is_initialized()
+    payload = _gathered_payload(state, extra)
+    if payload is not None:
+        payload = _to_host(payload)  # the one copy, for either kind of save
+        if asynchronous:
+            _submit(path, payload)
+        else:
+            wait_for_async_saves()  # the files land in the order of the saves
+            _write(path, payload)
+    if distributed and not asynchronous:
+        from ..parallel.distributed import barrier
+        barrier()
+    return path
+
+
+def _gathered_payload(state: "TrainState", extra: dict | None) -> dict | None:
+    """The checkpoint's payload in the single-device format on the rank
+    that writes (None on the others), its tensors where the state holds
+    them.  COLLECTIVE with a process group."""
+    import torch.distributed as dist
+    if state.tp is not None:
+        from ..parallel.tp import gather_tp_state
+        return gather_tp_state(state, extra)
     if state.owners is not None:
         from ..parallel.sharded_step import gather_emas
         state.opt.consolidate_state_dict(to=0)
         emas = gather_emas(state, range(len(state.ema_params)), to=0)
     else:
         emas = state.ema_params
-    if not distributed or dist.get_rank() == 0:
-        _write(path, {
-            "step": int(state.step),
-            "params": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-            "ema_params": [[t.detach().cpu() for t in ema] for ema in emas],
-            "ema_betas": list(state.ema_betas),
-            "opt_state": state.opt.state_dict(),
-            "extra": dict(extra or {}),
-        })
-    if distributed:
-        from ..parallel.distributed import barrier
-        barrier()
-    return path
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
+    return {
+        "step": int(state.step),
+        "params": {k: v.detach() for k, v in state.model.state_dict().items()},
+        "ema_params": [[t.detach() for t in ema] for ema in emas],
+        "ema_betas": list(state.ema_betas),
+        "opt_state": state.opt.state_dict(),
+        "extra": dict(extra or {}),
+    }
+
+
+def _submit(path: str, payload: dict) -> None:
+    global _writer
+    with _pending_lock:
+        if _writer is None:
+            _writer = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-writer")
+        _pending.append(_writer.submit(_write, path, payload))
+
+
+def wait_for_async_saves() -> None:
+    """Block until every asynchronous save has been written and renamed
+    into place; raises the first failed write's error (each failure is
+    raised once)."""
+    with _pending_lock:
+        pending = list(_pending)
+        _pending.clear()
+    errors = []
+    for fut in pending:
+        try:
+            fut.result()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+    if errors:
+        raise errors[0]
+
+
+def is_finalized_checkpoint(path: str) -> bool:
+    """True when ``path`` is a checkpoint file renamed into place (not a
+    write in flight, whose temporary file starts with ``.tmp-``)."""
+    base = os.path.basename(path)
+    return base.endswith(SUFFIX) and not base.startswith(TMP_PREFIX) and os.path.isfile(path)
 
 
 def _write(path: str, payload: dict) -> None:
     """``torch.save`` to a temporary file beside ``path``, renamed into place."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), prefix=".tmp-", suffix=SUFFIX)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), prefix=TMP_PREFIX, suffix=SUFFIX)
     try:
         with os.fdopen(fd, "wb") as f:
             torch.save(payload, f)
@@ -82,7 +165,9 @@ def _write(path: str, payload: dict) -> None:
 
 def read_checkpoint(path: str) -> dict:
     """The payload of the checkpoint at ``path`` (tensors on the CPU), with
-    no training state to restore into; ``load_weights`` applies it."""
+    no training state to restore into; ``load_weights`` applies it.  Waits
+    for the asynchronous saves first: ``path`` may still be in flight."""
+    wait_for_async_saves()
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
@@ -106,7 +191,8 @@ def restore_checkpoint(path: str, state: "TrainState") -> dict:
     """Load the checkpoint at ``path`` into ``state`` in place (parameters,
     EMAs, Adam state, step); returns its ``extra`` metadata.  Raises when the
     checkpoint does not match the model.  A ZeRO-1 state takes its own
-    partition of the Adam moments and the EMAs of the parameters it owns."""
+    partition of the Adam moments and the EMAs of the parameters it owns.
+    Waits for the asynchronous saves first (``read_checkpoint``)."""
     payload = read_checkpoint(path)
     if len(payload["ema_params"]) != len(state.ema_params):
         raise ValueError(f"checkpoint holds {len(payload['ema_params'])} EMAs, the state "
@@ -126,11 +212,12 @@ def restore_checkpoint(path: str, state: "TrainState") -> dict:
 
 
 def list_checkpoints(ckpt_dir: str) -> list[str]:
-    """Checkpoint files under ``ckpt_dir``: numeric names first, in order."""
+    """Finalized checkpoint files under ``ckpt_dir``: numeric names first,
+    in order."""
     if not os.path.isdir(ckpt_dir):
         return []
-    out = [os.path.join(ckpt_dir, n) for n in os.listdir(ckpt_dir)
-           if n.endswith(SUFFIX) and not n.startswith(".tmp-")]
+    out = [p for p in (os.path.join(ckpt_dir, n) for n in os.listdir(ckpt_dir))
+           if is_finalized_checkpoint(p)]
 
     def key(p):
         base = os.path.basename(p)[:-len(SUFFIX)]

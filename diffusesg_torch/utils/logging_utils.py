@@ -1,8 +1,9 @@
 """Run-directory setup, seeding, logging and metric writers.
 
 Counterpart of diffusesg_tpu/utils/logging_utils.py: a timestamped logdir
-with the resolved config, a log file per process plus stdout on rank 0, txt
-loss logs, and a JSONL scalar writer (TensorBoard attached when importable).
+with the resolved config, a log file per process plus stdout on rank 0, a
+copy of the package's source (``backup_code``), txt loss logs, and a JSONL
+scalar writer (TensorBoard attached when importable).
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import json
 import logging
 import os
 import random
+import shutil
 import sys
 import time
 
@@ -58,6 +60,21 @@ def set_seed_and_logger(config, mode: str = "train", comment: str = "",
     if rank == 0:
         save_config(config, os.path.join(logdir, "config.yaml"))
     return logdir
+
+
+def backup_code(logdir: str) -> None:
+    """Copy the package's source, the CUDA sources under ``csrc/`` with it,
+    into ``<logdir>/code/<package>`` on rank 0 (the reference's code backup,
+    arg_parser.py:398-408): no ``__pycache__``, compiled Python or built
+    library."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
+    src_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dst = os.path.join(logdir, "code", os.path.basename(src_root))
+    shutil.copytree(src_root, dst, ignore=shutil.ignore_patterns("__pycache__", "*.pyc", "*.so",
+                                                                 "build"),
+                    dirs_exist_ok=True)
 
 
 class ScalarWriter:

@@ -1,7 +1,8 @@
 """Build and load the port's host C++ engines (``g++``, ``ctypes``).
 
 Counterpart of diffusesg_tpu/utils/native_build.py, used by
-``eval/native`` (the VOC F1 matcher).  The library lands in the port's
+``eval/native`` (the VOC F1 matcher) and ``data/native`` (the batch
+assembler).  The library lands in the port's
 ``build/native/<hash>/`` beside the package (as the CUDA kernels land in
 ``build/kernels/``), keyed by a hash of the source and flags, so an edited
 source rebuilds and an unchanged one loads at once.  The build is atomic:
@@ -23,21 +24,23 @@ GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "native"
 
 
-def native_lib_path(src: str | os.PathLike) -> Path:
+def native_lib_path(src: str | os.PathLike, extra_flags=()) -> Path:
     """Where the library of ``src`` is built: keyed by its text and the flags."""
     src = Path(src)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join([*GXX_FLAGS, *extra_flags]).encode()
+    digest = hashlib.sha256(src.read_bytes() + flags).hexdigest()[:16]
     return BUILD_ROOT / digest / f"lib{src.stem}.so"
 
 
-def load_native_lib(src: str | os.PathLike) -> ctypes.CDLL | None:
-    """Build ``src`` unless built, and load it; None (logged) on any failure."""
+def load_native_lib(src: str | os.PathLike, extra_flags=()) -> ctypes.CDLL | None:
+    """Build ``src`` (with ``extra_flags`` after the common ones) unless
+    built, and load it; None (logged) on any failure."""
     try:
-        so = native_lib_path(src)
+        so = native_lib_path(src, extra_flags)
         if not so.exists():
             so.parent.mkdir(parents=True, exist_ok=True)
             tmp = f"{so}.build.{os.getpid()}"
-            subprocess.run(["g++", *GXX_FLAGS, str(src), "-o", tmp], check=True,
+            subprocess.run(["g++", *GXX_FLAGS, *extra_flags, str(src), "-o", tmp], check=True,
                            capture_output=True, text=True)
             os.replace(tmp, so)
         return ctypes.CDLL(str(so))

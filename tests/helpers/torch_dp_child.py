@@ -3,6 +3,7 @@
     python tests/helpers/torch_dp_child.py steps <out_dir>
     python tests/helpers/torch_dp_child.py train <cli.train arguments>
     python tests/helpers/torch_dp_child.py eval <out_dir>
+    python tests/helpers/torch_dp_child.py tp <out_dir> <dp> <tp>
 
 The rendezvous comes from MASTER_ADDR / MASTER_PORT / RANK / WORLD_SIZE,
 as torchrun sets them; the spawning test starts one process per rank with
@@ -11,7 +12,11 @@ and then two of the ``gspmd`` + ZeRO-1 step from the same start on the tiny
 model, with the JAX key schedule's draws, and writes each rank's results to
 ``<out_dir>/<mode>_rank<r>.npz``; ``train`` runs ``cli.train``; ``eval``
 runs ``sg_go_sampling`` on 5 graphs with the sanity check and then without
-it, and writes rank 0's metrics of both to ``<out_dir>/metrics.json``.
+it, and writes rank 0's metrics of both to ``<out_dir>/metrics.json``;
+``tp`` runs two tensor-parallel steps on a (dp, tp) grid of the ranks from
+the tiny model's single-device state (``TP_BATCH``, ``TorchNoise(TP_SEED)``)
+and writes rank 0's losses and gathered state to ``<out_dir>/tp.npz`` and a
+checkpoint to ``<out_dir>/tp_ckpt.pt``.
 """
 import json
 import os
@@ -31,6 +36,11 @@ import torch  # noqa: E402
 COUNTS = {"shard_map": [16, 11, 5, 2], "gspmd": [16, 5]}
 BETAS, LR, DECAY, WD, SPE = [0.9, 0.999], 2e-3, 0.5, 1e-2, 1
 STEPS = 2
+# the tensor-parallel steps' global batch (its nodes per graph) and draws;
+# no weight decay, whose share of a small gradient would hide it, and a clip
+# below the tiny model's gradient norm (1.21 on the first step), so that the
+# global norm decides every update
+TP_BATCH, TP_SEED, TP_WD, TP_CLIP = [16, 11, 5, 2], 3, 0.0, 0.5
 
 
 def tiny_config():
@@ -99,6 +109,62 @@ def run_steps(out_dir):
         save_checkpoint(os.path.join(out_dir, f"{mode}_ckpt"), state, {"epoch": 0})
 
 
+def tp_batch(cfg):
+    from torch_parity import clean_batch
+    return clean_batch(len(TP_BATCH), cfg.dataset.max_node_num, TP_BATCH, seed=4)
+
+
+def tp_start(cfg):
+    """The tiny model's single-device state and step config, as every rank
+    and the test's single-device run build them."""
+    from torch_parity import tiny_port_model
+
+    from diffusesg_torch.train import create_train_state, make_optimizer, train_step_config_from
+    model = tiny_port_model(cfg)
+    state = create_train_state(model, BETAS, make_optimizer(LR, DECAY, SPE, TP_WD, TP_CLIP))
+    return model, state, train_step_config_from(cfg)
+
+
+def run_tp(out_dir, dp, tp):
+    import torch.distributed as dist
+
+    from diffusesg_torch.parallel.mesh import make_grid
+    from diffusesg_torch.parallel.sharded_step import make_sharded_train_step
+    from diffusesg_torch.parallel.tp import gather_tp_state, shard_tp_state
+    from diffusesg_torch.sampling.edm_sampler import TorchNoise
+    from diffusesg_torch.utils.checkpoint import save_checkpoint
+
+    cfg = tiny_config()
+    grid = make_grid(int(dp), int(tp))
+    model, state, step_cfg = tp_start(cfg)
+    state = shard_tp_state(state, grid)
+    step = make_sharded_train_step(model, step_cfg, grid, tp=True)
+    b = len(TP_BATCH) // grid.size
+    local = tuple(torch.from_numpy(np.ascontiguousarray(a[grid.rank * b:(grid.rank + 1) * b]))
+                  for a in tp_batch(cfg))
+    noise = TorchNoise(TP_SEED, "cpu")
+    losses = []
+    for _ in range(STEPS):
+        state, metrics = step(state, noise, *local)
+        losses.append(float(metrics["loss"]))
+    # every rank's replicated leaves, which must stay equal on every rank
+    np.savez(os.path.join(out_dir, f"tp_replicated_rank{dist.get_rank()}.npz"), **{
+        n: p.detach().numpy() for (n, p), kind in zip(model.named_parameters(), state.tp.kinds)
+        if kind not in ("qkv", "rows", "cols")})
+    payload = gather_tp_state(state)
+    save_checkpoint(os.path.join(out_dir, "tp_ckpt"), state, {"epoch": 0})
+    if payload is not None:
+        out = {"loss": np.asarray(losses)}
+        names = [n for n, _ in model.named_parameters()]
+        for i, n in enumerate(names):
+            out[f"param/{n}"] = payload["params"][n].numpy()
+            for k, ema in enumerate(payload["ema_params"]):
+                out[f"ema{k}/{n}"] = ema[i].numpy()
+            for m in ("exp_avg", "exp_avg_sq"):
+                out[f"{m}/{n}"] = payload["opt_state"]["state"][i][m].numpy()
+        np.savez(os.path.join(out_dir, "tp.npz"), **out)
+
+
 def run_eval(out_dir):
     from diffusesg_torch.data import load_data
     from diffusesg_torch.parallel.mesh import current_world
@@ -154,7 +220,7 @@ def main():
         return
     assert maybe_initialize_distributed("cpu")
     try:
-        {"steps": run_steps, "eval": run_eval}[what](sys.argv[2])
+        {"steps": run_steps, "eval": run_eval, "tp": run_tp}[what](*sys.argv[2:])
     finally:
         shutdown()
     print("CHILD_OK", os.environ["RANK"], flush=True)

@@ -106,6 +106,7 @@ class JaxKeyNoise:
     def __init__(self, key, num_steps: int, refresh: bool = False, inpaint: bool = False):
         import jax
         rng = jax.random.PRNGKey(key) if isinstance(key, int) else key
+        self.key, self.schedule = rng, (num_steps, refresh, inpaint)
         rng, rng_init = jax.random.split(rng)
         self.init = dict(zip(("init_adj", "init_node"), jax.random.split(rng_init)))
         self.steps = []
@@ -120,6 +121,12 @@ class JaxKeyNoise:
                 keys.update(zip(("inpaint_adj", "inpaint_node"), jax.random.split(k_ip)))
             self.steps.append(keys)
         self.requests = []
+
+    def fold_in(self, index: int) -> "JaxKeyNoise":
+        """The draws of ``jax.random.fold_in(key, index)`` (a shard_map
+        shard's key, diffusesg_tpu/serving/export.py:114-120)."""
+        import jax
+        return JaxKeyNoise(jax.random.fold_in(self.key, index), *self.schedule)
 
     def normal(self, step, kind, shape):
         import jax

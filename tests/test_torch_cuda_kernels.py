@@ -153,6 +153,37 @@ def test_readout_kernel(cuda, m, n_out):
     _bit_equal_again(rk.readout_mlp, *args)
 
 
+def test_forward_kernels_launch_on_every_card_of_the_process(cuda):
+    """Each kernel opts in to its shared memory once on each card (the
+    attribute holds for one device only), and every launch runs under its
+    operands' card: the forward kernels on each card this process sees,
+    the first launch on each card included, hold against their plain
+    versions there, with card 0 last so that it is not the first one
+    current.  Needs two cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards in the process")
+    for i in list(range(1, n)) + [0]:
+        dev = torch.device("cuda", i)
+        torch.manual_seed(i)
+        c, heads, hw = 96, 3, 16
+        mask = torch.from_numpy(shifted_window_attn_mask(hw, hw, 8, 4)).to(dev)
+        _check("swin_attn", sw.swin_attn, sw.swin_attn_block_plain,
+               _rnd(dev, 2, hw, hw, c), _rnd(dev, 2, 2 * c, scale=0.5), _vec(dev, c, 1.0),
+               _vec(dev, c), _lin(dev, 3 * c, c), _vec(dev, 3 * c), _lin(dev, c, c),
+               _vec(dev, c), _rnd(dev, heads, 64, 64, dtype=torch.float32), mask, heads, 8, 4)
+        _check("token_mlp", mk.token_mlp, mk.mlp_block_plain,
+               _rnd(dev, 300, c), _vec(dev, c, 1.0), _vec(dev, c), _lin(dev, 4 * c, c),
+               _vec(dev, 4 * c), _lin(dev, c, 4 * c), _vec(dev, c))
+        _check("patch_merge", pr.patch_merge, pr.patch_merge_plain,
+               _rnd(dev, 2, hw, hw, c), _vec(dev, 4 * c, 1.0), _vec(dev, 4 * c),
+               _lin(dev, 2 * c, 4 * c))
+        _check("readout", rk.readout_mlp, rk.readout_mlp_plain,
+               _rnd(dev, 300, 96), _lin(dev, 96, 96), _vec(dev, 96), _lin(dev, 5, 96),
+               _vec(dev, 5))
+        assert torch.cuda.current_device() == 0  # the launches left the current card alone
+
+
 def test_small_config_runs_its_plain_versions_on_the_card(cuda):
     """configs/vg_small_test.yaml switches the kernels off (float32, head_dim
     16): its denoiser runs the plain versions on the card, launches no

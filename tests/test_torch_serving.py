@@ -436,7 +436,7 @@ def test_serve_cli_exports_and_the_artifact_serves_the_chosen_ema(pair, tmp_path
     for a, b in zip(fn(1, flags), live(1, flags)):
         np.testing.assert_array_equal(a, b)
     assert not fn(1, flags)[1][1, 3:].any()
-    with pytest.raises(SystemExit, match="multi-device"):
+    with pytest.raises(SystemExit, match="--devices 2 but only 1 local devices"):
         serve_main(["-p", run, "--export_to", art, "--devices", "2", "--device", "cpu"])
 
 

@@ -139,6 +139,18 @@ def test_chip_smoke_imports_no_jax():
     assert not imported & {"jax", "jaxlib", "flax", "optax", "orbax", "diffusesg_tpu"}, imported
 
 
+def test_serve_probe_imports_no_jax_and_needs_the_card():
+    imported = _imported_by("serve_probe.py")
+    assert "diffusesg_torch" in imported
+    assert not imported & {"jax", "jaxlib", "flax", "optax", "orbax", "diffusesg_tpu"}, imported
+    if torch.cuda.is_available():
+        return
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "serve_probe.py"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2 and "no CUDA device" in out.stderr, out.stdout + out.stderr
+
+
 def test_microbench_script_imports_torch_and_the_port_only():
     imported = _imported_by(os.path.join("scripts", "microbench_int8_torch.py"))
     assert imported == {"os", "subprocess", "sys", "torch", "diffusesg_torch"}, imported
