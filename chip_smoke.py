@@ -140,7 +140,35 @@ Phases, each printed on its own line:
      the state at the save bit-equal; (e) phase 4's synthetic data through
      the native batcher (g++, built here) equal to the numpy path over two
      epochs.
-Launch counts are set to 0 before each of phases 3-11 and read after it.
+  12. the compiled sampler (``sampling/compiled.py``: every sampler step a
+     replay of a captured CUDA graph, the draws made outside it; the default
+     of every caller since this phase's slice, so phases 3 and 8-11 ran it
+     too): (a) the full-width VG and COCO models (bf16, kernels on, 16 Heun
+     steps with churn) at batch 16 and 64, the compiled sampler's adjs,
+     nodes and decoded graphs bit-equal to the eager sampler at one seed
+     (a first call and an all-replay one), its launch counts equal to the
+     eager run's, three variants captured, and for each variant the port's
+     kernels of one replay (torch.profiler) equal to one eager run of the
+     step, whose wrapper counts equal the variant's launch record; readings: graphs/s of the serving
+     core compiled and eager, host to host, in turns; host CUDA calls a
+     step (torch.profiler); seconds of each variant's first use and
+     capture; the graph pool's bytes; (b) VG: the completion core with
+     inpainting, 4 interim snapshots and ``chunk_steps=4`` bit-equal to
+     eager; (c) ``sg_go_sampling`` with an EMA (plain, the sanity check,
+     ``inpaint_frac`` 0.5), every array equal to its eager pass; (d) two
+     shards of the card, ``gspmd`` and ``shard_map``, each block bit-equal
+     to the eager sharded function; (e) a burst of seeded requests and a
+     seeded completion through ``cli.serve``'s compiled core: JSON equal to
+     an eager server's; (f) ``save_compiled``, then ``load_compiled`` in a
+     fresh process with an empty kernel build directory and no nvcc:
+     output bit-equal, load seconds against the cold build; (g) a denoiser
+     that reads a value on the host, compiled in a fresh process: the
+     capture raises; (h) a reading: VG batch 64, 1000 Heun steps,
+     compiled, decoded, wall seconds and graphs/s; (i) a reading:
+     ``serving.generate`` (a new core and its captures at every call) against
+     the eager core and a held compiled core, and bit-equal to eager.
+Launch counts are set to 0 before each of phases 3-12 and read after it
+(phase 12: around its compiled VG batch-16 sampling).
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Exits non-zero without a result when no CUDA device is present.
@@ -2076,7 +2104,8 @@ def check_serving(dev, smi: str) -> dict:
                       + (f" ({r * evals * flops / (peak_tflops * 1e12):.3%} of "
                          f"{peak_tflops:g})" if peak_tflops else "")
                       for b, r in mean.items())
-    log(f"serve: readings (eager, {SERVE_STEPS} Heun steps, {evals} denoiser evals a graph, "
+    log(f"serve: readings (the compiled sampler, {SERVE_STEPS} Heun steps, {evals} denoiser "
+        f"evals a graph, "
         f"{flops / 1e9:.3f} GFLOP an eval a graph by utils/perf.estimate_model_flops) on {smi}: "
         f"graphs/s through HTTP under two bursts of 16 requests x 4 full graphs "
         f"{' and '.join(f'{r:.2f}' for r in rates[batch])} at batch {batch}, "
@@ -2748,6 +2777,562 @@ def check_multi_device(dev, smi: str) -> dict:
     return per_shard
 
 
+# ----------------------------------------------------------------- phase 12
+
+COMPILED_STEPS = 16
+COMPILED_SEED = 31
+COMPILED_BATCHES = (16, 64)
+NORTH_STAR_STEPS = 1000
+# the variants of 16 Heun steps with churn: no draw (sigma above S_max or
+# below S_min), draws, and the last step's Euler
+COMPILED_VARIANTS = 3
+BUILD_S = {}  # phase 1's nvcc build, seconds (a cold build when the tree had none)
+
+# a fresh process: load_compiled with an empty kernel build directory and no
+# nvcc to call, then the compiled function at one seed; its outputs to an npz
+FRESH_LOAD = r"""
+import json, sys, time
+from pathlib import Path
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from diffusesg_torch.ops import cuda_build
+fresh = Path(sys.argv[2])
+cuda_build.build_dir = lambda: fresh
+
+
+def no_nvcc():
+    raise RuntimeError("load_compiled ran nvcc")
+
+
+cuda_build._nvcc = no_nvcc
+from diffusesg_torch.serving.export import load_compiled
+t0 = time.perf_counter()
+fn, meta = load_compiled(sys.argv[1])
+load_s = time.perf_counter() - t0
+flags = np.load(sys.argv[3])
+out = fn(int(sys.argv[5]), flags)
+np.savez(sys.argv[4], *out)
+library = sorted(p.name for p in fresh.iterdir())
+print(json.dumps({"load_s": load_s, "meta": meta, "library": library}))
+"""
+
+# a fresh process: a denoiser that reads a value on the host, compiled on
+# the card; the capture must raise, not fall back to eager
+HOST_READ = r"""
+import sys
+import torch
+from diffusesg_torch.sampling.compiled import CompiledSampler
+from diffusesg_torch.sampling.edm_sampler import NodeAdjEDMSampler
+
+
+def host_read_for(flags):
+    def denoiser(a, x, sigmas, sc_a, sc_x):
+        if float(sigmas[0]) < 0:  # a host read inside the step
+            raise AssertionError("negative sigma")
+        return torch.tanh(a), torch.tanh(x)
+    return denoiser
+
+
+flags = torch.ones(2, 8, dtype=torch.bool, device="cuda")
+try:
+    out = CompiledSampler(NodeAdjEDMSampler(num_steps=4)).sample(host_read_for, flags, 3, 1, seed=0)
+except Exception as e:  # noqa: BLE001 - any raise is the answer; its type is printed
+    print("RAISED", type(e).__name__, str(e).splitlines()[0][:160])
+    sys.exit(0)
+print("NO RAISE: the compiled sampler returned", tuple(out[0].shape))
+sys.exit(1)
+"""
+
+
+def _host_calls(fn) -> tuple[int, dict]:
+    """Host CUDA API calls one call of ``fn`` makes (torch.profiler's
+    CUDA API events, cuda* and cu*): (total, the most frequent names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CPU and e.key.startswith("cu")}
+    top = dict(sorted(calls.items(), key=lambda kv: -kv[1])[:4])
+    return sum(calls.values()), top
+
+
+def _flags(b: int, n: int, seed: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    counts = [n] * (b // 2) + [int(c) for c in rng.integers(1, n + 1, b - b // 2)]
+    flags = np.zeros((b, n), bool)
+    for i, c in enumerate(counts):
+        flags[i, :c] = True
+    return flags
+
+
+def _same(got, want) -> bool:
+    import numpy as np
+    return len(got) == len(want) and all(
+        (torch.equal(g, w) if isinstance(g, torch.Tensor) else np.array_equal(g, w))
+        for g, w in zip(got, want))
+
+
+def _compiled_model(dev, smi: str, spec, steps: int = COMPILED_STEPS) -> dict:
+    """(a) One model (``spec``), batch 16 and 64: the compiled sampler's
+    adjs, nodes and decoded graphs bit-equal to the eager ``sample`` at the
+    same seed, twice (the second call all replays), its launch counts equal
+    to the eager run's, three variants; graphs/s of the serving core
+    compiled and eager, host to host, in turns; host CUDA calls a step;
+    seconds of each variant's first use and capture, the pool's bytes.
+    Returns the model, its config and the launches of the compiled VG
+    batch-16 sampling."""
+    from functools import partial
+
+    import numpy as np
+
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.models.channels import resolve_sampling_channels
+    from diffusesg_torch.ops import cuda_build
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.sampling.compiled import CompiledSampler
+    from diffusesg_torch.serving.export import _decoder, fixed_batch, make_denoiser, make_serving_fn
+
+    tag = spec["tag"]
+    cfg = load_config(spec["config"])
+    with cfg.unlocked():
+        cfg.mcmc.num_steps = steps
+    model = build_model(cfg, device=dev, seed=0).eval()
+    if not model.use_kernels or model.dtype != torch.bfloat16:
+        fail(f"phase 12 runs the {tag} model with its kernels in bf16")
+    sampler = get_mc_sampler(cfg)
+    info = resolve_sampling_channels(cfg)
+    decode = _decoder(cfg, "serving")[2]
+    n = int(cfg.dataset.max_node_num)
+    denoiser_for = partial(make_denoiser, model, cfg)
+    out = {"model": model, "cfg": cfg, "launches": {}}
+    for b in COMPILED_BATCHES:
+        flags_t = torch.from_numpy(_flags(b, n, b)).to(dev)
+        runner = CompiledSampler(sampler)
+        args = (flags_t, info["num_node_chan"], info["num_adj_chan"])
+        with torch.inference_mode():
+            cuda_build.reset_launches()
+            eager = sampler.sample(denoiser_for(flags_t), *args, seed=COMPILED_SEED)
+            eager = (*eager, *decode(*eager, flags_t))
+            torch.cuda.synchronize()
+            eager_counts = cuda_build.launches_by_kernel()
+            cuda_build.reset_launches()
+            comp = runner.sample(denoiser_for, *args, seed=COMPILED_SEED)
+            comp = (*comp, *decode(*comp, flags_t))
+            torch.cuda.synchronize()
+            comp_counts = dict(cuda_build.LAUNCHES)
+            comp_by_kernel = cuda_build.launches_by_kernel()
+            again = runner.sample(denoiser_for, *args, seed=COMPILED_SEED)
+            again = (*again, *decode(*again, flags_t))
+            torch.cuda.synchronize()
+        (stats,) = runner.stats()
+        seconds = {k: [round(x, 4) for x in v] for k, v in stats["seconds"].items()}
+        same = [_same(comp, eager), _same(again, eager)]
+        log(f"compiled {tag} batch {b}: {steps} Heun steps with churn, the compiled sampler's "
+            f"adjs, nodes and decoded graphs bit-equal to the eager sampler at seed "
+            f"{COMPILED_SEED} (first call, all-replay call): {same}; launches compiled "
+            f"{json.dumps(comp_by_kernel, sort_keys=True)} (eager equal: "
+            f"{comp_by_kernel == eager_counts}); {stats['variants']} variants, seconds of first "
+            f"use / capture {json.dumps(seconds)}; "
+            f"graph pool {stats['pool_bytes']} bytes")
+        if not all(same):
+            fail(f"{tag} batch {b}: the compiled sampler is not bit-equal to the eager one")
+        if comp_by_kernel != eager_counts or any(comp_by_kernel.get(k, 0) == 0
+                                                 for k in FORWARD_KERNELS):
+            fail(f"{tag} batch {b}: compiled launches {comp_by_kernel} against eager "
+                 f"{eager_counts}")
+        if stats["variants"] != COMPILED_VARIANTS:
+            fail(f"{tag} batch {b}: {stats['variants']} variants captured, expected "
+                 f"{COMPILED_VARIANTS}")
+        replayed = _replayed_kernels(runner)
+        log(f"compiled {tag} batch {b}: the port's kernels one replay of each variant's graph "
+            f"launches (torch.profiler) equal to one eager run of its step and its launch "
+            f"record equal to that run's wrapper counts: " + "; ".join(
+                f"{v} {json.dumps(k, sort_keys=True)} {ok}" for v, (k, ok) in replayed.items()))
+        if not all(ok for _, ok in replayed.values()):
+            fail(f"{tag} batch {b}: a graph launches other kernels than its launch record says")
+        if tag == "VG" and b == 16:
+            out["launches"] = comp_counts
+        del runner
+
+        # graphs/s of the serving core, host to host, in turns there and back
+        cores = {c: fixed_batch(make_serving_fn(model, sampler, cfg, compiled=c), b, n, dev)
+                 for c in (False, True)}
+        full = np.ones((b, n), bool)
+        for c in cores.values():
+            c(COMPILED_SEED, full)
+        secs = collections.defaultdict(list)
+        for c in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cores[c](COMPILED_SEED, full)
+            secs[c].append(time.perf_counter() - t0)
+        calls = {c: _host_calls(lambda c=c: cores[c](COMPILED_SEED, full)) for c in cores}
+        log(f"compiled {tag} batch {b}: graphs/s of the serving core (decoded, numpy out), host "
+            f"to host, {steps} Heun steps: eager "
+            f"{' / '.join(f'{b / s:.2f}' for s in secs[False])}, compiled "
+            f"{' / '.join(f'{b / s:.2f}' for s in secs[True])}; host CUDA calls a step "
+            f"eager {calls[False][0] / steps:.1f} {calls[False][1]}, compiled "
+            f"{calls[True][0] / steps:.1f} {calls[True][1]}; on {smi}")
+        del cores
+    return out
+
+
+def _port_kernels(prof) -> collections.Counter:
+    """The port's kernels in a torch.profiler trace: {device function: launches}."""
+    from torch.autograd import DeviceType
+    return collections.Counter({e.key: e.count for e in prof.key_averages()
+                                if e.device_type == DeviceType.CUDA and "#" not in e.key
+                                and any(frag in e.key for frag, _ in KERNEL_OF)})
+
+
+def _replayed_kernels(runner) -> dict:
+    """Per variant of ``runner``'s one program: the port's kernels that one
+    replay of its graph launches (torch.profiler, by device function)
+    against those of one eager run of the step's body on the same static
+    buffers, and the variant's launch record (what each replay adds to the
+    launch counts) against the wrappers' counts in that eager run.
+    Returns {variant: (the replay's launches by kernel, all equal)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusesg_torch.ops import cuda_build
+
+    (program,) = runner._programs.values()
+    out = {}
+    with torch.inference_mode():
+        for variant, (graph, record) in program.graphs.items():
+            torch.cuda.synchronize()
+            cuda_build.reset_launches()
+            with profile(activities=[ProfilerActivity.CUDA]) as eager:
+                program._body(variant)
+                torch.cuda.synchronize()
+            wrappers = dict(cuda_build.LAUNCHES)
+            with profile(activities=[ProfilerActivity.CUDA]) as replay:
+                graph.replay()
+                torch.cuda.synchronize()
+            got, want = _port_kernels(replay), _port_kernels(eager)
+            by_kernel = collections.Counter()
+            for key, n in got.items():
+                by_kernel[next(k for frag, k in KERNEL_OF if frag in key)] += n
+            name = "+".join(k for k, on in variant._asdict().items() if on) or "euler"
+            out[name] = (dict(by_kernel), bool(got) and got == want and wrappers == dict(record))
+    cuda_build.reset_launches()
+    return out
+
+
+def _generate_cost(dev, smi: str, model, cfg) -> None:
+    """(i) A reading, not a gate: ``serving.generate`` builds its serving
+    core anew at each call, so each call runs every variant's first use and
+    capture; its wall seconds against the eager core and a held compiled
+    core (all replays), VG, batch 16, and its output bit-equal to eager."""
+    import numpy as np
+
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.serving import generate
+    from diffusesg_torch.serving.export import make_serving_fn
+
+    sampler = get_mc_sampler(cfg)
+    n = int(cfg.dataset.max_node_num)
+    counts = [int(c) for c in np.random.default_rng(3).integers(1, n + 1, SERVE_BATCH)]
+    flags = torch.arange(n, device=dev)[None, :] < torch.tensor(counts, device=dev)[:, None]
+    held = make_serving_fn(model, sampler, cfg)
+    runs = {"generate": lambda: generate(model, sampler, cfg, counts, COMPILED_SEED, device=dev),
+            "eager core": lambda: make_serving_fn(model, sampler, cfg, compiled=False)(
+                COMPILED_SEED, flags),
+            "held compiled core": lambda: held(COMPILED_SEED, flags)}
+    held(COMPILED_SEED, flags)
+    secs, outs = collections.defaultdict(list), {}
+    for name in ("generate", "eager core", "held compiled core") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = runs[name]()
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+    same = _same(outs["generate"], outs["eager core"])
+    log(f"compiled generate (a reading): VG, {SERVE_BATCH} requests, {COMPILED_STEPS} Heun "
+        f"steps, wall s a call: " + ", ".join(f"{k} {' / '.join(f'{x:.4f}' for x in v)}"
+                                              for k, v in secs.items())
+        + f"; generate bit-equal to the eager core {same}; on {smi}")
+    if not same:
+        fail("generate differs from the eager serving core")
+
+
+def _compiled_options(dev, model, cfg) -> None:
+    """(b) The completion core with inpainting, interim snapshots and
+    ``chunk_steps``, compiled against eager, bit-equal (VG, batch 16)."""
+    from functools import partial
+
+    import numpy as np
+
+    from diffusesg_torch.models.channels import resolve_sampling_channels
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.sampling.compiled import CompiledSampler
+    from diffusesg_torch.serving.export import (fixed_batch, make_completion_fn, make_denoiser,
+                                                make_serving_fn)
+
+    sampler = get_mc_sampler(cfg)
+    n, b = int(cfg.dataset.max_node_num), 16
+    flags = _flags(b, n, 5)
+    rng = np.random.default_rng(5)
+    known = (np.arange(n)[None, :] < 6) & flags
+    args = (flags, rng.integers(0, VG["node_types"], (b, n)), known,
+            rng.uniform(0, 1, (b, n, 4)).astype(np.float32), known,
+            rng.integers(0, VG["edge_types"], (b, n, n)), known[:, :, None] & known[:, None, :])
+    comp = {c: fixed_batch(make_completion_fn(model, sampler, cfg, compiled=c), b, n, dev)(
+        COMPILED_SEED, *args) for c in (True, False)}
+    same_complete = _same(comp[True], comp[False])
+    pinned = bool(np.array_equal(comp[True][1][known], args[1][known]))
+
+    info = resolve_sampling_channels(cfg)
+    flags_t = torch.from_numpy(flags).to(dev)
+    run_args = (flags_t, info["num_node_chan"], info["num_adj_chan"])
+    with torch.inference_mode():
+        interim_c = CompiledSampler(sampler).sample(partial(make_denoiser, model, cfg), *run_args,
+                                                    seed=COMPILED_SEED, num_interim=4)
+        interim_e = sampler.sample(make_denoiser(model, cfg, flags_t), *run_args,
+                                   seed=COMPILED_SEED, num_interim=4)
+    same_interim = _same(interim_c, interim_e)
+    chunked = fixed_batch(make_serving_fn(model, sampler, cfg, chunk_steps=4), b, n, dev)
+    plain = fixed_batch(make_serving_fn(model, sampler, cfg, compiled=False), b, n, dev)
+    same_chunk = _same(chunked(COMPILED_SEED, flags), plain(COMPILED_SEED, flags))
+    log(f"compiled options (VG, batch {b}): the completion core with inpainting bit-equal to "
+        f"eager {same_complete} (pinned node types verbatim {pinned}); 4 interim snapshots "
+        f"bit-equal {same_interim}; chunk_steps=4 compiled equal to the eager unchunked core "
+        f"{same_chunk}")
+    if not (same_complete and pinned and same_interim and same_chunk):
+        fail("a compiled option (completion, interim, chunk_steps) differs from eager")
+
+
+def _compiled_orchestrator(dev, model, cfg) -> None:
+    """(c) ``sg_go_sampling`` with an EMA (plain, the sanity check and
+    inpainting): the compiled pass's arrays equal to the eager pass's."""
+    import numpy as np
+
+    from diffusesg_torch.data import load_data
+    from diffusesg_torch.sampling import get_mc_sampler, orchestrator
+
+    exp_dir = os.path.join("build", "smoke_runs", "compiled")
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    ecfg = _eval_config(exp_dir)
+    bundle = load_data(ecfg, data_root="/nonexistent")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ema = {k: p.detach() + 1e-3 * torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+           for k, p in model.named_parameters()}
+    sampler = get_mc_sampler(ecfg)
+    real, captured = orchestrator.write_artifacts, []
+    orchestrator.write_artifacts = lambda res, *a, **k: captured.append(res)
+    results = []
+    try:
+        for kind, kw in (("plain", {}), ("sanity check", dict(sanity_check=True)),
+                         ("inpaint", dict(inpaint_frac=0.5))):
+            outs = []
+            for c in (True, False):
+                captured.clear()
+                orchestrator.sg_go_sampling(model, ema, sampler, ecfg, bundle, eval_mode=True,
+                                            skip_eval=True, compiled=c, **kw)
+                outs.append(captured[0])
+            same = sorted(outs[0]) == sorted(outs[1]) and all(
+                np.array_equal(outs[0][k], outs[1][k]) for k in outs[0])
+            results.append((kind, same))
+    finally:
+        orchestrator.write_artifacts = real
+    log(f"compiled orchestrator: sg_go_sampling over {EVAL_GRAPHS} graphs at batch "
+        f"{EVAL_GRAPHS} with an EMA through functional_call, every array of the compiled pass "
+        f"equal to the eager pass's: {results}")
+    if not all(s for _, s in results):
+        fail("sg_go_sampling compiled differs from its eager run")
+
+
+def _compiled_shards(dev, model, cfg) -> None:
+    """(d) Two shards of card 0, ``gspmd`` and ``shard_map``: each block of
+    the compiled sharded function bit-equal to the eager one's."""
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.serving.export import make_sharded_serving_fn
+
+    sampler = get_mc_sampler(cfg)
+    n, b = int(cfg.dataset.max_node_num), MULTI_BATCH
+    flags = _flags(b, n, 9)
+    res = {}
+    for mode in ("gspmd", "shard_map"):
+        outs = [make_sharded_serving_fn(model, sampler, cfg, [dev, dev], mode, compiled=c)(
+            COMPILED_SEED, flags) for c in (True, False)]
+        res[mode] = [_same([o[i * b // 2:(i + 1) * b // 2] for o in outs[0]],
+                           [o[i * b // 2:(i + 1) * b // 2] for o in outs[1]]) for i in range(2)]
+    log(f"compiled shards: two shards of {dev} at batch {b}, each block of the compiled sharded "
+        f"function bit-equal to the eager one's: {res}")
+    if not all(all(v) for v in res.values()):
+        fail("a compiled shard differs from the eager sharded function")
+
+
+def _compiled_http(dev, model, cfg) -> None:
+    """(e) One burst of seeded requests (and a seeded completion) through
+    ``cli.serve``'s compiled core and through an eager server: equal JSON."""
+    import numpy as np
+
+    from diffusesg_torch.cli import serve as serve_cli
+    from diffusesg_torch.config import save_config
+    from diffusesg_torch.serving import BatchingSampler, fixed_batch
+    from diffusesg_torch.serving.export import make_completion_fn, make_serving_fn
+
+    root = os.path.join("build", "smoke_runs", "compiled")
+    run = os.path.join(root, "run")
+    os.makedirs(os.path.join(run, "models_ckpt"), exist_ok=True)
+    save_config(cfg, os.path.join(run, "config.yaml"))
+    torch.save({"step": 0, "params": {k: v.cpu() for k, v in model.state_dict().items()},
+                "ema_params": [], "ema_betas": [], "extra": {}},
+               os.path.join(run, "models_ckpt", "00000.pt"))
+    argv = ["-p", run, "--num_steps", str(COMPILED_STEPS), "--batch_size", str(SERVE_BATCH)]
+    fn, complete_fn, batch, n, scfg, bounds, (smodel, sampler, *_) = \
+        serve_cli._load_from_checkpoint(serve_cli.build_serve_parser().parse_args(argv))
+    eager = (fixed_batch(make_serving_fn(smodel, sampler, scfg, compiled=False), batch, n, dev),
+             fixed_batch(make_completion_fn(smodel, sampler, scfg, compiled=False), batch, n,
+                         dev))
+    rng = np.random.default_rng(4)
+    bodies = [{"num_graphs": int(k), "num_nodes": [int(c) for c in rng.integers(1, n + 1, k)],
+               "seed": 100 + i} for i, k in enumerate(rng.integers(1, 5, 6))]
+    complete = {"num_nodes": 12, "seed": 5, "known_nodes": [{"index": 0, "type": 3}],
+                "known_edges": [[0, 1, 7]]}
+    answers = {}
+    for name, (gen, comp) in (("compiled", (fn, complete_fn)), ("eager", eager)):
+        batcher = BatchingSampler(gen, batch, n, linger_ms=20.0, complete_fn=comp,
+                                  num_node_types=bounds[0], num_edge_types=bounds[1])
+        batcher.warmup()
+        httpd, base = _in_thread(batcher)
+        try:
+            got, wall = _burst(base, bodies)
+            got.append(_http(base + "/v1/complete", complete))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            batcher.close()
+        for _, a in got:
+            a.pop("latency_ms", None)
+        answers[name] = (got, wall)
+    same = answers["compiled"][0] == answers["eager"][0]
+    ok = all(code == 200 for code, _ in answers["compiled"][0])
+    log(f"compiled http: a burst of {len(bodies)} seeded /v1/generate requests and a seeded "
+        f"/v1/complete through cli.serve's compiled core: JSON equal to the eager server's "
+        f"{same}, every answer 200 {ok}; burst wall s compiled {answers['compiled'][1]:.3f}, "
+        f"eager {answers['eager'][1]:.3f}")
+    if not (same and ok):
+        fail("the compiled server answers otherwise than the eager server")
+
+
+def _compiled_artifact(dev, smi: str, model, cfg) -> None:
+    """(f) ``save_compiled`` of the serving core at batch 16, then
+    ``load_compiled`` in a fresh process with an empty kernel build
+    directory and no nvcc: bit-equal output; load seconds against the cold
+    build."""
+    import numpy as np
+
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.serving.export import (export_sampler, fixed_batch, make_serving_fn,
+                                                save_compiled)
+
+    root = os.path.join("build", "smoke_runs", "compiled")
+    art, fresh = os.path.join(root, "aot"), os.path.join(root, "fresh_kernels")
+    shutil.rmtree(art, ignore_errors=True)
+    shutil.rmtree(fresh, ignore_errors=True)
+    os.makedirs(fresh)
+    sampler, n = get_mc_sampler(cfg), int(cfg.dataset.max_node_num)
+    live = fixed_batch(make_serving_fn(model, sampler, cfg), SERVE_BATCH, n, dev)
+    t0 = time.perf_counter()
+    live(0, np.ones((SERVE_BATCH, n), bool))  # the warm-up load_compiled makes: the captures
+    build_s = time.perf_counter() - t0
+    meta = {"config": VG["config"], "batch": SERVE_BATCH, "steps": COMPILED_STEPS}
+    save_compiled(art, export_sampler(model, sampler, cfg, SERVE_BATCH), meta)
+    flags = _flags(SERVE_BATCH, n, 13)
+    flags_path, out_path = os.path.join(root, "flags.npy"), os.path.join(root, "fresh_out.npz")
+    np.save(flags_path, flags)
+    want = live(COMPILED_SEED, flags)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FRESH_LOAD, art, fresh, flags_path, out_path,
+                           str(COMPILED_SEED)], capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"load_compiled in a fresh process: {proc.stderr[-2000:]}")
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    with np.load(out_path) as f:
+        got = [f[f"arr_{i}"] for i in range(3)]
+    same = _same(got, want)
+    log(f"compiled artifact: save_compiled -> {art} ({sorted(os.listdir(art))}); load_compiled "
+        f"in a fresh process with an empty build directory and no nvcc: {info['load_s']:.2f} s "
+        f"(model, weights, library, warm-up and capture; {wall:.1f} s for the process), library "
+        f"installed {info['library']}, meta equal {info['meta'] == meta}, output bit-equal to "
+        f"the live function {same}; against a cold build: phase 1's nvcc "
+        f"{BUILD_S.get('build', float('nan')):.1f} s (library present before: "
+        f"{BUILD_S.get('present')}) + this process's warm-up call {build_s:.2f} s; on {smi}")
+    if not (same and info["meta"] == meta and info["library"] == ["libdsg_kernels.so"]):
+        fail("load_compiled in a fresh process does not serve the saved function")
+
+
+def _no_fallback() -> None:
+    """(g) A capture that fails raises: a denoiser with a host read."""
+    proc = subprocess.run([sys.executable, "-c", HOST_READ], capture_output=True, text=True,
+                          timeout=300)
+    line = (proc.stdout.strip().splitlines() or [""])[-1]
+    log(f"compiled no fallback: a denoiser that reads sigma on the host, compiled on the card: "
+        f"exit {proc.returncode}, {line}")
+    if proc.returncode != 0 or not line.startswith("RAISED"):
+        fail(f"a failed capture did not raise: {line} {proc.stderr[-1000:]}")
+
+
+def _north_star(dev, smi: str, model, cfg) -> None:
+    """(h) A reading, not a gate: VG, batch 64, 1000 Heun steps with churn,
+    compiled, decoded: wall seconds and graphs/s (warm-up included)."""
+    import numpy as np
+
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.serving.export import fixed_batch, make_serving_fn
+
+    with cfg.unlocked():
+        cfg.mcmc.num_steps = NORTH_STAR_STEPS
+    sampler = get_mc_sampler(cfg)
+    n, b = int(cfg.dataset.max_node_num), 64
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serving = fixed_batch(make_serving_fn(model, sampler, cfg), b, n, dev)
+    adj, node, bbox = serving(COMPILED_SEED, np.ones((b, n), bool))
+    wall = time.perf_counter() - t0
+    with cfg.unlocked():
+        cfg.mcmc.num_steps = COMPILED_STEPS
+    evals = 2 * NORTH_STAR_STEPS - 1
+    log(f"compiled north star (a reading): VG batch {b}, {NORTH_STAR_STEPS} Heun steps with "
+        f"churn ({evals} denoiser evals), compiled sampling + decode: {wall:.2f} s wall "
+        f"({b / wall:.3f} graphs/s, {wall / evals * 1e3:.3f} ms an eval; capture included), "
+        f"decoded finite {bool(np.isfinite(bbox).all())}; on {smi}")
+    if not np.isfinite(bbox).all():
+        fail("the 1000-step sampling decoded non-finite boxes")
+
+
+def check_compiled(dev, smi: str) -> dict:
+    """Phase 12, the compiled sampler; returns the launches of the compiled
+    VG batch-16 sampling."""
+    vg = _compiled_model(dev, smi, VG)
+    coco = _compiled_model(dev, smi, COCO)
+    del coco
+    torch.cuda.empty_cache()
+    model, cfg = vg["model"], vg["cfg"]
+    _compiled_options(dev, model, cfg)
+    _compiled_orchestrator(dev, model, cfg)
+    _compiled_shards(dev, model, cfg)
+    _compiled_http(dev, model, cfg)
+    _compiled_artifact(dev, smi, model, cfg)
+    _generate_cost(dev, smi, model, cfg)
+    _no_fallback()
+    _north_star(dev, smi, model, cfg)
+    launches = vg["launches"]
+    del model, vg
+    torch.cuda.empty_cache()
+    return launches
+
+
+
 def _latest_samples(logdir) -> dict:
     import glob
 
@@ -2847,7 +3432,7 @@ def profile_call(fn, what: str, eager_ms: float) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 11")
+    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 12")
     ap.add_argument("--no-train", action="store_true",
                     help="skip phases 4, 6 and 10, and phase 8's training run")
     args = ap.parse_args(argv)
@@ -2864,9 +3449,11 @@ def main(argv=None) -> int:
 
     from diffusesg_torch.ops import cuda_build
     t0 = time.perf_counter()
+    BUILD_S["present"] = (cuda_build.build_dir() / "libdsg_kernels.so").exists()
     cuda_build.build(verbose=True)
     cuda_build.lib()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {cuda_build.build_dir()}")
+    BUILD_S["build"] = time.perf_counter() - t0
+    log(f"build: {BUILD_S['build']:.1f} s -> {cuda_build.build_dir()}")
     check_sass(cuda_build.build())
     from diffusesg_torch.ops import mlp_block_kernel as mk
     from diffusesg_torch.ops import mm_microbench as mm
@@ -2905,6 +3492,7 @@ def main(argv=None) -> int:
     results, entry_cases = check_kernels(dev)
     # launch counts per path: {path: (sampling or entries run, training run)}
     counts, eval_counts, serve_counts, dp_counts, shard_counts = {}, {}, {}, {}, {}
+    compiled_counts = {}
     if not args.no_slice:
         vg, _ = check_slice(dev, smi, VG)
         vg_train = {} if args.no_train else check_training(dev, smi, VG)
@@ -2921,13 +3509,15 @@ def main(argv=None) -> int:
         if not args.no_train:
             dp_counts = check_data_parallel(dev, smi)
         shard_counts = check_multi_device(dev, smi)
+        compiled_counts = check_compiled(dev, smi)
     # launches: of the path's sampling (or entries) run for the forward
     # kernels, of its training run for the backward kernels; launches_train:
     # of the training run; launches_eval: of phase 8 and launches_serve: of
     # phase 9 (the VG forward kernels); launches_dp: of phase 10's
     # data-parallel go_training run (the VG forward and backward kernels);
     # launches_shard: of one shard of phase 11's gspmd serving (the VG
-    # forward kernels).
+    # forward kernels); launches_compiled: of phase 12's compiled VG sampling
+    # at batch 16 (eager first uses + captured launches x replays).
     # A case that moves several counters (an entry over two kernels) reports
     # the least of them.
     for r in results:
@@ -2938,6 +3528,11 @@ def main(argv=None) -> int:
         r["launches_serve"] = min(serve_counts.get(k, 0) for k in keys) if path == "vg" else 0
         r["launches_dp"] = min(dp_counts.get(k, 0) for k in keys) if path == "vg" else 0
         r["launches_shard"] = min(shard_counts.get(k, 0) for k in keys) if path == "vg" else 0
+        r["launches_compiled"] = (min(compiled_counts.get(k, 0) for k in keys) if path == "vg"
+                                  else 0)
+        if compiled_counts and path == "vg" and not kernel.endswith("_bwd") and \
+                r["launches_compiled"] == 0:
+            fail(f"{r['name']} was never launched by the compiled sampler")
         if dp_counts and path == "vg" and r["launches_dp"] == 0:
             fail(f"{r['name']} was never launched on the data-parallel path")
         r["launches"] = (r["launches_train"] if kernel.endswith("_bwd")

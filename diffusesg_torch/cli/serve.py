@@ -11,6 +11,9 @@ Counterpart of diffusesg_tpu/cli/serve.py.  Three modes:
   (``/v1/complete`` answers 501).
 
 Runs on ``cuda`` unless ``--device cpu`` (the plain versions on the CPU).
+On a card the serving and completion functions run the compiled sampler
+(``sampling/compiled.py``, as the JAX package jits them): the warm-up
+batches capture its CUDA graphs before the server listens.
 ``--devices`` picks the cards of this process to serve on, by the JAX
 package's rule (0: every card when the batch divides over them, 1: one
 card, N: N cards); over N > 1 cards each serves its block of the batch
@@ -205,7 +208,9 @@ def main(argv=None):
                               num_edge_types=bounds[1])
     httpd = None
     try:
-        logging.info("warming up (first batch; builds the kernels on first use)...")
+        # before listening: the warm-up builds the kernels and captures the
+        # sampler's graphs while no handler thread runs
+        logging.info("warming up (first batches; builds the kernels, captures the sampler)...")
         batcher.warmup()
         httpd = serve(batcher, args.port, idx_to_word)
         httpd.serve_forever()

@@ -8,7 +8,11 @@ package, keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once.
 
 ``LAUNCHES`` counts kernel launches per kernel name and shape; each wrapper
-adds one where it launches its kernel and nowhere else.  Every launch goes
+adds one where it launches its kernel and nowhere else.  A launch made
+while a CUDA graph is captured (``capturing``) is counted in the graph's
+own record instead, and whoever replays the graph adds that record to
+``LAUNCHES`` at each replay (``sampling/compiled.py``): the counts are the
+kernels that ran.  Every launch goes
 through ``launch``, which makes the operands' card current: the library
 launches on the calling thread's current device and opts each kernel in to
 its shared memory once on each device.
@@ -26,6 +30,7 @@ kernels that differentiate their plain version.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -80,6 +85,7 @@ TOKEN_BOX, TOKEN_SPLIT_MIN = 64, 512
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_capture = threading.local()
 
 
 def reset_launches() -> None:
@@ -94,7 +100,20 @@ def launches_by_kernel() -> dict[str, int]:
 
 
 def count_launch(name: str, shape: str) -> None:
-    LAUNCHES[(name, shape)] += 1
+    record = getattr(_capture, "record", None)
+    (LAUNCHES if record is None else record)[(name, shape)] += 1
+
+
+@contextlib.contextmanager
+def capturing(record: collections.Counter):
+    """Count this thread's launches in ``record`` rather than ``LAUNCHES``
+    while a CUDA graph is captured: a captured launch runs only when the
+    graph is replayed."""
+    _capture.record = record
+    try:
+        yield record
+    finally:
+        _capture.record = None
 
 
 def split_count(parallel: int, length: int, min_len: int, align: int = 1) -> int:
@@ -205,7 +224,7 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _source_hash() -> str:
+def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
@@ -222,7 +241,7 @@ def _nvcc() -> str:
 
 
 def build_dir() -> Path:
-    return CSRC.parent.parent / "build" / "kernels" / _source_hash()
+    return CSRC.parent.parent / "build" / "kernels" / source_hash()
 
 
 def build(verbose: bool = False) -> Path:
@@ -259,6 +278,34 @@ def build(verbose: bool = False) -> Path:
             raise RuntimeError("nvcc link failed:\n" + link.stdout)
         out_dir.mkdir(parents=True, exist_ok=True)
         os.replace(tmp_lib, lib_path)
+    return lib_path
+
+
+def nvcc_version() -> str | None:
+    """The last line of ``nvcc --version`` (its release), None without nvcc."""
+    try:
+        out = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True, timeout=60)
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return None
+    lines = out.stdout.strip().splitlines()
+    return lines[-1] if out.returncode == 0 and lines else None
+
+
+def install(lib_file, built_hash: str) -> Path:
+    """Adopt ``lib_file``, a library built from sources of hash
+    ``built_hash``, as this tree's build: copied to where ``build`` looks
+    unless a library of the hash is there already.  Raises when the hash is
+    not the tree's sources': the library would launch other kernels."""
+    if built_hash != source_hash():
+        raise RuntimeError(f"the kernel library {lib_file} was built from sources of hash "
+                           f"{built_hash}, and these sources hash to {source_hash()}")
+    lib_path = build_dir() / "libdsg_kernels.so"
+    if not lib_path.exists():
+        lib_path.parent.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=lib_path.parent) as tmp:
+            tmp_lib = os.path.join(tmp, lib_path.name)
+            shutil.copyfile(lib_file, tmp_lib)
+            os.replace(tmp_lib, lib_path)
     return lib_path
 
 

@@ -2,14 +2,17 @@
 
 Counterpart of diffusesg_tpu/sampling/edm_sampler.py (``sample`` with
 ``init_*``, interim snapshots, inpainting and ``chunk_steps``, and
-``sample_adj``, the adj-only path).  The per-step
-coefficients are computed host-side in float64 exactly as the JAX package
-does and handed to the loop as float32 values; the JAX
-``lax.scan`` is a Python loop here and the ``lax.cond`` on ``is_heun`` a host
-``if``.  Reference behaviours kept: churn gated on S_min <= sigma <= S_max,
-the Heun quirk of re-evaluating at (x_hat, t_hat) (``heun_reuse_xhat``),
-self-conditioning on the previous estimate, and the opt-in sampling-time
-self-cond refresh (``precond_self_cond_refresh_p``).
+``sample_adj``, the adj-only path).  The per-step coefficients are computed
+host-side in float64 exactly as the JAX package does and put on the
+sampling device once, as the [num_steps, 12] float32 table that is the JAX
+scan's input; a step reads its row as 0-d tensors (``step``), so the step
+holds no host value and runs as well inside a CUDA graph
+(``sampling/compiled.py``) as eagerly.  The JAX ``lax.scan`` is a Python
+loop here, and its ``lax.cond``s are host facts that pick the step's
+variant (``StepVariant``).  Reference behaviours kept: churn gated on
+S_min <= sigma <= S_max, the Heun quirk of re-evaluating at (x_hat, t_hat)
+(``heun_reuse_xhat``), self-conditioning on the previous estimate, and the
+opt-in sampling-time self-cond refresh (``precond_self_cond_refresh_p``).
 
 Random draws come from a noise source (``TorchNoise`` by default) keyed by
 step and kind, so a test can hand the port the JAX sampler's own draws.
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -60,6 +63,40 @@ class TorchNoise:
 
     def bernoulli(self, step: int, kind: str, p: float) -> bool:
         return bool(torch.rand((), generator=self.host_gen) < p)
+
+
+class StepVariant(NamedTuple):
+    """The host's facts of one step, which pick its program: whether the
+    churn draws (``noise_coef != 0``), whether the Heun correction runs
+    (every Heun step but the last), and whether the self-conditioning
+    refresh fires at the Euler and at the Heun evaluation (the host
+    Bernoulli draws)."""
+    churn: bool
+    heun: bool
+    refresh_euler: bool
+    refresh_heun: bool
+
+
+class EagerSteps:
+    """The sampler's steps run eagerly: the carry (adjs, nodes, sc_a, sc_x)
+    as tensors that each step replaces.  ``sampling/compiled.py`` has the
+    same interface over static buffers and CUDA graphs."""
+
+    def __init__(self, sampler, denoiser_fn, node_flags, ip, table):
+        self.sampler, self.denoiser_fn, self.node_flags = sampler, denoiser_fn, node_flags
+        self.ip, self.table = ip, table
+
+    def start(self, adjs, nodes):
+        self.carry = (adjs, nodes, torch.zeros_like(adjs), torch.zeros_like(nodes))
+
+    def step(self, i: int, variant: StepVariant, draws) -> None:
+        self.carry = self.sampler.step(self.denoiser_fn, self.node_flags, self.ip, self.carry,
+                                       self.table[i], draws, variant)
+
+    def current(self):
+        return self.carry[:2]
+
+    finish = current
 
 
 def run_steps(steps):
@@ -275,19 +312,38 @@ class NodeAdjEDMSampler:
         what ``sample`` returns, so that one thread can advance several
         samplings a step each in turn (``serving/export.py``'s shards)."""
         noise = noise if noise is not None else TorchNoise(seed, node_flags.device)
-        num_interim = min(num_interim, self.num_steps)
+        init_adjs, init_nodes = self.initial_sample(noise, node_flags, num_node_chan,
+                                                    num_edge_chan, init_adjs, init_nodes)
+        ip = inpaint_tuple(inpaint)
+        table = self.coefficient_table(node_flags.device)
+        steps = EagerSteps(self, denoiser_fn, node_flags, ip, table)
+        return (yield from self.run_loop(steps, noise, node_flags, init_adjs, init_nodes,
+                                         num_interim, ip, chunk_steps))
+
+    def coefficient_table(self, device) -> torch.Tensor:
+        """``step_coefficients()`` on ``device``: the JAX scan's ``coefs``."""
+        return torch.from_numpy(self.step_coefficients()).to(device)
+
+    def initial_sample(self, noise, node_flags, num_node_chan, num_edge_chan, init_adjs=None,
+                       init_nodes=None):
+        """The unscaled initial sample: ``init_*`` when both are given, else
+        the initial draw (``gen_init_sample``)."""
         if init_adjs is None or init_nodes is None:
-            init_adjs, init_nodes = self.gen_init_sample(noise, node_flags, num_node_chan,
-                                                         num_edge_chan)
+            return self.gen_init_sample(noise, node_flags, num_node_chan, num_edge_chan)
+        return init_adjs, init_nodes
+
+    def run_loop(self, steps, noise, node_flags, init_adjs, init_nodes, num_interim: int, ip,
+                 chunk_steps: int | None):
+        """The step loop over ``steps`` (``EagerSteps`` or the compiled
+        sampler's): per step the host facts and draws from ``noise``, the
+        step, the interim snapshot and the chunk's synchronize; yields after
+        each step and returns ``sample``'s outputs."""
+        if chunk_steps is not None and chunk_steps < 1:
+            raise ValueError(f"chunk_steps must be at least 1, got {chunk_steps}")
+        num_interim = min(num_interim, self.num_steps)
         scale0 = self.init_scale()
         adjs, nodes = init_adjs * scale0, init_nodes * scale0
-        sc_a, sc_x = torch.zeros_like(adjs), torch.zeros_like(nodes)
-        batch = node_flags.shape[0]
-        refresh = self.self_condition and self.precond_self_cond_refresh_p > 0.0
-        ip = inpaint or {}
-        ip = (ip.get("gt_adjs"), ip.get("mask_adjs"), ip.get("gt_nodes"), ip.get("mask_nodes"))
-        has_inpaint = any(v is not None for v in ip)
-
+        steps.start(adjs, nodes)
         slot_of_step = {}
         if num_interim > 0:
             snap_steps = np.clip(np.linspace(0, self.num_steps, num_interim).astype(int), 0,
@@ -296,81 +352,122 @@ class NodeAdjEDMSampler:
             interim_a = adjs.new_zeros((num_interim + 1,) + tuple(adjs.shape))
             interim_x = nodes.new_zeros((num_interim + 1,) + tuple(nodes.shape))
             interim_a[0], interim_x[0] = init_adjs, init_nodes
-
-        def denoise(step, kind, a_hat, x_hat, inv_s, sigma, sa, sx):
-            sigma_vec = torch.full((batch,), sigma, dtype=torch.float32, device=a_hat.device)
-
-            def call(s_a, s_x):
-                D_a, D_x = denoiser_fn(a_hat * inv_s, x_hat * inv_s, sigma_vec, s_a, s_x)
-                return mask_adjs(D_a, node_flags), mask_nodes(D_x, node_flags)
-
-            base = call(sa, sx)
-            if refresh and noise.bernoulli(step, kind, self.precond_self_cond_refresh_p):
-                return call(*base)
-            return base
-
-        if chunk_steps is not None and chunk_steps < 1:
-            raise ValueError(f"chunk_steps must be at least 1, got {chunk_steps}")
         sync = chunk_steps is not None and node_flags.device.type == "cuda"
         for i, row in enumerate(self.step_coefficients()):
-            (noise_coef, s_ratio, h, A_hat, B_hat, A_prime, B_prime, sigma_hat, inv_s_hat,
-             is_heun, sigma_prime, inv_s_prime) = (float(v) for v in row)
-
-            # churn re-noising (edm.py:354-366); a zero coefficient draws nothing
-            a_hat, x_hat = s_ratio * adjs, s_ratio * nodes
-            if noise_coef != 0.0:
-                a_hat = a_hat + noise_coef * self._adj_noise(noise, i, "churn_adj", adjs.shape)
-                x_hat = x_hat + noise_coef * noise.normal(i, "churn_node", nodes.shape)
-            a_hat, x_hat = mask_adjs(a_hat, node_flags), mask_nodes(x_hat, node_flags)
-            if has_inpaint:
-                a_hat, x_hat = self._apply_inpaint(noise, i, node_flags, ip, a_hat, x_hat,
-                                                   sigma_hat)
-
-            # Euler evaluation (edm.py:368-391)
-            den_a, den_x = denoise(i, "refresh_euler", a_hat, x_hat, inv_s_hat, sigma_hat,
-                                   sc_a, sc_x)
-            d_a = mask_adjs(A_hat * a_hat - B_hat * den_a, node_flags)
-            d_x = mask_nodes(A_hat * x_hat - B_hat * den_x, node_flags)
-
-            if is_heun > 0.5:
-                sc_a2 = den_a if self.self_condition else sc_a
-                sc_x2 = den_x if self.self_condition else sc_x
-                a_pr = a_hat + self.alpha * h * d_a
-                x_pr = x_hat + self.alpha * h * d_x
-                if self.heun_reuse_xhat and not self.self_condition:
-                    # the 2nd eval's inputs equal the Euler eval's: reuse it
-                    den_a2, den_x2 = den_a, den_x
-                elif self.heun_reuse_xhat:
-                    # reference quirk: the 2nd eval reuses x_hat/t_hat (edm.py:400-405)
-                    den_a2, den_x2 = denoise(i, "refresh_heun", a_hat, x_hat, inv_s_hat,
-                                             sigma_hat, sc_a2, sc_x2)
-                else:
-                    den_a2, den_x2 = denoise(i, "refresh_heun", a_pr, x_pr, inv_s_prime,
-                                             sigma_prime, sc_a2, sc_x2)
-                d_a2 = A_prime * a_pr - B_prime * den_a2
-                d_x2 = A_prime * x_pr - B_prime * den_x2
-                w1, w2 = 1.0 - 1.0 / (2.0 * self.alpha), 1.0 / (2.0 * self.alpha)
-                adjs = a_hat + h * (w1 * d_a + w2 * d_a2)
-                nodes = x_hat + h * (w1 * d_x + w2 * d_x2)
-                den_a, den_x = den_a2, den_x2
-            else:
-                adjs, nodes = a_hat + h * d_a, x_hat + h * d_x
-
-            adjs, nodes = mask_adjs(adjs, node_flags), mask_nodes(nodes, node_flags)
-            if self.self_condition:
-                sc_a, sc_x = den_a, den_x
+            variant = self.step_variant(noise, i, row)
+            steps.step(i, variant, self.step_draws(noise, i, variant, adjs.shape, nodes.shape, ip))
             if i in slot_of_step:
-                interim_a[slot_of_step[i]], interim_x[slot_of_step[i]] = adjs, nodes
+                interim_a[slot_of_step[i]], interim_x[slot_of_step[i]] = steps.current()
             if sync and ((i + 1) % chunk_steps == 0 or i + 1 == self.num_steps):
                 torch.cuda.synchronize(node_flags.device)  # the chunk's end
             yield
-        if has_inpaint:
+        adjs, nodes = steps.finish()
+        if any(v is not None for v in ip):
             # the exact known values in the output (edm_sampler.py:352-355)
-            adjs, nodes = self._apply_inpaint(noise, self.num_steps, node_flags, ip, adjs,
-                                              nodes, 0.0)
+            adjs, nodes = self._inpaint(node_flags, ip, adjs, nodes, None, None, None)
         if num_interim > 0:
             return adjs, nodes, interim_a, interim_x
         return adjs, nodes
+
+    def step_variant(self, noise, step: int, row) -> StepVariant:
+        """Step ``step``'s host facts (``row`` its float32 coefficients on
+        the host).  The refresh Bernoulli draws are made here, the Euler
+        evaluation's and then, where the Heun correction evaluates again,
+        the Heun one's (edm_sampler.py:414-417)."""
+        heun = bool(row[9] > 0.5)
+        refresh = self.self_condition and self.precond_self_cond_refresh_p > 0.0
+        second = heun and (self.self_condition or not self.heun_reuse_xhat)
+        p = self.precond_self_cond_refresh_p
+        r_euler = refresh and noise.bernoulli(step, "refresh_euler", p)
+        r_heun = refresh and second and noise.bernoulli(step, "refresh_heun", p)
+        return StepVariant(bool(row[0] != 0.0), heun, bool(r_euler), bool(r_heun))
+
+    def step_draws(self, noise, step: int, variant: StepVariant, adj_shape, node_shape, ip):
+        """Step ``step``'s normals from ``noise``, unsymmetrized: the churn's
+        (adj, node) where it draws, then the re-noising of the known
+        entries where inpainting sets them; None for what is not drawn."""
+        churn_a = churn_x = ip_a = ip_x = None
+        if variant.churn:
+            churn_a = noise.normal(step, "churn_adj", adj_shape)
+            churn_x = noise.normal(step, "churn_node", node_shape)
+        gt_a, mask_a, gt_x, mask_x = ip
+        if gt_a is not None and mask_a is not None:
+            ip_a = noise.normal(step, "inpaint_adj", adj_shape)
+        if gt_x is not None and mask_x is not None:
+            ip_x = noise.normal(step, "inpaint_node", node_shape)
+        return churn_a, churn_x, ip_a, ip_x
+
+    def _sym(self, draw):
+        return sym_from_normal(draw) if self.symmetric_noise else draw
+
+    def step(self, denoiser_fn: DenoiserFn, node_flags, ip, carry, row, draws,
+             variant: StepVariant):
+        """One step (the JAX scan body, edm_sampler.py:419-499): carry (adjs,
+        nodes, sc_a, sc_x) -> the next carry.  ``row`` is the step's [12]
+        float32 coefficients on the device, read as 0-d tensors, ``draws``
+        ``step_draws``' normals (or static buffers holding them) and
+        ``variant`` ``step_variant``'s facts.  The f32 products follow the
+        JAX step's order."""
+        adjs, nodes, sc_a, sc_x = carry
+        (noise_coef, s_ratio, h, A_hat, B_hat, A_prime, B_prime, sigma_hat, inv_s_hat,
+         _, sigma_prime, inv_s_prime) = row.unbind(0)
+        churn_a, churn_x, ip_a, ip_x = draws
+        batch = node_flags.shape[0]
+
+        def denoise(a_in, x_in, inv_s, sigma, sa, sx, refresh):
+            sigma_vec = sigma.expand(batch)
+
+            def call(s_a, s_x):
+                D_a, D_x = denoiser_fn(a_in * inv_s, x_in * inv_s, sigma_vec, s_a, s_x)
+                return mask_adjs(D_a, node_flags), mask_nodes(D_x, node_flags)
+
+            base = call(sa, sx)
+            return call(*base) if refresh else base
+
+        # churn re-noising (edm.py:354-366); a zero coefficient draws nothing
+        a_hat, x_hat = s_ratio * adjs, s_ratio * nodes
+        if variant.churn:
+            a_hat = a_hat + noise_coef * self._sym(churn_a)
+            x_hat = x_hat + noise_coef * churn_x
+        a_hat, x_hat = mask_adjs(a_hat, node_flags), mask_nodes(x_hat, node_flags)
+        if any(v is not None for v in ip):
+            a_hat, x_hat = self._inpaint(node_flags, ip, a_hat, x_hat, sigma_hat, ip_a, ip_x)
+
+        # Euler evaluation (edm.py:368-391)
+        den_a, den_x = denoise(a_hat, x_hat, inv_s_hat, sigma_hat, sc_a, sc_x,
+                               variant.refresh_euler)
+        d_a = mask_adjs(A_hat * a_hat - B_hat * den_a, node_flags)
+        d_x = mask_nodes(A_hat * x_hat - B_hat * den_x, node_flags)
+
+        if variant.heun:
+            sc_a2 = den_a if self.self_condition else sc_a
+            sc_x2 = den_x if self.self_condition else sc_x
+            alpha_h = self.alpha * h
+            a_pr = a_hat + alpha_h * d_a
+            x_pr = x_hat + alpha_h * d_x
+            if self.heun_reuse_xhat and not self.self_condition:
+                # the 2nd eval's inputs equal the Euler eval's: reuse it
+                den_a2, den_x2 = den_a, den_x
+            elif self.heun_reuse_xhat:
+                # reference quirk: the 2nd eval reuses x_hat/t_hat (edm.py:400-405)
+                den_a2, den_x2 = denoise(a_hat, x_hat, inv_s_hat, sigma_hat, sc_a2, sc_x2,
+                                         variant.refresh_heun)
+            else:
+                den_a2, den_x2 = denoise(a_pr, x_pr, inv_s_prime, sigma_prime, sc_a2, sc_x2,
+                                         variant.refresh_heun)
+            d_a2 = A_prime * a_pr - B_prime * den_a2
+            d_x2 = A_prime * x_pr - B_prime * den_x2
+            w1, w2 = 1.0 - 1.0 / (2.0 * self.alpha), 1.0 / (2.0 * self.alpha)
+            adjs = a_hat + h * (w1 * d_a + w2 * d_a2)
+            nodes = x_hat + h * (w1 * d_x + w2 * d_x2)
+            den_a, den_x = den_a2, den_x2
+        else:
+            adjs, nodes = a_hat + h * d_a, x_hat + h * d_x
+
+        adjs, nodes = mask_adjs(adjs, node_flags), mask_nodes(nodes, node_flags)
+        if self.self_condition:
+            sc_a, sc_x = den_a, den_x
+        return adjs, nodes, sc_a, sc_x
 
     @staticmethod
     def _adj_only_joint(denoiser_fn, node_flags):
@@ -411,24 +508,29 @@ class NodeAdjEDMSampler:
             init = init.abs()
         return mask_adjs(init, node_flags)
 
-    def _apply_inpaint(self, noise, step: int, node_flags, ip, adjs_v, nodes_v, sigma: float):
+    def _inpaint(self, node_flags, ip, adjs_v, nodes_v, sigma, draw_a, draw_x):
         """Replace the known entries with the ground truth re-noised at
-        ``sigma`` (edm_sampler.py:360-384); ``ip`` = (gt_adjs, mask_adjs,
-        gt_nodes, mask_nodes), None where unset.  At sigma 0 nothing is
-        drawn: the known entries are the ground truth itself."""
+        ``sigma`` (a 0-d tensor) from the step's draws (edm_sampler.py:360-384);
+        ``ip`` = (gt_adjs, mask_adjs, gt_nodes, mask_nodes), None where unset.
+        ``sigma`` None (the output, at sigma 0) takes the ground truth itself."""
         gt_a, mask_a, gt_x, mask_x = ip
         if mask_a is not None and gt_a is not None:
             m = mask_a.to(adjs_v.dtype)
             if m.ndim < adjs_v.ndim:
                 m = m[..., None]
-            known = gt_a if sigma == 0.0 else (
-                gt_a + sigma * self._adj_noise(noise, step, "inpaint_adj", adjs_v.shape))
+            known = gt_a if sigma is None else gt_a + sigma * self._sym(draw_a)
             adjs_v = mask_adjs(known, node_flags) * m + adjs_v * (1 - m)
         if mask_x is not None and gt_x is not None:
             m = mask_x.to(nodes_v.dtype)
             if m.ndim < nodes_v.ndim:
                 m = m[..., None]
-            known = gt_x if sigma == 0.0 else (
-                gt_x + sigma * noise.normal(step, "inpaint_node", nodes_v.shape))
+            known = gt_x if sigma is None else gt_x + sigma * draw_x
             nodes_v = mask_nodes(known, node_flags) * m + nodes_v * (1 - m)
         return adjs_v, nodes_v
+
+
+def inpaint_tuple(inpaint: dict | None) -> tuple:
+    """``sample``'s ``inpaint`` dict as (gt_adjs, mask_adjs, gt_nodes,
+    mask_nodes), None where unset."""
+    ip = inpaint or {}
+    return (ip.get("gt_adjs"), ip.get("mask_adjs"), ip.get("gt_nodes"), ip.get("mask_nodes"))

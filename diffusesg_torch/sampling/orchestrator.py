@@ -30,13 +30,14 @@ from ..models.channels import resolve_sampling_channels
 from ..models.precond import precond_forward
 from ..ops.box_ops import box_cxcywh_to_xyxy
 from ..parallel.mesh import current_world, gather_to_host, is_main_process, sync_hosts
+from .compiled import CompiledSampler
 from .decode import decode_samples
 from .edm_sampler import NodeAdjEDMSampler, TorchNoise
 
 
 def make_sample_fn(model, params, sampler: NodeAdjEDMSampler, num_node_chan: int,
                    num_edge_chan: int, sanity_check: bool = False, precond: str = "edm",
-                   num_interim: int = 0, inpaint: bool = False):
+                   num_interim: int = 0, inpaint: bool = False, compiled: bool = True):
     """(noise, node_flags[, gt_a, gt_x[, mask_a, mask_x]]) -> the sampler's
     outputs (orchestrator.py:105-137).
 
@@ -46,7 +47,13 @@ def make_sample_fn(model, params, sampler: NodeAdjEDMSampler, num_node_chan: int
     (noise, node_flags, gt_a, gt_x) and denoises to the ground truth
     (reference: edm.py:375-377); ``inpaint`` takes (noise, node_flags, gt_a,
     gt_x, mask_a, mask_x) and carries the masked-true entries of the ground
-    truth through the reverse diffusion."""
+    truth through the reverse diffusion.
+
+    On a card the sampler runs compiled (``sampling/compiled.py``) unless
+    ``compiled=False``, with the same output.  Its graphs read the
+    parameters (the model's, or ``params``' tensors) where they lay at
+    capture: they must stay in place while this function is used, as they
+    do through one ``sg_go_sampling``, which builds its own."""
     def net(*args):
         return model(*args) if params is None else functional_call(model, params, args)
 
@@ -55,21 +62,24 @@ def make_sample_fn(model, params, sampler: NodeAdjEDMSampler, num_node_chan: int
             return precond_forward(net, precond, a, x, node_flags, sigmas, sc_a, sc_x)
         return denoiser
 
-    run = partial(sampler.sample, num_node_chan=num_node_chan, num_edge_chan=num_edge_chan,
-                  num_interim=num_interim)
+    def gt_denoiser_for(node_flags, gt_a, gt_x):
+        def gt_denoiser(a, x, sigmas, sc_a, sc_x):
+            return gt_a.float(), gt_x.float()
+        return gt_denoiser
+
+    run = partial(CompiledSampler(sampler, compiled).sample, num_node_chan=num_node_chan,
+                  num_edge_chan=num_edge_chan, num_interim=num_interim)
     if sanity_check:
         def sample_fn(noise, node_flags, gt_a, gt_x):
-            def gt_denoiser(a, x, sigmas, sc_a, sc_x):
-                return gt_a.float(), gt_x.float()
-            return run(gt_denoiser, node_flags, noise=noise)
+            return run(gt_denoiser_for, node_flags, noise=noise, operands=(gt_a, gt_x))
     elif inpaint:
         def sample_fn(noise, node_flags, gt_a, gt_x, mask_a, mask_x):
-            return run(denoiser_for(node_flags), node_flags, noise=noise,
+            return run(denoiser_for, node_flags, noise=noise,
                        inpaint=dict(gt_adjs=gt_a, gt_nodes=gt_x, mask_adjs=mask_a,
                                     mask_nodes=mask_x))
     else:
         def sample_fn(noise, node_flags):
-            return run(denoiser_for(node_flags), node_flags, noise=noise)
+            return run(denoiser_for, node_flags, noise=noise)
     return sample_fn
 
 
@@ -126,7 +136,8 @@ def sg_go_sampling(model, params, mc_sampler: NodeAdjEDMSampler, config, bundle,
                    epoch: int = 0, eval_mode: bool = False, sanity_check: bool = False,
                    sampling_params: dict | None = None, writer=None,
                    skip_eval: bool = False, random_node_num: bool = False,
-                   noise_factory=None, inpaint_frac: float | None = None) -> dict:
+                   noise_factory=None, inpaint_frac: float | None = None,
+                   compiled: bool = True) -> dict:
     """Sample, decode, evaluate; returns the metric dict and writes the
     artifacts (orchestrator.py:165-427).
 
@@ -144,7 +155,8 @@ def sg_go_sampling(model, params, mc_sampler: NodeAdjEDMSampler, config, bundle,
     ``inpaint_frac`` turns the pass into
     conditional completion: the first ceil(n_valid * frac) valid nodes of
     every test graph, their labels, boxes and the edges among them, are
-    pinned to the ground truth (``inpaint_masks``).
+    pinned to the ground truth (``inpaint_masks``).  On a card the sampler
+    runs compiled unless ``compiled=False`` (``make_sample_fn``).
 
     Besides the metrics, the dict holds ``_seconds``: the wall time of
     sampling + decode and of metrics + artifacts."""
@@ -209,7 +221,8 @@ def sg_go_sampling(model, params, mc_sampler: NodeAdjEDMSampler, config, bundle,
                              "(conditioning pins GT values onto the GT node layout)")
     sample_fn = make_sample_fn(model, params, mc_sampler, num_node_type, num_adj_type,
                                sanity_check, precond=config.mcmc.get("precond", "edm"),
-                               num_interim=num_interim, inpaint=inpaint_frac is not None)
+                               num_interim=num_interim, inpaint=inpaint_frac is not None,
+                               compiled=compiled)
     decode_fn = partial(decode_samples, node_encoding=node_encoding,
                         edge_encoding=edge_encoding, num_node_type=raw_num_node_type,
                         num_adj_type=raw_num_adj_type if not flag_binary_edge else 2,

@@ -1,5 +1,5 @@
-"""The serving core, its numpy contract, serving across devices, and the
-sampler artifact.
+"""The serving core, its numpy contract, serving across devices, the
+sampler artifact and the compiled sampler's cache.
 
 Counterpart of diffusesg_tpu/serving/export.py.  The core is end to end,
 sampling and decode:
@@ -12,7 +12,10 @@ decoded integer scene graphs with [0, 1] cxcywh boxes (the decode of
 and ``make_completion_fn`` return it on tensors (``serving/generate.py``
 and the tests call those); ``fixed_batch`` binds either to one batch size,
 device and numpy in and out, the contract ``serving/server.py`` calls, as
-the JAX package's compiled program is bound to one batch.
+the JAX package's compiled program is bound to one batch.  The cores run
+the compiled sampler (``sampling/compiled.py``, the counterpart of the JAX
+package's ``jax.jit``): on a card every sampler step is a replay of a
+captured CUDA graph; ``compiled=False`` runs the eager sampler.
 
 ``make_sharded_serving_fn`` / ``make_sharded_completion_fn`` serve one batch
 across several devices of this process: a replica of the model on each, the
@@ -34,8 +37,18 @@ because the kernels launch through ctypes and no torch serialization carries
 them.  The serving host therefore needs ``diffusesg_torch`` installed, and
 ``load_artifact`` rebuilds the model and the sampler from the config; an
 artifact over N > 1 devices (``num_devices``, ``spmd_mode``) is served by the
-sharded function on N devices.  The executable cache (``save_compiled`` /
-``load_compiled``) is not ported.
+sharded function on N devices.
+
+``save_compiled`` / ``load_compiled`` (export.py:352-400) persist the
+serving core bound to one batch with its sampler compiled.  A CUDA graph
+cannot be serialized, so ``save_compiled`` writes the artifact of
+``export_sampler`` (what rebuilds the program: weights, config, batch and
+flag shapes, devices, ``spmd_mode``) and ``compiled.json``, the caller's
+``meta`` and the kernel library's source hash, nvcc release and
+architecture; beside it ``kernels/`` holds a copy of the built library.
+``load_compiled`` refuses a library whose hash is not the tree's sources',
+installs it where the build looks (so no ``nvcc`` runs), loads the artifact
+and warms it up, which captures the graphs.
 """
 from __future__ import annotations
 
@@ -43,6 +56,7 @@ import contextlib
 import copy
 import json
 import os
+import shutil
 from functools import partial
 
 import numpy as np
@@ -51,6 +65,7 @@ import torch
 from ..models.channels import resolve_sampling_channels
 from ..models.precond import precond_forward
 from ..ops.attribute_code import attribute_converter
+from ..sampling.compiled import CompiledSampler
 from ..sampling.decode import decode_samples
 from ..sampling.edm_sampler import NodeAdjEDMSampler, TorchNoise, run_steps
 from ..utils.device import resolve_device
@@ -58,6 +73,8 @@ from ..utils.device import resolve_device
 ARTIFACT_WEIGHTS = "sampler.pt"
 ARTIFACT_META = "meta.json"
 ARTIFACT_FORMAT = "diffusesg_torch.serving/1"
+COMPILED_META = "compiled.json"
+COMPILED_LIB = os.path.join("kernels", "libdsg_kernels.so")
 
 
 def make_denoiser(model, config, node_flags):
@@ -82,24 +99,27 @@ def _decoder(config, what: str):
     return info, n_edge_type, decode
 
 
-def _serving_steps(model, sampler: NodeAdjEDMSampler, config, chunk_steps: int | None = None):
+def _serving_steps(model, sampler: NodeAdjEDMSampler, config, chunk_steps: int | None = None,
+                   compiled: bool = True):
     """The serving core as a generator of sampler steps (``sample_steps``)
     that returns (adj_types, node_types, bboxes)."""
     info, _, decode = _decoder(config, "serving")
+    runner, denoiser_for = CompiledSampler(sampler, compiled), partial(make_denoiser, model, config)
 
     def steps(seed: int, node_flags: torch.Tensor, noise=None):
-        adjs, nodes = yield from sampler.sample_steps(
-            make_denoiser(model, config, node_flags), node_flags, info["num_node_chan"],
-            info["num_adj_chan"], noise=noise, seed=seed, chunk_steps=chunk_steps)
+        adjs, nodes = yield from runner.sample_steps(
+            denoiser_for, node_flags, info["num_node_chan"], info["num_adj_chan"], noise=noise,
+            seed=seed, chunk_steps=chunk_steps)
         dec = decode(adjs, nodes, node_flags)
         return dec.adj_types, dec.node_types, dec.bboxes
     return steps
 
 
-def _completion_steps(model, sampler: NodeAdjEDMSampler, config):
+def _completion_steps(model, sampler: NodeAdjEDMSampler, config, compiled: bool = True):
     """The completion core (``make_completion_fn``) as a generator of
     sampler steps."""
     info, n_edge_type, decode = _decoder(config, "completion serving")
+    runner, denoiser_for = CompiledSampler(sampler, compiled), partial(make_denoiser, model, config)
     node_enc, edge_enc = config.train.node_encoding, config.train.edge_encoding
     n_node_type = info["raw_num_node_type"]
 
@@ -119,9 +139,9 @@ def _completion_steps(model, sampler: NodeAdjEDMSampler, config):
                          mask_bbox[..., None].expand(*mask_bbox.shape, 4)], dim=-1)
         inpaint = {"gt_adjs": gt_a, "gt_nodes": gt_x, "mask_adjs": mask_adj,
                    "mask_nodes": m_x}
-        adjs, nodes = yield from sampler.sample_steps(
-            make_denoiser(model, config, node_flags), node_flags, info["num_node_chan"],
-            info["num_adj_chan"], noise=noise, seed=seed, inpaint=inpaint)
+        adjs, nodes = yield from runner.sample_steps(
+            denoiser_for, node_flags, info["num_node_chan"], info["num_adj_chan"], noise=noise,
+            seed=seed, inpaint=inpaint)
         dec = decode(adjs, nodes, node_flags)
         return dec.adj_types, dec.node_types, dec.bboxes
     return steps
@@ -135,18 +155,21 @@ def _run(steps):
         return run_steps(steps)
 
 
-def make_serving_fn(model, sampler: NodeAdjEDMSampler, config, chunk_steps: int | None = None):
+def make_serving_fn(model, sampler: NodeAdjEDMSampler, config, chunk_steps: int | None = None,
+                    compiled: bool = True):
     """(seed, node_flags, noise=None) -> (adj_types, node_types, bboxes) on
     the flags' device.  ``noise`` replaces the default ``TorchNoise(seed)``;
-    ``chunk_steps`` is the sampler's (bit-equal output)."""
-    steps = _serving_steps(model, sampler, config, chunk_steps)
+    ``chunk_steps`` is the sampler's (bit-equal output).  On a card the
+    sampler runs compiled (CUDA graph replays) unless ``compiled=False``;
+    the output is the same bit for bit."""
+    steps = _serving_steps(model, sampler, config, chunk_steps, compiled)
 
     def serve(seed: int, node_flags: torch.Tensor, noise=None):
         return _run(steps(seed, node_flags, noise=noise))
     return serve
 
 
-def make_completion_fn(model, sampler: NodeAdjEDMSampler, config):
+def make_completion_fn(model, sampler: NodeAdjEDMSampler, config, compiled: bool = True):
     """Conditional completion over the serving surface (export.py:136-220).
 
     Known parts arrive in user space (integer types, [0, 1] cxcywh boxes),
@@ -160,8 +183,8 @@ def make_completion_fn(model, sampler: NodeAdjEDMSampler, config):
           -> (adj_types, node_types, bboxes)
 
     Node-type and box knowledge are masked independently (a per-channel
-    node mask)."""
-    steps = _completion_steps(model, sampler, config)
+    node mask).  ``compiled`` as in ``make_serving_fn``."""
+    steps = _completion_steps(model, sampler, config, compiled)
 
     def complete(seed: int, node_flags, known_node, mask_node, known_bbox, mask_bbox,
                  known_adj, mask_adj, noise=None):
@@ -348,7 +371,7 @@ def _replicas(model, devices):
 
 
 def make_sharded_serving_fn(model, sampler: NodeAdjEDMSampler, config, devices,
-                            spmd_mode: str = "gspmd"):
+                            spmd_mode: str = "gspmd", compiled: bool = True):
     """Serving across ``devices`` (export.py:93-133): ``(seed, node_flags
     bool[B, N], noise=None)`` -> numpy (adj, node, bbox), B a multiple of
     ``len(devices)``; a replica of ``model`` on each device.  ``gspmd``
@@ -356,7 +379,8 @@ def make_sharded_serving_fn(model, sampler: NodeAdjEDMSampler, config, devices,
     draws, default ``TorchNoise(seed)`` on the first device); ``shard_map``
     runs block i on ``noise.fold_in(i)`` (default ``TorchNoise(seed)`` on its
     device).  A device may be listed twice: its blocks share its replica."""
-    cores = [_serving_steps(m, sampler, config) for m in _replicas(model, devices)]
+    cores = [_serving_steps(m, sampler, config, compiled=compiled)
+             for m in _replicas(model, devices)]
     return _sharded(cores, devices, 1, spmd_mode)
 
 
@@ -396,6 +420,7 @@ def export_sampler(model, sampler: NodeAdjEDMSampler, config, batch_size: int,
         "platforms": [next(model.parameters()).device.type],
         "num_devices": int(num_devices),
         "spmd_mode": spmd_mode,
+        "batch_size": int(batch_size),
         "in_avals": [_aval("int32", ()), _aval("bool", (batch_size, n))],
         "out_avals": [_aval("int32", (batch_size, n, n)), _aval("int32", (batch_size, n)),
                       _aval("float32", (batch_size, n, 4))],
@@ -486,3 +511,57 @@ def fixed_sharded_batch(fn, batch_size: int, max_node_num: int):
                              f"({batch_size}, {max_node_num}), got {shape}")
         return fn(seed, node_flags, *known, noise=noise)
     return call
+
+
+def save_compiled(path: str, exported: dict, meta: dict) -> None:
+    """Persist ``exported`` (``export_sampler``'s output: the serving core
+    at one batch, the counterpart of the JAX package's compiled executable)
+    and the caller's ``meta`` to ``path``/ (export.py:352-376):
+    ``save_artifact``'s files and ``compiled.json``; on a card with the
+    kernels on, also ``kernels/`` with the built library, and its source
+    hash, nvcc release and architecture in ``compiled.json``.  Staleness
+    against ``meta`` is the caller's to check."""
+    from ..config import ConfigDict
+    from ..models.factory import use_kernels
+    from ..ops import cuda_build
+
+    config = ConfigDict(exported["config"])
+    save_artifact(path, exported, config, exported["batch_size"])
+    kernels = None
+    if exported["platforms"][0] == "cuda" and use_kernels(config):
+        lib_path = os.path.join(path, COMPILED_LIB)
+        os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+        shutil.copyfile(cuda_build.build(), lib_path)
+        kernels = {"source_hash": cuda_build.source_hash(), "nvcc": cuda_build.nvcc_version(),
+                   "arch": "sm_90a"}
+    with open(os.path.join(path, COMPILED_META), "w") as f:
+        json.dump({"meta": meta, "kernels": kernels}, f, indent=2)
+
+
+def load_compiled(path: str, device: str | torch.device = "cuda"):
+    """(callable, meta) from ``save_compiled``'s output (export.py:379-400):
+    ``load_artifact``'s numpy contract on ``device`` (``cuda`` unless the
+    caller asks for the CPU), on a card warmed up by one call, which
+    captures the step variants that call takes (a refresh variant it does
+    not draw is captured at its first use).  Raises FileNotFoundError when
+    the file is absent, RuntimeError when the saved library was built from
+    other sources than this tree's or the artifact spans more devices than
+    the process has.  Staleness against ``meta`` is the caller's to check."""
+    from ..ops import cuda_build
+
+    dev = resolve_device(device)
+    with open(os.path.join(path, COMPILED_META)) as f:
+        blob = json.load(f)
+    kernels = blob["kernels"]
+    if kernels is not None:
+        if kernels["source_hash"] != cuda_build.source_hash():
+            raise RuntimeError(f"compiled artifact at {path} carries a kernel library built "
+                               f"from sources of hash {kernels['source_hash']} (nvcc "
+                               f"{kernels['nvcc']}, {kernels['arch']}); this tree's hash "
+                               f"{cuda_build.source_hash()}: re-save it from this tree")
+        if dev.type == "cuda":
+            cuda_build.install(os.path.join(path, COMPILED_LIB), kernels["source_hash"])
+    fn, art = load_artifact(path, dev)
+    if dev.type == "cuda":
+        fn(0, np.ones((art["batch_size"], art["max_node_num"]), bool))
+    return fn, blob["meta"]

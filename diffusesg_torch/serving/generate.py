@@ -3,9 +3,11 @@
 ``generate`` takes a plain list of requests (nodes per graph) and returns
 the decoded graphs through the serving core of ``serving/export.py``
 (``make_serving_fn``, the counterpart of the JAX package's
-``_serving_impl``); padded slots decode to zeros.  The model runs its
-kernels or its plain versions as its config's ``tpu.use_pallas_attention``
-chose (``models.make_model``).  The HTTP server is ``serving/server.py``.
+``_serving_impl``), whose sampler runs compiled on a card (every step a
+CUDA graph replay, ``sampling/compiled.py``); padded slots decode to zeros.
+The model runs its kernels or its plain versions as its config's
+``tpu.use_pallas_attention`` chose (``models.make_model``).  The HTTP
+server is ``serving/server.py``.
 """
 from __future__ import annotations
 
@@ -31,7 +33,10 @@ def generate(model, sampler: NodeAdjEDMSampler, config, num_nodes, seed: int = 0
              device: str | torch.device = "cuda", noise=None):
     """Answer a list of requests (nodes per graph, e.g. ``[64, 40, 12, 5]``)
     with decoded scene graphs: (adj_types, node_types, bboxes), batch-first
-    in request order.  Runs on ``cuda`` unless ``device="cpu"``."""
+    in request order.  Runs on ``cuda`` unless ``device="cpu"``.  Each call
+    builds the serving core anew, so on a card it captures the sampler's
+    graphs again; a caller answering many batches holds
+    ``make_serving_fn``'s function, which keeps its captured programs."""
     dev = resolve_device(device)
     param_dev = next(model.parameters()).device
     if param_dev.type != dev.type:

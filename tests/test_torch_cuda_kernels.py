@@ -249,6 +249,92 @@ def test_inpainted_sample_pins_known_entries_on_the_card(cuda):
     assert torch.isfinite(nodes).all() and not torch.equal(nodes[unknown], gt_x[unknown])
 
 
+def _compiled_against_eager(cfg, model, dev, seed=3):
+    """(eager outputs, two compiled calls' outputs, eager launches, compiled
+    launches of the two calls) of one sampling on ``dev``."""
+    from functools import partial
+
+    from diffusesg_torch.models.channels import resolve_sampling_channels
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.sampling.compiled import CompiledSampler
+    from diffusesg_torch.serving.generate import make_denoiser
+    sampler, info = get_mc_sampler(cfg), resolve_sampling_channels(cfg)
+    n = cfg.dataset.max_node_num
+    flags = (torch.arange(n)[None, :] < torch.tensor([n, n // 2, 3, 1])[:, None]).to(dev)
+    args = (flags, info["num_node_chan"], info["num_adj_chan"])
+    runner = CompiledSampler(sampler)
+    with torch.inference_mode():
+        before = cuda_build.launches_by_kernel()
+        want = sampler.sample(make_denoiser(model, cfg, flags), *args, seed=seed)
+        torch.cuda.synchronize(dev)
+        mid = cuda_build.launches_by_kernel()
+        got = [runner.sample(partial(make_denoiser, model, cfg), *args, seed=seed)
+               for _ in range(2)]
+        torch.cuda.synchronize(dev)
+        after = cuda_build.launches_by_kernel()
+    eager = {k: v - before.get(k, 0) for k, v in mid.items() if v != before.get(k, 0)}
+    compiled = {k: v - mid.get(k, 0) for k, v in after.items() if v != mid.get(k, 0)}
+    return want, got, eager, compiled
+
+
+@pytest.mark.parametrize("which", ["tiny", "vg"])
+def test_compiled_sampler_bit_equal_to_eager_on_the_card(cuda, which):
+    """The compiled sampler (sampling/compiled.py: each step a CUDA graph
+    replay) against the eager sampler at one seed, bit for bit, a first call
+    and an all-replay call: configs/vg_small_test.yaml (kernels off,
+    float32: the plain path captured) and the full-width VG model (kernels
+    on, bf16); 4 Heun steps with churn; the launches of the two compiled
+    calls are twice the eager run's (none for the plain path)."""
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.models import build_model
+    path = ("configs/vg_small_test.yaml" if which == "tiny"
+            else "configs/edm_diffuse_sg_regular_visual_genome.yaml")
+    cfg = load_config(path)
+    with cfg.unlocked():
+        cfg.mcmc.num_steps = 4
+    model = build_model(cfg, device=cuda, seed=0).eval()
+    assert model.use_kernels == (which == "vg")
+    want, got, eager, compiled = _compiled_against_eager(cfg, model, cuda)
+    for out in got:
+        assert all(torch.equal(g, w) for g, w in zip(out, want))
+    assert compiled == {k: 2 * v for k, v in eager.items()}
+    assert bool(eager) == (which == "vg")
+
+
+def test_compiled_sampler_on_every_card(cuda):
+    """The full-width VG model on each card of the process, card 0 last:
+    the compiled sampler's capture and replays under that card and its
+    stream, bit-equal to the eager sampler there; and the compiled
+    ``shard_map`` function over cards 0 and 1 bit-equal to the eager one,
+    block by block.  Needs two cards."""
+    import numpy as np
+
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.serving.export import make_sharded_serving_fn
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards in the process")
+    cfg = load_config("configs/edm_diffuse_sg_regular_visual_genome.yaml")
+    with cfg.unlocked():
+        cfg.mcmc.num_steps = 4
+    for i in list(range(1, n)) + [0]:
+        dev = torch.device("cuda", i)
+        model = build_model(cfg, device=dev, seed=0).eval()
+        want, got, _, _ = _compiled_against_eager(cfg, model, dev)
+        for out in got:
+            assert all(torch.equal(g, w) for g, w in zip(out, want))
+    devices = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    flags = np.ones((8, cfg.dataset.max_node_num), bool)
+    flags[4:, 20:] = False
+    outs = [make_sharded_serving_fn(model, get_mc_sampler(cfg), cfg, devices, "shard_map",
+                                    compiled=c)(5, flags) for c in (True, False)]
+    for a, b in zip(*outs):
+        assert np.array_equal(a[:4], b[:4]) and np.array_equal(a[4:], b[4:])
+    assert torch.cuda.current_device() == 0
+
+
 # The backward kernels' outputs are gradients: sums over tokens whose scale
 # grows with the token count, so each is compared relative to its tensor:
 # 2e-2 of the element (a bf16 ulp is 2^-8) plus 1e-2 of the tensor's max.
