@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # every phase, as a CI check
     python3 chip_smoke.py --no-slice # build + kernels vs plain only
-    python3 chip_smoke.py --no-train # phases 1-3, 5 and 7-9 (8 from a seeded checkpoint)
+    python3 chip_smoke.py --no-train # phases 1-3, 5, 7-9, 11 and 12 (8 from a seeded checkpoint)
 
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit), the kernels' nvcc build, and
@@ -39,7 +39,9 @@ Phases, each printed on its own line:
      fp32 plain model on the CPU on a small input; then ms per denoiser eval
      at batch 16 and 64;
   4. the training slice: the same model takes 8 training steps at batch 64
-     through ``go_training`` on synthetic scene graphs (seed 0): finite losses,
+     through ``go_training`` (its compiled step, train/compiled.py, since
+     phase 13's slice; its graphs are read) on synthetic scene graphs (seed
+     0): finite losses,
      12 launches of each backward kernel per step, parameters, Adam moments
      and the 5 EMAs move and the EMAs follow their warm-up ramp, a checkpoint
      restores bit-equal state; the gradients of the card's bf16 kernel model
@@ -50,7 +52,7 @@ Phases, each printed on its own line:
      ulps and two controls without the kernel); then ms per training step at
      batch 64, its peak memory, the largest power-of-two batch that fits, and
      the profile of one step (the window core and the fused MLP under their
-     own names);
+     own names); the timed steps are the eager step's;
   5. the COCO-Stuff slice: the full-width COCO model (30,690,020 parameters,
      window 10, bf16) answers requests of 40, 33, 12 and 5 nodes and then 16
      full graphs through ``serving.generate``, checked as phase 3 (node types
@@ -60,7 +62,8 @@ Phases, each printed on its own line:
      ``fused_swin_block`` on a pre-rolled grid against the model's own block,
      and ``scripts/microbench_int8_torch.py``;
   6. the COCO-Stuff training slice: 8 steps at batch 64 through
-     ``go_training`` as phase 4, 18 launches of each backward kernel per step;
+     ``go_training`` (compiled) as phase 4, 18 launches of each backward
+     kernel per step;
   7. ``configs/vg_small_test.yaml``, whose ``tpu`` block switches the kernels
      off (float32, head_dim 16, which no kernel covers): its denoiser on the
      card against the same fp32 plain model on the CPU (relative L2 1e-4),
@@ -68,7 +71,8 @@ Phases, each printed on its own line:
      no kernel may launch;
   8. the eval slice on the full-width VG model (kernels on, bf16; 16 Heun
      steps, an eval set of 64 synthetic graphs at batch 64): ``go_training``
-     with the sampler for epochs 0 and 1 (epoch 0's sanity check reads every
+     (its compiled training and test steps) with the sampler for epochs 0
+     and 1 (epoch 0's sanity check reads every
      MMD 0.0; the training state bit-equal around each pass; under
      ``--no-train`` a checkpoint of the seeded model instead), then
      ``cli.eval`` on the checkpoint with its default device, plain and with
@@ -109,9 +113,10 @@ Phases, each printed on its own line:
      launches of each backward kernel, and 2 through the ``gspmd`` + ZeRO-1
      step, within tests/test_torch_train_step.py's bars of it, its
      checkpoint (gathered to rank 0) restoring bit-equal in a
-     single-device state; ``go_training`` runs 2 epochs of 2 steps with
+     single-device state (both steps eager here; phase 13 (d) compiles the
+     ``shard_map`` one); ``go_training`` runs 2 epochs of 2 steps with
      the group up (the data-parallel loop; at world 1 the single-device
-     steps), every VG kernel launched, and its rank-0 checkpoint restores
+     steps, compiled), every VG kernel launched, and its rank-0 checkpoint restores
      bit-equal in a single-device trainer; ``sg_go_sampling`` with the
      sanity check gives the same rows and metrics with the group up and
      after it is destroyed; readings (not gated): ms per step single-device
@@ -148,8 +153,10 @@ Phases, each printed on its own line:
      nodes and decoded graphs bit-equal to the eager sampler at one seed
      (a first call and an all-replay one), its launch counts equal to the
      eager run's, three variants captured, and for each variant the port's
-     kernels of one replay (torch.profiler) equal to one eager run of the
-     step, whose wrapper counts equal the variant's launch record; readings: graphs/s of the serving
+     kernel nodes of its graph (read from the graph's own nodes,
+     ``CUDAGraph.debug_dump``, demangled as the profiler does) equal to the
+     kernels one eager run of the step launches (torch.profiler), whose
+     wrapper counts equal the variant's launch record; readings: graphs/s of the serving
      core compiled and eager, host to host, in turns; host CUDA calls a
      step (torch.profiler); seconds of each variant's first use and
      capture; the graph pool's bytes; (b) VG: the completion core with
@@ -167,8 +174,35 @@ Phases, each printed on its own line:
      compiled, decoded, wall seconds and graphs/s; (i) a reading:
      ``serving.generate`` (a new core and its captures at every call) against
      the eager core and a held compiled core, and bit-equal to eager.
-Launch counts are set to 0 before each of phases 3-12 and read after it
-(phase 12: around its compiled VG batch-16 sampling).
+  13. the compiled training step (``train/compiled.py``: the training and
+     test steps as replays of captured CUDA graphs, one per
+     self-conditioning coin, the draws made outside; ``go_training``'s
+     default on the card, so phases 4, 6, 8 and 10 ran it too): (a) the
+     full-width VG and COCO models (bf16, kernels on), 8 steps at batch 64
+     from one seeded state on the same draws, compiled and eager, coins
+     taking both values, an epoch boundary after step 4 (the learning rate
+     halves) and the EMA warm-up: every metric, the parameters, gradients,
+     Adam's moments and steps and all 5 EMAs bit-equal, the launch counts
+     equal, and for each graph the port's kernel nodes of the graph
+     (``debug_dump``, as in phase 12) equal to the kernels one eager run of
+     its body launches, whose wrapper counts equal its launch record;
+     readings: ms per step compiled and eager in turns, with
+     and without the conditioning pass, the card's busy ms and kernel count
+     of a step, the graph's replay alone, host CUDA calls a step
+     (torch.profiler), each graph's seconds of first use and capture, the
+     pool's bytes, peak memory, training graphs/s; (b) the compiled test-pass
+     step on the smallest-beta EMA bit-equal to eager; (c) ``go_training``
+     compiled against ``compiled=False`` (full VG, 2 epochs of 2 steps, a
+     test pass, an asynchronous checkpoint and in-training sampling each
+     epoch): the final states bit-equal, the loss logs and the sampling
+     rows' metrics equal, the compiled run's checkpoint restored bit-equal
+     in an eager trainer on the card and on the CPU's plain Adam; (d) the
+     ``shard_map`` step at world 1 through NCCL (two graphs per coin around
+     the all-reduce, one update graph) bit-equal to the eager ``shard_map``
+     step and to the compiled single-device step, the launches equal.
+Launch counts are set to 0 before each of phases 3-13 and read after it
+(phase 12: around its compiled VG batch-16 sampling; phase 13: its
+compiled VG and COCO steps of (a)).
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Exits non-zero without a result when no CUDA device is present.
@@ -990,6 +1024,8 @@ BWD_TOL = (0.0, 2e-2, 1e-2)  # phase 2's: |err| <= 2e-2 |ref| + 1e-2 max|ref|
 # the bound lies between, and the gate must refuse the coarser control on
 # every batch.
 NOISY_LEAF_TOL = (0.0, 0.0, 3e-2)
+# the batch sweep runs no step whose extrapolated peak passes this share of the card
+SWEEP_SHARE = 0.9
 NOISY_SEEDS = 8
 # the recomputed hn, qkv and d(attn) against the plain version's: at most this
 # share of elements apart, none by more than two ulps of the tensor's largest
@@ -1273,10 +1309,10 @@ def check_training(dev, smi: str, spec=VG, find_largest_batch: bool = True):
     def max_diff(xs, ys):
         return float(torch.stack([d.abs().max() for d in torch._foreach_sub(xs, ys)]).max())
 
-    def watched_step(st, noise, *batch):
+    def watched_step(step, st, noise, *batch):
         before = cuda_build.launches_by_kernel()
         done = st.step
-        st, metrics = inner(st, noise, *batch)
+        st, metrics = step(st, noise, *batch)
         after = cuda_build.launches_by_kernel()
         record["losses"].append(metrics["loss"])
         record["bwd"].append(tuple(after.get(k, 0) - before.get(k, 0)
@@ -1292,24 +1328,34 @@ def check_training(dev, smi: str, spec=VG, find_largest_batch: bool = True):
             record["prev"] = [p.clone() for p in params]
         return st, metrics
 
+    real_steps = trainer._steps
+
+    def watched_steps(*args, **kw):  # go_training's steps, its compiled step watched
+        st, train_step, eval_step, noise = real_steps(*args, **kw)
+        record["step"] = train_step
+        return (st, lambda *a: watched_step(train_step, *a), eval_step, noise)
+
     cuda_build.reset_launches()
     t0 = time.perf_counter()
-    trainer.make_train_step = lambda *_: watched_step  # go_training builds its step there
+    trainer._steps = watched_steps
     try:
         state = go_training(model, state, step_cfg, cfg, bundle, mc_sampler=None,
                             noise=TorchNoise(0, dev))
     finally:
-        trainer.make_train_step = make_train_step
+        trainer._steps = real_steps
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda_build.LAUNCHES)
     losses = [float(x) for x in record["losses"]]
+    graphs = [g for p in record["step"].stats() for g in p["variants"]]
     log(f"train {tag}: {state.step} steps at batch {TRAIN_BATCH} through go_training in {wall:.2f} s "
-        f"(first step and the epoch-0 test pass included); losses "
+        f"(first step and the epoch-0 test pass included; compiled: graphs {graphs}); losses "
         f"{' '.join(f'{x:.4f}' for x in losses)}; backward launches per step "
         f"(swin_attn_bwd, token_mlp_bwd) {sorted(set(record['bwd']))}")
     if state.step != 2 * steps_per_epoch or len(losses) != state.step:
         fail(f"expected {2 * steps_per_epoch} steps, ran {state.step}")
+    if not graphs:
+        fail("go_training's training step captured no graph")
     if not all(x == x and abs(x) != float("inf") for x in losses):
         fail("a training loss is not finite")
     if set(record["bwd"]) != {(n_blocks, n_blocks)}:
@@ -1371,9 +1417,19 @@ def check_training(dev, smi: str, spec=VG, find_largest_batch: bool = True):
 
     if not find_largest_batch:
         return launches
-    # the largest power-of-two batch whose step fits the card's memory
-    fits, b = TRAIN_BATCH, 2 * TRAIN_BATCH
+    # the largest power-of-two batch whose step fits the card's memory; a
+    # batch whose peak, extrapolated from the last two, would pass
+    # SWEEP_SHARE of the card is not run: the sweep never grows until it fails
+    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    fits, b, peaks, skipped = TRAIN_BATCH, 2 * TRAIN_BATCH, {TRAIN_BATCH: peak}, ""
     while b <= 4096:
+        half, quarter = peaks.get(b // 2), peaks.get(b // 4)
+        need = None if quarter is None else 2 * half - quarter
+        if need is not None and need > SWEEP_SHARE * total:
+            log(f"train {tag}: batch {b} not run: its peak would be about {need:.1f} GiB "
+                f"(the last two, extrapolated), over {SWEEP_SHARE:.0%} of {total:.0f} GiB")
+            skipped = f" (batch {b} skipped on its extrapolated peak, not measured)"
+            break
         big = (torch.zeros(b, n, n, device=dev), torch.zeros(b, n, 5, device=dev),
                torch.ones(b, n, dtype=torch.bool, device=dev))
         try:
@@ -1385,13 +1441,13 @@ def check_training(dev, smi: str, spec=VG, find_largest_batch: bool = True):
             break
         finally:
             state.opt.zero_grad(set_to_none=True)
-        fits = b
-        log(f"train {tag}: batch {b} fits, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+            del big
+        fits, peaks[b] = b, torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"train {tag}: batch {b} fits, peak {peaks[b]:.2f} GiB")
         b *= 2
-    del big
     torch.cuda.empty_cache()
-    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
-    log(f"train {tag}: largest power-of-two batch of a training step in {total:.0f} GiB: {fits}")
+    log(f"train {tag}: largest power-of-two batch of a training step in {total:.0f} GiB: "
+        f"{fits}{skipped}")
     return launches
 
 
@@ -2250,7 +2306,7 @@ def check_data_parallel(dev, smi: str) -> dict:
         # ZeRO-1 step against it, from one start and the same draws
         one, sm, gs = _train_states(cfg, dev, 3)
         single = make_train_step(one.model, step_cfg)
-        shard_map = make_shardmap_train_step(sm.model, step_cfg, world)
+        shard_map = make_shardmap_train_step(sm.model, step_cfg, world, compiled=False)
         gs = shard_train_state(gs, world)
         gspmd = make_sharded_train_step(gs.model, step_cfg, world)
         # the rank's stream, folded where it is made, and the same draws for
@@ -2781,6 +2837,8 @@ def check_multi_device(dev, smi: str) -> dict:
 
 COMPILED_STEPS = 16
 COMPILED_SEED = 31
+# where the replay checks of phases 12 and 13 write each graph's nodes (DOT)
+GRAPH_DUMPS = os.path.join("build", "smoke_runs", "graphs")
 COMPILED_BATCHES = (16, 64)
 NORTH_STAR_STEPS = 1000
 # the variants of 16 Heun steps with churn: no draw (sigma above S_max or
@@ -2844,20 +2902,6 @@ except Exception as e:  # noqa: BLE001 - any raise is the answer; its type is pr
 print("NO RAISE: the compiled sampler returned", tuple(out[0].shape))
 sys.exit(1)
 """
-
-
-def _host_calls(fn) -> tuple[int, dict]:
-    """Host CUDA API calls one call of ``fn`` makes (torch.profiler's
-    CUDA API events, cuda* and cu*): (total, the most frequent names)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    calls = {e.key: e.count for e in prof.key_averages()
-             if e.device_type == DeviceType.CPU and e.key.startswith("cu")}
-    top = dict(sorted(calls.items(), key=lambda kv: -kv[1])[:4])
-    return sum(calls.values()), top
 
 
 def _flags(b: int, n: int, seed: int):
@@ -2949,9 +2993,15 @@ def _compiled_model(dev, smi: str, spec, steps: int = COMPILED_STEPS) -> dict:
         if stats["variants"] != COMPILED_VARIANTS:
             fail(f"{tag} batch {b}: {stats['variants']} variants captured, expected "
                  f"{COMPILED_VARIANTS}")
-        replayed = _replayed_kernels(runner)
-        log(f"compiled {tag} batch {b}: the port's kernels one replay of each variant's graph "
-            f"launches (torch.profiler) equal to one eager run of its step and its launch "
+        (program,) = runner._programs.values()
+        with torch.inference_mode():
+            got = _replayed_kernels(program.graphs, program._body,
+                                    os.path.join(GRAPH_DUMPS, f"{tag}_{b}"))
+        replayed = {"+".join(k for k, on in v._asdict().items() if on) or "euler": r
+                    for v, r in got.items()}
+        log(f"compiled {tag} batch {b}: the port's kernel nodes of each variant's graph "
+            f"(debug_dump) equal to those one eager run of its step launches "
+            f"(torch.profiler) and its launch "
             f"record equal to that run's wrapper counts: " + "; ".join(
                 f"{v} {json.dumps(k, sort_keys=True)} {ok}" for v, (k, ok) in replayed.items()))
         if not all(ok for _, ok in replayed.values()):
@@ -2972,7 +3022,8 @@ def _compiled_model(dev, smi: str, spec, steps: int = COMPILED_STEPS) -> dict:
             t0 = time.perf_counter()
             cores[c](COMPILED_SEED, full)
             secs[c].append(time.perf_counter() - t0)
-        calls = {c: _host_calls(lambda c=c: cores[c](COMPILED_SEED, full)) for c in cores}
+        calls = {c: _step_profile(lambda c=c: cores[c](COMPILED_SEED, full))[2:]
+                 for c in cores}
         log(f"compiled {tag} batch {b}: graphs/s of the serving core (decoded, numpy out), host "
             f"to host, {steps} Heun steps: eager "
             f"{' / '.join(f'{b / s:.2f}' for s in secs[False])}, compiled "
@@ -2983,45 +3034,98 @@ def _compiled_model(dev, smi: str, spec, steps: int = COMPILED_STEPS) -> dict:
     return out
 
 
+def _canonical(name: str) -> str:
+    """A device function's demangled name without white space."""
+    return "".join(name.split())
+
+
+def _port_kernel(name: str) -> bool:
+    return any(frag in name for frag, _ in KERNEL_OF)
+
+
 def _port_kernels(prof) -> collections.Counter:
     """The port's kernels in a torch.profiler trace: {device function: launches}."""
     from torch.autograd import DeviceType
-    return collections.Counter({e.key: e.count for e in prof.key_averages()
+    return collections.Counter({_canonical(e.key): e.count for e in prof.key_averages()
                                 if e.device_type == DeviceType.CUDA and "#" not in e.key
-                                and any(frag in e.key for frag, _ in KERNEL_OF)})
+                                and _port_kernel(e.key)})
 
 
-def _replayed_kernels(runner) -> dict:
-    """Per variant of ``runner``'s one program: the port's kernels that one
-    replay of its graph launches (torch.profiler, by device function)
-    against those of one eager run of the step's body on the same static
-    buffers, and the variant's launch record (what each replay adds to the
-    launch counts) against the wrappers' counts in that eager run.
-    Returns {variant: (the replay's launches by kernel, all equal)}."""
+def _profiled_port_kernels(fn) -> collections.Counter:
+    """The port's kernels one eager call of ``fn`` launches (torch.profiler,
+    by device function)."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _port_kernels(prof)
 
+
+def _demangle(mangled: str) -> str:
+    """A mangled device-function name as the profiler prints it: the C++
+    runtime's own demangler (``abi::__cxa_demangle``, which kineto calls)."""
+    import ctypes
+    demangle = ctypes.CDLL("libstdc++.so.6").__cxa_demangle
+    demangle.restype = ctypes.c_void_p
+    demangle.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.POINTER(ctypes.c_int)]
+    status = ctypes.c_int()
+    out = demangle(mangled.encode(), None, None, ctypes.byref(status))
+    if status.value != 0 or not out:
+        fail(f"cannot demangle {mangled[:120]} (status {status.value})")
+    name = ctypes.string_at(out).decode()
+    ctypes.CDLL(None).free(ctypes.c_void_p(out))
+    return name
+
+
+def _graph_port_kernels(graph, path: str) -> collections.Counter:
+    """The port's kernels a captured graph holds, read from its nodes and
+    not from a trace of a replay: ``debug_dump`` (the graph captured with
+    ``cuda_graphs.KEEP_NODES``) writes them to ``path`` as DOT, each kernel
+    node under its mangled function name.  {device function: kernel nodes}."""
+    import re
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    graph.debug_dump(path)
+    with open(path) as f:
+        dot = f.read()
+    mangled = [m.group(1) for label in re.findall(r'label="((?:[^"\\]|\\.)*)"', dot)
+               if "KERNEL" in label.split("|")[0]
+               for m in [re.search(r"(_Z\w+)", label)] if m]
+    if not mangled:
+        fail(f"no kernel node in the graph's dump {path}")
+    names = {m: _demangle(m) for m in set(mangled)}
+    return collections.Counter(_canonical(names[m]) for m in mangled
+                               if _port_kernel(names[m]))
+
+
+def _replayed_kernels(graphs: dict, body, dump_dir: str) -> dict:
+    """Per graph of a compiled program (``graphs``: {key: (graph, launch
+    record)}, captured with ``cuda_graphs.KEEP_NODES``): the port's kernels
+    the graph holds (``_graph_port_kernels``) against those one eager run of
+    ``body(key)`` on the same static buffers launches (torch.profiler), and
+    the launch record (what each replay adds to the launch counts) against
+    the wrappers' counts in that eager run.  Returns {key: (the graph's
+    launches by kernel, all equal)}."""
     from diffusesg_torch.ops import cuda_build
-
-    (program,) = runner._programs.values()
-    out = {}
-    with torch.inference_mode():
-        for variant, (graph, record) in program.graphs.items():
-            torch.cuda.synchronize()
-            cuda_build.reset_launches()
-            with profile(activities=[ProfilerActivity.CUDA]) as eager:
-                program._body(variant)
-                torch.cuda.synchronize()
-            wrappers = dict(cuda_build.LAUNCHES)
-            with profile(activities=[ProfilerActivity.CUDA]) as replay:
-                graph.replay()
-                torch.cuda.synchronize()
-            got, want = _port_kernels(replay), _port_kernels(eager)
-            by_kernel = collections.Counter()
-            for key, n in got.items():
-                by_kernel[next(k for frag, k in KERNEL_OF if frag in key)] += n
-            name = "+".join(k for k, on in variant._asdict().items() if on) or "euler"
-            out[name] = (dict(by_kernel), bool(got) and got == want and wrappers == dict(record))
+    out, t0 = {}, time.perf_counter()
+    for i, (key, (graph, record)) in enumerate(graphs.items()):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        want = _profiled_port_kernels(lambda: body(key))
+        wrappers = dict(cuda_build.LAUNCHES)
+        got = _graph_port_kernels(graph, os.path.join(dump_dir, f"graph{i}.dot"))
+        by_kernel = collections.Counter()
+        for name, n in got.items():
+            by_kernel[next(k for frag, k in KERNEL_OF if frag in name)] += n
+        out[key] = (dict(by_kernel), bool(got) and got == want and wrappers == dict(record))
+        if got != want:
+            log(f"replay check {key}: graph-only {dict(got - want)}, eager-only "
+                f"{dict(want - got)}")
+        if wrappers != dict(record):
+            log(f"replay check {key}: record {dict(record)} against wrappers {wrappers}")
     cuda_build.reset_launches()
+    log(f"replay check of {len(graphs)} graphs in {time.perf_counter() - t0:.2f} s")
     return out
 
 
@@ -3310,27 +3414,470 @@ def _north_star(dev, smi: str, model, cfg) -> None:
         fail("the 1000-step sampling decoded non-finite boxes")
 
 
+def _part_timer():
+    """``timed(part, fn, *args)`` calls ``fn(*args)`` and keeps its wall
+    seconds in ``timed.seconds[part]``."""
+    def timed(part: str, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            timed.seconds[part] = round(time.perf_counter() - t0, 1)
+    timed.seconds = {}
+    return timed
+
+
 def check_compiled(dev, smi: str) -> dict:
     """Phase 12, the compiled sampler; returns the launches of the compiled
     VG batch-16 sampling."""
-    vg = _compiled_model(dev, smi, VG)
-    coco = _compiled_model(dev, smi, COCO)
-    del coco
+    from diffusesg_torch.utils import cuda_graphs
+    timed = _part_timer()
+    cuda_graphs.KEEP_NODES = True  # for the replay checks' debug_dump
+    vg = timed("(a) VG", _compiled_model, dev, smi, VG)
+    timed("(a) COCO", _compiled_model, dev, smi, COCO)
+    cuda_graphs.KEEP_NODES = False
     torch.cuda.empty_cache()
     model, cfg = vg["model"], vg["cfg"]
-    _compiled_options(dev, model, cfg)
-    _compiled_orchestrator(dev, model, cfg)
-    _compiled_shards(dev, model, cfg)
-    _compiled_http(dev, model, cfg)
-    _compiled_artifact(dev, smi, model, cfg)
-    _generate_cost(dev, smi, model, cfg)
-    _no_fallback()
-    _north_star(dev, smi, model, cfg)
+    timed("(b)", _compiled_options, dev, model, cfg)
+    timed("(c)", _compiled_orchestrator, dev, model, cfg)
+    timed("(d)", _compiled_shards, dev, model, cfg)
+    timed("(e)", _compiled_http, dev, model, cfg)
+    timed("(f)", _compiled_artifact, dev, smi, model, cfg)
+    timed("(i)", _generate_cost, dev, smi, model, cfg)
+    timed("(g)", _no_fallback)
+    timed("(h)", _north_star, dev, smi, model, cfg)
+    log(f"compiled: seconds by part {json.dumps(timed.seconds)}")
     launches = vg["launches"]
     del model, vg
     torch.cuda.empty_cache()
     return launches
 
+
+
+# ----------------------------------------------------------------- phase 13
+
+CTRAIN_STEPS = 8
+CTRAIN_SPE = 4  # an epoch boundary after step 4: the learning rate changes there
+CTRAIN_DECAY = 0.5  # the configs decay by 1.0 an epoch, which would not show the change
+# the self-conditioning coin of each step: both variants, each first used at
+# a step of its own and replayed after, and the first updates (the EMA
+# warm-up) with the conditioning pass and without
+CTRAIN_COINS = (True, True, False, True, False, False, True, False)
+CTRAIN_SEED = 5
+CTRAIN_GRAPHS = {"cond", "no_cond"}
+# phase 13 (c): in-training sampling of this many graphs at this many Heun steps
+CTRAIN_EVAL_GRAPHS, CTRAIN_SAMPLING_STEPS = 16, 4
+# phase 13 (d): the shard_map step's graphs at world 1
+SHARD_MAP_GRAPHS = {"backward:cond", "backward:no_cond", "update"}
+
+
+def _scripted(seed: int, dev):
+    """A ``TorchNoise`` whose self-conditioning coin at step i is
+    ``CTRAIN_COINS[i]``."""
+    from diffusesg_torch.sampling.edm_sampler import TorchNoise
+
+    class Scripted(TorchNoise):
+        def bernoulli(self, step, kind, p):
+            return CTRAIN_COINS[step % len(CTRAIN_COINS)]
+    return Scripted(seed, dev)
+
+
+def _delta(before: dict, after: dict) -> collections.Counter:
+    return collections.Counter({k: n - before.get(k, 0) for k, n in after.items()
+                                if n != before.get(k, 0)})
+
+
+def _by_kernel(counts: dict) -> dict:
+    out = collections.Counter()
+    for (name, _), n in counts.items():
+        out[name] += n
+    return dict(out)
+
+
+def _grads_equal(a, b) -> bool:
+    return all(torch.equal(p.grad, q.grad) for p, q in zip(a.params(), b.params()))
+
+
+def _equal_states(a, b) -> tuple[bool, dict]:
+    """(bit-equal, the largest differences) of two training states:
+    parameters, gradients, Adam's moments and steps, every EMA, the step."""
+    d = _state_diffs(a, b)
+    same = (all(d[k] == 0.0 for k in ("params", "emas", "adam")) and len(d["adam_steps"]) == 1
+            and a.step == b.step and _grads_equal(a, b))
+    return same, d
+
+
+def _step_profile(fn) -> tuple[float, int, int, dict]:
+    """One call of ``fn`` under torch.profiler: the card's busy ms (the sum
+    of its kernels, copies and sets), how many of those ran, and the host
+    CUDA API calls (cuda* and cu*) with the most frequent."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA and "#" not in e.key]
+    calls = {e.key: e.count for e in events
+             if e.device_type == DeviceType.CPU and e.key.startswith("cu")}
+    top = dict(sorted(calls.items(), key=lambda kv: -kv[1])[:4])
+    return (sum(e.device_time_total for e in device) / 1e3, sum(e.count for e in device),
+            sum(calls.values()), top)
+
+
+def _compiled_training(dev, smi: str, spec) -> dict:
+    """(a) and (b) for one model (``spec``): 8 steps at batch 64 compiled
+    and eager from one seeded state and the same draws, bit-equal, the
+    launch counts equal, each graph's replay against its record; readings;
+    the compiled test-pass step against eager.  Returns the launch counts
+    of the compiled steps."""
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.data import load_data
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.ops import cuda_build
+    from diffusesg_torch.sampling.edm_sampler import TorchNoise
+    from diffusesg_torch.train import (create_train_state, ema_slice, make_eval_step,
+                                       make_optimizer, make_train_step, train_step_config_from)
+    from diffusesg_torch.train.compiled import CompiledEvalStep, CompiledTrainStep
+
+    tag = spec["tag"]
+    cfg = load_config(spec["config"])
+    with cfg.unlocked():
+        cfg.seed = 0
+        cfg.dataset.synthetic_num_train = TRAIN_BATCH
+        cfg.dataset.synthetic_num_test = TRAIN_BATCH
+    bundle = load_data(cfg, data_root="/nonexistent")
+    batch = tuple(torch.from_numpy(a[:TRAIN_BATCH]).to(dev) for a in
+                  (bundle.train.adjs, bundle.train.nodes, bundle.train.node_flags))
+    opt = make_optimizer(cfg.train.lr_init, CTRAIN_DECAY, CTRAIN_SPE, cfg.train.weight_decay)
+    eager_state, comp_state = (create_train_state(build_model(cfg, device=dev, seed=0),
+                                                  list(cfg.train.ema_coef), opt)
+                               for _ in range(2))
+    group = comp_state.opt.param_groups[0]
+    if not (comp_state.model.use_kernels and comp_state.model.dtype == torch.bfloat16):
+        fail(f"phase 13 trains the {tag} model with its kernels in bf16")
+    if not (group["capturable"] and isinstance(group["lr"], torch.Tensor)):
+        fail("the card's Adam is not capturable with its learning rate on the device")
+    step_cfg = train_step_config_from(cfg)
+    eager = make_train_step(eager_state.model, step_cfg)
+    comp = CompiledTrainStep(make_train_step(comp_state.model, step_cfg))
+    noise_e, noise_c = _scripted(CTRAIN_SEED, dev), _scripted(CTRAIN_SEED, dev)
+    counts = {"eager": collections.Counter(), "compiled": collections.Counter()}
+    metrics_equal, lrs = [], []
+    t0 = time.perf_counter()
+    for _ in range(CTRAIN_STEPS):
+        c0 = dict(cuda_build.LAUNCHES)
+        eager_state, m1 = eager(eager_state, noise_e, *batch)
+        c1 = dict(cuda_build.LAUNCHES)
+        comp_state, m2 = comp(comp_state, noise_c, *batch)
+        c2 = dict(cuda_build.LAUNCHES)
+        counts["eager"] += _delta(c0, c1)
+        counts["compiled"] += _delta(c1, c2)
+        metrics_equal.append(m1.keys() == m2.keys() and all(torch.equal(m1[k], m2[k])
+                                                            for k in m1))
+        lrs.append(float(group["lr"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    same, diffs = _equal_states(eager_state, comp_state)
+    (stats,) = comp.stats()
+    seconds = {k: [round(x, 3) for x in v] for k, v in stats["seconds"].items()}
+    eager_k, comp_k = _by_kernel(counts["eager"]), _by_kernel(counts["compiled"])
+    log(f"ctrain {tag}: {CTRAIN_STEPS} training steps at batch {TRAIN_BATCH} (bf16, kernels "
+        f"on; coins {list(CTRAIN_COINS)}, learning rates {sorted(set(lrs), reverse=True)}, "
+        f"the EMA warm-up at updates 1-2) compiled and eager from one seeded state and the "
+        f"same draws in {wall:.2f} s: metrics bit-equal at every step {all(metrics_equal)}, "
+        f"state bit-equal {same} ({diffs}); launches compiled {json.dumps(comp_k, sort_keys=True)}"
+        f" (eager equal: {counts['compiled'] == counts['eager']}); graphs {stats['variants']}, "
+        f"seconds of first use / capture {json.dumps(seconds)}; graph pool "
+        f"{stats['pool_bytes']} bytes")
+    if not (all(metrics_equal) and same):
+        fail(f"{tag}: the compiled training step is not bit-equal to the eager one")
+    n_blocks = spec["blocks"] * CTRAIN_STEPS
+    if counts["compiled"] != counts["eager"] or any(
+            comp_k.get(k, 0) == 0 for k in FORWARD_KERNELS) or any(
+            comp_k.get(k, 0) != n_blocks for k in BACKWARD_KERNELS):
+        fail(f"{tag}: compiled training launches {comp_k} against eager {eager_k}")
+    if set(stats["variants"]) != CTRAIN_GRAPHS or len(set(lrs)) != 2:
+        fail(f"{tag}: graphs {stats['variants']}, learning rates {lrs}")
+
+    # (b) the test pass's step on the smallest-beta EMA, both coins
+    ev_e, ev_c = (make_eval_step(comp_state.model, step_cfg), CompiledEvalStep(
+        make_eval_step(comp_state.model, step_cfg)))
+    ne, nc = _scripted(CTRAIN_SEED + 1, dev), _scripted(CTRAIN_SEED + 1, dev)
+    eval_equal = []
+    for i in range(3):
+        want = ev_e(ema_slice(comp_state, 0), ne, i, *batch)
+        got = ev_c(ema_slice(comp_state, 0), nc, i, *batch)
+        eval_equal.append(all(torch.equal(got[k], want[k]) for k in want))
+    eval_ms = {c: time_ms(lambda c=c: (ev_c if c else ev_e)(ema_slice(comp_state, 0),
+                                                           nc if c else ne, 0, *batch), 5)
+               for c in (False, True)}
+    (ev_stats,) = ev_c.stats()
+    log(f"ctrain {tag}: the test pass's step on the smallest-beta EMA, compiled against "
+        f"eager (3 batches, coins {list(CTRAIN_COINS[:3])}): metrics bit-equal {all(eval_equal)}"
+        f"; graphs {ev_stats['variants']}; ms per eval step (coin of step 0) eager "
+        f"{eval_ms[False]:.3f}, compiled {eval_ms[True]:.3f}")
+    if not all(eval_equal):
+        fail(f"{tag}: the compiled eval step is not bit-equal to the eager one")
+    del ev_e, ev_c
+
+    # each graph's replay launches the kernels its record says
+    (program,) = comp._programs.values()
+    replayed = _replayed_kernels(dict(sorted(program.graphs.items())),
+                                 lambda name: program.bodies[name](),
+                                 os.path.join(GRAPH_DUMPS, f"train_{tag}"))
+    log(f"ctrain {tag}: the port's kernel nodes of each training graph (debug_dump) equal "
+        f"to those one eager run of its body launches (torch.profiler), and its launch "
+        f"record equal "
+        f"to that run's wrapper counts: " + "; ".join(
+            f"{g} {json.dumps(k, sort_keys=True)} {ok}" for g, (k, ok) in replayed.items()))
+    if not all(ok for _, ok in replayed.values()):
+        fail(f"{tag}: a training graph launches other kernels than its launch record says")
+
+    # readings: ms per step in turns, the replay alone; with the pass also
+    # the card's busy ms and the host CUDA calls of one step
+    step_ms = collections.defaultdict(list)
+    for sc in (False, True):
+        n_e, n_c = (_forced(TorchNoise, sc)(1, dev) for _ in range(2))
+        runs = {"eager": lambda: eager(eager_state, n_e, *batch),
+                "compiled": lambda: comp(comp_state, n_c, *batch)}
+        for kind in ("eager", "compiled", "compiled", "eager"):
+            step_ms[(kind, sc)].append(time_ms(runs[kind], 3, warmup=1))
+        mean = {k: sum(step_ms[(k, sc)]) / 2 for k in runs}
+        graph = program.graphs["cond" if sc else "no_cond"][0]
+        replay_ms = time_ms(graph.replay, 3, warmup=1)
+        busy = ""
+        if sc:
+            prof = {k: _step_profile(runs[k]) for k in runs}
+            busy = (f"; the card busy {prof['eager'][0]:.3f} ms of an eager step "
+                    f"({prof['eager'][1]} kernels, copies and sets), {prof['compiled'][0]:.3f} "
+                    f"ms of a compiled one ({prof['compiled'][1]}); host CUDA calls a step "
+                    f"eager {prof['eager'][2]} {prof['eager'][3]}, compiled "
+                    f"{prof['compiled'][2]} {prof['compiled'][3]}")
+        log(f"ctrain {tag}: {'with' if sc else 'without'} the self-conditioning pass, ms per "
+            f"training step at batch {TRAIN_BATCH} in turns (eager, compiled, compiled, eager) "
+            f"{' / '.join(f'{t:.3f}' for t in step_ms[('eager', sc)][:1] + step_ms[('compiled', sc)] + step_ms[('eager', sc)][1:])}"
+            f"; mean eager {mean['eager']:.3f}, compiled {mean['compiled']:.3f} "
+            f"({TRAIN_BATCH * 1e3 / mean['eager']:.1f} and "
+            f"{TRAIN_BATCH * 1e3 / mean['compiled']:.1f} training graphs/s); the graph's replay "
+            f"alone {replay_ms:.3f} ms{busy}; on {smi}")
+    ema_ms, ema_bytes = _ema_update_ms(comp_state)
+    log(f"ctrain {tag}: the update of the {len(comp_state.ema_betas)} EMAs alone, ms in turns: "
+        f"lerp against the device weight views (the step's) "
+        f"{' / '.join(f'{t:.3f}' for t in ema_ms['views'])}, lerp with number weights "
+        f"{' / '.join(f'{t:.3f}' for t in ema_ms['numbers'])}; the views read "
+        f"{ema_bytes / 2 ** 20:.1f} MiB more (one weight an element of each EMA); on {smi}")
+    del eager_state, eager, runs, n_e
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    comp(comp_state, noise_c, *batch)
+    torch.cuda.synchronize()
+    pool = comp.stats()[0]["pool_bytes"]
+    log(f"ctrain {tag}: a compiled step alone (the eager state freed): peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB (graph pool "
+        f"{'unknown' if pool is None else f'{pool / 2 ** 30:.2f}'} GiB) on {smi}")
+    del comp, comp_state
+    torch.cuda.empty_cache()
+    return dict(counts["compiled"])
+
+
+def _ema_update_ms(state) -> tuple[dict, int]:
+    """ms of one update of the K EMAs (eager, in turns views, numbers,
+    numbers, views): ``torch._foreach_lerp_`` against the weight views of
+    ``state.ema_weights`` (the step's, capturable) and with number weights
+    (which a graph would freeze), on copies of the EMAs; and the bytes the
+    views read in addition."""
+    from diffusesg_torch.train.train_state import ema_effective_decay
+    params = [p.detach() for p in state.params()]
+    emas = [[e.clone() for e in row] for row in state.ema_params]
+    weights = [1.0 - ema_effective_decay(b, state.step) for b in state.ema_betas]
+    views = state.ema_weights.views
+    runs = {"views": lambda: [torch._foreach_lerp_(e, params, v) for e, v in zip(emas, views)],
+            "numbers": lambda: [torch._foreach_lerp_(e, params, w)
+                                for e, w in zip(emas, weights)]}
+    ms = collections.defaultdict(list)
+    for kind in ("views", "numbers", "numbers", "views"):
+        ms[kind].append(time_ms(runs[kind], 5, warmup=1))
+    extra = len(emas) * sum(p.numel() * p.element_size() for p in params)
+    return ms, extra
+
+
+def _compiled_go_training(dev, smi: str) -> None:
+    """(c) ``go_training`` compiled (its default) against ``compiled=False``:
+    2 epochs of 2 steps (full VG, bf16, kernels on), a test pass, an
+    asynchronous checkpoint and in-training sampling (16 graphs, 4 Heun
+    steps) each epoch; the final
+    states, the loss logs and the sampling rows equal; the compiled run's
+    checkpoint restored bit-equal in an eager trainer on the card and on
+    the CPU's plain Adam."""
+    import csv
+
+    from diffusesg_torch.data import load_data
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.sampling import get_mc_sampler
+    from diffusesg_torch.sampling.edm_sampler import TorchNoise
+    from diffusesg_torch.train import (create_train_state, go_training, make_optimizer,
+                                       train_step_config_from)
+    from diffusesg_torch.utils.checkpoint import restore_checkpoint
+    from diffusesg_torch.utils.logging_utils import set_seed_and_logger
+
+    def run(compiled: bool):
+        exp_dir = os.path.join("build", "smoke_runs", "ctrain", str(compiled))
+        shutil.rmtree(exp_dir, ignore_errors=True)
+        cfg = _eval_config(exp_dir)
+        with cfg.unlocked():  # phase 8's config, cut to fit the run's time
+            cfg.dataset.synthetic_num_train = 2 * TRAIN_BATCH
+            cfg.mcmc.num_steps = CTRAIN_SAMPLING_STEPS
+            cfg.test.eval_size = CTRAIN_EVAL_GRAPHS
+        set_seed_and_logger(cfg, mode="train", comment=f"ctrain_{compiled}",
+                            log_level="WARNING")
+        bundle = load_data(cfg, data_root="/nonexistent")
+        state = create_train_state(build_model(cfg, device=dev, seed=0),
+                                   list(cfg.train.ema_coef),
+                                   make_optimizer(cfg.train.lr_init, cfg.train.lr_dacey, 2,
+                                                  cfg.train.weight_decay))
+        t0 = time.perf_counter()
+        state = go_training(state.model, state, train_step_config_from(cfg), cfg, bundle,
+                            mc_sampler=get_mc_sampler(cfg), noise=TorchNoise(0, dev),
+                            compiled=compiled)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        logs = {}
+        for name in ("train_loss.log", "test_loss.log"):
+            with open(os.path.join(cfg.logdir, name)) as f:
+                logs[name] = f.read()
+        with open(os.path.join(cfg.logdir, "eval_results.csv"), newline="") as f:
+            # a row holds its pass's seconds and paths: the metrics' columns
+            rows = [{k: r[k] for k in METRIC_KEYS} for r in csv.DictReader(f)]
+        return state, logs, rows, cfg, wall
+
+    comp, comp_logs, comp_rows, cfg, comp_s = run(True)
+    eager, eager_logs, eager_rows, _, eager_s = run(False)
+    same, diffs = _equal_states(comp, eager)
+    rows_equal = len(comp_rows) == 2 and comp_rows == eager_rows
+    ckpt = os.path.join(cfg.model_ckpt_dir, "00001.pt")
+    other = create_train_state(build_model(cfg, device=dev, seed=1), list(cfg.train.ema_coef),
+                               make_optimizer(cfg.train.lr_init, cfg.train.lr_dacey, 2,
+                                              cfg.train.weight_decay))
+    extra = restore_checkpoint(ckpt, other)
+    back = _state_diffs(other, comp)
+    restored = (back["params"] == back["emas"] == back["adam"] == 0.0
+                and other.step == comp.step and extra.get("epoch") == 1)
+    del other
+    torch.cuda.empty_cache()
+    cpu = create_train_state(build_model(cfg, device="cpu", seed=1), list(cfg.train.ema_coef),
+                             make_optimizer(cfg.train.lr_init, cfg.train.lr_dacey, 2,
+                                            cfg.train.weight_decay))
+    restore_checkpoint(ckpt, cpu)
+    group = cpu.opt.param_groups[0]
+    on_cpu = (not group["capturable"] and type(group["lr"]) is float and cpu.step == comp.step
+              and all(torch.equal(a, b.cpu()) for a, b in zip(cpu.params(), comp.params()))
+              and all(torch.equal(a, b.cpu()) for ea, eb in zip(cpu.ema_params, comp.ema_params)
+                      for a, b in zip(ea, eb))
+              and all(torch.equal(cpu.opt.state[p][k], comp.opt.state[q][k].cpu())
+                      for p, q in zip(cpu.params(), comp.params())
+                      for k in ("step", "exp_avg", "exp_avg_sq")))
+    del cpu
+    log(f"ctrain: go_training (full VG, bf16, kernels on; 2 epochs of 2 steps at batch "
+        f"{TRAIN_BATCH}, a test pass, an asynchronous checkpoint and in-training sampling of "
+        f"{CTRAIN_EVAL_GRAPHS} graphs at {CTRAIN_SAMPLING_STEPS} Heun steps each epoch) "
+        f"compiled in {comp_s:.2f} s and with compiled=False "
+        f"in {eager_s:.2f} s: final state bit-equal {same} ({diffs}); train_loss.log and "
+        f"test_loss.log equal {comp_logs == eager_logs}; sampling rows' metrics equal "
+        f"{rows_equal}; the compiled run's epoch-1 checkpoint restored bit-equal in an eager "
+        f"trainer on the card {restored} and on the CPU's plain Adam {on_cpu}")
+    if not (same and comp_logs == eager_logs and rows_equal and restored and on_cpu):
+        fail("compiled go_training differs from compiled=False, or its checkpoint does not "
+             "restore")
+
+
+def _compiled_shard_map(dev) -> None:
+    """(d) The ``shard_map`` step at world 1 through NCCL (full VG, bf16,
+    kernels on, batch 64, 3 steps, both coins): compiled (two graphs per
+    coin around the all-reduce, one update graph) bit-equal to the eager
+    ``shard_map`` step and to the compiled single-device step."""
+    import torch.distributed as dist
+
+    from diffusesg_torch.data import load_data
+    from diffusesg_torch.ops import cuda_build
+    from diffusesg_torch.parallel.distributed import maybe_initialize_distributed, shutdown
+    from diffusesg_torch.parallel.mesh import current_world
+    from diffusesg_torch.parallel.shardmap_dp import make_shardmap_train_step
+    from diffusesg_torch.train import make_train_step, train_step_config_from
+    from diffusesg_torch.train.compiled import CompiledTrainStep
+
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    cfg = _dp_config(os.path.join("build", "smoke_runs", "ctrain_dp"))
+    try:
+        if not maybe_initialize_distributed("cuda") or dist.get_backend() != "nccl":
+            fail("phase 13 did not start an NCCL process group")
+        world = current_world()
+        bundle = load_data(cfg, data_root="/nonexistent")
+        batch = tuple(torch.from_numpy(a[:TRAIN_BATCH]).to(dev) for a in
+                      (bundle.train.adjs, bundle.train.nodes, bundle.train.node_flags))
+        step_cfg = train_step_config_from(cfg)
+        single, sm_c, sm_e = _train_states(cfg, dev, 3)
+        steps = {"single": CompiledTrainStep(make_train_step(single.model, step_cfg)),
+                 "compiled": make_shardmap_train_step(sm_c.model, step_cfg, world),
+                 "eager": make_shardmap_train_step(sm_e.model, step_cfg, world, compiled=False)}
+        states = {"single": single, "compiled": sm_c, "eager": sm_e}
+        noises = {k: _scripted(CTRAIN_SEED, dev) for k in steps}
+        counts = {k: collections.Counter() for k in steps}
+        metrics_equal = True
+        for _ in range(3):
+            out = {}
+            for k in steps:
+                c0 = dict(cuda_build.LAUNCHES)
+                states[k], out[k] = steps[k](states[k], noises[k], *batch)
+                counts[k] += _delta(c0, dict(cuda_build.LAUNCHES))
+            metrics_equal &= all(torch.equal(out["compiled"][m], out[k][m])
+                                 for k in ("eager", "single") for m in out["eager"])
+        torch.cuda.synchronize()
+        vs_eager, d_eager = _equal_states(states["compiled"], states["eager"])
+        vs_single, d_single = _equal_states(states["compiled"], states["single"])
+        (stats,) = steps["compiled"].stats()
+        launches_equal = counts["compiled"] == counts["eager"] == counts["single"]
+        log(f"ctrain: shard_map at world 1 through NCCL, 3 steps at batch {TRAIN_BATCH} (full "
+            f"VG, bf16, kernels on; coins {list(CTRAIN_COINS[:3])}): compiled (graphs "
+            f"{stats['variants']}, the all-reduce between) against the eager shard_map step "
+            f"bit-equal {vs_eager} ({d_eager}), against the compiled single-device step "
+            f"{vs_single} ({d_single}); metrics equal {metrics_equal}; launches equal "
+            f"{launches_equal} {json.dumps(_by_kernel(counts['compiled']), sort_keys=True)}")
+        if not (vs_eager and vs_single and metrics_equal and launches_equal):
+            fail("the compiled shard_map step differs from the eager one or the single-device "
+                 "step")
+        if set(stats["variants"]) != SHARD_MAP_GRAPHS:
+            fail(f"the compiled shard_map step captured {stats['variants']}")
+        del steps, states, single, sm_c, sm_e
+    finally:
+        shutdown()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+
+
+def check_compiled_training(dev, smi: str) -> dict:
+    """Phase 13, the compiled training step; returns the launch counts of
+    its compiled VG and COCO runs ({"vg": ..., "coco": ...})."""
+    from diffusesg_torch.ops import cuda_build
+    from diffusesg_torch.utils import cuda_graphs
+    timed = _part_timer()
+    cuda_graphs.KEEP_NODES = True  # for the replay checks' debug_dump
+    cuda_build.reset_launches()
+    counts = {"vg": timed("(a, b) VG", _compiled_training, dev, smi, VG)}
+    counts["coco"] = timed("(a, b) COCO", _compiled_training, dev, smi, COCO)
+    cuda_graphs.KEEP_NODES = False
+    timed("(c)", _compiled_go_training, dev, smi)
+    timed("(d)", _compiled_shard_map, dev)
+    log(f"ctrain: seconds by part {json.dumps(timed.seconds)}")
+    return counts
 
 
 def _latest_samples(logdir) -> dict:
@@ -3432,9 +3979,9 @@ def profile_call(fn, what: str, eager_ms: float) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 12")
+    ap.add_argument("--no-slice", action="store_true", help="skip phases 3 to 13")
     ap.add_argument("--no-train", action="store_true",
-                    help="skip phases 4, 6 and 10, and phase 8's training run")
+                    help="skip phases 4, 6, 10 and 13, and phase 8's training run")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3489,27 +4036,51 @@ def main(argv=None) -> int:
         + "; token_mlp (rows, hidden chunk, blocks an SM) "
         + ", ".join(f"C{c} {mk.mlp_tile(c)}" for c in (64, 96, 192, 384, 768)))
 
+    # wall seconds of each phase, printed as it ends and again before the last lines
+    seconds, mark = {}, [t0]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        seconds[phase] = round(now - mark[0], 1)
+        mark[0] = now
+        log(f"phase {phase}: {seconds[phase]} s")
+
+    lap("1")
     results, entry_cases = check_kernels(dev)
+    lap("2")
     # launch counts per path: {path: (sampling or entries run, training run)}
     counts, eval_counts, serve_counts, dp_counts, shard_counts = {}, {}, {}, {}, {}
-    compiled_counts = {}
+    compiled_counts, ctrain_counts = {}, {}
     if not args.no_slice:
         vg, _ = check_slice(dev, smi, VG)
+        lap("3")
         vg_train = {} if args.no_train else check_training(dev, smi, VG)
+        lap("4")
         coco, coco_model = check_slice(dev, smi, COCO)
         entries = check_entries(dev, coco_model, entry_cases)
         del coco_model
         torch.cuda.empty_cache()
+        lap("5")
         coco_train = {} if args.no_train else check_training(dev, smi, COCO,
                                                              find_largest_batch=False)
+        lap("6")
         counts = dict(vg=(vg, vg_train), coco=(coco, coco_train), entries=(entries, {}))
         check_small_config(dev)
+        lap("7")
         eval_counts = check_eval_slice(dev, smi, run_training=not args.no_train)
+        lap("8")
         serve_counts = check_serving(dev, smi)
+        lap("9")
         if not args.no_train:
             dp_counts = check_data_parallel(dev, smi)
+        lap("10")
         shard_counts = check_multi_device(dev, smi)
+        lap("11")
         compiled_counts = check_compiled(dev, smi)
+        lap("12")
+        if not args.no_train:
+            ctrain_counts = check_compiled_training(dev, smi)
+        lap("13")
     # launches: of the path's sampling (or entries) run for the forward
     # kernels, of its training run for the backward kernels; launches_train:
     # of the training run; launches_eval: of phase 8 and launches_serve: of
@@ -3517,7 +4088,9 @@ def main(argv=None) -> int:
     # data-parallel go_training run (the VG forward and backward kernels);
     # launches_shard: of one shard of phase 11's gspmd serving (the VG
     # forward kernels); launches_compiled: of phase 12's compiled VG sampling
-    # at batch 16 (eager first uses + captured launches x replays).
+    # at batch 16 (eager first uses + captured launches x replays);
+    # launches_compiled_train: of phase 13's 8 compiled training steps of the
+    # path's model (VG or COCO; first uses + captured launches x replays).
     # A case that moves several counters (an entry over two kernels) reports
     # the least of them.
     for r in results:
@@ -3535,11 +4108,15 @@ def main(argv=None) -> int:
             fail(f"{r['name']} was never launched by the compiled sampler")
         if dp_counts and path == "vg" and r["launches_dp"] == 0:
             fail(f"{r['name']} was never launched on the data-parallel path")
+        r["launches_compiled_train"] = min(ctrain_counts.get(path, {}).get(k, 0) for k in keys)
+        if ctrain_counts and path in ctrain_counts and r["launches_compiled_train"] == 0:
+            fail(f"{r['name']} was never launched by the compiled training step")
         r["launches"] = (r["launches_train"] if kernel.endswith("_bwd")
                          else min(run.get(k, 0) for k in keys))
         if r["launches"] == 0 and not (args.no_slice or (args.no_train and
                                                          kernel.endswith("_bwd"))):
             fail(f"{r['name']} was never launched on its path")
+    log(f"phase seconds: {json.dumps(seconds)}, {sum(seconds.values()):.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

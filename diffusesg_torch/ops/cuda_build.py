@@ -11,7 +11,7 @@ rebuilds and an unchanged one loads at once.
 adds one where it launches its kernel and nowhere else.  A launch made
 while a CUDA graph is captured (``capturing``) is counted in the graph's
 own record instead, and whoever replays the graph adds that record to
-``LAUNCHES`` at each replay (``sampling/compiled.py``): the counts are the
+``LAUNCHES`` at each replay (``utils/cuda_graphs.py``): the counts are the
 kernels that ran.  Every launch goes
 through ``launch``, which makes the operands' card current: the library
 launches on the calling thread's current device and opts each kernel in to
@@ -85,7 +85,8 @@ TOKEN_BOX, TOKEN_SPLIT_MIN = 64, 512
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-_capture = threading.local()
+# capture stream -> the record of the graph captured on it
+_stream_records: dict[int, collections.Counter] = {}
 
 
 def reset_launches() -> None:
@@ -100,20 +101,24 @@ def launches_by_kernel() -> dict[str, int]:
 
 
 def count_launch(name: str, shape: str) -> None:
-    record = getattr(_capture, "record", None)
+    record = _stream_records.get(torch.cuda.current_stream().cuda_stream) \
+        if _stream_records else None
     (LAUNCHES if record is None else record)[(name, shape)] += 1
 
 
 @contextlib.contextmanager
-def capturing(record: collections.Counter):
-    """Count this thread's launches in ``record`` rather than ``LAUNCHES``
-    while a CUDA graph is captured: a captured launch runs only when the
-    graph is replayed."""
-    _capture.record = record
+def capturing(record: collections.Counter, stream):
+    """Count the launches into ``stream`` in ``record`` rather than
+    ``LAUNCHES`` while a CUDA graph is captured on it: a captured launch
+    runs only when the graph is replayed.  Keyed by the stream, not the
+    thread: the autograd engine runs a backward's CUDA nodes on a thread of
+    its own, on the capture stream."""
+    key = stream.cuda_stream
+    _stream_records[key] = record
     try:
         yield record
     finally:
-        _capture.record = None
+        _stream_records.pop(key, None)
 
 
 def split_count(parallel: int, length: int, min_len: int, align: int = 1) -> int:

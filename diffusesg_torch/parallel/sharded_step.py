@@ -12,7 +12,9 @@ and the batch mean is the local sum over the global batch
 then summed over the ranks, so every rank clips the single-device gradient
 of the global batch.
 
-ZeRO-1: ``torch.optim.Adam`` inside ``ZeroRedundancyOptimizer``, which
+ZeRO-1: ``torch.optim.Adam`` (``capturable`` on a card, as the
+single-device step's, so the two agree bit for bit at world 1) inside
+``ZeroRedundancyOptimizer``, which
 assigns whole parameters to ranks (largest first, each to the rank holding
 the fewest elements so far), steps the owned ones and broadcasts them.  Each
 rank keeps the EMAs of the parameters it owns.  The JAX package shards
@@ -26,9 +28,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.optim import ZeroRedundancyOptimizer
 
-from ..train.train_state import TrainState
-from ..train.train_step import (TrainStepConfig, build_eval_step, build_train_step,
-                                make_loss_fn)
+from ..train.train_state import TrainState, load_opt_state, opt_state_dict, set_lr
+from ..train.train_step import EvalStep, TrainStep, TrainStepConfig, make_loss_fn
 from .mesh import World
 
 
@@ -62,13 +63,16 @@ def shard_train_state(state: TrainState, world: World) -> TrainState:
     the same parameters, each rank keeping its partition, and each rank
     keeps the EMAs of the parameters it owns; the others' entries become
     None.  COLLECTIVE."""
-    group = state.opt.param_groups[0]
-    zero = ZeroRedundancyOptimizer(
-        state.params(), optimizer_class=torch.optim.Adam, process_group=world.group,
-        lr=group["lr"], betas=group["betas"], eps=group["eps"],
-        weight_decay=group["weight_decay"])
+    params = state.params()
+    zero = ZeroRedundancyOptimizer(params, optimizer_class=torch.optim.Adam,
+                                   process_group=world.group,
+                                   **state.spec.adam_kwargs(params[0].device))
+    set_lr(zero, float(state.opt.param_groups[0]["lr"]))
     if state.opt.state:
-        zero.load_state_dict(state.opt.state_dict())
+        load_opt_state(zero, opt_state_dict(state.opt))
+        if zero.optim.defaults.get("capturable"):  # ZeRO loads step counts onto the CPU
+            for p, st in zero.optim.state.items():
+                st["step"] = st["step"].to(p.device)
     held = {id(p) for g in zero.optim.param_groups for p in g["params"]}
     mine = [i for i, p in enumerate(state.params()) if id(p) in held]
     per_rank = [None] * world.size
@@ -130,11 +134,10 @@ def make_sharded_train_step(model, cfg: TrainStepConfig, world: World, tp: bool 
     if tp:
         from .tp import finish_grads
         data = world if world.size > 1 else None
-        step = build_train_step(make_loss_fn(model, cfg, global_world=data), data,
-                                reduce="sum" if data is not None else "mean",
-                                finish_grads=finish_grads)
+        step = TrainStep(make_loss_fn(model, cfg, global_world=data), data,
+                         reduce="sum" if data is not None else "mean", finish_grads=finish_grads)
         return lambda state, noise, *batch: step(state, GlobalRows(noise, world), *batch)
-    step = build_train_step(make_loss_fn(model, cfg, global_world=world), world, reduce="sum")
+    step = TrainStep(make_loss_fn(model, cfg, global_world=world), world, reduce="sum")
 
     def sharded_step(state, noise, adjs, nodes, flags):
         return step(state, GlobalRows(noise, world), adjs, nodes, flags)
@@ -145,7 +148,7 @@ def make_sharded_train_step(model, cfg: TrainStepConfig, world: World, tp: bool 
 def make_sharded_eval_step(model, cfg: TrainStepConfig, world: World):
     """(params, noise, step, adjs, nodes, flags) -> metrics of the global
     batch (the test pass data-parallel over ``world``)."""
-    step = build_eval_step(make_loss_fn(model, cfg, global_world=world), world, reduce="sum")
+    step = EvalStep(make_loss_fn(model, cfg, global_world=world), world, reduce="sum")
 
     def sharded_step(params, noise, count, adjs, nodes, flags):
         return step(params, GlobalRows(noise, world), count, adjs, nodes, flags)

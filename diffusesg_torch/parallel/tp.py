@@ -226,22 +226,21 @@ def shard_tp_state(state, world):
     moments and the EMAs as their parameters (tp.py:113-145), then, over a
     data group of more than one rank, Adam and the EMAs ZeRO-1 sharded over the data group (``sharded_step.shard_train_state``).
     COLLECTIVE."""
-    from ..train.train_state import TrainState
+    from ..train.train_state import TrainState, load_opt_state, opt_state_dict, set_lr
     from .sharded_step import shard_train_state
     mg = world.model
     old = state.params()
     kinds = shard_model(state.model, mg)
     params = state.params()
     emas = [[_local(e, k, mg) for e, k in zip(ema, kinds)] for ema in state.ema_params]
-    group = state.opt.param_groups[0]
-    opt = torch.optim.Adam(params, lr=group["lr"], betas=group["betas"], eps=group["eps"],
-                           weight_decay=group["weight_decay"])
+    opt = state.spec.build(params)
+    set_lr(opt, float(state.opt.param_groups[0]["lr"]))
     if state.opt.state:
-        saved = state.opt.state_dict()
+        saved = opt_state_dict(state.opt)
         moments = {i: {k: (_local(v, kinds[i], mg) if k != "step" else v)
                        for k, v in saved["state"][i].items()}
                    for i in range(len(old)) if i in saved["state"]}
-        opt.load_state_dict({"state": moments, "param_groups": saved["param_groups"]})
+        load_opt_state(opt, {"state": moments, "param_groups": saved["param_groups"]})
     out = TrainState(step=state.step, model=state.model, spec=state.spec, opt=opt,
                      ema_params=emas, ema_betas=list(state.ema_betas),
                      tp=TPLayout(world=world, kinds=kinds))
@@ -290,6 +289,7 @@ def gather_tp_state(state, extra: dict | None = None) -> dict | None:
     others: Adam and the EMAs gathered over the data group first (under
     ZeRO-1), then every split leaf over the model group of data rank 0.
     COLLECTIVE."""
+    from ..train.train_state import opt_state_dict
     from .sharded_step import gather_emas
     layout = state.tp
     world, mg, kinds = layout.world, layout.world.model, layout.kinds
@@ -300,7 +300,7 @@ def gather_tp_state(state, extra: dict | None = None) -> dict | None:
         emas = state.ema_params
     if world.rank != 0:
         return None
-    opt, dev = state.opt.state_dict(), world.device
+    opt, dev = opt_state_dict(state.opt), world.device
     params = [_whole(p.detach(), k, mg, dev) for p, k in zip(state.params(), kinds)]
     emas = [[_whole(e, k, mg, dev) for e, k in zip(ema, kinds)] for ema in emas]
     moments = {i: {k: (_whole(v, kinds[i], mg, dev) if k != "step" else v)

@@ -32,7 +32,9 @@ so every source works (``TorchNoise``, the shared draws of sharded
 serving, a test's injected draws).  Interim snapshots and the
 ``chunk_steps`` synchronize happen between replays.
 
-Captures run in ``thread_local`` error mode: another thread of the process
+The first use, the capture and the replay are utils/cuda_graphs.py's,
+which the compiled training step (train/compiled.py) shares.  Captures run
+in ``thread_local`` error mode: another thread of the process
 (an HTTP handler, a checkpoint writer) may call CUDA while a capture is
 open, which is safe because no such call touches the capture stream and
 the allocator routes only the capturing stream's allocations to the pool.
@@ -56,12 +58,9 @@ caller that asks for the CPU.
 """
 from __future__ import annotations
 
-import collections
-import time
-
 import torch
 
-from ..ops import cuda_build
+from ..utils import cuda_graphs
 from .edm_sampler import (NodeAdjEDMSampler, StepVariant, TorchNoise, inpaint_tuple,
                           run_steps)
 
@@ -70,14 +69,6 @@ MAX_PROGRAMS = 4
 
 def _spec(t):
     return None if t is None else (tuple(t.shape), t.dtype)
-
-
-def capture(body, pool, stream) -> torch.cuda.CUDAGraph:
-    """``body()`` captured as a CUDA graph on ``stream`` into ``pool``."""
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
-        body()
-    return graph
 
 
 class CompiledSampler:
@@ -126,7 +117,7 @@ class CompiledSampler:
             program.busy = False
 
     def _compiles(self, device: torch.device) -> bool:
-        return self.compiled and device.type == "cuda"
+        return cuda_graphs.compiles(self.compiled, device)
 
     def _program(self, denoiser_for, node_flags, init_adjs, init_nodes, has_interim, ip,
                  operands):
@@ -204,9 +195,7 @@ class _Program:
                     dst.copy_(src)
             entry = self.graphs.get(variant)
             if entry is not None:
-                graph, record = entry
-                graph.replay()
-                cuda_build.LAUNCHES.update(record)
+                cuda_graphs.replay(*entry)
             else:
                 self._first_use(variant)
 
@@ -226,24 +215,13 @@ class _Program:
 
     def _first_use(self, variant: StepVariant) -> None:
         """Run the step eagerly on the side stream, then capture it there."""
-        caller = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(caller)
-        t0 = time.perf_counter()
-        with torch.cuda.stream(self.stream):
-            self._body(variant)
-        t1 = time.perf_counter()
-        with cuda_build.capturing(collections.Counter()) as record:
-            graph = capture(lambda: self._body(variant), self.pool, self.stream)
-        caller.wait_stream(self.stream)
+        graph, record, seconds = cuda_graphs.warm_and_capture(
+            lambda: self._body(variant), self.pool, self.stream, self.device)
         self.graphs[variant] = (graph, record)
-        self.seconds[variant] = (t1 - t0, time.perf_counter() - t1)
+        self.seconds[variant] = seconds
 
     def stats(self) -> dict:
-        pool = None
-        segments = torch.cuda.memory_snapshot() if torch.cuda.is_available() else []
-        if segments and "segment_pool_id" in segments[0]:
-            pool = sum(s["total_size"] for s in segments
-                       if tuple(s["segment_pool_id"]) == tuple(self.pool))
+        pool = cuda_graphs.pool_bytes(self.pool)
         names = {v: "+".join(k for k, on in v._asdict().items() if on) or "euler"
                  for v in self.seconds}
         return {"device": str(self.device), "variants": len(self.graphs),

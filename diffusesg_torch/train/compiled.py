@@ -1,0 +1,288 @@
+"""The compiled training step: the training and test steps as replays of
+captured CUDA graphs.
+
+Counterpart of the JAX package's jitted steps: ``jax.jit`` with donation
+over ``make_train_step`` / ``make_eval_step``
+(diffusesg_tpu/parallel/sharded_step.py:91,117, which the JAX trainer wraps
+around its steps even on one device, diffusesg_tpu/train/trainer.py:79-87)
+and over the ``shard_map`` steps (diffusesg_tpu/parallel/shardmap_dp.py:67,83).
+``CompiledTrainStep`` and ``CompiledEvalStep`` take the eager steps'
+arguments and give their results, bit for bit; on the CPU, or with
+``compiled=False``, they call the eager step.
+
+On a card a *program* holds what one step over one set of shapes needs,
+keyed by the device and the shapes and dtypes of adjs, nodes and flags (an
+eval program also by its parameters' addresses: ``ema_slice`` builds a new
+dict at each call over the same live EMA tensors; at most 4 programs):
+
+* static input buffers, which each call's batch is copied into; the draw
+  buffers (``train_step.draw_plan``); the buffers of the step's metrics;
+* one CUDA graph per *variant*, the self-conditioning coin (with or without
+  the conditioning pass; one variant where the config has no
+  self-conditioning), captured at the variant's first use into the
+  program's pool after that use ran eagerly on the program's side stream
+  (utils/cuda_graphs.py ``warm_and_capture``; the first use is the step's
+  own work).
+
+The draws stay outside the graph: before each replay the caller's noise
+source makes them in the eager step's order (sigma, noise_adj, noise_node,
+then the coin), and they are copied into the draw buffers, so every source
+works (``TorchNoise``, ``GlobalRows``, a test's JAX draws).  Inside, the
+step reads them through ``StaticDraws``, an adapter with the same protocol.
+The learning rate and the EMAs' lerp weights are written into their device
+tensors before the update's replay (``TrainStep.prepare``).
+
+The single-device step is one graph per variant, from the zeroing of the
+gradients to the EMAs.  The ``shard_map`` step (a ``world``) is two: (a)
+the gradients' zeroing, forward, backward and local metrics, one per
+variant, and (b) clip, Adam and the EMAs, one; the bucketed all-reduce of
+the gradients runs between them on the caller's stream, and the scalar
+metrics are all-reduced after (no collective is captured).  A graph ends
+by copying its metrics into static buffers, which the next replay
+overwrites: each call returns copies.
+
+The graphs read and write the training state where it lies: the
+parameters, their gradients (made by the first backward, then zeroed in
+place), Adam's moments, step counts and learning rate, the EMAs and their
+lerp weights.  A program binds those tensors' addresses at its first
+capture and checks them at each call; where they moved (a restore that
+replaced Adam's state, gradients set to None) it is made anew.  A program
+runs one step at a time.  A capture or replay that fails raises; nothing
+falls back to eager.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..utils import cuda_graphs
+from .train_state import TrainState
+from .train_step import EvalStep, TrainStep, draw_plan, finish_metrics
+
+MAX_PROGRAMS = 4
+# a graph's name by the coin of its variant (None: no self-conditioning)
+VARIANT = {True: "cond", False: "no_cond", None: "plain"}
+
+
+class StaticDraws:
+    """The noise protocol over a program's draw buffers: ``normal`` and
+    ``uniform`` give the buffer of their kind, ``bernoulli`` the variant's
+    coin."""
+
+    def __init__(self, buffers: dict, coin: bool | None):
+        self.buffers, self.coin = buffers, coin
+
+    def normal(self, step, kind, shape):
+        buf = self.buffers[kind]
+        if tuple(buf.shape) != tuple(shape):
+            raise ValueError(f"the step draws {kind} at {tuple(shape)}, the program holds "
+                             f"{tuple(buf.shape)}")
+        return buf
+
+    uniform = normal
+
+    def bernoulli(self, step, kind, p):
+        return self.coin
+
+
+def make_draws(noise, step: int, cfg, adjs, nodes) -> tuple[dict, bool | None]:
+    """The draws of one step from ``noise``, in the eager step's order:
+    {kind: tensor} of ``draw_plan``, then the coin (None without
+    self-conditioning)."""
+    draws = {kind: getattr(noise, method)(step, kind, shape)
+             for method, kind, shape in draw_plan(cfg, adjs.shape, nodes.shape)}
+    coin = bool(noise.bernoulli(step, "self_cond", 0.5)) if cfg.self_condition else None
+    return draws, coin
+
+
+def _spec(t):
+    return tuple(t.shape), t.dtype
+
+
+def _copies(metrics: dict) -> dict:
+    return {k: v.clone() for k, v in metrics.items()}
+
+
+def _keep(out: dict, local: dict) -> dict:
+    """The step's metrics into the static buffers ``out`` (made at the
+    first use, outside any capture).  A graph's body refers to its
+    program's buffers and not to the program, so that a dropped program is
+    freed at once (a reference cycle would hold its graphs and pool until
+    the garbage collector ran)."""
+    if not out:
+        out.update({k: torch.empty_like(v) for k, v in local.items()})
+    for k, v in local.items():
+        out[k].copy_(v)
+    return out
+
+
+def _addresses(state: TrainState) -> tuple:
+    """Where the tensors a training graph reads and writes lie."""
+    out = []
+    for p in state.params():
+        out.append(p.data_ptr())
+        out.append(0 if p.grad is None else p.grad.data_ptr())
+        out.extend(v.data_ptr() for v in state.opt.state.get(p, {}).values()
+                   if isinstance(v, torch.Tensor))
+    out.extend(g["lr"].data_ptr() if isinstance(g["lr"], torch.Tensor) else 0
+               for g in state.opt.param_groups)
+    out.extend(e.data_ptr() for ema in state.ema_params for e in ema if e is not None)
+    if state.ema_weights is not None:
+        out.extend(b.data_ptr() for b in state.ema_weights.bufs.values())
+    return tuple(out)
+
+
+class _Program:
+    """The static buffers and graphs of one step over one set of shapes on
+    one card (see the module docstring)."""
+
+    def __init__(self, cfg, batch):
+        dev = batch[0].device
+        self.device, self.busy, self.bound = dev, False, None
+        with torch.cuda.device(dev):
+            self.stream = torch.cuda.Stream(dev)
+            self.pool = torch.cuda.graph_pool_handle()
+            self.batch = tuple(torch.empty_like(t) for t in batch)
+            self.draws = {kind: torch.empty(shape, dtype=torch.float32, device=dev)
+                          for _, kind, shape in draw_plan(cfg, batch[0].shape, batch[1].shape)}
+        self.out: dict = {}
+        # graph name -> (graph, its launch record), its body (chip_smoke.py runs
+        # it eagerly beside a replay), seconds of its first use and capture
+        self.graphs: dict[str, tuple] = {}
+        self.bodies: dict = {}
+        self.seconds: dict[str, tuple[float, float]] = {}
+
+    def load(self, batch, draws: dict) -> None:
+        """Copy one call's batch and draws into the static buffers."""
+        if self.busy:
+            raise RuntimeError("a compiled step's program runs one step at a time")
+        for dst, src in zip(self.batch, batch):
+            dst.copy_(src)
+        for kind, t in draws.items():
+            self.draws[kind].copy_(t)
+
+    def run(self, name: str, body) -> None:
+        """Replay graph ``name``, or run ``body`` for its first use and
+        capture it."""
+        entry = self.graphs.get(name)
+        if entry is not None:
+            cuda_graphs.replay(*entry)
+            return
+        graph, record, seconds = cuda_graphs.warm_and_capture(body, self.pool, self.stream,
+                                                              self.device)
+        self.graphs[name], self.bodies[name], self.seconds[name] = (graph, record), body, seconds
+
+    def stats(self) -> dict:
+        return {"device": str(self.device), "variants": sorted(self.graphs),
+                "seconds": dict(self.seconds), "pool_bytes": cuda_graphs.pool_bytes(self.pool)}
+
+
+class _Compiled:
+    """The program cache of a compiled step."""
+
+    def __init__(self, compiled: bool):
+        self.compiled = compiled
+        self._programs: dict = {}
+
+    def _compiles(self, device: torch.device) -> bool:
+        return cuda_graphs.compiles(self.compiled, device)
+
+    def _program(self, key, cfg, batch) -> _Program:
+        program = self._programs.get(key)
+        if program is None:
+            if len(self._programs) >= MAX_PROGRAMS:
+                self._programs.clear()
+            program = self._programs[key] = _Program(cfg, batch)
+        return program
+
+    def stats(self) -> list[dict]:
+        """Per program: its graphs, the seconds of each one's first use and
+        capture, and its pool's bytes."""
+        return [p.stats() for p in self._programs.values()]
+
+
+class CompiledTrainStep(_Compiled):
+    """``step`` (a ``TrainStep`` on one device or on the ranks of a
+    ``shard_map`` world) with its device work replayed from CUDA graphs on
+    a card; ``compiled=False`` runs the eager step everywhere (the
+    comparison the checks make)."""
+
+    def __init__(self, step: TrainStep, compiled: bool = True):
+        super().__init__(compiled)
+        self.step = step
+
+    def __call__(self, state: TrainState, noise, adjs_gt, nodes_gt, node_flags):
+        if not self._compiles(node_flags.device):
+            return self.step(state, noise, adjs_gt, nodes_gt, node_flags)
+        step, batch = self.step, (adjs_gt, nodes_gt, node_flags)
+        draws, coin = make_draws(noise, state.step, step.cfg, adjs_gt, nodes_gt)
+        key = (node_flags.device,) + tuple(_spec(t) for t in batch)
+        program = self._program(key, step.cfg, batch)
+        if program.bound is not None and program.bound != _addresses(state):
+            del self._programs[key]  # the state's tensors moved: capture anew
+            program = self._program(key, step.cfg, batch)
+        with torch.cuda.device(program.device):
+            program.load(batch, draws)
+            program.busy = True
+            try:
+                local = self._run(program, state, coin)
+            finally:
+                program.busy = False
+        state.step += 1
+        return state, finish_metrics(local, step.world, step.reduce)
+
+    def _run(self, program: _Program, state: TrainState, coin) -> dict:
+        """The step's device work: its graphs, and between them the
+        ``shard_map`` step's all-reduce.  Returns copies of the local
+        metrics."""
+        step, name = self.step, VARIANT[coin]
+        noise, out, batch = StaticDraws(program.draws, coin), program.out, program.batch
+
+        def backward():
+            return _keep(out, step.backward(state, noise, state.step, *batch))
+
+        if step.world is None:
+            step.prepare(state)
+            program.run(name, lambda: (backward(), step.update(state)))
+        else:
+            from ..parallel.mesh import all_reduce_grads
+            program.run("backward:" + name, backward)
+            self._bind(program, state)
+            all_reduce_grads(state.params(), step.world, mean=step.reduce == "mean")
+            step.prepare(state)
+            program.run("update", lambda: step.update(state))
+        self._bind(program, state)
+        return _copies(program.out)
+
+    @staticmethod
+    def _bind(program: _Program, state: TrainState) -> None:
+        if program.bound is None:
+            program.bound = _addresses(state)
+
+
+class CompiledEvalStep(_Compiled):
+    """``step`` (an ``EvalStep``) with its device work replayed from CUDA
+    graphs on a card; ``compiled=False`` runs the eager step everywhere."""
+
+    def __init__(self, step: EvalStep, compiled: bool = True):
+        super().__init__(compiled)
+        self.step = step
+
+    def __call__(self, params, noise, count: int, adjs_gt, nodes_gt, node_flags):
+        if not self._compiles(node_flags.device):
+            return self.step(params, noise, count, adjs_gt, nodes_gt, node_flags)
+        step, batch = self.step, (adjs_gt, nodes_gt, node_flags)
+        draws, coin = make_draws(noise, count, step.cfg, adjs_gt, nodes_gt)
+        held = None if params is None else tuple(t.data_ptr() for t in params.values())
+        key = (node_flags.device, held) + tuple(_spec(t) for t in batch)
+        program = self._program(key, step.cfg, batch)
+        with torch.cuda.device(program.device):
+            program.load(batch, draws)
+            program.busy = True
+            try:
+                noise, out, static = StaticDraws(program.draws, coin), program.out, program.batch
+                program.run(VARIANT[coin], lambda: _keep(
+                    out, step.local(params, noise, count, *static)))
+                local = _copies(out)
+            finally:
+                program.busy = False
+        return finish_metrics(local, step.world, step.reduce)

@@ -5,6 +5,14 @@ ExponentialLR + ema_pytorch.EMA list).  The state is updated in place: the
 model's parameters and the optimizer's moments are PyTorch's own, and the K
 EMAs are lists of tensors aligned with ``model.parameters()``, each updated
 with one ``torch._foreach_lerp_``.
+
+What a step changes from the host lives on the device, so that a captured
+CUDA graph of the step (train/compiled.py) takes each replay's values: on
+a card Adam is ``capturable`` (its step counts and bias corrections device
+tensors, its learning rate a device tensor that ``set_lr`` writes), and the
+EMAs' lerp weights are read from device memory (``EmaWeights``, written by
+``set_ema_weights``).  Checkpoints keep the learning rate as a number
+(``opt_state_dict``), and ``load_opt_state`` restores into either Adam.
 """
 from __future__ import annotations
 
@@ -31,9 +39,56 @@ class OptimizerSpec:
         """Learning rate of the update after ``count`` completed updates."""
         return self.lr_init * self.lr_decay ** (count // max(1, self.steps_per_epoch))
 
+    def adam_kwargs(self, device) -> dict:
+        """Adam's settings for parameters on ``device``: on a card
+        ``capturable``, its learning rate a device tensor; elsewhere the
+        plain Adam (``capturable`` refuses the CPU)."""
+        kw = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=self.weight_decay)
+        if torch.device(device).type == "cuda":
+            lr = torch.tensor(self.lr_init, dtype=torch.float32, device=device)
+            return dict(kw, lr=lr, capturable=True)
+        return dict(kw, lr=self.lr_init)
+
     def build(self, params) -> torch.optim.Adam:
-        return torch.optim.Adam(params, lr=self.lr_init, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=self.weight_decay)
+        """Adam over ``params`` (``adam_kwargs``)."""
+        params = list(params)
+        return torch.optim.Adam(params, **self.adam_kwargs(params[0].device))
+
+
+def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate: written into a capturable Adam's device
+    tensor (which a captured step reads), assigned to a plain one's."""
+    for group in opt.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def opt_state_dict(opt: torch.optim.Optimizer) -> dict:
+    """``opt.state_dict()`` with each group's learning rate a number."""
+    saved = opt.state_dict()
+    for group in saved["param_groups"]:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"] = float(group["lr"])
+    return saved
+
+
+def load_opt_state(opt: torch.optim.Optimizer, saved: dict) -> None:
+    """Load Adam's ``saved`` state into ``opt`` in ``opt``'s own form: its
+    ``capturable`` flag (a card's state restores on the CPU's plain Adam and
+    the other way round; ``load_state_dict`` puts a capturable Adam's step
+    counts on the parameters' device) and its learning-rate tensor, which
+    keeps its identity (a graph captured over ``opt`` reads it) and takes
+    the saved rate."""
+    kept = [(g["lr"], g.get("capturable", False)) for g in opt.param_groups]
+    groups = [dict(g, lr=float(g["lr"]), capturable=cap)
+              for g, (_, cap) in zip(saved["param_groups"], kept)]
+    opt.load_state_dict(dict(saved, param_groups=groups))
+    for group, (lr, _) in zip(opt.param_groups, kept):
+        if isinstance(lr, torch.Tensor):
+            lr.fill_(group["lr"])
+            group["lr"] = lr
 
 
 def make_optimizer(lr_init: float, lr_decay: float, steps_per_epoch: int,
@@ -56,6 +111,8 @@ class TrainState:
     # tensor parallel (parallel/tp.py): how each parameter is split over the
     # model group; None when no parameter is
     tp: object | None = None
+    # the EMAs' lerp weights on the device, made at the first update
+    ema_weights: "EmaWeights | None" = None
 
     def params(self) -> list[torch.Tensor]:
         return list(self.model.parameters())
@@ -82,23 +139,62 @@ def ema_effective_decay(beta: float, step: int) -> float:
     return 0.0 if k <= 2 else min(beta, 1.0 - 1.0 / k)
 
 
+class EmaWeights:
+    """The K EMAs' lerp weights (1 - decay) of the next update on the
+    parameters' device: per dtype a [K, n] buffer (n the largest
+    parameter's size) whose row k holds EMA k's weight in every element,
+    and each parameter's view of each row.  ``torch._foreach_lerp_`` over
+    those views reads the weights from device memory, so a captured graph
+    of the update takes each replay's weights (a weight given as a tensor
+    scalar would be read on the host); it is bit-equal to the lerp with a
+    number weight, and at weight 1 to the copy of the warm-up updates 1
+    and 2 (chip_smoke.py phase 13 and tests/test_torch_compiled_train.py
+    hold both)."""
+
+    def __init__(self, params: list[torch.Tensor], k: int):
+        sizes: dict[torch.dtype, int] = {}
+        for p in params:
+            sizes[p.dtype] = max(sizes.get(p.dtype, 0), p.numel())
+        self.bufs = {dt: torch.zeros((k, n), dtype=dt, device=params[0].device)
+                     for dt, n in sizes.items()}
+        self.views = [[self.bufs[p.dtype][j, :p.numel()].view(p.shape) for p in params]
+                      for j in range(k)]
+
+    def fill(self, weights: list[float]) -> None:
+        for buf in self.bufs.values():
+            for j, w in enumerate(weights):
+                buf[j].fill_(w)
+
+
+def set_ema_weights(state: TrainState) -> None:
+    """Write the lerp weights of the update after ``state.step`` completed
+    ones into ``state.ema_weights`` (made here at the first call)."""
+    if state.ema_weights is None:
+        state.ema_weights = EmaWeights(state.params(), len(state.ema_betas))
+    state.ema_weights.fill([1.0 - ema_effective_decay(b, state.step)
+                            for b in state.ema_betas])
+
+
 @torch.no_grad()
-def update_emas(state: TrainState) -> None:
-    """ema <- ema * d + p * (1 - d) for each of the K copies, d from the
-    warm-up ramp at ``state.step`` completed updates (under ZeRO-1 the
-    copies of the parameters this rank owns)."""
+def apply_emas(state: TrainState) -> None:
+    """ema <- lerp(ema, p, w) for each of the K copies with the weights
+    ``set_ema_weights`` wrote (under ZeRO-1 the copies of the parameters
+    this rank owns)."""
     params = [p.detach() for p in state.model.parameters()]
     held = range(len(params))
     if state.owners is not None and state.ema_params:  # ZeRO-1: the copies this rank holds
         held = [i for i, e in enumerate(state.ema_params[0]) if e is not None]
     params = [params[i] for i in held]
-    for beta, full in zip(state.ema_betas, state.ema_params):
-        ema = [full[i] for i in held]
-        decay = ema_effective_decay(beta, state.step)
-        if decay == 0.0:
-            torch._foreach_copy_(ema, params)
-        else:
-            torch._foreach_lerp_(ema, params, 1.0 - decay)
+    for full, views in zip(state.ema_params, state.ema_weights.views):
+        torch._foreach_lerp_([full[i] for i in held], params, [views[i] for i in held])
+
+
+def update_emas(state: TrainState) -> None:
+    """ema <- ema * d + p * (1 - d) for each of the K copies, d from the
+    warm-up ramp at ``state.step`` completed updates (a copy for updates 1
+    and 2)."""
+    set_ema_weights(state)
+    apply_emas(state)
 
 
 def ema_slice(state: TrainState, idx: int) -> dict[str, torch.Tensor]:

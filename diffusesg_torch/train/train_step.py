@@ -23,7 +23,7 @@ from ..models.precond import precond_forward_train
 from ..ops.attribute_code import attribute_int_to_one_hot
 from ..parallel.mesh import all_reduce_grads, all_reduce_sum
 from .loss import NodeAdjRainbowLoss, bbox_iou_aux_loss
-from .train_state import TrainState, update_emas
+from .train_state import TrainState, apply_emas, set_ema_weights, set_lr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,73 +124,134 @@ def train_step_config_from(config) -> TrainStepConfig:
         num_edge_type=info["num_adj_type"])
 
 
-def _metrics(loss, aux, world=None, reduce: str = "mean"):
-    """The step's metrics: scalars averaged over the ranks of ``world``
-    (``reduce`` "mean"), or summed there when each rank's loss is already its
-    part of the global mean ("sum", the ``gspmd`` mode); the per-sample
-    vectors stay local."""
+def draw_plan(cfg: TrainStepConfig, adjs_shape, nodes_shape) -> tuple:
+    """The draws one step of ``make_loss_fn`` makes before its
+    self-conditioning coin, in its order, as (method, kind, shape): the
+    sigmas (``uniform`` for the vp and ve distributions), the adjacency
+    noise and the node noise, at the shapes the one-hot encoding gives the
+    batch (diffusion/edm.py ``NodeAdjEDMObjective.get_input_output``).  The
+    coin (``bernoulli``, kind ``self_cond``) follows when
+    ``cfg.self_condition``.  The compiled step (train/compiled.py) makes
+    them ahead of its replay from the caller's noise source."""
+    a, x = tuple(adjs_shape), tuple(nodes_shape)
+    if cfg.node_encoding == "one_hot" and not cfg.flag_node_only:
+        x = x[:-1] + (cfg.num_node_type + x[-1] - 1,)
+    if cfg.edge_encoding == "one_hot":
+        a = a + (cfg.num_edge_type,)
+    sigma = "uniform" if cfg.sigma_dist in ("vp", "ve") else "normal"
+    return ((sigma, "sigma", a[:1]), ("normal", "noise_adj", a), ("normal", "noise_node", x))
+
+
+def local_metrics(loss, aux, world=None, reduce: str = "mean") -> dict:
+    """The step's metrics before the ranks' all-reduce: ``scalars`` (loss,
+    mean adjacency loss, mean node loss; with ``reduce`` "sum" each rank's
+    part of the global batch's means) and the per-sample vectors."""
     loss_adj, loss_node = aux["loss_adj"].detach(), aux["loss_node"].detach()
-    scalars = [loss.detach(), loss_adj.mean(), loss_node.mean()]
-    if world is not None:
-        if reduce == "sum":
-            rows = world.size * loss_adj.shape[0]
-            scalars[1:] = [loss_adj.sum() / rows, loss_node.sum() / rows]
-        packed = torch.stack(scalars)
-        scalars = list(all_reduce_sum(packed, world, mean=reduce == "mean").unbind())
-    return {"loss": scalars[0],
-            "loss_adj": scalars[1],
-            "loss_node": scalars[2],
+    if world is not None and reduce == "sum":
+        rows = world.size * loss_adj.shape[0]
+        scalars = [loss.detach(), loss_adj.sum() / rows, loss_node.sum() / rows]
+    else:
+        scalars = [loss.detach(), loss_adj.mean(), loss_node.mean()]
+    return {"scalars": torch.stack(scalars),
             "loss_adj_per_sample": loss_adj,
             "loss_node_per_sample": loss_node,
             "sigmas": aux["sigmas"].detach()}
 
 
-def make_train_step(model, cfg: TrainStepConfig, world=None):
+def finish_metrics(local: dict, world=None, reduce: str = "mean") -> dict:
+    """The step's metrics from ``local_metrics``: the scalars averaged over
+    the ranks of ``world`` (``reduce`` "mean"), or summed there when each
+    rank's are already its part of the global mean ("sum", the ``gspmd``
+    mode); the per-sample vectors stay local."""
+    scalars = local["scalars"]
+    if world is not None:
+        scalars = all_reduce_sum(scalars, world, mean=reduce == "mean")
+    loss, loss_adj, loss_node = scalars.unbind()
+    return {"loss": loss, "loss_adj": loss_adj, "loss_node": loss_node,
+            **{k: v for k, v in local.items() if k != "scalars"}}
+
+
+class TrainStep:
+    """(state, noise, adjs, nodes, flags) -> (state, metrics): backward
+    (the gradients zeroed in place: buffers made once, which a captured
+    step writes), the all-reduce of the gradients over ``world``
+    (``reduce`` "mean" or "sum"), clip (or ``finish_grads(state)``, which
+    clips: the tensor-parallel step's), Adam with the epoch's learning
+    rate, the EMAs.  The state is updated in place and returned.  Its parts
+    are what train/compiled.py captures: ``backward`` and ``update`` run on
+    the device alone, ``prepare`` writes the update's learning rate and EMA
+    weights from the host.  ``cfg`` (the ``TrainStepConfig``) gives the
+    compiled step its draws."""
+
+    def __init__(self, loss_fn, world=None, reduce: str = "mean", finish_grads=None,
+                 cfg: TrainStepConfig | None = None):
+        self.loss_fn, self.world, self.reduce = loss_fn, world, reduce
+        self.finish_grads, self.cfg = finish_grads, cfg
+
+    def __call__(self, state: TrainState, noise, adjs_gt, nodes_gt, node_flags):
+        local = self.backward(state, noise, state.step, adjs_gt, nodes_gt, node_flags)
+        if self.world is not None:
+            all_reduce_grads(state.params(), self.world, mean=self.reduce == "mean")
+        self.prepare(state)
+        self.update(state)
+        state.step += 1
+        return state, finish_metrics(local, self.world, self.reduce)
+
+    def backward(self, state: TrainState, noise, step: int, adjs_gt, nodes_gt,
+                 node_flags) -> dict:
+        """Zero the gradients, forward, backward: the local metrics."""
+        state.opt.zero_grad(set_to_none=False)
+        loss, aux = self.loss_fn(None, noise, step, adjs_gt, nodes_gt, node_flags)
+        loss.backward()
+        return local_metrics(loss, aux, self.world, self.reduce)
+
+    @staticmethod
+    def prepare(state: TrainState) -> None:
+        """The learning rate and EMA weights of the update after
+        ``state.step`` completed ones, written from the host."""
+        set_lr(state.opt, state.spec.lr(state.step))
+        set_ema_weights(state)
+
+    def update(self, state: TrainState) -> None:
+        """Clip, Adam, the EMAs."""
+        if self.finish_grads is not None:
+            self.finish_grads(state)
+        else:
+            torch.nn.utils.clip_grad_norm_(state.params(), state.spec.max_grad_norm)
+        state.opt.step()
+        apply_emas(state)
+
+
+def make_train_step(model, cfg: TrainStepConfig, world=None) -> TrainStep:
     """(state, noise, batch) -> (state, metrics).  The state is updated in
     place (parameters, Adam moments, EMAs, step) and returned.  With
     ``world`` the step runs on this rank's slice of the batch and averages
     the gradients (every parameter's, zeros where this rank's graph left
     none) and the scalar metrics over the ranks before the clip."""
-    return build_train_step(make_loss_fn(model, cfg), world, reduce="mean")
+    return TrainStep(make_loss_fn(model, cfg), world, cfg=cfg)
 
 
-def build_train_step(loss_fn, world=None, reduce: str = "mean", finish_grads=None):
-    """The step around ``loss_fn``: backward, the all-reduce of the
-    gradients over ``world`` (``reduce`` "mean" or "sum"), clip (or
-    ``finish_grads(state)``, which clips: the tensor-parallel step's),
-    Adam with the epoch's learning rate, the EMAs."""
+class EvalStep:
+    """(params, noise, step, adjs, nodes, flags) -> metrics: the losses
+    without an update (the reference's 'test' mode); with ``world`` the
+    scalar metrics are reduced over the ranks (``reduce``).  ``local`` is
+    the part on the device alone, which train/compiled.py captures."""
 
-    def train_step(state: TrainState, noise, adjs_gt, nodes_gt, node_flags):
-        state.opt.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(None, noise, state.step, adjs_gt, nodes_gt, node_flags)
-        loss.backward()
-        if world is not None:
-            all_reduce_grads(state.params(), world, mean=reduce == "mean")
-        if finish_grads is not None:
-            finish_grads(state)
-        else:
-            torch.nn.utils.clip_grad_norm_(state.params(), state.spec.max_grad_norm)
-        lr = state.spec.lr(state.step)
-        for group in state.opt.param_groups:
-            group["lr"] = lr
-        state.opt.step()
-        update_emas(state)
-        state.step += 1
-        return state, _metrics(loss, aux, world, reduce)
+    def __init__(self, loss_fn, world=None, reduce: str = "mean",
+                 cfg: TrainStepConfig | None = None):
+        self.loss_fn, self.world, self.reduce, self.cfg = loss_fn, world, reduce, cfg
 
-    return train_step
+    def __call__(self, params, noise, step: int, adjs_gt, nodes_gt, node_flags):
+        local = self.local(params, noise, step, adjs_gt, nodes_gt, node_flags)
+        return finish_metrics(local, self.world, self.reduce)
+
+    @torch.no_grad()
+    def local(self, params, noise, step: int, adjs_gt, nodes_gt, node_flags) -> dict:
+        loss, aux = self.loss_fn(params, noise, step, adjs_gt, nodes_gt, node_flags)
+        return local_metrics(loss, aux, self.world, self.reduce)
 
 
-def make_eval_step(model, cfg: TrainStepConfig, world=None):
+def make_eval_step(model, cfg: TrainStepConfig, world=None) -> EvalStep:
     """The same losses without an update (the reference's 'test' mode); with
     ``world`` the scalar metrics are averaged over the ranks."""
-    return build_eval_step(make_loss_fn(model, cfg), world, reduce="mean")
-
-
-def build_eval_step(loss_fn, world=None, reduce: str = "mean"):
-    @torch.no_grad()
-    def eval_step(params, noise, step: int, adjs_gt, nodes_gt, node_flags):
-        loss, aux = loss_fn(params, noise, step, adjs_gt, nodes_gt, node_flags)
-        return _metrics(loss, aux, world, reduce)
-
-    return eval_step
+    return EvalStep(make_loss_fn(model, cfg), world, cfg=cfg)

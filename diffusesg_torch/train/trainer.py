@@ -27,37 +27,46 @@ from ..sampling.edm_sampler import TorchNoise
 from ..sampling.orchestrator import sg_go_sampling
 from ..utils.checkpoint import list_checkpoints, save_checkpoint, wait_for_async_saves
 from ..utils.logging_utils import LossTxtLogger, ScalarWriter
+from .compiled import CompiledEvalStep, CompiledTrainStep
 from .train_state import TrainState, ema_slice
 from .train_step import TrainStepConfig, make_eval_step, make_train_step
 
 
-def _steps(model, state, config, step_cfg, world, noise):
+def _steps(model, state, config, step_cfg, world, noise, compiled: bool = True):
     """(state, train_step, eval_step, noise) of this run.  One process, or a
     world of one (a mean over one rank is the identity and ZeRO-1 over one
-    rank shards nothing): the single-device steps.  Several: those of
-    ``tpu.spmd_mode``; ``shard_map`` keeps the state replicated and draws
+    rank shards nothing): the single-device steps, compiled on a card
+    (train/compiled.py).  Several: those of ``tpu.spmd_mode``;
+    ``shard_map`` (compiled on a card) keeps the state replicated and draws
     from the rank's stream, ``gspmd`` shards Adam and the EMAs and draws the
     global batch's."""
     if world is None or world.size == 1:
-        return state, make_train_step(model, step_cfg), make_eval_step(model, step_cfg), noise
+        return (state, CompiledTrainStep(make_train_step(model, step_cfg), compiled),
+                CompiledEvalStep(make_eval_step(model, step_cfg), compiled), noise)
     from ..parallel.shardmap_dp import make_shardmap_eval_step, make_shardmap_train_step
     from ..parallel.sharded_step import (make_sharded_eval_step, make_sharded_train_step,
                                          shard_train_state)
     mode = resolve_spmd_mode(config, world.size)
     logging.info("data parallel over %d processes, spmd_mode %s", world.size, mode)
     if mode == "shard_map":
-        return (state, make_shardmap_train_step(model, step_cfg, world),
-                make_shardmap_eval_step(model, step_cfg, world), noise.fold_in(world.rank))
+        return (state, make_shardmap_train_step(model, step_cfg, world, compiled),
+                make_shardmap_eval_step(model, step_cfg, world, compiled),
+                noise.fold_in(world.rank))
     return (shard_train_state(state, world), make_sharded_train_step(model, step_cfg, world),
             make_sharded_eval_step(model, step_cfg, world), noise)
 
 
 def go_training(model, state: TrainState, step_cfg: TrainStepConfig, config, bundle,
                 mc_sampler=None, writer: ScalarWriter | None = None, start_epoch: int = 0,
-                noise=None):
+                noise=None, compiled: bool = True):
     """Run the training loop; returns the final TrainState.
 
-    The steps are built from ``step_cfg`` (``train_step_config_from``).
+    The steps are built from ``step_cfg`` (``train_step_config_from``); on
+    a card the training and test steps run as replays of captured CUDA
+    graphs (train/compiled.py, the JAX trainer's jitted steps), the
+    ``gspmd`` and tensor-parallel steps excepted.  ``compiled=False`` runs
+    them eagerly: the comparison the checks make, as the compiled
+    sampler's.
     ``start_epoch`` continues an interrupted run (cli/train.py --resume).
     ``noise`` is the source of the steps' random draws (default: a
     ``TorchNoise`` seeded from ``config.seed`` and ``start_epoch``, so a
@@ -95,7 +104,8 @@ def go_training(model, state: TrainState, step_cfg: TrainStepConfig, config, bun
     batch_size = per_host_batch_size(int(config.train.batch_size), nproc)
     if noise is None:
         noise = TorchNoise(int(config.seed) + 1000 + 7919 * start_epoch, device)
-    state, train_step, eval_step, noise = _steps(model, state, config, step_cfg, world, noise)
+    state, train_step, eval_step, noise = _steps(model, state, config, step_cfg, world, noise,
+                                                 compiled)
     train_batches = Batches(bundle.train, batch_size, shuffle=True, seed=config.seed,
                             process_index=rank, process_count=nproc)
     test_batches = Batches(bundle.test, batch_size, shuffle=False, process_index=rank,

@@ -4,16 +4,21 @@ Counterpart of diffusesg_tpu/utils/checkpoint.py (orbax there).  One file per
 checkpoint, ``torch.save`` of
 
     {"step", "params" (state_dict), "ema_params" (K lists aligned with the
-     parameters), "ema_betas", "opt_state" (Adam's state_dict), "extra"}
+     parameters), "ema_betas", "opt_state" (Adam's state_dict, its learning
+     rate a number), "extra"}
 
 written to a temporary file in the same directory and renamed into place, so
 a reader never sees a partial checkpoint.  A ZeRO-1 state
 (parallel/sharded_step.py) is gathered to rank 0 first, which alone writes,
 so a data-parallel checkpoint has the single-device format and resumes on
-one device and the other way round.
+one device and the other way round.  Adam's state restores into the
+optimizer's own form (train/train_state.py ``load_opt_state``): a card's
+capturable Adam resumes on the CPU's plain one and the other way round.
 
 An asynchronous save (``tpu.async_checkpointing``, the JAX package's orbax
-async saves) copies the state to host memory and returns; one background
+async saves) copies the state to host memory, blocking, and returns (so
+the next replay of a compiled step, which writes the state in place, comes
+after the copy); one background
 writer thread does the write and the rename, in the order the saves were
 made.  ``wait_for_async_saves`` drains it and raises the first failed
 write; ``restore_checkpoint`` and ``read_checkpoint`` wait first, and
@@ -96,6 +101,8 @@ def _gathered_payload(state: "TrainState", extra: dict | None) -> dict | None:
     that writes (None on the others), its tensors where the state holds
     them.  COLLECTIVE with a process group."""
     import torch.distributed as dist
+
+    from ..train.train_state import opt_state_dict
     if state.tp is not None:
         from ..parallel.tp import gather_tp_state
         return gather_tp_state(state, extra)
@@ -112,7 +119,7 @@ def _gathered_payload(state: "TrainState", extra: dict | None) -> dict | None:
         "params": {k: v.detach() for k, v in state.model.state_dict().items()},
         "ema_params": [[t.detach() for t in ema] for ema in emas],
         "ema_betas": list(state.ema_betas),
-        "opt_state": state.opt.state_dict(),
+        "opt_state": opt_state_dict(state.opt),
         "extra": dict(extra or {}),
     }
 
@@ -193,6 +200,7 @@ def restore_checkpoint(path: str, state: "TrainState") -> dict:
     checkpoint does not match the model.  A ZeRO-1 state takes its own
     partition of the Adam moments and the EMAs of the parameters it owns.
     Waits for the asynchronous saves first (``read_checkpoint``)."""
+    from ..train.train_state import load_opt_state
     payload = read_checkpoint(path)
     if len(payload["ema_params"]) != len(state.ema_params):
         raise ValueError(f"checkpoint holds {len(payload['ema_params'])} EMAs, the state "
@@ -205,7 +213,7 @@ def restore_checkpoint(path: str, state: "TrainState") -> dict:
             for dst, src in zip(ema, saved):
                 if dst is not None:  # None: another rank's ZeRO-1 part
                     dst.copy_(src)
-    state.opt.load_state_dict(payload["opt_state"])
+    load_opt_state(state.opt, payload["opt_state"])
     state.ema_betas = [float(b) for b in payload["ema_betas"]]
     state.step = int(payload["step"])
     return payload.get("extra", {})

@@ -4,6 +4,7 @@
     python tests/helpers/torch_dp_child.py train <cli.train arguments>
     python tests/helpers/torch_dp_child.py eval <out_dir>
     python tests/helpers/torch_dp_child.py tp <out_dir> <dp> <tp>
+    python tests/helpers/torch_dp_child.py compiled <out_dir>
 
 The rendezvous comes from MASTER_ADDR / MASTER_PORT / RANK / WORLD_SIZE,
 as torchrun sets them; the spawning test starts one process per rank with
@@ -16,7 +17,11 @@ it, and writes rank 0's metrics of both to ``<out_dir>/metrics.json``;
 ``tp`` runs two tensor-parallel steps on a (dp, tp) grid of the ranks from
 the tiny model's single-device state (``TP_BATCH``, ``TorchNoise(TP_SEED)``)
 and writes rank 0's losses and gathered state to ``<out_dir>/tp.npz`` and a
-checkpoint to ``<out_dir>/tp_ckpt.pt``.
+checkpoint to ``<out_dir>/tp_ckpt.pt``; ``compiled`` runs the ``shard_map``
+step eagerly and compiled (through tests/helpers/graph_stand_in.py) for
+``COMPILED_STEPS`` steps from one start and the same draws, and writes both
+runs' metrics and final state, and the compiled step's graphs, to
+``<out_dir>/compiled_rank<r>.npz``.
 """
 import json
 import os
@@ -107,6 +112,54 @@ def run_steps(out_dir):
                                              for i in range(STEPS)])
         np.savez(os.path.join(out_dir, f"{mode}_rank{world.rank}.npz"), **out)
         save_checkpoint(os.path.join(out_dir, f"{mode}_ckpt"), state, {"epoch": 0})
+
+
+COMPILED_STEPS = 3
+
+
+def run_compiled(out_dir):
+    import pytest
+    from graph_stand_in import install
+    from torch_parity import clean_batch, tiny_port_model
+
+    from diffusesg_torch.parallel.mesh import current_world
+    from diffusesg_torch.parallel.shardmap_dp import make_shardmap_train_step
+    from diffusesg_torch.sampling.edm_sampler import TorchNoise
+    from diffusesg_torch.train import create_train_state, make_optimizer, train_step_config_from
+
+    world = current_world()
+    cfg = tiny_config()
+    step_cfg = train_step_config_from(cfg)
+    counts = COUNTS["shard_map"]
+    batch = clean_batch(len(counts), cfg.dataset.max_node_num, counts, seed=9)
+    b = len(counts) // world.size
+    local = tuple(torch.from_numpy(np.ascontiguousarray(a[world.rank * b:(world.rank + 1) * b]))
+                  for a in batch)
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        install(mp)
+        for compiled in (False, True):
+            tag = "compiled" if compiled else "eager"
+            state = create_train_state(tiny_port_model(cfg), BETAS,
+                                       make_optimizer(LR, DECAY, SPE, WD))
+            step = make_shardmap_train_step(state.model, step_cfg, world, compiled)
+            noise = TorchNoise(5, "cpu").fold_in(world.rank)
+            for i in range(COMPILED_STEPS):
+                state, metrics = step(state, noise, *local)
+                for k, v in metrics.items():
+                    out[f"{tag}/step{i}/{k}"] = v.numpy()
+            for n, p in state.model.named_parameters():
+                out[f"{tag}/param/{n}"] = p.detach().numpy().copy()
+                out[f"{tag}/grad/{n}"] = p.grad.numpy().copy()
+                for k in ("exp_avg", "exp_avg_sq", "step"):
+                    out[f"{tag}/adam/{k}/{n}"] = state.opt.state[p][k].numpy().copy()
+            for j, ema in enumerate(state.ema_params):
+                for n, e in zip(state.param_names(), ema):
+                    out[f"{tag}/ema{j}/{n}"] = e.numpy().copy()
+            if compiled:
+                (program,) = step._programs.values()
+                out["graphs"] = np.asarray(sorted(program.graphs))
+    np.savez(os.path.join(out_dir, f"compiled_rank{world.rank}.npz"), **out)
 
 
 def tp_batch(cfg):
@@ -220,7 +273,8 @@ def main():
         return
     assert maybe_initialize_distributed("cpu")
     try:
-        {"steps": run_steps, "eval": run_eval, "tp": run_tp}[what](*sys.argv[2:])
+        {"steps": run_steps, "eval": run_eval, "tp": run_tp,
+         "compiled": run_compiled}[what](*sys.argv[2:])
     finally:
         shutdown()
     print("CHILD_OK", os.environ["RANK"], flush=True)

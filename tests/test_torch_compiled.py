@@ -22,21 +22,19 @@ compiled sampler's cache (``serving/export.py::save_compiled`` /
   kernel library of other sources refused; asking for the card without
   one raises.
 """
-import contextlib
 import os
 import sys
-import types
 
 import numpy as np
 import pytest
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
+from graph_stand_in import _Stream, stand_in  # noqa: E402,F401 - the fixture
 from torch_parity import (ATOL, RTOL, JaxKeyNoise, load_coco_pair, load_pair,  # noqa: E402
                           model_pair, node_flags)
 
 from diffusesg_torch.ops import cuda_build  # noqa: E402
-from diffusesg_torch.sampling import compiled as compiled_mod  # noqa: E402
 from diffusesg_torch.sampling.compiled import CompiledSampler  # noqa: E402
 from diffusesg_torch.sampling.edm_sampler import (NodeAdjEDMSampler, StepVariant,  # noqa: E402
                                                   TorchNoise)
@@ -60,32 +58,6 @@ def _toy(lib):
 
 def _toy_for(node_flags, *operands):
     return _toy(torch)
-
-
-class _Stream:
-    def wait_stream(self, other):
-        pass
-
-
-@pytest.fixture
-def stand_in(monkeypatch):
-    """The compiled path on the CPU: the CUDA calls of ``compiled.py`` made
-    harmless, and a capture that keeps its body to call at each replay (a
-    capture itself runs nothing, as on the card).  Returns the captures."""
-    captures = []
-
-    def capture(body, pool, stream):
-        captures.append(body)
-        return types.SimpleNamespace(replay=body)
-
-    monkeypatch.setattr(CompiledSampler, "_compiles", lambda self, device: self.compiled)
-    monkeypatch.setattr(compiled_mod, "capture", capture)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: _Stream())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a, **k: _Stream())
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 0))
-    return captures
 
 
 def _inpaint(rng, flags, a_shape, x_shape):
@@ -250,12 +222,13 @@ def test_compiled_corrected_heun_matches_jax(stand_in):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOY_ATOL, rtol=TOY_RTOL)
 
 
-def test_captured_launches_count_apart():
-    """A launch during a capture goes to the graph's record, not LAUNCHES."""
+def test_captured_launches_count_apart(stand_in):
+    """A launch into the capture stream during a capture goes to the
+    graph's record, not LAUNCHES."""
     import collections
     cuda_build.reset_launches()
     cuda_build.count_launch("k", "s")
-    with cuda_build.capturing(collections.Counter()) as record:
+    with cuda_build.capturing(collections.Counter(), _Stream()) as record:
         cuda_build.count_launch("k", "s")
         cuda_build.count_launch("k", "s")
     cuda_build.count_launch("k", "s")

@@ -335,6 +335,114 @@ def test_compiled_sampler_on_every_card(cuda):
     assert torch.cuda.current_device() == 0
 
 
+@pytest.mark.parametrize("which", ["tiny", "vg"])
+def test_compiled_train_step_bit_equal_to_eager_on_the_card(cuda, which):
+    """The compiled training step (train/compiled.py: a CUDA graph per
+    self-conditioning coin) against the eager step from one state on the
+    same draws, 4 steps taking both coins (a replay of each), at batch 8:
+    configs/vg_small_test.yaml (kernels off, fp32) and the full-width VG
+    model (kernels on, bf16).  Metrics, parameters, gradients, Adam's
+    moments and steps and every EMA bit-equal, and the launch counts
+    equal."""
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.sampling.edm_sampler import TorchNoise
+    from diffusesg_torch.train import (create_train_state, make_optimizer, make_train_step,
+                                       train_step_config_from)
+    from diffusesg_torch.train.compiled import CompiledTrainStep
+    path = ("configs/vg_small_test.yaml" if which == "tiny"
+            else "configs/edm_diffuse_sg_regular_visual_genome.yaml")
+    cfg = load_config(path)
+    coins = [True, False, True, False]
+
+    class Coins(TorchNoise):
+        def bernoulli(self, step, kind, p):
+            return coins[step]
+
+    n = cfg.dataset.max_node_num
+    gen = torch.Generator().manual_seed(0)
+    flags = torch.rand(8, n, generator=gen) < 0.7
+    pair = flags[:, :, None] & flags[:, None, :]
+    batch = ((torch.rand(8, n, n, generator=gen) * 2 - 1) * pair,
+             (torch.rand(8, n, 5, generator=gen) * 2 - 1) * flags[..., None], flags)
+    batch = tuple(t.to(cuda) for t in batch)
+    opt = make_optimizer(1e-3, 0.5, 2, 1e-2)
+    states = [create_train_state(build_model(cfg, device=cuda, seed=0), [0.9, 0.999], opt)
+              for _ in range(2)]
+    step_cfg = train_step_config_from(cfg)
+    eager = make_train_step(states[0].model, step_cfg)
+    comp = CompiledTrainStep(make_train_step(states[1].model, step_cfg))
+    noises = [Coins(3, cuda), Coins(3, cuda)]
+    counts = []
+    for _ in range(len(coins)):
+        out = []
+        for i, step in enumerate((eager, comp)):
+            before = cuda_build.launches_by_kernel()
+            states[i], m = step(states[i], noises[i], *batch)
+            after = cuda_build.launches_by_kernel()
+            counts.append({k: v - before.get(k, 0) for k, v in after.items()
+                           if v != before.get(k, 0)})
+            out.append(m)
+        assert all(torch.equal(out[0][k], out[1][k]) for k in out[0])
+    torch.cuda.synchronize()
+    a, b = states
+    assert all(torch.equal(p, q) and torch.equal(p.grad, q.grad)
+               for p, q in zip(a.params(), b.params()))
+    assert all(torch.equal(x, y) for ea, eb in zip(a.ema_params, b.ema_params)
+               for x, y in zip(ea, eb))
+    assert all(torch.equal(a.opt.state[p][k], b.opt.state[q][k])
+               for p, q in zip(a.params(), b.params()) for k in ("step", "exp_avg", "exp_avg_sq"))
+    assert counts[0::2] == counts[1::2] and bool(counts[0]) == (which == "vg")
+    (program,) = comp._programs.values()
+    assert set(program.graphs) == {"cond", "no_cond"}
+
+
+def test_cpu_checkpoint_restores_on_the_cards_capturable_adam(cuda, tmp_path):
+    """A state trained and saved on the CPU (plain Adam) restores into the
+    card's capturable Adam: moments, EMAs and steps equal, the step counts
+    on the card, the learning rate a device tensor that keeps its identity;
+    the card's state then takes compiled and eager steps that agree."""
+    import numpy as np
+
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.sampling.edm_sampler import TorchNoise
+    from diffusesg_torch.train import (create_train_state, make_optimizer, make_train_step,
+                                       train_step_config_from)
+    from diffusesg_torch.train.compiled import CompiledTrainStep
+    from diffusesg_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+    cfg = load_config("configs/vg_small_test.yaml")
+    n = cfg.dataset.max_node_num
+    flags = torch.ones(4, n, dtype=torch.bool)
+    batch = (torch.zeros(4, n, n), torch.zeros(4, n, 5), flags)
+    opt = make_optimizer(1e-3, 0.5, 2, 1e-2)
+    step_cfg = train_step_config_from(cfg)
+    cpu = create_train_state(build_model(cfg, device="cpu", seed=0), [0.9, 0.999], opt)
+    make_train_step(cpu.model, step_cfg)(cpu, TorchNoise(1, "cpu"), *batch)
+    path = save_checkpoint(str(tmp_path / "cpu"), cpu)
+    cards = [create_train_state(build_model(cfg, device=cuda, seed=1), [0.9, 0.999], opt)
+             for _ in range(2)]
+    lr = cards[0].opt.param_groups[0]["lr"]
+    for card in cards:
+        restore_checkpoint(path, card)
+    group = cards[0].opt.param_groups[0]
+    assert group["capturable"] and group["lr"] is lr and float(lr) == np.float32(1e-3)
+    for p, q in zip(cpu.params(), cards[0].params()):
+        assert torch.equal(p, q.cpu())
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert cards[0].opt.state[q][k].is_cuda
+            assert torch.equal(cpu.opt.state[p][k], cards[0].opt.state[q][k].cpu())
+    batch = tuple(t.to(cuda) for t in batch)
+    steps = [make_train_step(cards[0].model, step_cfg),
+             CompiledTrainStep(make_train_step(cards[1].model, step_cfg))]
+    noises = [TorchNoise(2, cuda), TorchNoise(2, cuda)]
+    for _ in range(2):
+        out = [step(card, noise, *batch)[1] for step, card, noise in zip(steps, cards, noises)]
+        assert all(torch.equal(out[0][k], out[1][k]) for k in out[0])
+    assert all(torch.equal(p, q) for p, q in zip(cards[0].params(), cards[1].params()))
+    assert cards[0].step == cards[1].step == 3
+
+
 # The backward kernels' outputs are gradients: sums over tokens whose scale
 # grows with the token count, so each is compared relative to its tensor:
 # 2e-2 of the element (a bf16 ulp is 2^-8) plus 1e-2 of the tensor's max.
