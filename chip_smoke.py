@@ -2207,6 +2207,9 @@ def check_serving(dev, smi: str) -> dict:
 # ----------------------------------------------------------------- phase 10
 
 DP_STEPS = 2
+# the gspmd step's steps compiled and eager against the single-device step
+# (the coins of phase 13, CTRAIN_COINS), and their stream's seed
+DP_COMPILED_STEPS, DP_SEED = 8, 4
 BACKWARD_KERNELS = ("swin_attn_bwd", "token_mlp_bwd")
 _UNSTABLE_FRAC = 4e-3  # tests/test_torch_train_step.py: Adam's update sign may flip below it
 
@@ -2239,29 +2242,30 @@ def _train_states(cfg, dev, n):
             for _ in range(n)]
 
 
-def _state_diffs(a, b, b_emas=None, b_opt=None) -> dict:
+def _state_diffs(a, b) -> dict:
     """Largest absolute differences of two training states: parameters, the
-    EMAs (``b_emas``: b's whole EMAs, gathered) and Adam's moments (``b_opt``:
-    the optimizer that holds b's)."""
-    b_emas = b.ema_params if b_emas is None else b_emas
-    b_opt = b.opt if b_opt is None else b_opt
+    EMAs and Adam's moments, each in the single-device form (a ZeRO-1
+    state's gathered from its ranges, a collective there), and their step
+    counts."""
+    from diffusesg_torch.train.train_state import whole_emas_and_opt
+    (ea, oa), (eb, ob) = whole_emas_and_opt(a), whole_emas_and_opt(b)
 
     @torch.no_grad()
     def worst(xs, ys):
         return max(float((x - y).abs().max()) for x, y in zip(xs, ys))
-    moments = [worst([a.opt.state[p][k] for p in a.params()],
-                     [b_opt.state[q][k] for q in b.params()])
+    moments = [worst([oa["state"][i][k] for i in sorted(oa["state"])],
+                     [ob["state"][i][k] for i in sorted(ob["state"])])
                for k in ("exp_avg", "exp_avg_sq")]
-    steps = {int(a.opt.state[p]["step"]) for p in a.params()} | {
-        int(b_opt.state[q]["step"]) for q in b.params()}
+    steps = {int(s["step"]) for o in (oa, ob) for s in o["state"].values()}
     return {"params": worst(a.params(), b.params()),
-            "emas": max(worst(x, y) for x, y in zip(a.ema_params, b_emas)),
+            "emas": max(worst(x, y) for x, y in zip(ea, eb)),
             "adam": max(moments), "adam_steps": sorted(steps), "step": (a.step, b.step)}
 
 
-def check_data_parallel(dev, smi: str) -> dict:
+def check_data_parallel(dev, smi: str) -> tuple[dict, dict]:
     """Phase 10: the data-parallel path at world 1 through NCCL; returns the
-    launch counts of its ``go_training`` run."""
+    launch counts of its ``go_training`` run and of its compiled ``gspmd``
+    steps."""
     import numpy as np
     import torch.distributed as dist
 
@@ -2272,12 +2276,15 @@ def check_data_parallel(dev, smi: str) -> dict:
                                                       shutdown)
     from diffusesg_torch.parallel.mesh import current_world
     from diffusesg_torch.parallel.shardmap_dp import make_shardmap_train_step
-    from diffusesg_torch.parallel.sharded_step import make_sharded_train_step, shard_train_state
+    from diffusesg_torch.parallel.sharded_step import (make_sharded_eval_step,
+                                                       make_sharded_train_step, shard_train_state)
     from diffusesg_torch.sampling import get_mc_sampler
     from diffusesg_torch.sampling.edm_sampler import TorchNoise
     from diffusesg_torch.sampling.orchestrator import sg_go_sampling
-    from diffusesg_torch.train import (create_train_state, ema_slice, go_training, make_optimizer,
-                                       make_train_step, train_step_config_from)
+    from diffusesg_torch.train import (create_train_state, ema_slice, go_training, make_eval_step,
+                                       make_optimizer, make_train_step, train_step_config_from)
+    from diffusesg_torch.train.train_state import whole_emas_and_opt
+    from diffusesg_torch.utils import cuda_graphs
     from diffusesg_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
     from diffusesg_torch.utils.logging_utils import set_seed_and_logger
 
@@ -2302,114 +2309,188 @@ def check_data_parallel(dev, smi: str) -> dict:
         batch = tuple(torch.from_numpy(a[:TRAIN_BATCH]).to(dev) for a in
                       (bundle.train.adjs, bundle.train.nodes, bundle.train.node_flags))
 
-        # the shard_map step against the single-device step, and the gspmd +
-        # ZeRO-1 step against it, from one start and the same draws
-        one, sm, gs = _train_states(cfg, dev, 3)
+        # the shard_map step (eager) and the gspmd + ZeRO-1 step eager and compiled
+        # against the single-device step, from one start and the same draws
+        one, sm, gs_e, gs_c = _train_states(cfg, dev, 4)
         single = make_train_step(one.model, step_cfg)
         shard_map = make_shardmap_train_step(sm.model, step_cfg, world, compiled=False)
-        gs = shard_train_state(gs, world)
-        gspmd = make_sharded_train_step(gs.model, step_cfg, world)
-        # the rank's stream, folded where it is made, and the same draws for
-        # the other two steps
-        noise_one, noise_sm, noise_gs, probe = (TorchNoise(4, dev).fold_in(world.rank)
-                                                for _ in range(4))
-        coins = [probe.bernoulli(i, "self_cond", 0.5) for i in range(DP_STEPS)]
-        metrics_equal, bwd, losses, unstable = True, [], [], None
-        for i in range(DP_STEPS):
+        gs_e, gs_c = shard_train_state(gs_e, world), shard_train_state(gs_c, world)
+        gspmd = {c: make_sharded_train_step(st.model, step_cfg, world, compiled=c)
+                 for c, st in ((False, gs_e), (True, gs_c))}
+        streams = {k: _scripted(DP_SEED, dev) for k in ("single", "shard_map", False, True)}
+        cuda_graphs.KEEP_NODES = True  # for the replay check's debug_dump
+        compiled_counts = collections.Counter()
+        equal = {"shard_map": True, False: True, True: True}
+        compiled_vs_eager = True  # compiled gspmd metrics against eager gspmd, each step
+        bwd, losses, unstable = [], [], None
+        for i in range(DP_COMPILED_STEPS):
             before = [p.detach().clone() for p in one.params()]
-            one, m1 = single(one, noise_one, *batch)
+            one, m1 = single(one, streams["single"], *batch)
             counts0 = cuda_build.launches_by_kernel()
-            sm, m2 = shard_map(sm, noise_sm, *batch)
+            sm, m2 = shard_map(sm, streams["shard_map"], *batch)
             counts1 = cuda_build.launches_by_kernel()
-            gs, m3 = gspmd(gs, noise_gs, *batch)
+            gs_e, m3 = gspmd[False](gs_e, streams[False], *batch)
+            c0 = dict(cuda_build.LAUNCHES)
+            gs_c, m4 = gspmd[True](gs_c, streams[True], *batch)
+            compiled_counts += _delta(c0, dict(cuda_build.LAUNCHES))
             bwd.append(tuple(counts1.get(k, 0) - counts0.get(k, 0) for k in BACKWARD_KERNELS))
-            metrics_equal &= all(torch.equal(m1[k], m2[k]) for k in m1)
-            losses.append((float(m1["loss"]), float(m3["loss"])))
+            for k, m in (("shard_map", m2), (False, m3), (True, m4)):
+                equal[k] &= m.keys() == m1.keys() and all(torch.equal(m1[n], m[n]) for n in m1)
+            compiled_vs_eager &= m4.keys() == m3.keys() and all(torch.equal(m3[n], m4[n])
+                                                                  for n in m3)
+            losses.append((float(m1["loss"]), float(m4["loss"])))
             with torch.no_grad():  # the training step test's stable elements
                 eff = [p.grad + cfg.train.weight_decay * w for p, w in zip(one.params(), before)]
                 masks = [e.abs() <= _UNSTABLE_FRAC * e.abs().max() for e in eff]
             unstable = masks if unstable is None else [a | b for a, b in zip(unstable, masks)]
+        # the test pass's step on the smallest-beta EMA: single-device, gspmd eager
+        # and compiled, both coins
+        tests = {"single": make_eval_step(one.model, step_cfg),
+                 False: make_sharded_eval_step(gs_e.model, step_cfg, world, compiled=False),
+                 True: make_sharded_eval_step(gs_c.model, step_cfg, world)}
+        test_states = {"single": one, False: gs_e, True: gs_c}
+        test_streams = {k: _scripted(DP_SEED + 1, dev) for k in tests}
+        test_equal, test_vs_eager = True, True
+        for i in (1, 2):  # coins True, False
+            got = {k: tests[k](ema_slice(test_states[k], 0), test_streams[k], i, *batch)
+                   for k in tests}
+            test_equal &= all(torch.equal(got["single"][n], got[k][n])
+                              for k in (False, True) for n in got["single"])
+            test_vs_eager &= got[True].keys() == got[False].keys() and all(
+                torch.equal(got[False][n], got[True][n]) for n in got[False])
+        cuda_graphs.KEEP_NODES = False
         torch.cuda.synchronize()
         same = _state_diffs(one, sm)
-        bit_equal = metrics_equal and all(same[k] == 0.0 for k in ("params", "emas", "adam"))
-        log(f"dp: shard_map step at world 1, {DP_STEPS} steps at batch {TRAIN_BATCH} (full VG, "
-            f"bf16, kernels on; self-conditioning coins {coins}) against the single-device step "
-            f"on the same draws: bit-equal {bit_equal} ({same}; metrics equal {metrics_equal}); "
-            f"backward launches per step (swin_attn_bwd, token_mlp_bwd) {bwd}")
+        bit_equal = equal["shard_map"] and all(same[k] == 0.0 for k in ("params", "emas", "adam"))
+        log(f"dp: shard_map step at world 1, {DP_COMPILED_STEPS} steps at batch {TRAIN_BATCH} "
+            f"(full VG, bf16, kernels on; self-conditioning coins {list(CTRAIN_COINS)}) against "
+            f"the single-device step on the same draws: bit-equal {bit_equal} ({same}; metrics "
+            f"equal {equal['shard_map']}); backward launches per step (swin_attn_bwd, "
+            f"token_mlp_bwd) {sorted(set(bwd))}")
         if not bit_equal:
             fail("the shard_map step at world 1 differs from the single-device step")
         if set(bwd) != {(VG["blocks"], VG["blocks"])}:
             fail(f"each data-parallel step must launch each backward kernel {VG['blocks']} times")
 
-        lr = cfg.train.lr_init
-        gathered = [list(ema_slice(gs, k).values()) for k in range(len(gs.ema_betas))]
-        worst_stable, worst_unstable = 0.0, 0.0
-        with torch.no_grad():
-            for got, want in ([(gs.params(), one.params())]
-                              + list(zip(gathered, one.ema_params))):
-                for g, w, mask in zip(got, want, unstable):
-                    diff = (g - w).abs()
-                    room = 1e-4 * w.abs() + 0.05 * lr
-                    worst_stable = max(worst_stable, float(((diff - room) * ~mask).max()))
-                    worst_unstable = max(worst_unstable, float((diff * mask).max()))
-        loss_ok = all(abs(a - b) <= 2e-4 * abs(a) for a, b in losses)
-        within = loss_ok and worst_stable <= 0.0 and worst_unstable <= 2.5 * lr * DP_STEPS
-        gs_diff = _state_diffs(one, gs, gathered, gs.opt.optim)
-        log(f"dp: gspmd + ZeRO-1 step at world 1 against the single-device step: losses "
-            f"{losses}, parameters and EMAs within tests/test_torch_train_step.py's bars "
-            f"{within} (stable elements' worst excess over 1e-4 |w| + 0.05 lr {worst_stable:.3e}, "
-            f"unstable elements' worst {worst_unstable:.3e} against {2.5 * lr * DP_STEPS:.3e}; "
-            f"{gs_diff})")
-        if not within:
-            fail("the gspmd + ZeRO-1 step is outside the training step's bars")
-        path = save_checkpoint(os.path.join(cfg.model_ckpt_dir, "zero"), gs, {"epoch": 0})
+        vs_eager, d_eager = _equal_states(gs_c, gs_e)
+        vs_single, d_single = _equal_states(gs_c, one)
+        (stats,) = gspmd[True].stats()
+        comp_k = _by_kernel(compiled_counts)
+        log(f"dp: gspmd + ZeRO-1 (flat buffers, {len(gs_c.zero.buckets)} dtype, padding "
+            f"{gs_c.zero.padding()}) at world 1, {DP_COMPILED_STEPS} steps: compiled (graphs "
+            f"{stats['variants']}; the valid-node count, the gradient all-reduce and the "
+            f"all-gather on the caller's stream; seconds of first use / capture "
+            f"{json.dumps({k: [round(x, 3) for x in v] for k, v in stats['seconds'].items()})}, "
+            f"pool {stats['pool_bytes']} bytes) against the eager gspmd step: metrics "
+            f"{compiled_vs_eager}, state bit-equal {vs_eager} ({d_eager}), the test-pass step "
+            f"(both coins) {test_vs_eager}; against the single-device step: metrics "
+            f"{equal[True]}, state bit-equal {vs_single} ({d_single}); the test-pass step "
+            f"(single-device, gspmd eager, compiled; both coins) bit-equal {test_equal}; "
+            f"compiled launches {json.dumps(comp_k, sort_keys=True)}")
+        if not (vs_eager and compiled_vs_eager and test_vs_eager):
+            fail("the compiled gspmd step differs from the eager gspmd step")
+        if not test_equal:
+            fail("the gspmd test-pass step differs from the single-device one")
+        if set(stats["variants"]) != SHARD_MAP_GRAPHS:
+            fail(f"the compiled gspmd step captured {stats['variants']}")
+        if any(comp_k.get(k, 0) == 0 for k in FORWARD_KERNELS + BACKWARD_KERNELS):
+            fail(f"the compiled gspmd steps launched {comp_k}")
+        if not (vs_single and equal[True]):
+            # not bit-equal: held to the training step's bars instead
+            lr = cfg.train.lr_init
+            gathered, _ = whole_emas_and_opt(gs_c)
+            worst_stable, worst_unstable = 0.0, 0.0
+            with torch.no_grad():
+                for got, want in ([(gs_c.params(), one.params())]
+                                  + list(zip(gathered, one.ema_params))):
+                    for g, w, mask in zip(got, want, unstable):
+                        diff = (g - w).abs()
+                        room = 1e-4 * w.abs() + 0.05 * lr
+                        worst_stable = max(worst_stable, float(((diff - room) * ~mask).max()))
+                        worst_unstable = max(worst_unstable, float((diff * mask).max()))
+            loss_ok = all(abs(a - b) <= 2e-4 * abs(a) for a, b in losses)
+            within = (loss_ok and worst_stable <= 0.0
+                      and worst_unstable <= 2.5 * lr * DP_COMPILED_STEPS)
+            log(f"dp: the gspmd step is not bit-equal to the single-device step; within "
+                f"tests/test_torch_train_step.py's bars {within} (losses {losses}; stable "
+                f"elements' worst excess over 1e-4 |w| + 0.05 lr {worst_stable:.3e}, unstable "
+                f"elements' worst {worst_unstable:.3e} against "
+                f"{2.5 * lr * DP_COMPILED_STEPS:.3e})")
+            if not within:
+                fail("the gspmd + ZeRO-1 step is outside the training step's bars")
+
+        # each compiled graph's kernel nodes against its launch record
+        (program,) = gspmd[True]._programs.values()
+        replayed = _replayed_kernels(dict(sorted(program.graphs.items())),
+                                     lambda name: program.bodies[name](),
+                                     os.path.join(GRAPH_DUMPS, "dp_gspmd"), quiet=("update",))
+        log("dp: the port's kernel nodes of each gspmd graph (debug_dump) equal to those one "
+            "eager run of its body launches (torch.profiler), its launch record to that run's "
+            "wrapper counts: " + "; ".join(f"{g} {json.dumps(k, sort_keys=True)} {ok}"
+                                           for g, (k, ok) in replayed.items()))
+        if not all(ok for _, ok in replayed.values()):
+            fail("a gspmd graph launches other kernels than its launch record says")
+
+        # the gathered checkpoint (the replay check ran the update body once more:
+        # the compiled state is one update ahead, so the eager one is saved)
+        path = save_checkpoint(os.path.join(cfg.model_ckpt_dir, "zero"), gs_e, {"epoch": 0})
         other = create_train_state(
             build_model(cfg, device=dev, seed=1), list(cfg.train.ema_coef),
             make_optimizer(cfg.train.lr_init, cfg.train.lr_dacey, 1, cfg.train.weight_decay))
         restore_checkpoint(path, other)
-        back = _state_diffs(other, gs, gathered, gs.opt.optim)
+        back = _state_diffs(other, gs_e)
         restored = (back["params"] == back["emas"] == back["adam"] == 0.0
-                    and back["step"] == (DP_STEPS, DP_STEPS))
-        log(f"dp: the gspmd + ZeRO-1 state's checkpoint (consolidated to rank 0 through NCCL) "
-            f"restored in a single-device state bit-equal: {restored} ({back})")
+                    and back["step"] == (DP_COMPILED_STEPS, DP_COMPILED_STEPS)
+                    and back["adam_steps"] == [DP_COMPILED_STEPS])
+        log(f"dp: the gspmd + ZeRO-1 state's checkpoint (gathered from the ranges through "
+            f"NCCL) restored in a single-device state bit-equal: {restored} ({back})")
         if not restored:
             fail("the ZeRO-1 checkpoint does not restore bit-equal on one device")
         del other
 
-        # readings: ms per step, the all-reduce of the flat gradient, peak memory
-        # in turns, single, shard_map, gspmd, then back: the host moves eager times
-        # the split of the gspmd step: the same step over a whole state (no
-        # ZeRO), and ZeRO's optimizer step against the Adam inside it
-        gspmd_whole = make_sharded_train_step(sm.model, step_cfg, world)
-        runs = dict(single=lambda: single(one, noise_one, *batch),
-                    shard_map=lambda: shard_map(sm, noise_sm, *batch),
-                    gspmd=lambda: gspmd(gs, noise_gs, *batch),
-                    gspmd_without_zero=lambda: gspmd_whole(sm, noise_sm, *batch),
-                    zero_opt_step=gs.opt.step, adam_in_zero=gs.opt.optim.step)
+        # readings: ms per step with and without the conditioning pass, in turns
+        # there and back (the host moves eager times); the host CUDA calls of a
+        # gspmd step; ZeRO's collectives alone; the all-reduce of a flat
+        # gradient; peak memory
         step_ms = collections.defaultdict(list)
-        for name in list(runs) + list(runs)[::-1]:
-            step_ms[name].append(time_ms(runs[name], 5))
-        n_tensors = len(gs.params())
+        for sc in (False, True):
+            n = {k: _forced(TorchNoise, sc)(1, dev) for k in ("single", "shard_map", False, True)}
+            runs = {"single": lambda: single(one, n["single"], *batch),
+                    "shard_map": lambda: shard_map(sm, n["shard_map"], *batch),
+                    "gspmd eager": lambda: gspmd[False](gs_e, n[False], *batch),
+                    "gspmd compiled": lambda: gspmd[True](gs_c, n[True], *batch)}
+            for name in list(runs) + list(runs)[::-1]:
+                step_ms[(name, sc)].append(time_ms(runs[name], 3, warmup=1))
+            if sc:
+                prof = {k: _step_profile(runs[f"gspmd {k}"]) for k in ("eager", "compiled")}
+        zero_ms = {"gradient all-reduce": time_ms(gs_c.zero.all_reduce_grads, 5),
+                   "all-gather": time_ms(gs_c.zero.gather_params, 5)}
         flat = torch.zeros(sum(p.numel() for p in one.params()), dtype=torch.float32, device=dev)
         ms_ar = time_ms(lambda: dist.all_reduce(flat), 20)
         grad_mb = flat.numel() * flat.element_size() / 1e6
+        log(f"dp: ms per training step at batch {TRAIN_BATCH} (world 1, in turns there and "
+            f"back), without / with the self-conditioning pass: " + ", ".join(
+                f"{k} {' / '.join(f'{t:.3f}' for t in step_ms[(k, False)])}; "
+                f"{' / '.join(f'{t:.3f}' for t in step_ms[(k, True)])}" for k in runs)
+            + f"; with the pass the card busy {prof['eager'][0]:.3f} ms of an eager gspmd step "
+              f"({prof['eager'][1]} kernels, copies and sets), {prof['compiled'][0]:.3f} of a "
+              f"compiled one ({prof['compiled'][1]}), host CUDA calls a step eager "
+              f"{prof['eager'][2]} {prof['eager'][3]}, compiled {prof['compiled'][2]} "
+              f"{prof['compiled'][3]}; ZeRO's collectives alone (ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in zero_ms.items())
+            + f"; one NCCL all-reduce of the flat fp32 gradient ({grad_mb:.1f} MB) {ms_ar:.3f} "
+              f"ms; on {smi}")
         # the other steps hold their models: free them before the peak reading
-        del one, sm, single, shard_map, gspmd_whole, runs, flat, gathered, unstable, before, eff
-        del masks
+        del one, sm, gs_e, single, shard_map, runs, flat, unstable, before, eff, masks, tests
+        del test_states, gspmd[False]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        gspmd(gs, noise_gs, *batch)
+        gspmd[True](gs_c, streams[True], *batch)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"dp: ms per training step at batch {TRAIN_BATCH} (eager, world 1, in turns "
-            f"there and back; zero_opt_step is ZeRO's optimizer step, Adam on the rank's "
-            f"partition and one broadcast for each of the {n_tensors} parameter tensors, "
-            f"adam_in_zero the Adam inside it alone): "
-            + ", ".join(f"{k} {' / '.join(f'{t:.3f}' for t in v)}" for k, v in step_ms.items())
-            + f"; one NCCL all-reduce of the flat fp32 gradient ({grad_mb:.1f} MB) {ms_ar:.3f} "
-            f"ms; peak {peak:.2f} GiB of a gspmd + ZeRO-1 step alone (the other states and "
-            f"the gathered EMAs freed); on {smi}")
-        del gs
+        log(f"dp: peak {peak:.2f} GiB of a compiled gspmd + ZeRO-1 step alone (the other "
+            f"states freed); on {smi}")
+        del gs_c, gspmd
         torch.cuda.empty_cache()
 
         # go_training with the process group up: the data-parallel loop, and at
@@ -2471,7 +2552,7 @@ def check_data_parallel(dev, smi: str) -> dict:
         f"{same_metrics}; the process group destroyed: {not dist.is_initialized()}")
     if not (same_rows and same_metrics):
         fail("sg_go_sampling under the process group differs from the run without one")
-    return launches
+    return launches, dict(compiled_counts)
 
 
 # ----------------------------------------------------------------- phase 11
@@ -2495,7 +2576,7 @@ def _sharded_serving(dev, smi: str) -> dict:
     from diffusesg_torch.models.channels import resolve_sampling_channels
     from diffusesg_torch.ops import cuda_build
     from diffusesg_torch.parallel.mesh import World
-    from diffusesg_torch.parallel.sharded_step import GlobalRows
+    from diffusesg_torch.parallel.mesh import GlobalRows
     from diffusesg_torch.sampling import get_mc_sampler
     from diffusesg_torch.sampling.edm_sampler import TorchNoise
     from diffusesg_torch.serving.export import (export_sampler, fixed_batch, load_artifact,
@@ -2654,10 +2735,39 @@ class _CountingDist:
         return attr
 
 
+# phase 11 (c): the tensor-parallel steps (coins CTRAIN_COINS[:TP_STEPS]: both
+# variants, one replayed)
+TP_STEPS = 3
+
+
+def _graph_nccl_nodes(graph, path: str) -> int:
+    """The NCCL kernel nodes of a captured graph (kept with
+    ``cuda_graphs.KEEP_NODES``), read from its ``debug_dump``."""
+    import re
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    graph.debug_dump(path)
+    with open(path) as f:
+        labels = re.findall(r'label="((?:[^"\\]|\\.)*)"', f.read())
+    return sum("KERNEL" in label.split("|")[0] and "nccl" in label.lower() for label in labels)
+
+
+def _profiled_nccl_kernels(fn) -> int:
+    """The NCCL kernels one eager call of ``fn`` launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower())
+
+
 def _tensor_parallel_and_checkpoints(dev, smi: str) -> None:
-    """Phase 11 (c) and (d): two tensor-parallel steps at grid (1, 1)
-    through NCCL against the single-device plain step, and an asynchronous
-    checkpoint drained and restored."""
+    """Phase 11 (c) and (d): tensor-parallel steps at grid (1, 1) through
+    NCCL, compiled (one graph per coin, the model group's collectives
+    captured) against eager against the single-device plain step, and an
+    asynchronous checkpoint drained and restored."""
     import torch.distributed as dist
 
     from diffusesg_torch.data import load_data
@@ -2671,6 +2781,8 @@ def _tensor_parallel_and_checkpoints(dev, smi: str) -> None:
     from diffusesg_torch.sampling.edm_sampler import TorchNoise
     from diffusesg_torch.train import (create_train_state, make_optimizer, make_train_step,
                                        train_step_config_from)
+    from diffusesg_torch.train.compiled import VARIANT
+    from diffusesg_torch.utils import cuda_graphs
     from diffusesg_torch.utils.checkpoint import (restore_checkpoint, save_checkpoint,
                                                   wait_for_async_saves)
 
@@ -2698,50 +2810,96 @@ def _tensor_parallel_and_checkpoints(dev, smi: str) -> None:
         if not maybe_initialize_distributed("cuda") or dist.get_backend() != "nccl":
             fail("phase 11 did not start an NCCL process group")
         grid = make_grid(1, 1)
-        one, tp_state = fresh(), fresh()
+        one, tp_e, tp_c = fresh(), fresh(), fresh()
         if one.model.use_kernels or one.model.dtype != torch.bfloat16:
             fail("phase 11 (c) runs the VG model's plain composition in bf16")
         single = make_train_step(one.model, step_cfg)
-        tp_state = shard_tp_state(tp_state, grid)
-        tp_step = make_sharded_train_step(tp_state.model, step_cfg, grid, tp=True)
-        noise_one, noise_tp = TorchNoise(6, dev), TorchNoise(6, dev)
-        probe = TorchNoise(6, dev)
-        coins = [probe.bernoulli(i, "self_cond", 0.5) for i in range(2)]
+        tp_e, tp_c = shard_tp_state(tp_e, grid), shard_tp_state(tp_c, grid)
+        steps = {"single": single,
+                 "eager": make_sharded_train_step(tp_e.model, step_cfg, grid, tp=True,
+                                                  compiled=False),
+                 "compiled": make_sharded_train_step(tp_c.model, step_cfg, grid, tp=True)}
+        states = {"single": one, "eager": tp_e, "compiled": tp_c}
+        noises = {k: _scripted(6, dev) for k in steps}
+        coins = list(CTRAIN_COINS[:TP_STEPS])
         cuda_build.reset_launches()
+        cuda_graphs.KEEP_NODES = True  # for the graphs' NCCL nodes
         tp_mod.dist = _CountingDist(dist, counts)
+        calls = collections.defaultdict(list)  # collectives a step issued, by step kind
         metrics_equal = True
         try:
-            for _ in range(2):
-                one, m1 = single(one, noise_one, *batch)
-                tp_state, m2 = tp_step(tp_state, noise_tp, *batch)
-                metrics_equal &= all(torch.equal(m1[k], m2[k]) for k in m1)
+            for _ in range(TP_STEPS):
+                out = {}
+                for k in steps:
+                    n0 = sum(counts.values())
+                    states[k], out[k] = steps[k](states[k], noises[k], *batch)
+                    calls[k].append(sum(counts.values()) - n0)
+                metrics_equal &= all(torch.equal(out["single"][m], out[k][m])
+                                     for k in ("eager", "compiled") for m in out["single"])
         finally:
             tp_mod.dist = dist
+            cuda_graphs.KEEP_NODES = False
         torch.cuda.synchronize()
-        diffs = _state_diffs(one, tp_state)
-        bit_equal = metrics_equal and all(diffs[k] == 0.0 for k in ("params", "emas", "adam"))
+        vs_eager, d_eager = _equal_states(states["compiled"], states["eager"])
+        vs_single, d_single = _equal_states(states["eager"], states["single"])
+        tp_state = states["compiled"]
         n_split = sum(k in ("qkv", "rows", "cols") for k in tp_state.tp.kinds)
-        log(f"multi: tensor parallel at grid (1, 1) through NCCL, full VG width in bf16 with "
-            f"the kernels off, 2 steps at batch {MULTI_TRAIN_BATCH} (self-conditioning coins "
-            f"{coins}): bit-equal to the single-device plain step {bit_equal} ({diffs}; "
-            f"metrics equal {metrics_equal}); {n_split} split leaves; collectives of the tensor "
-            f"parallel module launched {dict(counts)} (f and g, the model-group sums); "
-            f"kernel launches {cuda_build.launches_by_kernel()}")
-        if not bit_equal:
-            fail("the tensor-parallel step at grid (1, 1) differs from the single-device step")
-        if counts["all_reduce"] < 2 * 2 * VG["blocks"] or cuda_build.launches_by_kernel():
-            fail("the tensor-parallel steps did not run their collectives, or ran a kernel")
         path = save_checkpoint(os.path.join(ckpt_dir, "tp"), tp_state, {"epoch": 0})
         other = fresh(1)
         restore_checkpoint(path, other)
-        back = _state_diffs(other, one)
+        back = _state_diffs(other, states["single"])
         restored = back["params"] == back["emas"] == back["adam"] == 0.0
-        log(f"multi: the tensor-parallel state's checkpoint (gathered over the model group) "
-            f"restored in a single-device state bit-equal to the single-device run: "
+        log(f"multi: the compiled tensor-parallel state's checkpoint (gathered over the model "
+            f"group) restored in a single-device state bit-equal to the single-device run: "
             f"{restored} ({back})")
         if not restored:
             fail("the tensor-parallel checkpoint does not restore bit-equal on one device")
         del tp_state, other
+        (program,) = steps["compiled"]._programs.values()
+        # a coin's first use runs its step eagerly and then captures it: twice the
+        # eager step's collectives, of which the capture's are the graph's; a replay
+        # calls none from the host
+        first = {c: coins.index(c) for c in set(coins)}
+        captured = all(calls["compiled"][i] == (2 * calls["eager"][i] if first[c] == i else 0)
+                       for i, c in enumerate(coins))
+        nccl_graph = {name: _graph_nccl_nodes(graph, os.path.join(GRAPH_DUMPS, f"tp_{name}.dot"))
+                      for name, (graph, _) in program.graphs.items()}
+        nccl_eager = {VARIANT[c]: _profiled_nccl_kernels(lambda c=c: steps["eager"](
+            tp_e, _forced(TorchNoise, c)(1, dev), *batch)) for c in set(coins)}
+        log(f"multi: tensor parallel at grid (1, 1) through NCCL, full VG width in bf16 with "
+            f"the kernels off, {TP_STEPS} steps at batch {MULTI_TRAIN_BATCH} (self-conditioning "
+            f"coins {coins}): compiled (graphs {sorted(program.graphs)}) against eager bit-equal "
+            f"{vs_eager} ({d_eager}), eager against the single-device plain step {vs_single} "
+            f"({d_single}); metrics equal {metrics_equal}; {n_split} split leaves; collectives of "
+            f"the tensor parallel module {dict(counts)} (f and g, the model-group sums), by step "
+            f"eager {calls['eager']}, compiled {calls['compiled']} (a coin's first use "
+            f"runs and captures: each capture holds the eager step's collectives, a replay "
+            f"calls none: {captured}); NCCL kernel nodes in each graph {nccl_graph} against "
+            f"NCCL kernels of an eager step (torch.profiler) {nccl_eager} (one rank: NCCL "
+            f"launches no device work for a sum in place); kernel launches "
+            f"{cuda_build.launches_by_kernel()}")
+        if not (vs_eager and vs_single and metrics_equal):
+            fail("the tensor-parallel step at grid (1, 1) differs, compiled from eager or eager "
+                 "from the single-device step")
+        if (min(calls["eager"]) < 2 * 2 * VG["blocks"] or cuda_build.launches_by_kernel()
+                or not captured or set(program.graphs) != {VARIANT[c] for c in coins}):
+            fail("the tensor-parallel steps did not run their collectives, ran a kernel, or the "
+                 "compiled step's graphs do not hold its collectives")
+        if any(nccl_graph[VARIANT[c]] != nccl_eager[VARIANT[c]] for c in set(coins)):
+            fail("a tensor-parallel graph holds other NCCL work than its eager step launches")
+        step_ms = collections.defaultdict(list)
+        for sc in (False, True):
+            n = {k: _forced(TorchNoise, sc)(1, dev) for k in ("eager", "compiled")}
+            for k in ("eager", "compiled", "compiled", "eager"):
+                step_ms[(k, sc)].append(time_ms(
+                    lambda k=k: steps[k](states[k], n[k], *batch), 3, warmup=1))
+        log(f"multi: tensor parallel at grid (1, 1), ms per step at batch {MULTI_TRAIN_BATCH} "
+            f"in turns (eager, compiled, compiled, eager) without / with the self-conditioning "
+            f"pass: " + "; ".join(" / ".join(f"{t:.3f}" for t in (
+                step_ms[("eager", sc)][:1] + step_ms[("compiled", sc)]
+                + step_ms[("eager", sc)][1:])) for sc in (False, True)) + f"; on {smi}")
+        one, noise_one = states["single"], noises["single"]
+        del steps, states, tp_e, tp_c, program
     finally:
         shutdown()
         for k, v in saved_env.items():
@@ -3099,14 +3257,15 @@ def _graph_port_kernels(graph, path: str) -> collections.Counter:
                                if _port_kernel(names[m]))
 
 
-def _replayed_kernels(graphs: dict, body, dump_dir: str) -> dict:
+def _replayed_kernels(graphs: dict, body, dump_dir: str, quiet: tuple = ()) -> dict:
     """Per graph of a compiled program (``graphs``: {key: (graph, launch
     record)}, captured with ``cuda_graphs.KEEP_NODES``): the port's kernels
     the graph holds (``_graph_port_kernels``) against those one eager run of
     ``body(key)`` on the same static buffers launches (torch.profiler), and
     the launch record (what each replay adds to the launch counts) against
-    the wrappers' counts in that eager run.  Returns {key: (the graph's
-    launches by kernel, all equal)}."""
+    the wrappers' counts in that eager run.  A graph holds at least one of
+    the port's kernels unless its key is in ``quiet``.  Returns {key: (the
+    graph's launches by kernel, all equal)}."""
     from diffusesg_torch.ops import cuda_build
     out, t0 = {}, time.perf_counter()
     for i, (key, (graph, record)) in enumerate(graphs.items()):
@@ -3118,7 +3277,8 @@ def _replayed_kernels(graphs: dict, body, dump_dir: str) -> dict:
         by_kernel = collections.Counter()
         for name, n in got.items():
             by_kernel[next(k for frag, k in KERNEL_OF if frag in name)] += n
-        out[key] = (dict(by_kernel), bool(got) and got == want and wrappers == dict(record))
+        out[key] = (dict(by_kernel), (bool(got) or key in quiet) and got == want
+                     and wrappers == dict(record))
         if got != want:
             log(f"replay check {key}: graph-only {dict(got - want)}, eager-only "
                 f"{dict(want - got)}")
@@ -4050,7 +4210,7 @@ def main(argv=None) -> int:
     lap("2")
     # launch counts per path: {path: (sampling or entries run, training run)}
     counts, eval_counts, serve_counts, dp_counts, shard_counts = {}, {}, {}, {}, {}
-    compiled_counts, ctrain_counts = {}, {}
+    compiled_counts, ctrain_counts, cdp_counts = {}, {}, {}
     if not args.no_slice:
         vg, _ = check_slice(dev, smi, VG)
         lap("3")
@@ -4072,7 +4232,7 @@ def main(argv=None) -> int:
         serve_counts = check_serving(dev, smi)
         lap("9")
         if not args.no_train:
-            dp_counts = check_data_parallel(dev, smi)
+            dp_counts, cdp_counts = check_data_parallel(dev, smi)
         lap("10")
         shard_counts = check_multi_device(dev, smi)
         lap("11")
@@ -4090,7 +4250,8 @@ def main(argv=None) -> int:
     # forward kernels); launches_compiled: of phase 12's compiled VG sampling
     # at batch 16 (eager first uses + captured launches x replays);
     # launches_compiled_train: of phase 13's 8 compiled training steps of the
-    # path's model (VG or COCO; first uses + captured launches x replays).
+    # path's model (VG or COCO; first uses + captured launches x replays);
+    # launches_compiled_dp: of phase 10's 8 compiled gspmd + ZeRO-1 steps (VG).
     # A case that moves several counters (an entry over two kernels) reports
     # the least of them.
     for r in results:
@@ -4108,6 +4269,9 @@ def main(argv=None) -> int:
             fail(f"{r['name']} was never launched by the compiled sampler")
         if dp_counts and path == "vg" and r["launches_dp"] == 0:
             fail(f"{r['name']} was never launched on the data-parallel path")
+        r["launches_compiled_dp"] = min(cdp_counts.get(k, 0) for k in keys) if path == "vg" else 0
+        if cdp_counts and path == "vg" and r["launches_compiled_dp"] == 0:
+            fail(f"{r['name']} was never launched by the compiled gspmd step")
         r["launches_compiled_train"] = min(ctrain_counts.get(path, {}).get(k, 0) for k in keys)
         if ctrain_counts and path in ctrain_counts and r["launches_compiled_train"] == 0:
             fail(f"{r['name']} was never launched by the compiled training step")

@@ -15,10 +15,10 @@ The JAX package's GSPMD layout helpers have no counterpart under one
 process per card: ``make_mesh`` is the process group itself, ``replicated``
 / ``replicate_tree`` are each rank's own copy of the model,
 ``batch_sharding`` / ``shard_batch`` are each rank's rows of the batch
-(``data/loader.Batches`` with ``process_index``), and ``zero1_sharding`` /
-``largest_divisible_axis`` (the largest divisible axis of every leaf) are
-``ZeroRedundancyOptimizer``, which assigns whole parameters to ranks
-(parallel/sharded_step.py).
+(``data/loader.Batches`` with ``process_index``; ``GlobalRows`` for the
+draws), and ``zero1_sharding`` / ``largest_divisible_axis`` (the largest
+divisible axis of every leaf) are ``parallel/zero.py``'s flat buffers, of
+which each rank owns one contiguous range.
 """
 from __future__ import annotations
 
@@ -45,6 +45,30 @@ class World:
     device: torch.device
     group: Any = None
     model: Any = None
+
+
+class GlobalRows:
+    """This rank's rows of the global batch's draws: each normal or uniform
+    draw of leading size b is made at size ``world.size * b`` from the
+    shared stream and sliced to rows [rank * b, (rank + 1) * b); Bernoulli
+    draws (the self-conditioning coin) are the shared ones."""
+
+    def __init__(self, noise, world: World):
+        self.noise, self.world = noise, world
+
+    def _rows(self, draw, shape):
+        b = shape[0]
+        full = draw((self.world.size * b,) + tuple(shape[1:]))
+        return full[self.world.rank * b:(self.world.rank + 1) * b]
+
+    def normal(self, step, kind, shape):
+        return self._rows(lambda s: self.noise.normal(step, kind, s), shape)
+
+    def uniform(self, step, kind, shape):
+        return self._rows(lambda s: self.noise.uniform(step, kind, s), shape)
+
+    def bernoulli(self, step, kind, p):
+        return self.noise.bernoulli(step, kind, p)
 
 
 def current_world() -> World | None:
@@ -150,6 +174,13 @@ def all_reduce_sum(x: torch.Tensor, world: World, mean: bool = False) -> torch.T
     out = x.detach().clone()
     dist.all_reduce(out, group=world.group)
     return out.div_(world.size) if mean else out
+
+
+def all_gather_flat(out: torch.Tensor, part: torch.Tensor, world: World) -> None:
+    """Every rank's ``part`` joined in rank order into ``out`` (``world.size``
+    times its size); in place where ``part`` is this rank's slice of
+    ``out``.  COLLECTIVE."""
+    dist.all_gather_into_tensor(out, part, group=world.group)
 
 
 # gradients travel in flat buckets of about this many bytes (DDP's default)

@@ -26,7 +26,11 @@ partial products, whose bias rank 0 alone adds.  A replicated leaf that a
 rank uses only in part (the bias table's columns of its heads, the bias
 only rank 0 adds) has its gradient summed over the model group
 (``finish_grads``), and the gradient clip takes the global norm with every
-split leaf's shards summed and every replicated leaf counted once.
+split leaf's shards summed and every replicated leaf counted once.  Nothing
+on this path reads a device value on the host or copies a host value to
+the device after the first step (the clip's indices of the split leaves
+are made once per layout), so a compiled step captures it, its collectives
+inside (train/compiled.py).
 
 No kernel runs here, as in JAX: its tensor parallelism runs the XLA path
 and configs with tp > 1 set ``use_pallas_attention: false`` (tp.py:29-36);
@@ -132,9 +136,13 @@ class BlockSplit:
 @dataclasses.dataclass
 class TPLayout:
     """A tensor-parallel state's split: ``kinds[i]`` how parameter i lies
-    (``QKV``, ``ROWS``, ``COLS``, ``PARTIAL`` or None), ``world`` the grid."""
+    (``QKV``, ``ROWS``, ``COLS``, ``PARTIAL`` or None), ``world`` the grid;
+    ``split`` the device indices of the split parameters and of the others,
+    made at the first ``finish_grads`` (indices of a known count, where a
+    boolean mask would read its count on the host)."""
     world: Any
     kinds: list
+    split: tuple | None = None
 
 
 def _qkv_rows(c: int, part: int, rank: int) -> torch.Tensor:
@@ -224,23 +232,19 @@ def shard_tp_state(state, world):
     """A single-device ``TrainState`` split over the grid ``world``
     (``mesh.make_grid``): the model's blocks by ``shard_model``, the Adam
     moments and the EMAs as their parameters (tp.py:113-145), then, over a
-    data group of more than one rank, Adam and the EMAs ZeRO-1 sharded over the data group (``sharded_step.shard_train_state``).
-    COLLECTIVE."""
-    from ..train.train_state import TrainState, load_opt_state, opt_state_dict, set_lr
+    data group of more than one rank, Adam and the EMAs ZeRO-1 sharded over
+    the data group (``sharded_step.shard_train_state``).  COLLECTIVE."""
+    from ..train.train_state import TrainState, load_opt_state, opt_state_dict
     from .sharded_step import shard_train_state
     mg = world.model
-    old = state.params()
+    saved = opt_state_dict(state.opt)
     kinds = shard_model(state.model, mg)
     params = state.params()
     emas = [[_local(e, k, mg) for e, k in zip(ema, kinds)] for ema in state.ema_params]
     opt = state.spec.build(params)
-    set_lr(opt, float(state.opt.param_groups[0]["lr"]))
-    if state.opt.state:
-        saved = opt_state_dict(state.opt)
-        moments = {i: {k: (_local(v, kinds[i], mg) if k != "step" else v)
-                       for k, v in saved["state"][i].items()}
-                   for i in range(len(old)) if i in saved["state"]}
-        load_opt_state(opt, {"state": moments, "param_groups": saved["param_groups"]})
+    moments = {i: {k: (_local(v, kinds[i], mg) if k != "step" else v) for k, v in st.items()}
+               for i, st in saved["state"].items()}
+    load_opt_state(opt, {"state": moments, "param_groups": saved["param_groups"]})
     out = TrainState(step=state.step, model=state.model, spec=state.spec, opt=opt,
                      ema_params=emas, ema_betas=list(state.ema_betas),
                      tp=TPLayout(world=world, kinds=kinds))
@@ -254,13 +258,15 @@ def finish_grads(state) -> None:
     """After the data group's all-reduce: sum over the model group the
     gradients of the replicated leaves each rank computes in part, then clip
     by the global norm (every split leaf's shards summed, every replicated
-    leaf once).  A model group of one clips as the single-device step does."""
+    leaf once).  A model group of one clips as the single-device step does.
+    Every parameter takes part (zeros where the backward left no
+    gradient)."""
     layout, params = state.tp, state.params()
     mg = layout.world.model
-    partial = [p for p, k in zip(params, layout.kinds) if k == PARTIAL]
-    for p in partial:
+    for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    partial = [p for p, k in zip(params, layout.kinds) if k == PARTIAL]
     if partial:
         flat = torch.cat([p.grad.reshape(-1) for p in partial])
         dist.all_reduce(flat, group=mg.group)
@@ -270,13 +276,16 @@ def finish_grads(state) -> None:
     if mg.size == 1:
         torch.nn.utils.clip_grad_norm_(params, max_norm)
         return
-    grads = [p.grad for p in params if p.grad is not None]
-    split = torch.tensor([k in (QKV, ROWS, COLS) for p, k in zip(params, layout.kinds)
-                          if p.grad is not None], device=grads[0].device)
+    grads = [p.grad for p in params]
+    if layout.split is None:
+        split = [k in (QKV, ROWS, COLS) for k in layout.kinds]
+        layout.split = tuple(torch.tensor([i for i, s in enumerate(split) if s == want],
+                                          dtype=torch.long, device=grads[0].device)
+                             for want in (True, False))
     sq = torch.stack(torch._foreach_norm(grads)).float() ** 2
-    shard_sq = sq[split].sum()
+    shard_sq = sq[layout.split[0]].sum()
     dist.all_reduce(shard_sq, group=mg.group)
-    total = (shard_sq + sq[~split].sum()).sqrt()
+    total = (shard_sq + sq[layout.split[1]].sum()).sqrt()
     coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
     torch._foreach_mul_(grads, coef)
 
@@ -289,18 +298,13 @@ def gather_tp_state(state, extra: dict | None = None) -> dict | None:
     others: Adam and the EMAs gathered over the data group first (under
     ZeRO-1), then every split leaf over the model group of data rank 0.
     COLLECTIVE."""
-    from ..train.train_state import opt_state_dict
-    from .sharded_step import gather_emas
+    from ..train.train_state import whole_emas_and_opt
     layout = state.tp
     world, mg, kinds = layout.world, layout.world.model, layout.kinds
-    if state.owners is not None:
-        state.opt.consolidate_state_dict(to=0)
-        emas = gather_emas(state, range(len(state.ema_params)), to=0)
-    else:
-        emas = state.ema_params
+    emas, opt = whole_emas_and_opt(state)
     if world.rank != 0:
         return None
-    opt, dev = opt_state_dict(state.opt), world.device
+    dev = world.device
     params = [_whole(p.detach(), k, mg, dev) for p, k in zip(state.params(), kinds)]
     emas = [[_whole(e, k, mg, dev) for e, k in zip(ema, kinds)] for ema in emas]
     moments = {i: {k: (_whole(v, kinds[i], mg, dev) if k != "step" else v)

@@ -285,8 +285,7 @@ def _shard_noise(spmd_mode: str, noise, seed: int, devices, index: int):
     rows of the whole batch's draws (``noise`` a ``_SharedDraws``), under
     ``shard_map`` ``noise`` (default ``TorchNoise(seed)`` on its device)
     folded with ``index`` (export.py:114-120)."""
-    from ..parallel.mesh import World
-    from ..parallel.sharded_step import GlobalRows
+    from ..parallel.mesh import GlobalRows, World
     dev = torch.device(devices[index])
     if spmd_mode == "gspmd":
         return GlobalRows(_DrawsOn(noise, dev), World(rank=index, size=len(devices), device=dev))

@@ -104,10 +104,11 @@ class TrainState:
     opt: torch.optim.Adam
     ema_params: list[list[torch.Tensor | None]]  # [K][P], aligned with model.parameters()
     ema_betas: list[float]                 # sorted ascending, like the reference
-    # ZeRO-1 (parallel/sharded_step.py): the rank that holds each parameter's
-    # Adam moments and EMAs, the other ranks' EMA entries None; None when
-    # this process holds the whole state
-    owners: list[int] | None = None
+    # ZeRO-1 (parallel/zero.py ``FlatZero``): the flat layout, the parameters
+    # views of its buffers, Adam over its owned ranges and ``ema_params`` [K][D]
+    # those ranges' EMAs (one a dtype); None when this process holds the whole
+    # state
+    zero: object | None = None
     # tensor parallel (parallel/tp.py): how each parameter is split over the
     # model group; None when no parameter is
     tp: object | None = None
@@ -119,6 +120,21 @@ class TrainState:
 
     def param_names(self) -> list[str]:
         return [n for n, _ in self.model.named_parameters()]
+
+    def ema_targets(self) -> list[torch.Tensor]:
+        """What the EMAs track, aligned with ``ema_params[k]``: the
+        parameters, or under ZeRO-1 the owned ranges."""
+        if self.zero is not None:
+            return self.zero.shards()
+        return [p.detach() for p in self.model.parameters()]
+
+    def zero_grad(self) -> None:
+        """Zero every gradient in place (a captured step writes them where
+        they lie)."""
+        if self.zero is not None:
+            self.zero.zero_grad()
+        else:
+            self.opt.zero_grad(set_to_none=False)
 
 
 def create_train_state(model: nn.Module, ema_betas: Sequence[float],
@@ -170,7 +186,7 @@ def set_ema_weights(state: TrainState) -> None:
     """Write the lerp weights of the update after ``state.step`` completed
     ones into ``state.ema_weights`` (made here at the first call)."""
     if state.ema_weights is None:
-        state.ema_weights = EmaWeights(state.params(), len(state.ema_betas))
+        state.ema_weights = EmaWeights(state.ema_targets(), len(state.ema_betas))
     state.ema_weights.fill([1.0 - ema_effective_decay(b, state.step)
                             for b in state.ema_betas])
 
@@ -178,15 +194,11 @@ def set_ema_weights(state: TrainState) -> None:
 @torch.no_grad()
 def apply_emas(state: TrainState) -> None:
     """ema <- lerp(ema, p, w) for each of the K copies with the weights
-    ``set_ema_weights`` wrote (under ZeRO-1 the copies of the parameters
-    this rank owns)."""
-    params = [p.detach() for p in state.model.parameters()]
-    held = range(len(params))
-    if state.owners is not None and state.ema_params:  # ZeRO-1: the copies this rank holds
-        held = [i for i, e in enumerate(state.ema_params[0]) if e is not None]
-    params = [params[i] for i in held]
-    for full, views in zip(state.ema_params, state.ema_weights.views):
-        torch._foreach_lerp_([full[i] for i in held], params, [views[i] for i in held])
+    ``set_ema_weights`` wrote (under ZeRO-1 the copies of the owned
+    ranges)."""
+    targets = state.ema_targets()
+    for ema, views in zip(state.ema_params, state.ema_weights.views):
+        torch._foreach_lerp_(ema, targets, views)
 
 
 def update_emas(state: TrainState) -> None:
@@ -199,9 +211,22 @@ def update_emas(state: TrainState) -> None:
 
 def ema_slice(state: TrainState, idx: int) -> dict[str, torch.Tensor]:
     """EMA copy #idx as a name -> tensor dict (``torch.func.functional_call``
-    and ``load_state_dict`` both take it).  Under ZeRO-1 the copy is gathered
-    from the ranks that own its parts: a COLLECTIVE, every rank calls it."""
-    if state.owners is None:
-        return dict(zip(state.param_names(), state.ema_params[idx]))
-    from ..parallel.sharded_step import gather_emas
-    return dict(zip(state.param_names(), gather_emas(state, [idx])[0]))
+    and ``load_state_dict`` both take it), over the live EMA.  Under ZeRO-1
+    the copy is gathered from the ranks' ranges into one set of buffers
+    that keeps its addresses and that the next ``ema_slice`` of any copy
+    overwrites: a COLLECTIVE, every rank calls it."""
+    emas = state.ema_params[idx]
+    if state.zero is not None:
+        emas = state.zero.whole(emas, keep=True)
+    return dict(zip(state.param_names(), emas))
+
+
+def whole_emas_and_opt(state: TrainState) -> tuple[list[list[torch.Tensor]], dict]:
+    """The K EMAs aligned with the parameters and Adam's state in the
+    single-device form (``opt_state_dict``): the state's own, or under
+    ZeRO-1 gathered from the ranks (COLLECTIVE).  Their tensors may be the
+    state's."""
+    if state.zero is None:
+        return state.ema_params, opt_state_dict(state.opt)
+    return ([state.zero.whole(ema) for ema in state.ema_params],
+            state.zero.opt_state(state.opt))

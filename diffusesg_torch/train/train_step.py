@@ -9,6 +9,12 @@ over the ranks between the backward and the clip, as ``lax.pmean`` averages
 them there; parallel/shardmap_dp.py and parallel/sharded_step.py build the
 two data-parallel steps on it.  Metrics stay on the device: nothing in a
 step reads a value back to the host.
+
+A step is a sequence of named stages (``TrainStep.stages``), which the
+eager step runs in order and train/compiled.py runs as graphs, with the
+data group's collectives between them.  What a step needs from the other
+ranks before its forward (the ``gspmd`` loss's global count of valid
+nodes, ``global_valid_count``) is made before the stages, as the draws are.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from ..diffusion.edm import NodeAdjEDMObjective
 from ..models.channels import get_node_adj_num_type
 from ..models.precond import precond_forward_train
 from ..ops.attribute_code import attribute_int_to_one_hot
-from ..parallel.mesh import all_reduce_grads, all_reduce_sum
+from ..parallel.mesh import GlobalRows, all_reduce_grads, all_reduce_sum
 from .loss import NodeAdjRainbowLoss, bbox_iou_aux_loss
 from .train_state import TrainState, apply_emas, set_ema_weights, set_lr
 
@@ -58,21 +64,23 @@ def encode_one_hot_batch(adjs_gt, nodes_gt, node_flags, cfg: TrainStepConfig):
 
 
 def make_loss_fn(model, cfg: TrainStepConfig, global_world=None):
-    """loss(params, noise, step, batch) -> (scalar, aux dict).  ``params`` is
-    None for the model's own parameters or a name -> tensor dict (an EMA
-    copy) applied with ``torch.func.functional_call``; ``noise`` is the
-    source of the step's random draws.
+    """loss(params, noise, step, adjs, nodes, flags, total_valid=None) ->
+    (scalar, aux dict).  ``params`` is None for the model's own parameters
+    or a name -> tensor dict (an EMA copy) applied with
+    ``torch.func.functional_call``; ``noise`` is the source of the step's
+    random draws.
 
     ``global_world`` (a ``parallel.mesh.World``) makes this rank's part of
     the loss of the global batch (the ``gspmd`` mode): the IoU loss divides
-    by the global count of valid nodes and the batch mean is the local sum
-    over the global batch, every rank feeding as many rows.  The count is of
-    flags, so the all-reduce that forms it carries no gradient."""
+    by ``total_valid``, the global count of valid nodes
+    (``global_valid_count``, made by the caller before the step: no
+    collective runs inside the loss), and the batch mean is the local sum
+    over the global batch, every rank feeding as many rows."""
     objective = NodeAdjEDMObjective(precond=cfg.precond, sigma_dist=cfg.sigma_dist,
                                     symmetric_noise=cfg.symmetric_noise)
     rainbow = NodeAdjRainbowLoss(cfg.edge_loss_weight, cfg.node_loss_weight)
 
-    def loss_fn(params, noise, step: int, adjs_gt, nodes_gt, node_flags):
+    def loss_fn(params, noise, step: int, adjs_gt, nodes_gt, node_flags, total_valid=None):
         adjs_gt, nodes_gt = encode_one_hot_batch(adjs_gt, nodes_gt, node_flags, cfg)
         ob = objective.get_input_output(noise, step, adjs_gt, nodes_gt, node_flags)
 
@@ -84,10 +92,10 @@ def make_loss_fn(model, cfg: TrainStepConfig, global_world=None):
                                          ob.sigmas)
         loss_adj, loss_node = rainbow(D_a, D_x, ob.net_target_a, ob.net_target_x, node_flags,
                                       loss_weight=ob.weights)
-        if cfg.iou_loss_weight > 0.0 and not cfg.flag_node_only:
-            total_valid = None
-            if global_world is not None:
-                total_valid = all_reduce_sum(node_flags.float().sum(), global_world)
+        if uses_valid_count(cfg):
+            if global_world is not None and total_valid is None:
+                raise ValueError("the global batch's loss divides by the global count of valid "
+                                 "nodes: pass total_valid (global_valid_count)")
             iou = bbox_iou_aux_loss(D_x, ob.net_target_x, node_flags, ob.weights,
                                     cfg.iou_loss_type, total_valid)
             loss_node = loss_node + cfg.iou_loss_weight * iou
@@ -101,6 +109,18 @@ def make_loss_fn(model, cfg: TrainStepConfig, global_world=None):
         return loss, {"loss_adj": loss_adj, "loss_node": loss_node, "sigmas": ob.sigmas}
 
     return loss_fn
+
+
+def uses_valid_count(cfg: TrainStepConfig) -> bool:
+    """Whether the loss divides by a count of valid nodes (the IoU loss)."""
+    return cfg.iou_loss_weight > 0.0 and not cfg.flag_node_only
+
+
+def global_valid_count(node_flags, world) -> torch.Tensor:
+    """The global batch's count of valid nodes: this rank's, summed over
+    ``world``.  It depends on the flags alone, so it is made before the
+    step.  COLLECTIVE."""
+    return all_reduce_sum(node_flags.float().sum(), world)
 
 
 def train_step_config_from(config) -> TrainStepConfig:
@@ -171,39 +191,109 @@ def finish_metrics(local: dict, world=None, reduce: str = "mean") -> dict:
             **{k: v for k, v in local.items() if k != "scalars"}}
 
 
-class TrainStep:
+class _Step:
+    """What the training and the test step share: ``world`` (None on one
+    device), ``global_batch`` (the ``gspmd`` mode: this rank's part of the
+    global batch, the scalar metrics summed over the ranks, the draws the
+    global batch's rows, the loss given the global count of valid nodes;
+    otherwise the metrics averaged), ``cfg`` (the ``TrainStepConfig``, which
+    gives a compiled step its draws)."""
+
+    def __init__(self, loss_fn, world=None, global_batch: bool = False,
+                 cfg: TrainStepConfig | None = None):
+        self.loss_fn, self.world, self.cfg = loss_fn, world, cfg
+        self.global_batch = global_batch and world is not None
+        self.reduce = "sum" if self.global_batch else "mean"
+
+    def source(self, noise):
+        """The draws this rank takes from the caller's ``noise``."""
+        return GlobalRows(noise, self.world) if self.global_batch else noise
+
+    def count(self, node_flags):
+        """What the loss divides the IoU loss by, made before the step: the
+        global count of valid nodes under ``global_batch`` (COLLECTIVE),
+        otherwise None (the loss counts its own batch)."""
+        if self.global_batch and uses_valid_count(self.cfg):
+            return global_valid_count(node_flags, self.world)
+        return None
+
+
+class TrainStep(_Step):
     """(state, noise, adjs, nodes, flags) -> (state, metrics): backward
     (the gradients zeroed in place: buffers made once, which a captured
-    step writes), the all-reduce of the gradients over ``world``
-    (``reduce`` "mean" or "sum"), clip (or ``finish_grads(state)``, which
-    clips: the tensor-parallel step's), Adam with the epoch's learning
-    rate, the EMAs.  The state is updated in place and returned.  Its parts
-    are what train/compiled.py captures: ``backward`` and ``update`` run on
-    the device alone, ``prepare`` writes the update's learning rate and EMA
-    weights from the host.  ``cfg`` (the ``TrainStepConfig``) gives the
-    compiled step its draws."""
+    step writes), the all-reduce of the gradients over ``world``, clip (or
+    ``finish_grads(state)``, which clips: the tensor-parallel step's), Adam
+    with the epoch's learning rate, the EMAs, and under ZeRO-1 the
+    all-gather of the parameters.  The state is updated in place and
+    returned.
 
-    def __init__(self, loss_fn, world=None, reduce: str = "mean", finish_grads=None,
+    Its stages (``stages``) are what train/compiled.py captures or runs
+    between its graphs; ``prepare`` writes the update's learning rate and
+    EMA weights from the host before them."""
+
+    def __init__(self, loss_fn, world=None, global_batch: bool = False, finish_grads=None,
                  cfg: TrainStepConfig | None = None):
-        self.loss_fn, self.world, self.reduce = loss_fn, world, reduce
-        self.finish_grads, self.cfg = finish_grads, cfg
+        super().__init__(loss_fn, world, global_batch, cfg)
+        self.finish_grads = finish_grads
 
     def __call__(self, state: TrainState, noise, adjs_gt, nodes_gt, node_flags):
-        local = self.backward(state, noise, state.step, adjs_gt, nodes_gt, node_flags)
-        if self.world is not None:
-            all_reduce_grads(state.params(), self.world, mean=self.reduce == "mean")
+        noise, total_valid = self.source(noise), self.count(node_flags)
+        batch = (adjs_gt, nodes_gt, node_flags)
         self.prepare(state)
-        self.update(state)
+        local = {}
+        for stage in self.stages(state):
+            local = self.run(stage, state, noise, batch, total_valid) or local
         state.step += 1
         return state, finish_metrics(local, self.world, self.reduce)
 
-    def backward(self, state: TrainState, noise, step: int, adjs_gt, nodes_gt,
-                 node_flags) -> dict:
+    def stages(self, state: TrainState) -> tuple[str, ...]:
+        """The step's stages in order: ``step`` (backward and update, no
+        data-group collective between them) on one device or a data group
+        of one process; otherwise ``backward``, ``reduce`` (the data group's
+        all-reduce of the gradients), ``update`` and under ZeRO-1
+        ``gather`` (its all-gather of the parameters).  ``reduce`` and
+        ``gather`` are the COLLECTIVE stages (``COLLECTIVE``); the others
+        run on the device alone, or with the model group's collectives
+        (tensor parallel)."""
+        if self.world is None:
+            return ("step",)
+        return ("backward", "reduce", "update") + (("gather",) if state.zero is not None else ())
+
+    def run(self, stage: str, state: TrainState, noise, batch, total_valid=None) -> dict | None:
+        """Stage ``stage``; the stages that hold the backward return the
+        local metrics."""
+        if stage in ("step", "backward"):
+            local = self.backward(state, noise, state.step, *batch, total_valid=total_valid)
+            if stage == "step":
+                self.update(state)
+            return local
+        if stage == "reduce":
+            self.reduce_grads(state)
+        elif stage == "update":
+            self.update(state)
+        elif stage == "gather":
+            state.zero.gather_params()
+        else:
+            raise ValueError(f"unknown stage {stage!r}")
+        return None
+
+    def backward(self, state: TrainState, noise, step: int, adjs_gt, nodes_gt, node_flags,
+                 total_valid=None) -> dict:
         """Zero the gradients, forward, backward: the local metrics."""
-        state.opt.zero_grad(set_to_none=False)
-        loss, aux = self.loss_fn(None, noise, step, adjs_gt, nodes_gt, node_flags)
+        state.zero_grad()
+        loss, aux = self.loss_fn(None, noise, step, adjs_gt, nodes_gt, node_flags, total_valid)
         loss.backward()
         return local_metrics(loss, aux, self.world, self.reduce)
+
+    def reduce_grads(self, state: TrainState) -> None:
+        """The gradients summed (``global_batch``) or averaged over
+        ``world``: ZeRO-1's flat buffers, or every parameter's in buckets.
+        COLLECTIVE."""
+        mean = self.reduce == "mean"
+        if state.zero is not None:
+            state.zero.all_reduce_grads(mean)
+        else:
+            all_reduce_grads(state.params(), self.world, mean)
 
     @staticmethod
     def prepare(state: TrainState) -> None:
@@ -222,6 +312,10 @@ class TrainStep:
         apply_emas(state)
 
 
+# the stages that run the data group's collectives, between a compiled step's graphs
+COLLECTIVE = ("reduce", "gather")
+
+
 def make_train_step(model, cfg: TrainStepConfig, world=None) -> TrainStep:
     """(state, noise, batch) -> (state, metrics).  The state is updated in
     place (parameters, Adam moments, EMAs, step) and returned.  With
@@ -231,23 +325,21 @@ def make_train_step(model, cfg: TrainStepConfig, world=None) -> TrainStep:
     return TrainStep(make_loss_fn(model, cfg), world, cfg=cfg)
 
 
-class EvalStep:
+class EvalStep(_Step):
     """(params, noise, step, adjs, nodes, flags) -> metrics: the losses
     without an update (the reference's 'test' mode); with ``world`` the
-    scalar metrics are reduced over the ranks (``reduce``).  ``local`` is
-    the part on the device alone, which train/compiled.py captures."""
-
-    def __init__(self, loss_fn, world=None, reduce: str = "mean",
-                 cfg: TrainStepConfig | None = None):
-        self.loss_fn, self.world, self.reduce, self.cfg = loss_fn, world, reduce, cfg
+    scalar metrics are reduced over the ranks.  ``local`` is the part on
+    the device alone, which train/compiled.py captures."""
 
     def __call__(self, params, noise, step: int, adjs_gt, nodes_gt, node_flags):
-        local = self.local(params, noise, step, adjs_gt, nodes_gt, node_flags)
+        noise, total_valid = self.source(noise), self.count(node_flags)
+        local = self.local(params, noise, step, adjs_gt, nodes_gt, node_flags, total_valid)
         return finish_metrics(local, self.world, self.reduce)
 
     @torch.no_grad()
-    def local(self, params, noise, step: int, adjs_gt, nodes_gt, node_flags) -> dict:
-        loss, aux = self.loss_fn(params, noise, step, adjs_gt, nodes_gt, node_flags)
+    def local(self, params, noise, step: int, adjs_gt, nodes_gt, node_flags,
+              total_valid=None) -> dict:
+        loss, aux = self.loss_fn(params, noise, step, adjs_gt, nodes_gt, node_flags, total_valid)
         return local_metrics(loss, aux, self.world, self.reduce)
 
 

@@ -33,13 +33,13 @@ from .train_step import TrainStepConfig, make_eval_step, make_train_step
 
 
 def _steps(model, state, config, step_cfg, world, noise, compiled: bool = True):
-    """(state, train_step, eval_step, noise) of this run.  One process, or a
-    world of one (a mean over one rank is the identity and ZeRO-1 over one
-    rank shards nothing): the single-device steps, compiled on a card
-    (train/compiled.py).  Several: those of ``tpu.spmd_mode``;
-    ``shard_map`` (compiled on a card) keeps the state replicated and draws
-    from the rank's stream, ``gspmd`` shards Adam and the EMAs and draws the
-    global batch's."""
+    """(state, train_step, eval_step, noise) of this run, each step compiled
+    on a card (train/compiled.py).  One process, or a world of one (a mean
+    over one rank is the identity and ZeRO-1 over one rank shards nothing):
+    the single-device steps.  Several: those of ``tpu.spmd_mode``;
+    ``shard_map`` keeps the state replicated and draws from the rank's
+    stream, ``gspmd`` shards Adam and the EMAs and draws the global
+    batch's."""
     if world is None or world.size == 1:
         return (state, CompiledTrainStep(make_train_step(model, step_cfg), compiled),
                 CompiledEvalStep(make_eval_step(model, step_cfg), compiled), noise)
@@ -52,8 +52,9 @@ def _steps(model, state, config, step_cfg, world, noise, compiled: bool = True):
         return (state, make_shardmap_train_step(model, step_cfg, world, compiled),
                 make_shardmap_eval_step(model, step_cfg, world, compiled),
                 noise.fold_in(world.rank))
-    return (shard_train_state(state, world), make_sharded_train_step(model, step_cfg, world),
-            make_sharded_eval_step(model, step_cfg, world), noise)
+    return (shard_train_state(state, world),
+            make_sharded_train_step(model, step_cfg, world, compiled=compiled),
+            make_sharded_eval_step(model, step_cfg, world, compiled=compiled), noise)
 
 
 def go_training(model, state: TrainState, step_cfg: TrainStepConfig, config, bundle,
@@ -63,10 +64,9 @@ def go_training(model, state: TrainState, step_cfg: TrainStepConfig, config, bun
 
     The steps are built from ``step_cfg`` (``train_step_config_from``); on
     a card the training and test steps run as replays of captured CUDA
-    graphs (train/compiled.py, the JAX trainer's jitted steps), the
-    ``gspmd`` and tensor-parallel steps excepted.  ``compiled=False`` runs
-    them eagerly: the comparison the checks make, as the compiled
-    sampler's.
+    graphs (train/compiled.py, the JAX trainer's jitted steps), in every
+    mode.  ``compiled=False`` runs them eagerly: the comparison the checks
+    make, as the compiled sampler's.
     ``start_epoch`` continues an interrupted run (cli/train.py --resume).
     ``noise`` is the source of the steps' random draws (default: a
     ``TorchNoise`` seeded from ``config.seed`` and ``start_epoch``, so a

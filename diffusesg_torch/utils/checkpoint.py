@@ -9,9 +9,9 @@ checkpoint, ``torch.save`` of
 
 written to a temporary file in the same directory and renamed into place, so
 a reader never sees a partial checkpoint.  A ZeRO-1 state
-(parallel/sharded_step.py) is gathered to rank 0 first, which alone writes,
-so a data-parallel checkpoint has the single-device format and resumes on
-one device and the other way round.  Adam's state restores into the
+(parallel/zero.py) is gathered first and rank 0 alone writes, so a
+data-parallel checkpoint has the single-device format (a step count per
+parameter included) and resumes on one device and the other way round.  Adam's state restores into the
 optimizer's own form (train/train_state.py ``load_opt_state``): a card's
 capturable Adam resumes on the CPU's plain one and the other way round.
 
@@ -70,10 +70,10 @@ def save_checkpoint(path: str, state: "TrainState", extra: dict | None = None,
                     asynchronous: bool = False) -> str:
     """Write ``state`` (+ metadata) to ``path`` (``.pt`` appended if missing).
     With a process group up, rank 0 writes and every rank returns after the
-    write (or, asynchronously, once it is queued): a COLLECTIVE (the ZeRO-1 state's Adam moments and EMAs are
-    gathered to rank 0 with ``consolidate_state_dict(to=0)`` and one
-    broadcast per rank; a tensor-parallel state's shards over its model
-    group, parallel/tp.py).
+    write (or, asynchronously, once it is queued): a COLLECTIVE (the ZeRO-1
+    state's Adam moments and EMAs are gathered from the ranks' ranges, an
+    all-gather each; a tensor-parallel state's shards over its model group,
+    parallel/tp.py).
 
     ``asynchronous``: return once the state is copied to host memory; the
     background writer writes it (``wait_for_async_saves`` drains it)."""
@@ -102,16 +102,11 @@ def _gathered_payload(state: "TrainState", extra: dict | None) -> dict | None:
     them.  COLLECTIVE with a process group."""
     import torch.distributed as dist
 
-    from ..train.train_state import opt_state_dict
+    from ..train.train_state import whole_emas_and_opt
     if state.tp is not None:
         from ..parallel.tp import gather_tp_state
         return gather_tp_state(state, extra)
-    if state.owners is not None:
-        from ..parallel.sharded_step import gather_emas
-        state.opt.consolidate_state_dict(to=0)
-        emas = gather_emas(state, range(len(state.ema_params)), to=0)
-    else:
-        emas = state.ema_params
+    emas, opt = whole_emas_and_opt(state)
     if dist.is_initialized() and dist.get_rank() != 0:
         return None
     return {
@@ -119,7 +114,7 @@ def _gathered_payload(state: "TrainState", extra: dict | None) -> dict | None:
         "params": {k: v.detach() for k, v in state.model.state_dict().items()},
         "ema_params": [[t.detach() for t in ema] for ema in emas],
         "ema_betas": list(state.ema_betas),
-        "opt_state": opt_state_dict(state.opt),
+        "opt_state": opt,
         "extra": dict(extra or {}),
     }
 
@@ -198,22 +193,27 @@ def restore_checkpoint(path: str, state: "TrainState") -> dict:
     """Load the checkpoint at ``path`` into ``state`` in place (parameters,
     EMAs, Adam state, step); returns its ``extra`` metadata.  Raises when the
     checkpoint does not match the model.  A ZeRO-1 state takes its own
-    partition of the Adam moments and the EMAs of the parameters it owns.
-    Waits for the asynchronous saves first (``read_checkpoint``)."""
+    ranges of the Adam moments and the EMAs.  Waits for the asynchronous
+    saves first (``read_checkpoint``)."""
     from ..train.train_state import load_opt_state
     payload = read_checkpoint(path)
     if len(payload["ema_params"]) != len(state.ema_params):
         raise ValueError(f"checkpoint holds {len(payload['ema_params'])} EMAs, the state "
                          f"{len(state.ema_params)}")
     state.model.load_state_dict(payload["params"], strict=True)
+    n_params = len(state.params())
     with torch.no_grad():
         for ema, saved in zip(state.ema_params, payload["ema_params"]):
-            if len(ema) != len(saved):
+            if len(saved) != n_params:
                 raise ValueError("checkpoint EMA does not match the model's parameters")
+            if state.zero is not None:
+                saved = state.zero.owned(saved)
             for dst, src in zip(ema, saved):
-                if dst is not None:  # None: another rank's ZeRO-1 part
-                    dst.copy_(src)
-    load_opt_state(state.opt, payload["opt_state"])
+                dst.copy_(src)
+    if state.zero is not None:
+        state.zero.load_opt_state(state.opt, payload["opt_state"])
+    else:
+        load_opt_state(state.opt, payload["opt_state"])
     state.ema_betas = [float(b) for b in payload["ema_betas"]]
     state.step = int(payload["step"])
     return payload.get("extra", {})

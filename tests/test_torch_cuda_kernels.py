@@ -397,6 +397,159 @@ def test_compiled_train_step_bit_equal_to_eager_on_the_card(cuda, which):
     assert set(program.graphs) == {"cond", "no_cond"}
 
 
+@pytest.fixture()
+def nccl_world(cuda, monkeypatch):
+    """An NCCL process group of one rank in this process, as torchrun's
+    variables describe it."""
+    import socket
+
+    from diffusesg_torch.parallel.distributed import maybe_initialize_distributed, shutdown
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                     WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    assert maybe_initialize_distributed("cuda")
+    try:
+        yield
+    finally:
+        shutdown()
+
+
+@pytest.mark.parametrize("mode", ["gspmd", "tp"])
+def test_compiled_sharded_step_bit_equal_to_eager_on_the_card(nccl_world, mode):
+    """The compiled ``gspmd`` + ZeRO-1 step at world 1 and the compiled
+    tensor-parallel step at grid (1, 1), through NCCL, against their eager
+    runs from one state on the same draws, 4 steps taking both coins, at
+    batch 8 on configs/vg_small_test.yaml (kernels off, fp32): metrics,
+    parameters, gradients, the gathered Adam state and EMAs bit-equal; the
+    ``gspmd`` test-pass step too.  ``gspmd`` captures the backward per coin
+    and the update, tensor parallel one graph per coin (its model-group
+    collectives inside)."""
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.models import build_model
+    from diffusesg_torch.parallel.mesh import current_world, make_grid
+    from diffusesg_torch.parallel.sharded_step import (make_sharded_eval_step,
+                                                       make_sharded_train_step, shard_train_state)
+    from diffusesg_torch.parallel.tp import shard_tp_state
+    from diffusesg_torch.sampling.edm_sampler import TorchNoise
+    from diffusesg_torch.train import (create_train_state, ema_slice, make_optimizer,
+                                       train_step_config_from)
+    from diffusesg_torch.train.train_state import whole_emas_and_opt
+    cfg = load_config("configs/vg_small_test.yaml")
+    coins = [True, False, True, False]
+
+    class Coins(TorchNoise):
+        def bernoulli(self, step, kind, p):
+            return coins[step]
+
+    n = cfg.dataset.max_node_num
+    gen = torch.Generator().manual_seed(0)
+    flags = torch.rand(8, n, generator=gen) < 0.7
+    pair = flags[:, :, None] & flags[:, None, :]
+    batch = ((torch.rand(8, n, n, generator=gen) * 2 - 1) * pair,
+             (torch.rand(8, n, 5, generator=gen) * 2 - 1) * flags[..., None], flags)
+    batch = tuple(t.to("cuda") for t in batch)
+    opt = make_optimizer(1e-3, 0.5, 2, 1e-2)
+    step_cfg = train_step_config_from(cfg)
+    world = make_grid(1, 1) if mode == "tp" else current_world()
+    states, steps, tests = [], [], []
+    for compiled in (False, True):
+        state = create_train_state(build_model(cfg, device="cuda", seed=0), [0.9, 0.999], opt)
+        state = shard_tp_state(state, world) if mode == "tp" else shard_train_state(state, world)
+        states.append(state)
+        steps.append(make_sharded_train_step(state.model, step_cfg, world, tp=mode == "tp",
+                                             compiled=compiled))
+        tests.append(make_sharded_eval_step(state.model, step_cfg, world, compiled=compiled))
+    noises, test_noises = [Coins(3, "cuda") for _ in range(2)], [Coins(4, "cuda") for _ in range(2)]
+    for i in range(len(coins)):
+        out = []
+        for j in range(2):
+            states[j], m = steps[j](states[j], noises[j], *batch)
+            if mode == "gspmd":
+                m = dict(m, **{f"test/{k}": v for k, v in tests[j](
+                    ema_slice(states[j], 0), test_noises[j], i, *batch).items()})
+            out.append(m)
+        assert all(torch.equal(out[0][k], out[1][k]) for k in out[0])
+    torch.cuda.synchronize()
+    a, b = states
+    assert all(torch.equal(p, q) and torch.equal(p.grad, q.grad)
+               for p, q in zip(a.params(), b.params()))
+    (ea, oa), (eb, ob) = whole_emas_and_opt(a), whole_emas_and_opt(b)
+    assert all(torch.equal(x, y) for xs, ys in zip(ea, eb) for x, y in zip(xs, ys))
+    assert all(torch.equal(oa["state"][i][k], ob["state"][i][k])
+               for i in oa["state"] for k in ("step", "exp_avg", "exp_avg_sq"))
+    (program,) = steps[1]._programs.values()
+    assert set(program.graphs) == ({"cond", "no_cond"} if mode == "tp" else
+                                   {"backward:cond", "backward:no_cond", "update"})
+
+
+def test_compiled_tp_step_on_two_cards(cuda, tmp_path):
+    """The compiled tensor-parallel step at grid (1, 2), one card a rank
+    (tests/helpers/torch_dp_child.py ``card_tp``; NCCL refuses two ranks on
+    one card): bit-equal to the eager step over 3 steps taking both coins;
+    each graph holds one NCCL kernel node for each collective the eager
+    step of its coin issues, as many as that step launches NCCL kernels; a
+    coin's first use issues its collectives twice (the eager run and the
+    capture), a replay none."""
+    import os
+    import sys
+
+    import numpy as np
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL refuses two ranks on one card")
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
+    from torch_parity import start_ranks, wait_ranks
+    wait_ranks(start_ranks(["card_tp", str(tmp_path), "2"], str(tmp_path / "logs")),
+               timeout=600)
+    for r in range(2):
+        got = np.load(tmp_path / f"card_tp_rank{r}.npz")
+        assert bool(got["equal"]) and list(got["graphs"]) == ["cond", "no_cond"]
+        assert list(got["graph_nccl"]) == list(got["eager_calls"]) == list(got["eager_nccl"])
+        assert min(got["graph_nccl"]) > 0
+        coins = list(got["coins"])
+        first = [coins.index(c) for c in coins]
+        want = [2 * got["eager_calls"][0 if c else 1] if first[i] == i else 0
+                for i, c in enumerate(coins)]
+        assert list(got["compiled_calls"]) == want
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_compiled_gspmd_step_on_cards(cuda, tmp_path, world):
+    """The compiled ``gspmd`` + ZeRO-1 step at world 2 and 4, one card a
+    rank (tests/helpers/torch_dp_child.py ``card_gspmd``), at full VG width
+    with the kernels on and a global batch of 64: bit-equal to the eager
+    step over 3 steps taking both coins and the test pass (metrics,
+    parameters, gradients, the owned Adam moments and EMAs).  Each rank's
+    Adam moments and EMAs are its 1/world range of the padded flat buffer,
+    and the EMAs gathered for the test pass and for sampling share one
+    whole copy.  Prints each rank's device memory by part."""
+    import os
+    import sys
+
+    import numpy as np
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} cards: NCCL refuses two ranks on one card")
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
+    from torch_parity import start_ranks, wait_ranks
+    wait_ranks(start_ranks(["card_gspmd", str(tmp_path)], str(tmp_path / "logs"), world=world),
+               timeout=600)
+    for r in range(world):
+        got = np.load(tmp_path / f"card_gspmd_rank{r}.npz")
+        assert bool(got["equal"])
+        assert set(got["graphs"]) == {"backward:cond", "backward:no_cond", "update"}
+        params, k = int(got["params_bytes"]), int(got["n_emas"])
+        assert params % world == 0  # the buffer padded to a multiple of the world
+        assert int(got["adam_bytes"]) == 2 * params // world  # two moments of the range
+        assert int(got["emas_bytes"]) == k * params // world
+        assert int(got["kept_bytes"]) == params  # one whole copy, whichever EMA was gathered
+        print(f"world {world} rank {r}: device memory (MiB) " + ", ".join(
+            f"{n} {int(got[f'{n}_bytes']) / 2 ** 20:.1f}" for n in (
+                "state", "steady", "peak", "params", "grads", "adam", "emas", "kept", "pools")),
+            flush=True)
+
+
 def test_cpu_checkpoint_restores_on_the_cards_capturable_adam(cuda, tmp_path):
     """A state trained and saved on the CPU (plain Adam) restores into the
     card's capturable Adam: moments, EMAs and steps equal, the step counts

@@ -179,8 +179,8 @@ def test_gspmd_step_matches_jax_global_batch(run):
 
 def test_gspmd_ranks_hold_a_share_of_adam_and_the_emas(run):
     """ZeRO-1: each rank holds about half of the Adam moments and of the EMA
-    bytes (whole parameters per rank), together all of them; ``shard_map``
-    holds all on each rank."""
+    bytes (its contiguous range of the flat buffers, the padding not
+    counted), together all of them; ``shard_map`` holds all on each rank."""
     _, _, got = run
     params = int(got[("gspmd", 0)]["param_bytes"])
     for key, per_param in (("adam_bytes", 2), ("ema_bytes", len(BETAS))):
@@ -203,7 +203,7 @@ def test_data_parallel_checkpoint_restores_in_one_process(run, mode):
     state = create_train_state(tiny_port_model(cfg, seed=3), BETAS,
                                make_optimizer(LR, DECAY, SPE, WD))
     assert restore_checkpoint(str(out / f"{mode}_ckpt.pt"), state) == {"epoch": 0}
-    assert state.step == STEPS and state.owners is None
+    assert state.step == STEPS and state.zero is None
     last = got[(mode, 0)]
     for n, p in state.model.named_parameters():
         np.testing.assert_array_equal(p.detach().numpy(), last[f"step{STEPS - 1}/param/{n}"])

@@ -166,7 +166,7 @@ def test_rank_streams_fold_in_once():
 
 def test_global_rows_are_the_ranks_rows_of_the_global_draw():
     from diffusesg_torch.parallel.mesh import World
-    from diffusesg_torch.parallel.sharded_step import GlobalRows
+    from diffusesg_torch.parallel.mesh import GlobalRows
     from diffusesg_torch.sampling.edm_sampler import TorchNoise
     full = TorchNoise(3, "cpu").normal(0, "noise_adj", (6, 4, 4))
     coin = TorchNoise(3, "cpu")
@@ -249,19 +249,25 @@ def test_world_one_shard_map_step_is_the_single_device_step(world_one):
 def test_world_one_gspmd_step_and_zero_checkpoint(world_one, tmp_path):
     """The ``gspmd`` step with ZeRO-1 at world 1 stays within the training
     step's bars of the single-device step, its learning rate reaches the
-    wrapped Adam, and its checkpoint restores bit-equal in a single-device
-    state."""
+    range Adam, and its checkpoint restores bit-equal in a single-device
+    state.  At world 1 the rank owns the flat buffer whole; each parameter
+    starts at an aligned address."""
     from diffusesg_torch.config import load_config
     from diffusesg_torch.parallel.sharded_step import make_sharded_train_step, shard_train_state
     from diffusesg_torch.sampling.edm_sampler import TorchNoise
     from diffusesg_torch.train import make_train_step, train_step_config_from
+    from diffusesg_torch.train.train_state import whole_emas_and_opt
     from diffusesg_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
     cfg = tiny_overrides(load_config(SMALL_CFG))
     step_cfg = train_step_config_from(cfg)
     batch = tuple(torch.from_numpy(a) for a in clean_batch(2, 16, [16, 5], seed=9))
     one = _state(cfg)
     dp = shard_train_state(_state(cfg), world_one)
-    assert dp.owners == [0] * len(dp.params())
+    (bucket,) = dp.zero.buckets.values()
+    assert (bucket.lo, bucket.hi) == (0, bucket.data.numel())
+    assert dp.zero.padding() == [bucket.data.numel() - sum(p.numel() for p in dp.params())]
+    assert all((p.data_ptr() - bucket.data.data_ptr()) % 512 == 0 for p in dp.params())
+    assert len(dp.opt.param_groups[0]["params"]) == 1
     single = make_train_step(one.model, step_cfg)
     sharded = make_sharded_train_step(dp.model, step_cfg, world_one)
     noise_a, noise_b = TorchNoise(4, "cpu"), TorchNoise(4, "cpu")
@@ -269,7 +275,7 @@ def test_world_one_gspmd_step_and_zero_checkpoint(world_one, tmp_path):
         one, m1 = single(one, noise_a, *batch)
         dp, m2 = sharded(dp, noise_b, *batch)
         np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]), rtol=2e-4)
-    assert dp.opt.optim.param_groups[0]["lr"] == 1e-3
+    assert dp.opt.param_groups[0]["lr"] == 1e-3
     for p, q in zip(one.params(), dp.params()):
         np.testing.assert_allclose(q.detach().numpy(), p.detach().numpy(), rtol=0,
                                    atol=1e-4 * float(p.detach().abs().max()) + 0.05 * 2e-3 * 2)
@@ -277,15 +283,19 @@ def test_world_one_gspmd_step_and_zero_checkpoint(world_one, tmp_path):
     back = _state(cfg)
     assert restore_checkpoint(path, back) == {"epoch": 1} and back.step == 2
     assert _same(back.params(), dp.params())
-    for a, b in zip(back.ema_params, dp.ema_params):
+    emas, opt = whole_emas_and_opt(dp)
+    for a, b in zip(back.ema_params, emas):
         assert _same(a, b)
-    for p, q in zip(back.params(), dp.params()):
+    for i, p in enumerate(back.params()):
         for k in ("step", "exp_avg", "exp_avg_sq"):
-            assert torch.equal(back.opt.state[p][k], dp.opt.optim.state[q][k])
+            assert torch.equal(back.opt.state[p][k], opt["state"][i][k])
     # and a single-device checkpoint resumes into the ZeRO-1 state
     again = shard_train_state(copy.deepcopy(back), world_one)
-    for p, q in zip(again.params(), back.params()):
-        assert torch.equal(again.opt.optim.state[p]["exp_avg"], back.opt.state[q]["exp_avg"])
+    emas, opt = whole_emas_and_opt(again)
+    for i, p in enumerate(back.params()):
+        assert torch.equal(opt["state"][i]["exp_avg"], back.opt.state[p]["exp_avg"])
+    for a, b in zip(back.ema_params, emas):
+        assert _same(a, b)
 
 
 def test_failed_rendezvous_raises(monkeypatch):

@@ -107,7 +107,7 @@ def test_gspmd_equals_the_single_device_core_on_the_whole_batch(setup, what, sha
     joined are the single-device function over the whole batch; each block
     alone is the core on its rows with those rows' draws."""
     from diffusesg_torch.parallel.mesh import World
-    from diffusesg_torch.parallel.sharded_step import GlobalRows
+    from diffusesg_torch.parallel.mesh import GlobalRows
     from diffusesg_torch.sampling.edm_sampler import TorchNoise
     from diffusesg_torch.serving.export import fixed_batch
     fn = _sharded(setup, what, ["cpu"] * shards, "gspmd")
