@@ -12,13 +12,13 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import itertools
 import os
 from typing import Iterator
 
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .dataset import SceneGraphData
 
 
@@ -161,13 +161,15 @@ def prefetch_to_device(iterator, device, size: int = 2, transform=None) -> Itera
     copied on a side stream, so the next batch's host-to-device copy overlaps
     the current step's compute; the consumer's stream waits on the copy's
     event before the tensors are handed over.  On the CPU it only converts.
+    Spans (utils/tracing.py): ``data.batch`` around the source's next item
+    and ``transform``, ``data.stage`` around the pinning and the copy's
+    enqueue.
     """
     device = torch.device(device)
     on_card = device.type == "cuda"
     side = torch.cuda.Stream(device) if on_card else None
 
-    def put(item):
-        arrays = transform(item) if transform is not None else item
+    def put(arrays):
         tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
         if not on_card:
             return tuple(tensors), None
@@ -179,8 +181,18 @@ def prefetch_to_device(iterator, device, size: int = 2, transform=None) -> Itera
     it = iter(iterator)
 
     def fill(n):
-        for item in itertools.islice(it, n):
-            buf.append(put(item))
+        nonlocal it
+        for _ in range(n):
+            if it is None:  # the source has ended
+                return
+            with tracing.span("data.batch"):
+                item = next(it, None)
+                if item is None:
+                    it = None
+                    return
+                arrays = transform(item) if transform is not None else item
+            with tracing.span("data.stage"):
+                buf.append(put(arrays))
 
     fill(size)
     while buf:

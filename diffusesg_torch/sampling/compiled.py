@@ -46,6 +46,12 @@ static buffer outside the pool.  Two programs never share a pool, because
 two of them may replay at once on one card (the shards of
 ``serving/export.py`` on their own streams).
 
+The spans of a step (utils/tracing.py): ``sampler.copy_in`` around the
+copies of the row and the draws, then ``graph.replay``, or at a variant's
+first use ``graph.first_use`` and ``graph.capture``; all inside the
+sampler's ``sampler.step``, and none inside a captured body.  Each program
+built counts one ``programs.built``.
+
 A captured kernel launch is counted once per replay: the wrappers' counts
 during a capture go to the variant's record (``cuda_build.capturing``) and
 each replay adds that record to ``cuda_build.LAUNCHES``.  With the eager
@@ -60,7 +66,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import cuda_graphs
+from ..utils import cuda_graphs, tracing
 from .edm_sampler import (NodeAdjEDMSampler, StepVariant, TorchNoise, inpaint_tuple,
                           run_steps)
 
@@ -130,12 +136,14 @@ class CompiledSampler:
                 self._programs.clear()
             program = self._programs[key] = _Program(
                 self.sampler, denoiser_for, node_flags, init_adjs, init_nodes, ip, operands)
+            tracing.count("programs.built")
         return program
 
     def stats(self) -> list[dict]:
         """Per program: its variants, the seconds of each one's eager first
-        use and capture, and its pool's bytes (None where the allocator's
-        snapshot does not tell pools apart)."""
+        use and capture (wall-clock, ``cuda_graphs.warm_and_capture``), and
+        its pool's bytes (None where the allocator's snapshot does not tell
+        pools apart)."""
         return [p.stats() for p in self._programs.values()]
 
 
@@ -189,10 +197,11 @@ class _Program:
 
     def step(self, i: int, variant: StepVariant, draws) -> None:
         with torch.cuda.device(self.device):
-            self.row.copy_(self.table[i])
-            for dst, src in zip(self.draws, draws):
-                if src is not None:
-                    dst.copy_(src)
+            with tracing.span("sampler.copy_in"):
+                self.row.copy_(self.table[i])
+                for dst, src in zip(self.draws, draws):
+                    if src is not None:
+                        dst.copy_(src)
             entry = self.graphs.get(variant)
             if entry is not None:
                 cuda_graphs.replay(*entry)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.masking import mask_adjs, mask_nodes, sym_from_normal
+from ..utils import tracing
 
 # DenoiserFn: (adjs, nodes, sigmas[B], self_cond_a, self_cond_x) -> (D_adj, D_node)
 DenoiserFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
@@ -337,7 +338,9 @@ class NodeAdjEDMSampler:
         """The step loop over ``steps`` (``EagerSteps`` or the compiled
         sampler's): per step the host facts and draws from ``noise``, the
         step, the interim snapshot and the chunk's synchronize; yields after
-        each step and returns ``sample``'s outputs."""
+        each step and returns ``sample``'s outputs.  The span
+        ``sampler.step`` holds one step but the synchronize, with
+        ``sampler.draws`` inside it."""
         if chunk_steps is not None and chunk_steps < 1:
             raise ValueError(f"chunk_steps must be at least 1, got {chunk_steps}")
         num_interim = min(num_interim, self.num_steps)
@@ -354,10 +357,14 @@ class NodeAdjEDMSampler:
             interim_a[0], interim_x[0] = init_adjs, init_nodes
         sync = chunk_steps is not None and node_flags.device.type == "cuda"
         for i, row in enumerate(self.step_coefficients()):
-            variant = self.step_variant(noise, i, row)
-            steps.step(i, variant, self.step_draws(noise, i, variant, adjs.shape, nodes.shape, ip))
-            if i in slot_of_step:
-                interim_a[slot_of_step[i]], interim_x[slot_of_step[i]] = steps.current()
+            # closed before the yield: callers step several loops in turn
+            with tracing.span("sampler.step"):
+                variant = self.step_variant(noise, i, row)
+                with tracing.span("sampler.draws"):
+                    draws = self.step_draws(noise, i, variant, adjs.shape, nodes.shape, ip)
+                steps.step(i, variant, draws)
+                if i in slot_of_step:
+                    interim_a[slot_of_step[i]], interim_x[slot_of_step[i]] = steps.current()
             if sync and ((i + 1) % chunk_steps == 0 or i + 1 == self.num_steps):
                 torch.cuda.synchronize(node_flags.device)  # the chunk's end
             yield

@@ -39,6 +39,12 @@ them.  The serving host therefore needs ``diffusesg_torch`` installed, and
 artifact over N > 1 devices (``num_devices``, ``spmd_mode``) is served by the
 sharded function on N devices.
 
+Each batch through ``fixed_batch`` is one ``serve.call`` span
+(utils/tracing.py) of its own ``batch`` group, holding ``serve.copy_in``,
+the sampler's ``sampler.step`` spans, ``serve.decode``, ``serve.wait``
+(traced only: the stream synchronised before the copy back, so that the
+wait for the card and the copy lie apart) and ``serve.copy_back``.
+
 ``save_compiled`` / ``load_compiled`` (export.py:352-400) persist the
 serving core bound to one batch with its sampler compiled.  A CUDA graph
 cannot be serialized, so ``save_compiled`` writes the artifact of
@@ -54,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import json
 import os
 import shutil
@@ -68,6 +75,7 @@ from ..ops.attribute_code import attribute_converter
 from ..sampling.compiled import CompiledSampler
 from ..sampling.decode import decode_samples
 from ..sampling.edm_sampler import NodeAdjEDMSampler, TorchNoise, run_steps
+from ..utils import tracing
 from ..utils.device import resolve_device
 
 ARTIFACT_WEIGHTS = "sampler.pt"
@@ -75,6 +83,8 @@ ARTIFACT_META = "meta.json"
 ARTIFACT_FORMAT = "diffusesg_torch.serving/1"
 COMPILED_META = "compiled.json"
 COMPILED_LIB = os.path.join("kernels", "libdsg_kernels.so")
+# the id of each batch through fixed_batch, its spans' group
+_BATCHES = itertools.count()
 
 
 def make_denoiser(model, config, node_flags):
@@ -110,7 +120,8 @@ def _serving_steps(model, sampler: NodeAdjEDMSampler, config, chunk_steps: int |
         adjs, nodes = yield from runner.sample_steps(
             denoiser_for, node_flags, info["num_node_chan"], info["num_adj_chan"], noise=noise,
             seed=seed, chunk_steps=chunk_steps)
-        dec = decode(adjs, nodes, node_flags)
+        with tracing.span("serve.decode"):
+            dec = decode(adjs, nodes, node_flags)
         return dec.adj_types, dec.node_types, dec.bboxes
     return steps
 
@@ -223,7 +234,16 @@ def fixed_batch(fn, batch_size: int, max_node_num: int, device):
         if flags.shape != (batch_size, max_node_num):
             raise ValueError(f"this sampler serves node flags of shape "
                              f"({batch_size}, {max_node_num}), got {flags.shape}")
-        return _to_numpy(fn(int(seed), *_to_device((flags, *known), dev), noise=noise))
+        with tracing.span("serve.call", batch=next(_BATCHES)):
+            with tracing.span("serve.copy_in"):
+                args = _to_device((flags, *known), dev)
+            out = fn(int(seed), *args, noise=noise)
+            if dev.type == "cuda" and tracing.enabled():
+                # traced only: the wait for the card apart from the copy back
+                with tracing.span("serve.wait"):
+                    torch.cuda.current_stream(dev).synchronize()
+            with tracing.span("serve.copy_back"):
+                return _to_numpy(out)
     return call
 
 

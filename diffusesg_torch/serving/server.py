@@ -1,8 +1,9 @@
 """Micro-batching scene-graph generation server.
 
-The port's own copy of diffusesg_tpu/serving/server.py (numpy and the
-standard library only; the port imports nothing of the JAX package): the
-same requests give the same JSON, given the same sample function.  It
+The port's own copy of diffusesg_tpu/serving/server.py (numpy, the
+standard library and the port's counters; the port imports nothing of the
+JAX package): the same requests give the same JSON, given the same sample
+function, but ``/v1/stats``, which adds the port's counters.  It
 listens with a backlog of 128 connections where the JAX server keeps
 socketserver's 5.  The
 reference has no server; generation there is a batch eval run.  Design:
@@ -29,7 +30,10 @@ HTTP surface (stdlib ThreadingHTTPServer; JSON in/out):
                       -> one graph with the pinned parts verbatim
                       (conditional completion; live checkpoint mode only)
   GET  /healthz       liveness + served-batch info
-  GET  /v1/stats      request/graph counters, latency quantiles
+  GET  /v1/stats      request/graph/batch counters, latency quantiles, and
+                      the port's counters of graph captures, replays and
+                      programs built (utils/tracing.py), where a server
+                      whose shapes churn shows its recaptures
 
 Each graph is {"nodes": [int], "node_names": [str]?, "bboxes": [[cx,cy,w,h]],
 "edges": [[subj, obj, predicate], ...], "edge_names": [...]?}.
@@ -45,6 +49,8 @@ from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+from ..utils import tracing
 
 
 @dataclass
@@ -338,6 +344,7 @@ def make_handler(batcher: BatchingSampler, idx_to_word: dict | None = None,
                 if lat:
                     stats["latency_ms_p50"] = lat[len(lat) // 2]
                     stats["latency_ms_p95"] = lat[int(len(lat) * 0.95)]
+                stats.update(tracing.counters())
                 self._json(200, stats)
             else:
                 self._json(404, {"error": "not found"})

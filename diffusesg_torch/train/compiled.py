@@ -63,6 +63,15 @@ no node for those collectives there.
 A graph ends by copying its metrics into static buffers, which the next
 replay overwrites: each call returns copies.
 
+The spans of a training step (utils/tracing.py): ``step.call`` around
+the whole call, its ``step`` group the state's step, holding
+``step.draws``, ``step.load`` (the copies into the static buffers), a
+``graph.replay`` per stage graph (``graph.first_use`` and
+``graph.capture`` at a first use), ``step.collective`` around each
+collective stage and ``step.metrics`` (the metrics' copies; the
+reduction of ``finish_metrics`` lies outside it, in ``step.call``).  Each
+program built counts one ``programs.built``.
+
 The graphs read and write the training state where it lies: the
 parameters, their gradients (made by the first backward, then zeroed in
 place; under ZeRO-1 views of flat buffers from the start), Adam's moments,
@@ -76,7 +85,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import cuda_graphs
+from ..utils import cuda_graphs, tracing
 from .train_state import TrainState
 from .train_step import COLLECTIVE, EvalStep, TrainStep, draw_plan, finish_metrics
 
@@ -227,11 +236,13 @@ class _Compiled:
             if len(self._programs) >= MAX_PROGRAMS:
                 self._programs.clear()
             program = self._programs[key] = _Program(cfg, batch)
+            tracing.count("programs.built")
         return program
 
     def stats(self) -> list[dict]:
         """Per program: its graphs, the seconds of each one's first use and
-        capture, and its pool's bytes."""
+        capture (wall-clock, ``cuda_graphs.warm_and_capture``), and its
+        pool's bytes."""
         return [p.stats() for p in self._programs.values()]
 
 
@@ -257,17 +268,23 @@ class CompiledTrainStep(_Compiled):
         self.step = step
 
     def __call__(self, state: TrainState, noise, adjs_gt, nodes_gt, node_flags):
-        if not self._compiles(node_flags.device):
-            return self.step(state, noise, adjs_gt, nodes_gt, node_flags)
-        step, batch = self.step, (adjs_gt, nodes_gt, node_flags)
-        draws, coin = _draws(step, noise, state.step, batch)
+        with tracing.span("step.call", step=state.step):
+            if not self._compiles(node_flags.device):
+                return self.step(state, noise, adjs_gt, nodes_gt, node_flags)
+            return self._call(state, noise, (adjs_gt, nodes_gt, node_flags))
+
+    def _call(self, state: TrainState, noise, batch):
+        step, node_flags = self.step, batch[2]
+        with tracing.span("step.draws"):
+            draws, coin = _draws(step, noise, state.step, batch)
         key = (node_flags.device,) + tuple(_spec(t) for t in batch)
         program = self._program(key, step.cfg, batch)
         if program.bound is not None and program.bound != _addresses(state):
             del self._programs[key]  # the state's tensors moved: capture anew
             program = self._program(key, step.cfg, batch)
         with torch.cuda.device(program.device):
-            program.load(batch, draws)
+            with tracing.span("step.load"):
+                program.load(batch, draws)
             program.busy = True
             try:
                 local = self._run(program, state, coin, TOTAL_VALID in draws)
@@ -291,11 +308,13 @@ class CompiledTrainStep(_Compiled):
 
             if stage in COLLECTIVE:
                 self._bind(program, state)
-                body()
+                with tracing.span("step.collective", stage=stage):
+                    body()
             else:
                 program.run(_graph_name(stage, coin), body)
         self._bind(program, state)
-        return _copies(program.out)
+        with tracing.span("step.metrics"):
+            return _copies(program.out)
 
     @staticmethod
     def _bind(program: _Program, state: TrainState) -> None:

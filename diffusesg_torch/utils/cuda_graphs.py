@@ -20,6 +20,10 @@ eagerly once and then captured (``warm_and_capture``), and replayed after.
 * ``capture(body, pool, stream)``: the capture alone.  With ``KEEP_NODES``
   set, each graph keeps its nodes after it is instantiated, for
   ``CUDAGraph.debug_dump`` (chip_smoke.py reads the kernels of a graph so).
+* The spans ``graph.first_use``, ``graph.capture`` and ``graph.replay``
+  (utils/tracing.py) lie around the calls into a graph, never inside its
+  body, and the counters ``graph.captures`` and ``graph.replays`` count
+  them.  The seconds ``warm_and_capture`` returns are its spans' readings.
 
 These two functions are the seam a CPU test replaces (tests/helpers/
 graph_stand_in.py): a "graph" that calls its body at each replay.
@@ -28,11 +32,11 @@ from __future__ import annotations
 
 import collections
 import gc
-import time
 
 import torch
 
 from ..ops import cuda_build
+from . import tracing
 
 # keep each captured graph's nodes for CUDAGraph.debug_dump (off: they are
 # freed once the graph is instantiated)
@@ -70,23 +74,28 @@ def capture(body, pool, stream) -> torch.cuda.CUDAGraph:
 def warm_and_capture(body, pool, stream, device) -> tuple:
     """Run ``body`` eagerly on ``stream``, then capture it there:
     (graph, its launch record, (seconds of the first use, of the capture)).
+    The seconds are the readings of the spans ``graph.first_use`` and
+    ``graph.capture``, on the profiler's clock: wall-clock time
+    (``CLOCK_REALTIME``), which a step of the system's clock would move.
     The caller's stream waits for both."""
     caller = torch.cuda.current_stream(device)
     stream.wait_stream(caller)
-    t0 = time.perf_counter()
-    with torch.cuda.stream(stream):
+    with tracing.timed("graph.first_use") as first, torch.cuda.stream(stream):
         body()
-    t1 = time.perf_counter()
-    with cuda_build.capturing(collections.Counter(), stream) as record:
+    with tracing.timed("graph.capture") as captured, \
+            cuda_build.capturing(collections.Counter(), stream) as record:
         graph = capture(body, pool, stream)
+    tracing.count("graph.captures")
     caller.wait_stream(stream)
-    return graph, record, (t1 - t0, time.perf_counter() - t1)
+    return graph, record, (first.seconds, captured.seconds)
 
 
 def replay(graph, record) -> None:
     """One replay of ``graph``, its launch record added to the counts."""
-    graph.replay()
+    with tracing.span("graph.replay"):
+        graph.replay()
     cuda_build.LAUNCHES.update(record)
+    tracing.count("graph.replays")
 
 
 def pool_bytes(pool) -> int | None:

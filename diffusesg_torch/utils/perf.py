@@ -1,17 +1,13 @@
-"""Performance utilities: FLOPs estimate, peak rate, device-memory probe, profiler hook.
+"""Performance utilities: FLOPs estimate, peak rate, device-memory probe.
 
 The port's copy of diffusesg_tpu/utils/perf.py.  ``estimate_model_flops``
 is the same analytic count (the reference's flops() methods,
 DiffuseSG/model/diffusesg/diffusesg.py:144-155,283-295,340-344,408-412,
-488-494,579-584); the peak table holds the card this port targets, the
-memory probe reads ``torch.cuda.memory_stats`` and the trace is
-``torch.profiler``'s.
+488-494,579-584); the peak table holds the card this port targets and the
+memory probe reads ``torch.cuda.memory_stats``.  Spans and counters are
+utils/tracing.py's.
 """
 from __future__ import annotations
-
-import contextlib
-import logging
-import os
 
 
 def estimate_model_flops(config) -> dict:
@@ -96,31 +92,3 @@ def device_memory_stats() -> dict:
             "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
         }
     return out
-
-
-def log_memory_status(keyword: str = "") -> None:
-    for dev, stats in device_memory_stats().items():
-        used = stats.get("bytes_in_use")
-        peak = stats.get("peak_bytes_in_use")
-        if used is not None:
-            logging.info("[%s] %s: in_use=%.1fMB peak=%.1fMB", keyword, dev,
-                         used / 2**20, (peak or 0) / 2**20)
-
-
-@contextlib.contextmanager
-def profile_trace(logdir: str, enabled: bool = True):
-    """``torch.profiler`` over the block (CPU, and the card's kernels when
-    there is one); writes a Chrome trace to ``<logdir>/trace.json``."""
-    if not enabled:
-        yield None
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
-    os.makedirs(logdir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -24,8 +24,8 @@ and writes rank 0's losses and gathered state to ``<out_dir>/tp.npz`` and a
 checkpoint to ``<out_dir>/tp_ckpt.pt``; ``compiled`` runs the ``shard_map``
 step eagerly and compiled (through tests/helpers/graph_stand_in.py) for
 ``COMPILED_STEPS`` steps from one start and the same draws, and writes both
-runs' metrics and final state, and the compiled step's graphs, to
-``<out_dir>/compiled_rank<r>.npz``; ``compiled_gspmd`` does the same for the
+runs' metrics and final state, the compiled step's graphs and both runs'
+spans (utils/tracing.py) to ``<out_dir>/compiled_rank<r>.npz``; ``compiled_gspmd`` does the same for the
 ``gspmd`` + ZeRO-1 train step and its test-pass step on the smallest-beta
 EMA (``<out_dir>/gspmd_rank<r>.npz``), saves the eager run's checkpoint
 (``<out_dir>/gspmd_ckpt.pt``) and steps on from it twice, once
@@ -149,6 +149,7 @@ def run_compiled(out_dir):
     from diffusesg_torch.parallel.shardmap_dp import make_shardmap_train_step
     from diffusesg_torch.sampling.edm_sampler import TorchNoise
     from diffusesg_torch.train import create_train_state, make_optimizer, train_step_config_from
+    from diffusesg_torch.utils import tracing
 
     world = current_world()
     cfg = tiny_config()
@@ -167,10 +168,15 @@ def run_compiled(out_dir):
                                        make_optimizer(LR, DECAY, SPE, WD))
             step = make_shardmap_train_step(state.model, step_cfg, world, compiled)
             noise = TorchNoise(5, "cpu").fold_in(world.rank)
-            for i in range(COMPILED_STEPS):
-                state, metrics = step(state, noise, *local)
-                for k, v in metrics.items():
-                    out[f"{tag}/step{i}/{k}"] = v.numpy()
+            tracing.clear()
+            with tracing.recording():
+                for i in range(COMPILED_STEPS):
+                    state, metrics = step(state, noise, *local)
+                    for k, v in metrics.items():
+                        out[f"{tag}/step{i}/{k}"] = v.numpy()
+            # each step's spans: (step, name, the stage of a collective)
+            out[f"spans_{tag}"] = np.asarray([(str(r.group[1]), r.name, r.attrs.get("stage", ""))
+                                              for r in tracing.records()])
             for n, p in state.model.named_parameters():
                 out[f"{tag}/param/{n}"] = p.detach().numpy().copy()
                 out[f"{tag}/grad/{n}"] = p.grad.numpy().copy()

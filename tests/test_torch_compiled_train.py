@@ -46,6 +46,7 @@ from diffusesg_torch.train.compiled import (CompiledEvalStep, CompiledTrainStep,
 from diffusesg_torch.train.train_step import draw_plan  # noqa: E402
 
 STEPS, SEED, BETAS, LR, DECAY, WD, SPE = 5, 3, [0.9, 0.999], 2e-3, 0.5, 1e-2, 2
+COMPILED_STEPS = 3  # tests/helpers/torch_dp_child.py's steps of the gloo pair
 COUNTS = [16, 11, 5, 2]
 
 
@@ -398,7 +399,9 @@ def test_shard_map_step_on_two_ranks(tmp_path):
     """The compiled ``shard_map`` step on two gloo ranks (the stand-in in
     each rank): two graphs per variant and one update graph around the
     all-reduce, bit-equal to the eager ``shard_map`` step (each rank writes
-    both runs; tests/helpers/torch_dp_child.py ``compiled``)."""
+    both runs; tests/helpers/torch_dp_child.py ``compiled``).  The compiled
+    step records one ``step.collective`` a step, the all-reduce's, inside
+    its ``step.call``; the eager one a ``step.call`` alone."""
     ranks = start_ranks(["compiled", str(tmp_path)], str(tmp_path / "logs"))
     wait_ranks(ranks)
     for r in range(2):
@@ -411,3 +414,9 @@ def test_shard_map_step_on_two_ranks(tmp_path):
             assert np.array_equal(eager[k], comp[k]), (r, k)
         assert sorted(str(g) for g in got["graphs"]) == ["backward:cond", "backward:no_cond",
                                                          "update"]
+        steps = [str(k) for k in range(COMPILED_STEPS)]
+        spans = [tuple(s) for s in got["spans_compiled"]]
+        assert [s for s in spans if s[1] == "step.collective"] == [
+            (k, "step.collective", "reduce") for k in steps]
+        assert [s for s in spans if s[1] == "step.call"] == [(k, "step.call", "") for k in steps]
+        assert [tuple(s) for s in got["spans_eager"]] == [(k, "step.call", "") for k in steps]
