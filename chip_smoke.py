@@ -305,7 +305,7 @@ def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-WGMMA_KERNELS = ("hgemm_kernel", "readout_kernel", "mlp_bwd_kernel")
+WGMMA_KERNELS = ("hgemm_kernel", "readout_kernel", "mlp_bwd_kernel", "token_mlp_kernel_wg")
 MM_KERNEL = "mm_accumulate_wgmma"  # K12: an instantiation per type, tile and K tail
 # the warpgroup MMA of each K12 instantiation: HGMMA for bf16 operands,
 # IGMMA for int8 ones; WMMA-era mma.sync (HMMA, IMMA) in none
@@ -315,8 +315,9 @@ MM_SASS = {"bf16": "HGMMA", "int8": "IGMMA"}
 def check_sass(lib_path) -> None:
     """The wgmma kernels of the built library issue wgmma: count the HGMMA
     instructions of every hgemm_kernel instantiation (the forward and
-    backward GEMM sites), of readout_kernel and of the fused MLP backward
-    mlp_bwd_kernel (cuobjdump -sass); and the port has one GEMM: no other
+    backward GEMM sites), of readout_kernel, of the fused MLP backward
+    mlp_bwd_kernel and of the fused MLP token_mlp_kernel_wg (every C;
+    cuobjdump -sass); and the port has one GEMM: no other
     *gemm_kernel is left in the library.  K12's mm_accumulate_wgmma: every
     bf16 instantiation issues HGMMA and every int8 one IGMMA, none issues a
     WMMA-era HMMA or IMMA, and no mm_accumulate_kernel is left."""
@@ -512,6 +513,14 @@ def kernel_cases(dev):
         w2, b2 = lin(n_out, hidden), rnd(n_out, scale=0.1)
         return lambda: F.linear(F.gelu(F.linear(a, w1, b1)), w2, b2)
 
+    def ln_mlp(m, c):
+        """The MLP half in PyTorch, bf16 (cuBLAS products): LayerNorm, fc1,
+        GELU, fc2 and the residual, the yardstick of token_mlp."""
+        a, g, bt = rnd(m, c), rnd(c, offset=1.0, scale=0.1), rnd(c, scale=0.1)
+        w1, b1, w2, b2 = lin(4 * c, c), rnd(4 * c, scale=0.1), lin(c, 4 * c), rnd(c, scale=0.1)
+        return lambda: a + F.linear(F.gelu(F.linear(F.layer_norm(a, (c,), g, bt, 1e-6), w1, b1)),
+                                    w2, b2)
+
     def mlp_args(c):
         return (rnd(c, dtype=f32, scale=0.1, offset=1.0), rnd(c, dtype=f32, scale=0.1),
                 lin(4 * c, c), rnd(4 * c, dtype=f32, scale=0.1), lin(c, 4 * c),
@@ -548,7 +557,8 @@ def kernel_cases(dev):
             args = (rnd(b, hw * hw, c),) + mlp_args(c)
             cases.append(Case("token_mlp", "token_mlp.cu", K8 if c == 768 else K1, mk.token_mlp,
                               mk.mlp_block_plain, args, 16 * m * c * c,
-                              2 * m * c * 2 + 8 * c * c * 2 + 6 * c * 4, fwd_tol, path))
+                              2 * m * c * 2 + 8 * c * c * 2 + 6 * c * 4, fwd_tol, path,
+                              library=ln_mlp(m, c)))
             # its backward: x and dout in; seven gradients out (K7 is the C=768 case)
             bargs = (args[0].reshape(m, c), rnd(m, c)) + args[1:6]
             cases.append(Case("token_mlp_bwd", "token_mlp_bwd.cu", K7 if c == 768 else K6,

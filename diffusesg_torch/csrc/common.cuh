@@ -1,11 +1,9 @@
 // Shared pieces of the Hopper kernels: small device helpers (erf-GELU,
 // SiLU, bf16 rounding, warp sums, read-only loads, cp.async), the mma.sync
-// pieces of the kernels that keep tiles in registers (the window cores, the
-// fused MLP), one LayerNorm row by one warp (`ln_row`, the fused MLP's
-// prologue; the wgmma GEMM's LayerNorm prologue hg::LnPanel repeats its
-// arithmetic on shared memory), and the two-source A operand of the wgmma
-// GEMM (GemmA).  Every GEMM of the port, forward and backward, runs on that
-// GEMM (hopper_gemm.cuh) or in a kernel of its own built from its pieces.
+// pieces of the kernels that keep tiles in registers (the window cores), and
+// the two-source A operand of the wgmma GEMM (GemmA).  Every GEMM of the
+// port, forward and backward, runs on that GEMM (hopper_gemm.cuh) or in a
+// kernel of its own built from its pieces.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -130,7 +128,7 @@ __device__ __forceinline__ void store8(bf16* p, const float v[8]) {
 //
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) with fragments loaded by
 // ldmatrix, for the kernels that keep intermediate tiles in registers (the
-// forward window core, the fused MLP).  Lane l holds, with g = l / 4 and
+// window cores).  Lane l holds, with g = l / 4 and
 // t = l % 4: of the 16x16 A tile a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..),
 // a[2] = (g, 2t+8..), a[3] = (g+8, 2t+8..); of the 16x8 B tile (k x n)
 // b[0] = (k 2t..2t+1, n g), b[1] = (k 2t+8.., n g); of the 16x8 fp32
@@ -151,13 +149,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
 __device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// two 8x8 matrices; lanes 0..15 give the row addresses
-__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 
@@ -182,69 +173,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ void load_a16(uint32_t a[4], const bf16* tile, int ld, int r0, int k0,
                                          int lane) {
   ldsm_x4(a, tile + (r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
-}
-
-// B fragments of two n-tiles (n0.., n0+8..) x k16 from an [n][k] row-major
-// tile (a Linear weight, or K of attention): {b0, b1} of n0, then of n0 + 8
-__device__ __forceinline__ void load_b16x2(uint32_t b[4], const bf16* tile, int ld, int n0,
-                                           int k0, int lane) {
-  ldsm_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 + ((lane >> 3) & 1) * 8);
-}
-
-// B fragment of one n-tile x k16 from an [n][k] row-major tile
-__device__ __forceinline__ void load_b16(uint32_t b[2], const bf16* tile, int ld, int n0, int k0,
-                                         int lane) {
-  ldsm_x2(b, tile + (n0 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
-}
-
-// ------------------------------------------------------- a LayerNorm row
-
-// A plain row-major bf16 [M, K] source.
-struct RowSrc {
-  const bf16* x;
-  int K;
-  __device__ void raw8(int m, int k, float v[8]) const { load8(x + (size_t)m * K + k, v); }
-};
-
-// LayerNorm of source row `row` by one warp, written in bf16 to `out` (the
-// row's first element, device or shared memory); the row is held in
-// registers (MAXV vectors of 8 per lane: K <= 256 * MAXV).
-template <class Src, int MAXV>
-__device__ __forceinline__ void ln_row(const Src& src, int row, int K, int lane,
-                                       const float* __restrict__ gamma,
-                                       const float* __restrict__ beta, bf16* out) {
-  float v[MAXV][8];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < MAXV; ++i) {
-    const int k = (i * 32 + lane) * 8;
-    if (k < K) {
-      src.raw8(row, k, v[i]);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) s += v[i][t];
-    }
-  }
-  const float mean = warp_sum(s) / K;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < MAXV; ++i) {
-    const int k = (i * 32 + lane) * 8;
-    if (k < K) {
-#pragma unroll
-      for (int t = 0; t < 8; ++t) q += (v[i][t] - mean) * (v[i][t] - mean);
-    }
-  }
-  const float rstd = rsqrtf(warp_sum(q) / K + kLnEps);
-#pragma unroll
-  for (int i = 0; i < MAXV; ++i) {
-    const int k = (i * 32 + lane) * 8;
-    if (k < K) {
-      float o[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) o[t] = (v[i][t] - mean) * rstd * gamma[k + t] + beta[k + t];
-      store8(out + k, o);
-    }
-  }
 }
 
 // ------------------------------------------------------- the GEMM operand

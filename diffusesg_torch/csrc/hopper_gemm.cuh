@@ -14,9 +14,9 @@
 //     (Tile::kAMn with kBMn): both operands [T, .] row-major, 64 tokens a
 //     box, K = tokens split over the grid's z into fp32 partials
 //     (PartialEpi) that reduce_partials (backward.cuh) adds in a fixed order.
-// readout (readout.cu), the fused MLP backward (token_mlp_bwd.cu) and the
-// int8 / bf16 micro-benchmark (mm_microbench.cu) are kernels of their own
-// built from the PTX pieces below.
+// readout (readout.cu), the fused MLP forward (token_mlp.cu) and backward
+// (token_mlp_bwd.cu) and the int8 / bf16 micro-benchmark (mm_microbench.cu)
+// are kernels of their own built from the PTX pieces below.
 //
 // A block is one or two consumer warpgroups and one producer warp.  The
 // producer's lane 0 streams 64-wide K slices of W by TMA (cp.async.bulk.tensor,
@@ -190,13 +190,15 @@ __device__ __forceinline__ bf16* swizzled(bf16* panel, int R, int r, int k) {
 
 // D (64 x N, fp32, the accumulator layout) += A (64 x 16) B (16 x N), both
 // from shared memory; TA / TB = 1 reads A / B MN-major (the transpose modes
-// of 16-bit types: M or N contiguous in shared memory)
+// of 16-bit types: M or N contiguous in shared memory).  scale_d = 0: D = A B,
+// D's old values unread (a first product needs no zeroed accumulator, which
+// ptxas would take for a write between in-flight wgmmas and serialize them)
 template <int N, int TA = 0, int TB = 0>
 struct Wgmma;
 
 template <int TA, int TB>
 struct Wgmma<16, TA, TB> {
-  __device__ static void mma(float (&d)[8], uint64_t da, uint64_t db) {
+  __device__ static void mma(float (&d)[8], uint64_t da, uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
@@ -205,13 +207,13 @@ struct Wgmma<16, TA, TB> {
         "}, "
         "%8, %9, p, 1, 1, %11, %12;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
 template <int TA, int TB>
 struct Wgmma<32, TA, TB> {
-  __device__ static void mma(float (&d)[16], uint64_t da, uint64_t db) {
+  __device__ static void mma(float (&d)[16], uint64_t da, uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -221,13 +223,13 @@ struct Wgmma<32, TA, TB> {
         "%16, %17, p, 1, 1, %19, %20;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
 template <int TA, int TB>
 struct Wgmma<64, TA, TB> {
-  __device__ static void mma(float (&d)[32], uint64_t da, uint64_t db) {
+  __device__ static void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -238,13 +240,13 @@ struct Wgmma<64, TA, TB> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
 template <int TA, int TB>
 struct Wgmma<96, TA, TB> {
-  __device__ static void mma(float (&d)[48], uint64_t da, uint64_t db) {
+  __device__ static void mma(float (&d)[48], uint64_t da, uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
@@ -258,13 +260,13 @@ struct Wgmma<96, TA, TB> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
 template <int TA, int TB>
 struct Wgmma<192, TA, TB> {
-  __device__ static void mma(float (&d)[96], uint64_t da, uint64_t db) {
+  __device__ static void mma(float (&d)[96], uint64_t da, uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
@@ -287,13 +289,13 @@ struct Wgmma<192, TA, TB> {
           "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
           "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
           "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
 template <int TA, int TB>
 struct Wgmma<128, TA, TB> {
-  __device__ static void mma(float (&d)[64], uint64_t da, uint64_t db) {
+  __device__ static void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -312,13 +314,13 @@ struct Wgmma<128, TA, TB> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
 template <int TA, int TB>
 struct Wgmma<256, TA, TB> {
-  __device__ static void mma(float (&d)[128], uint64_t da, uint64_t db) {
+  __device__ static void mma(float (&d)[128], uint64_t da, uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -349,7 +351,7 @@ struct Wgmma<256, TA, TB> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
@@ -367,6 +369,78 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[
         "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// the same at N columns (D 64 x N += A 64 x 16 from registers, B 16 x N
+// from shared memory, K-major): a[0..3] as above
+template <int N>
+struct WgmmaRs;
+
+template <>
+struct WgmmaRs<64> {
+  __device__ static void mma(float (&d)[32], const uint32_t* a, uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRs<96> {
+  __device__ static void mma(float (&d)[48], const uint32_t* a, uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRs<192> {
+  __device__ static void mma(float (&d)[96], const uint32_t* a, uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
 
 // -------------------------------------------------------------- the tiles
 
@@ -548,10 +622,10 @@ __device__ __forceinline__ float sq_dev8(const float v[8], float mean) {
 // rows at once in place, their loads and reductions interleaved (LPR = 16
 // puts two rows in a warp instruction where a row has at most 16 MAXV
 // vectors of 8): the source's `pre8` (the noise affine of swin_attn's qkv,
-// nothing for patch_merge's gather), then the row pass's arithmetic (ln_row,
-// common.cuh): fp32 statistics in two passes, mean then mean of squared
-// deviations (each vector of 8 summed as a pairwise tree), and one rounding
-// to bf16.  gamma and beta of a lane's columns
+// nothing for patch_merge's gather), then the model's LayerNorm: fp32
+// statistics in two passes, mean then mean of squared deviations (each
+// vector of 8 summed as a pairwise tree), and one rounding to bf16.  gamma
+// and beta of a lane's columns
 // are loaded once.  K <= 8 LPR MAXV.
 template <class Src, int MAXV, int ROWS, int LPR>
 struct LnPanel {

@@ -53,7 +53,7 @@ _F = ctypes.c_float
 # C signature of every entry point: pointers and the stream as c_void_p
 _SIGNATURES = {
     "dsg_swin_attn": [_P] * 13 + [_I] * 11 + [_P],
-    "dsg_token_mlp": [_P] * 9 + [_I] * 5 + [_P],
+    "dsg_token_mlp": [_P] * 9 + [_I] * 4 + [_P],
     "dsg_swin_attn_bwd": [_P] * 28 + [_I] * 17 + [_P],
     "dsg_token_mlp_bwd": [_P] * 20 + [_I] * 13 + [_P],
     "dsg_readout": [_P] * 6 + [_I] * 5 + [_P],

@@ -2,9 +2,9 @@
 
 Counterpart of diffusesg_tpu/ops/mlp_block_kernel.py.  ``token_mlp`` is a
 ``torch.autograd.Function``: on a CUDA tensor its forward is the
-hand-written kernel ``token_mlp`` (csrc/token_mlp.cu, one fused launch in
-which the [M, 4C] hidden stays on chip, plus a closing pass where the hidden
-dimension is split across blocks), which serves every
+hand-written kernel ``token_mlp`` (csrc/token_mlp.cu, one fused wgmma launch
+in which the [M, 4C] hidden stays on chip, plus a closing pass where a
+tile's hidden chunks are cut between blocks, ``mlp_fwd_plan``), which serves every
 Swin block's MLP half (the TPU's ``fused_mlp_block`` and the MLP half of
 ``fused_swin_block_v3``), and its backward the kernel ``token_mlp_bwd``
 (csrc/token_mlp_bwd.cu; the TPU's ``_mlp_bwd_kernel`` and, at C = 768,
@@ -121,11 +121,12 @@ def _checked(x, ln_gamma, ln_beta, w1, b1, w2):
 
 
 @functools.lru_cache(maxsize=None)
-def mlp_tile(c: int) -> tuple[int, int, int]:
+def mlp_tile(c: int) -> tuple[int, int, int, int]:
     """The fused forward kernel's tile at C, from the library
     (csrc/token_mlp.cu MlpConfig): token rows a block, hidden columns a
-    chunk, and the blocks an SM holds (the card's occupancy)."""
-    geom = (ctypes.c_int * 3)()
+    chunk, the blocks an SM holds (the card's occupancy), and the column
+    groups a row tile's fc2 columns are cut into, a block each (2 at C768)."""
+    geom = (ctypes.c_int * 4)()
     rc = cuda_build.lib().dsg_token_mlp_tile(c, geom)
     if rc == -1:
         raise ValueError(f"token_mlp is not built for C={c}")
@@ -133,17 +134,67 @@ def mlp_tile(c: int) -> tuple[int, int, int]:
     return tuple(geom)
 
 
-def mlp_fwd_plan(m: int, hidden: int, tile: tuple[int, int, int],
-                 sms: int = 132) -> dict[str, int]:
-    """Grid plan of the fused ``token_mlp``: into how many ``splits`` of
-    ``chunks`` hidden chunks each to cut the hidden dimension, so that the
-    row tiles times the splits fill about one wave of resident blocks
-    (``sms`` x the blocks an SM holds) without passing it.  ``tile`` is
-    ``mlp_tile(C)``.  Every split gets at least one chunk; one split (no
-    partials) when the row tiles alone fill the wave."""
-    rows, chunk, per_sm = tile
-    splits, per = cuda_build.wave_split(-(-m // rows), hidden // chunk, per_sm, sms)
-    return dict(splits=splits, chunks=per)
+# What a tile's fixed work (LN2 prologue, ramp, epilogue) and the closing
+# pass cost, in hidden chunks' time: on the H100 3.5-7 and 3-5.5 from C96 to
+# C384 (PERF.md §6, PR 19).  mlp_fwd_plan weighs them where whole tiles
+# leave more than 1 - WHOLE_TILE_FILL of the card's slots idle.
+SEGMENT_CHUNKS = 5
+CLOSE_CHUNKS = 4
+WHOLE_TILE_FILL = 0.9
+
+
+def mlp_units(m: int, hidden: int, tile) -> tuple[int, int]:
+    """(tiles, hidden chunks a tile) of ``token_mlp`` over ``m`` tokens: a
+    tile is a row tile's column group, and the launch's units are tiles x
+    chunks, unit u = (u // chunks, u % chunks)."""
+    return -(-m // tile[0]) * tile[3], hidden // tile[1]
+
+
+def mlp_plan_costs(tiles: int, chunks: int, slots: int) -> tuple[float, float]:
+    """(whole, cut): the time of ``tiles`` x ``chunks`` units on ``slots``
+    block slots, in chunks, with one block a whole tile (waves of a tile's
+    chunks and fixed work), and with every slot taking an even share of the
+    units (its chunks, the fixed work of every tile it touches, and the
+    closing pass)."""
+    blocks, units = min(slots, tiles * chunks), tiles * chunks
+    whole = -(-tiles // slots) * (chunks + SEGMENT_CHUNKS)
+    cut = -(-units // blocks) + SEGMENT_CHUNKS * (tiles / blocks + 1) + CLOSE_CHUNKS
+    return whole, cut
+
+
+def mlp_fwd_plan(m: int, hidden: int, tile: tuple[int, ...], sms: int = 132) -> dict[str, int]:
+    """Grid plan of the fused ``token_mlp`` over ``m`` tokens: ``blocks``
+    blocks take even, ordered shares of the ``tiles`` x ``chunks`` units
+    (``mlp_units``); ``split`` is 1 where a tile is cut between blocks, which
+    then write fp32 partials (two slots a block) that a closing pass adds in
+    block order.  ``tile`` is ``mlp_tile(C)``.  The card has ``sms`` x the
+    blocks an SM holds slots (132 x 1 on the H100).  The plan takes one block
+    a whole tile where whole tiles keep ``WHOLE_TILE_FILL`` of the slots busy
+    over their waves; else that or cut tiles, so that every slot is busy to
+    the end, whichever ``mlp_plan_costs`` finds cheaper.
+
+    - Whole tiles that fill their waves at the benchmark's shapes at batch
+      64: VG M = 262,144 / 65,536 / 16,384 / 4,096 at C96 / C192 / C384 /
+      C768 (2048 / 512 / 256 / 128 tiles, 0.97 of 16 / 4 / 2 / 1 waves; last
+      waves of 68 / 116 / 124 / 128 blocks), and training at 1000 graphs
+      (16x the VG rows, 0.97-0.997): a cut would add partials and a closing
+      pass for under a tenth of idle slots.
+    - Whole tiles, the cheaper, at COCO M = 25,600 / 6,400 at C192 / C384
+      (200 / 100 tiles, last waves of 68 / 100 blocks).  Cutting them fills
+      every SM but costs more: on the H100 at 700 W, device time 87.5 us
+      (76.0 in the kernel, 11.5 in the closing pass) against 77.8 whole at
+      C192, 68.3 (57.8 + 10.5) against 59.0 at C384: nearly every block gets
+      a second tile's fixed work.
+    - Cut tiles at COCO M = 102,400 at C96 (800 tiles, 0.87 of 7 waves: 132
+      blocks of 36-37 units; 121.3 us against 129.0 whole), and where tiles
+      are few against the slots (VG's C384 and C768 at batch 16: 64 and 32
+      tiles)."""
+    tiles, chunks = mlp_units(m, hidden, tile)
+    slots = sms * tile[2]
+    whole, cut = mlp_plan_costs(tiles, chunks, slots)
+    fills = tiles >= WHOLE_TILE_FILL * -(-tiles // slots) * slots
+    blocks = tiles if fills or whole <= cut else min(slots, tiles * chunks)
+    return dict(blocks=blocks, tiles=tiles, chunks=chunks, split=int(tiles % blocks != 0))
 
 
 def token_mlp_fwd(x, ln_gamma, ln_beta, w1, b1, w2, b2):
@@ -160,13 +211,14 @@ def token_mlp_fwd(x, ln_gamma, ln_beta, w1, b1, w2, b2):
                          f"{tile[1]}; got C={c} hidden={hidden}")
     plan = mlp_fwd_plan(m, hidden, tile, cuda_build.sm_count(x.device))
     part = None
-    if plan["splits"] > 1:
-        part = torch.empty((plan["splits"], m, c), dtype=torch.float32, device=x.device)
+    if plan["split"]:
+        part = torch.empty((2 * plan["blocks"], tile[0], c // tile[3]), dtype=torch.float32,
+                           device=x.device)
     out = torch.empty_like(xf)
     p = cuda_build.ptr
     cuda_build.launch(NAME, x.device, "dsg_token_mlp",
                       p(xf), p(g), p(bt), p(w1), p(b1), p(w2), p(b2), p(part), p(out), m, c,
-                      hidden, plan["splits"], plan["chunks"])
+                      hidden, plan["blocks"])
     cuda_build.count_launch(NAME, f"C{c}")
     return out.reshape(x.shape)
 

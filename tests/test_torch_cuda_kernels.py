@@ -82,17 +82,27 @@ def test_swin_attn_kernel(cuda, hw, heads, shift, b):
     _bit_equal_again(sw.swin_attn, *args)
 
 
-# (C, tokens): no token count is a multiple of the row tile; the smaller
-# counts take the hidden-split path (fp32 partials and a closing pass), the
-# larger ones fill the card with row tiles alone
-@pytest.mark.parametrize("c,m,split", [(64, 200, True), (96, 300, True), (96, 40000, False),
-                                       (192, 1000, True), (192, 20000, False),
-                                       (384, 520, True), (384, 9000, False),
-                                       (768, 100, True), (768, 5000, False)])
+# (C, tokens): the ragged counts are no multiple of the row tile; `split`:
+# tiles are cut between blocks (fp32 partials and a closing pass), where
+# whole tiles would leave the card idle and the cut costs less
+# (mlp_fwd_plan); else every block takes a whole tile.  Then the benchmark's
+# shapes: every MLP launch of a VG and a COCO evaluation at batch 64
+@pytest.mark.parametrize("c,m,split", [(64, 200, False), (96, 300, True), (96, 40000, False),
+                                       (96, 16600, False), (192, 1000, True),
+                                       (192, 20000, True), (384, 520, True),
+                                       (384, 9000, True), (768, 100, True),
+                                       (768, 5000, True), (768, 4022, False),
+                                       (64, 540 * 128 - 37, False), (96, 540 * 128 - 37, True),
+                                       (192, 540 * 128 - 37, True), (384, 540 * 64 - 37, True),
+                                       (768, 270 * 64 - 37, True),
+                                       (96, 64 * 4096, False), (192, 64 * 1024, False),
+                                       (384, 64 * 256, False), (768, 64 * 64, False),
+                                       (96, 64 * 1600, True), (192, 64 * 400, False),
+                                       (384, 64 * 100, False)])
 def test_token_mlp_kernel(cuda, c, m, split):
     torch.manual_seed(c)
     plan = mk.mlp_fwd_plan(m, 4 * c, mk.mlp_tile(c), cuda_build.sm_count(cuda))
-    assert (plan["splits"] > 1) == split, plan
+    assert bool(plan["split"]) == split, plan
     args = (_rnd(cuda, m, c), _vec(cuda, c, 1.0), _vec(cuda, c), _lin(cuda, 4 * c, c),
             _vec(cuda, 4 * c), _lin(cuda, c, 4 * c), _vec(cuda, c))
     _check("token_mlp", mk.token_mlp, mk.mlp_block_plain, *args)

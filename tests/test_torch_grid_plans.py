@@ -15,7 +15,11 @@ blocks.  On the card the wrappers read the blocks an SM holds, and the tiles,
 from the built library; here the plans get the H100 build's values, the
 GEMM tiles through a stub of the library's queries.
 """
+import ast
+import collections
+import json
 import os
+import re
 import sys
 
 import pytest
@@ -36,9 +40,10 @@ import h100_tiles  # noqa: E402
 H100_SMS = 132
 # blocks of the window core an SM holds on the H100, by window length
 CORE_PER_SM = {64: 4, 100: 2}
-# the fused MLP's tile on the H100 by C: token rows, hidden chunk, blocks an SM
-MLP_TILE = {64: (128, 64, 2), 96: (128, 64, 2), 192: (64, 64, 2), 384: (64, 64, 1),
-            768: (32, 32, 1)}
+# the fused MLP's tile on the H100 by C: token rows, hidden chunk, blocks an
+# SM, and the column groups a row tile's fc2 columns are cut into (a block each)
+MLP_TILE = {64: (128, 64, 1, 1), 96: (128, 64, 1, 1), 192: (128, 64, 1, 1), 384: (64, 64, 1, 1),
+            768: (64, 64, 1, 2)}
 
 
 def window_runs(n_windows: int, classes: int, wpb: int):
@@ -105,42 +110,176 @@ MLP_CASES = [(16 * 4096, 96), (16 * 1024, 192), (16 * 256, 384), (16 * 64, 768),
              (16 * 1600, 96), (16 * 400, 192), (16 * 100, 384), (66 * 64, 384),
              (64 * 1024, 192), (64 * 256, 384), (64 * 64, 768), (64 * 100, 384),
              (200, 64), (300, 96), (1000, 192), (520, 384), (100, 768), (1, 96), (33, 768),
-             (40000, 96), (20000, 192), (9000, 384), (5000, 768)]
+             (40000, 96), (20000, 192), (9000, 384), (5000, 768),
+             # 540 tiles: 0.82 of 5 waves, so the plan cuts them
+             (540 * 128 - 37, 64), (540 * 128 - 37, 96), (540 * 128 - 37, 192),
+             (540 * 64 - 37, 384), (270 * 64 - 37, 768)]
+# (tokens, C): the benchmark's shapes, every MLP launch of a sampling
+# evaluation at batch 64 (VG, then COCO) and of a training forward at 1000
+# graphs (VG)
+MLP_BENCH_CASES = [(64 * 4096, 96), (64 * 1024, 192), (64 * 256, 384), (64 * 64, 768),
+                   (64 * 1600, 96), (64 * 400, 192), (64 * 100, 384),
+                   (1000 * 4096, 96), (1000 * 1024, 192), (1000 * 256, 384), (1000 * 64, 768)]
 
 
-@pytest.mark.parametrize("m,c", MLP_CASES)
+def mlp_segments(m, c):
+    """The units of each block of token_mlp's plan, as the kernels read their
+    block index (csrc/token_mlp.cu, Units): [(tile, first chunk, end
+    chunk, partial slot or None)] a block, a slot for a part of a tile:
+    2b for the tile block b begins in, 2b + 1 for the next."""
+    plan = mlp_fwd_plan(m, 4 * c, MLP_TILE[c], H100_SMS)
+    n, units = plan["chunks"], plan["tiles"] * plan["chunks"]
+    blocks = []
+    for b in range(plan["blocks"]):
+        u0, u1 = b * units // plan["blocks"], (b + 1) * units // plan["blocks"]  # Units::start
+        segs = []
+        for t in range(u0 // n, -(-u1 // n)):
+            lo, hi = max(u0, t * n) - t * n, min(u1, (t + 1) * n) - t * n
+            whole = (lo, hi) == (0, n)
+            segs.append((t, lo, hi, None if whole else 2 * b + (t != u0 // n)))
+        blocks.append(segs)
+    return plan, blocks
+
+
+def mlp_closes(plan):
+    """The row tiles the closing pass adds, as mlp_close_kernel reads its block
+    index: {row tile: the main launch's blocks whose partials it adds, in
+    order}."""
+    n, units, g = plan["chunks"], plan["tiles"] * plan["chunks"], plan["blocks"]
+    out = {}
+    for i in range(g):
+        u0, u1 = i * units // g, (i + 1) * units // g
+        t = (u1 - 1) // n
+        if t * n < u0 or (t + 1) * n <= u1:
+            continue
+        last = -(-((t + 1) * n) * g // units) - 1  # Units::block_of((t + 1) n - 1)
+        out[t] = list(range(i, last + 1))
+    return out
+
+
+@pytest.mark.parametrize("m,c", MLP_CASES + MLP_BENCH_CASES)
 def test_mlp_fwd_plan_covers_every_hidden_chunk_once(m, c):
-    hidden = 4 * c
-    n_chunks = hidden // MLP_TILE[c][1]
-    plan = mlp_fwd_plan(m, hidden, MLP_TILE[c], H100_SMS)
-    splits, per = plan["splits"], plan["chunks"]
-    parts = [range(s * per, min((s + 1) * per, n_chunks)) for s in range(splits)]
-    assert all(len(p) > 0 for p in parts), "an empty split"
-    assert sorted(i for p in parts for i in p) == list(range(n_chunks))
+    """Every (tile, hidden chunk) is taken by exactly one block, no block is
+    empty, and the tiles are every row tile's column groups (C768: two)."""
+    plan, blocks = mlp_segments(m, c)
+    rows, chunk, _, groups = MLP_TILE[c]
+    assert plan["tiles"] == -(-m // rows) * groups and plan["chunks"] == 4 * c // chunk
+    assert all(any(hi > lo for _, lo, hi, _ in segs) for segs in blocks), "an empty block"
+    seen = collections.Counter((t, j) for segs in blocks for t, lo, hi, _ in segs
+                               for j in range(lo, hi))
+    assert len(seen) == plan["tiles"] * plan["chunks"] and set(seen.values()) == {1}
+    # every row tile's fc2 columns: its column groups are tiles t // groups
+    assert {t // groups for t, _ in seen} == set(range(-(-m // rows)))
 
 
-@pytest.mark.parametrize("m,c", MLP_CASES)
+@pytest.mark.parametrize("m,c", MLP_CASES + MLP_BENCH_CASES)
+def test_mlp_fwd_plan_reduces_partials_in_a_fixed_order(m, c):
+    """A row tile cut between blocks is added by exactly one block of the
+    closing pass, from each block's own slot, in block order, which is the
+    order of its hidden chunks; a whole row tile is written by its one block
+    and never closed.  ``split`` says whether partials exist at all."""
+    plan, blocks = mlp_segments(m, c)
+    parts = collections.defaultdict(list)
+    for b, segs in enumerate(blocks):
+        for t, lo, hi, slot in segs:
+            if slot is not None:
+                parts[t].append((b, lo, hi, slot))
+    closes = mlp_closes(plan)
+    assert set(closes) == set(parts)
+    assert plan["split"] == int(bool(parts))
+    slots = [slot for pieces in parts.values() for _, _, _, slot in pieces]
+    assert len(set(slots)) == len(slots) and all(0 <= s < 2 * plan["blocks"] for s in slots)
+    for t, pieces in parts.items():
+        assert closes[t] == [b for b, _, _, _ in pieces]
+        chunks = [j for _, lo, hi, _ in pieces for j in range(lo, hi)]
+        assert chunks == list(range(plan["chunks"]))  # ascending: a fixed order of the sums
+
+
+def whole_tiles_chosen(plan, slots):
+    """mlp_fwd_plan's choice: whole tiles where they fill their waves to
+    WHOLE_TILE_FILL, or cost no more than cut ones (mlp_plan_costs)."""
+    tiles, chunks = plan["tiles"], plan["chunks"]
+    whole, cut = mk.mlp_plan_costs(tiles, chunks, slots)
+    return tiles >= mk.WHOLE_TILE_FILL * -(-tiles // slots) * slots or whole <= cut
+
+
+@pytest.mark.parametrize("m,c", MLP_CASES + MLP_BENCH_CASES)
 def test_mlp_fwd_plan_aims_at_one_wave(m, c):
-    rows, _, per_sm = MLP_TILE[c]
-    slots = H100_SMS * per_sm
-    tiles = -(-m // rows)  # the last row tile is ragged when rows does not divide m
-    splits = mlp_fwd_plan(m, 4 * c, MLP_TILE[c], H100_SMS)["splits"]
-    if tiles > slots // 2:
-        assert splits == 1  # the row tiles alone fill the card: no partials
+    """Whole tiles, one block each, where they fill their waves or cost no
+    more; else the blocks take even shares of every unit, one a slot."""
+    slots = H100_SMS * MLP_TILE[c][2]
+    plan, blocks = mlp_segments(m, c)
+    if whole_tiles_chosen(plan, slots):
+        assert plan["blocks"] == plan["tiles"] and not plan["split"]
     else:
-        assert splits > 1 and tiles * splits <= slots
-        n_chunks = 4 * c // MLP_TILE[c][1]
-        assert splits == n_chunks or 2 * tiles * splits > slots
+        assert plan["blocks"] == min(slots, plan["tiles"] * plan["chunks"])
+        shares = [sum(hi - lo for _, lo, hi, _ in segs) for segs in blocks]
+        assert max(shares) - min(shares) <= 1
+
+
+@pytest.mark.parametrize("m,c", MLP_BENCH_CASES)
+def test_mlp_fwd_plan_fills_the_card_at_the_benchmark_shapes(m, c):
+    """At the benchmark's shapes the grid keeps at least 128 of the 132 SMs
+    busy in its last wave, or says why it cannot (mlp_fwd_plan's docstring):
+    its whole tiles fill their waves to WHOLE_TILE_FILL, or cutting them
+    would cost more than the idle SMs (mlp_plan_costs)."""
+    slots = H100_SMS * MLP_TILE[c][2]
+    plan, blocks = mlp_segments(m, c)
+    if plan["split"]:
+        assert plan["blocks"] == slots  # every SM until its share is done
+    else:
+        last = plan["tiles"] % slots or slots
+        assert last >= 128 or whole_tiles_chosen(plan, slots)
 
 
 def test_mlp_fwd_plan_splits_where_the_rows_do_not_fill_the_card():
-    """The shapes whose row tiles under-fill the card at batch 16 (VG's C384
-    and C768, COCO's 10x10 stage) split the hidden dimension; VG's C96 does
-    not."""
-    assert mlp_fwd_plan(16 * 256, 1536, MLP_TILE[384])["splits"] > 1
-    assert mlp_fwd_plan(16 * 64, 3072, MLP_TILE[768])["splits"] > 1
-    assert mlp_fwd_plan(16 * 100, 1536, MLP_TILE[384])["splits"] > 1
-    assert mlp_fwd_plan(16 * 4096, 384, MLP_TILE[96])["splits"] == 1
+    """The plan cuts tiles where whole ones leave the card idle and the cut
+    costs less: COCO's C96 at batch 64 (800 row tiles, 0.87 of 7 waves,
+    become 132 even shares), VG's C384 and C768 at batch 16 (64 and 32
+    tiles).  It keeps whole tiles where the cut costs more than the idle SMs
+    (COCO's C192 and C384 at batch 64: 200 and 100 tiles) and where they
+    fill their waves (VG at batch 64, C768's 64 row tiles in two column
+    groups each; training at 1000 graphs)."""
+    assert mlp_fwd_plan(64 * 1600, 384, MLP_TILE[96]) == dict(blocks=132, tiles=800, chunks=6,
+                                                              split=1)
+    assert mlp_fwd_plan(64 * 100, 1536, MLP_TILE[384]) == dict(blocks=100, tiles=100, chunks=24,
+                                                               split=0)
+    assert mlp_fwd_plan(64 * 400, 768, MLP_TILE[192])["blocks"] == 200
+    assert mlp_fwd_plan(16 * 256, 1536, MLP_TILE[384])["blocks"] == 132
+    assert mlp_fwd_plan(16 * 64, 3072, MLP_TILE[768]) == dict(blocks=132, tiles=32, chunks=48,
+                                                              split=1)
+    for m, c in ((64 * 4096, 96), (64 * 1024, 192), (64 * 256, 384), (64 * 64, 768),
+                 (1000 * 4096, 96), (1000 * 256, 384), (1000 * 64, 768)):
+        plan = mlp_fwd_plan(m, 4 * c, MLP_TILE[c])
+        assert plan["split"] == 0 and plan["blocks"] == plan["tiles"]
+
+
+# ------------------------------------------------- the names the profile reads
+
+def test_token_mlp_kernels_keep_the_names_the_profile_attributes():
+    """Every __global__ function of csrc/token_mlp.cu is named with a fragment
+    that chip_smoke.py's KERNEL_OF and the benchmark's device-time tables
+    (benchmark/metrics/*.json) attribute to token_mlp: token_mlp_kernel (the
+    fused kernels, the design in the template arguments) or mlp_close_kernel
+    (the closing pass).  Reads the sources; builds nothing."""
+    root = os.path.join(os.path.dirname(__file__), "..")
+    src = open(os.path.join(root, "diffusesg_torch", "csrc", "token_mlp.cu")).read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
+    assert set(names) == {"token_mlp_kernel_wg", "mlp_close_kernel"}
+    fragments = ("token_mlp_kernel", "mlp_close_kernel")
+    assert all(any(f in name for f in fragments) for name in names)
+    tree = ast.parse(open(os.path.join(root, "chip_smoke.py")).read())
+    kernel_of = next(ast.literal_eval(node.value) for node in tree.body
+                     if isinstance(node, ast.Assign)
+                     and any(getattr(t, "id", None) == "KERNEL_OF" for t in node.targets))
+    tables = [dict(kernel_of)] + [
+        dict(json.load(open(os.path.join(root, "benchmark", "metrics", f)))["table"])
+        for f in ("swin_fwd_roofline.json", "torch_ops_pct.train.json")]
+    for table in tables:
+        assert all(table.get(f) == "token_mlp" for f in fragments)
+        # the first fragment a name holds decides: none of the others is in them
+        for name in names:
+            assert next(f for f in table if f in name) in fragments
 
 
 # ------------------------------------------------------------ the Hopper GEMM
