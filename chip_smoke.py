@@ -7,7 +7,8 @@
 Phases, each printed on its own line:
   1. the card (nvidia-smi name and power limit), the kernels' nvcc build, and
      the built library's SASS: every wgmma kernel (each hgemm_kernel, the
-     readout_kernel and the fused MLP backward mlp_bwd_kernel) must issue
+     readout_kernel and its output head readout_kernel_head, patch_embed_kernel
+     and the fused MLP backward mlp_bwd_kernel) must issue
      HGMMA instructions, and no other GEMM kernel may be in the library;
      the micro-benchmark's mm_accumulate_wgmma must issue HGMMA (bf16) and
      IGMMA (int8) and no WMMA-era HMMA / IMMA;
@@ -21,6 +22,9 @@ Phases, each printed on its own line:
      the launch counters of the kernels it launches; kernel and plain times,
      the roofline bound from the shapes and, where a PyTorch library call
      computes the same function, the time of that library doing the same work;
+     the denoiser's two full-resolution ends (patch_embed and the output
+     head, readout at its "head" shapes) at VG's and COCO's grids, self-
+     conditioning on, padded node counts;
      for swin_attn, patch_merge, patch_breakup, readout, swin_attn_bwd and
      token_mlp_bwd also the device time and count of each of their launches
      (torch.profiler) beside a yardstick of the same products in PyTorch
@@ -37,7 +41,8 @@ Phases, each printed on its own line:
      steps; every kernel's launch count must move, the decoded graphs must be
      in range with zero padding, and the card's denoiser must agree with the
      fp32 plain model on the CPU on a small input; then ms per denoiser eval
-     at batch 16 and 64;
+     at batch 16 and 64, and the profile of one batch-64 eval, in which no
+     PyTorch LayerNorm may run (the two ends are patch_embed and the head);
   4. the training slice: the same model takes 8 training steps at batch 64
      through ``go_training`` (its compiled step, train/compiled.py, since
      phase 13's slice; its graphs are read) on synthetic scene graphs (seed
@@ -238,6 +243,8 @@ K9 = "diffusesg_tpu/ops/swin_full_block.py:123"
 K10 = "diffusesg_tpu/ops/swin_block_kernel.py:81"
 K11 = "diffusesg_tpu/ops/window_attention.py:47"
 K12 = "scripts/microbench_int8.py:17"
+# the denoiser's entry replaces no TPU kernel: XLA composes it there
+PE = "none (diffusesg_tpu/models/layers.py::PatchEmbed, XLA's composition)"
 VG = dict(tag="VG", path="vg", config="configs/edm_diffuse_sg_regular_visual_genome.yaml",
           params=35_808_848, node_types=150, edge_types=51, requests=[64, 40, 12, 5],
           small=(64, 23), blocks=12)
@@ -305,7 +312,8 @@ def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-WGMMA_KERNELS = ("hgemm_kernel", "readout_kernel", "mlp_bwd_kernel", "token_mlp_kernel_wg")
+WGMMA_KERNELS = ("hgemm_kernel", "readout_kernel", "mlp_bwd_kernel", "token_mlp_kernel_wg",
+                 "patch_embed_kernel")
 MM_KERNEL = "mm_accumulate_wgmma"  # K12: an instantiation per type, tile and K tail
 # the warpgroup MMA of each K12 instantiation: HGMMA for bf16 operands,
 # IGMMA for int8 ones; WMMA-era mma.sync (HMMA, IMMA) in none
@@ -417,6 +425,7 @@ def kernel_cases(dev):
     from diffusesg_torch.models.layers import shifted_window_attn_mask
     from diffusesg_torch.ops import mlp_block_kernel as mk
     from diffusesg_torch.ops import mm_microbench as mm
+    from diffusesg_torch.ops import patch_embed as pe
     from diffusesg_torch.ops import patch_resample as pr
     from diffusesg_torch.ops import readout_kernel as rk
     from diffusesg_torch.ops import swin_block_kernel as sk
@@ -605,6 +614,31 @@ def kernel_cases(dev):
                               + (96 + n_out) * 4, (2e-2, 2e-2, 0.0), path,
                               gemms=(("readout", "readout_kernel",
                                       two_linear(m, 96, 96, n_out)),)))
+        # the full-resolution ends over B*N*N rows, self-conditioning on (22
+        # input channels), the batch's node counts 2..N: patch_embed writes
+        # 192 bytes a row from the inputs (products K = 32, padded), the head
+        # reads 192 and writes 4 bytes a row and the pooling's partials
+        m = b * n * n
+        counts = torch.randint(2, n + 1, (b,), generator=gen, device=dev)
+        flags = torch.arange(n, device=dev)[None, :] < counts[:, None]
+        adj, node = rnd(b, n, n, 1, dtype=f32), rnd(b, n, 5, dtype=f32)
+        args = (adj, node, flags, adj * 0.5, node * 0.5, lin(96, 22), rnd(96, scale=0.1),
+                rnd(96, dtype=f32, scale=0.1, offset=1.0), rnd(96, dtype=f32, scale=0.1),
+                rnd(b, 192, scale=0.5), True)
+        cases.append(Case("patch_embed", "patch_embed.cu", PE, pe.patch_embed,
+                          pe.patch_embed_plain, args, 2 * m * 32 * 96,
+                          m * (96 * 2 + 2 * 4) + b * n * 10 * 4 + 96 * 22 * 2 + b * 192 * 2,
+                          fwd_tol, path,
+                          gemms=(("patch_embed", "patch_embed_kernel", None),)))
+        args = (rnd(b, n, n, 96, scale=2.0, offset=0.5),
+                rnd(96, dtype=f32, scale=0.1, offset=1.0), rnd(96, dtype=f32, scale=0.1),
+                lin(96, 96), rnd(96, scale=0.1), lin(96, 96), rnd(96, scale=0.1), lin(96, 96),
+                rnd(96, scale=0.1), lin(96, 96), rnd(96, dtype=f32, scale=0.1), lin(1, 96),
+                rnd(1, dtype=f32, scale=0.1), flags)
+        cases.append(Case("readout", "readout.cu", K4, rk.output_head, rk.output_head_plain,
+                          args, 2 * m * 96 * (4 * 96 + 1),
+                          m * (96 * 2 + 4) + b * n * 2 * 96 * 4 + 4 * 96 * 96 * 2, fwd_tol, path,
+                          gemms=(("output head", "readout_kernel_head", None),)))
 
     # window_attention (K11): [B * nW, nH, L, 32] at a VG and a COCO stage each,
     # with and without the shift mask, one with a scale that is not hd^-0.5
@@ -878,7 +912,8 @@ def check_slice(dev, smi: str, spec=VG):
         f"{sampler.num_steps} Heun steps ({evals} denoiser evals each) in {wall:.2f} s; "
         f"launches {json.dumps(by_kernel, sort_keys=True)}; box coordinates in [0, 1]: "
         f"{in_box[0]:.1%} and {in_box[1]:.1%}")
-    for name in ("swin_attn", "token_mlp", "patch_merge", "patch_breakup", "readout"):
+    for name in ("swin_attn", "token_mlp", "patch_merge", "patch_breakup", "readout",
+                 "patch_embed"):
         if by_kernel.get(name, 0) == 0:
             fail(f"the main path never launched {name}")
     edges = int((outs[1][0] > 0).sum())
@@ -1544,7 +1579,8 @@ def check_small_config(dev) -> None:
 
 EVAL_GRAPHS = 64
 EVAL_STEPS = 16
-FORWARD_KERNELS = ("swin_attn", "token_mlp", "patch_merge", "patch_breakup", "readout")
+FORWARD_KERNELS = ("swin_attn", "token_mlp", "patch_merge", "patch_breakup", "readout",
+                   "patch_embed")
 MMD_KEYS = ("node_degree_mmd_gaussian", "node_average_mmd_gaussian", "node_type_mmd_gaussian",
             "edge_type_mmd_gaussian")
 # the JAX package's metric block (diffusesg_tpu/sampling/orchestrator.py:433-505)
@@ -2571,7 +2607,8 @@ MULTI_STEPS = 16
 MULTI_BATCH = 16
 MULTI_SEED = 21
 MULTI_TRAIN_BATCH = 16
-SHARD_KERNELS = ("swin_attn", "token_mlp", "patch_merge", "patch_breakup", "readout")
+SHARD_KERNELS = ("swin_attn", "token_mlp", "patch_merge", "patch_breakup", "readout",
+                 "patch_embed")
 
 
 def _sharded_serving(dev, smi: str) -> dict:
@@ -4074,7 +4111,8 @@ KERNEL_OF = (("window_attn_bwd_kernel", "swin_attn_bwd"), ("SwinBwd", "swin_attn
              ("token_mlp_kernel", "token_mlp"), ("mlp_close_kernel", "token_mlp"),
              ("MergeProj", "patch_merge"),
              ("BreakupIn", "patch_breakup"), ("breakup_rows_kernel", "patch_breakup"),
-             ("BreakupOut", "patch_breakup"), ("readout_kernel", "readout"))
+             ("BreakupOut", "patch_breakup"), ("readout_kernel", "readout"),
+             ("patch_embed_kernel", "patch_embed"))
 # device functions printed under their own names beside their kernel's total:
 # the parts of the redesigned kernels (label, name fragment, kernel)
 PARTS = (("window core", "window_attn_kernel<", "swin_attn"),
@@ -4084,6 +4122,7 @@ PARTS = (("window core", "window_attn_kernel<", "swin_attn"),
          ("breakup first GEMM", "BreakupIn", "patch_breakup"),
          ("breakup row pass", "breakup_rows_kernel", "patch_breakup"),
          ("breakup second GEMM", "BreakupOut", "patch_breakup"),
+         ("output head", "readout_kernel_head", "readout"),
          ("backward window core", "window_attn_bwd_kernel", "swin_attn_bwd"),
          ("qkv recompute", "SwinBwdQkv", "swin_attn_bwd"),
          ("attention weight gradients", "SwinBwdDw", "swin_attn_bwd"),
@@ -4096,14 +4135,19 @@ PARTS = (("window core", "window_attn_kernel<", "swin_attn"),
 
 def profile_eval(ev, eager_ms: float, tag: str) -> None:
     """Device time of one batch-64 denoiser eval by kernel (torch.profiler),
-    and the launches of each kernel in that eval."""
+    and the launches of each kernel in that eval; no PyTorch LayerNorm runs
+    in it (the full-resolution ends are patch_embed and the output head)."""
     with torch.inference_mode():
-        profile_call(ev, f"one batch-64 {tag} eval", eager_ms)
+        funcs = profile_call(ev, f"one batch-64 {tag} eval", eager_ms)
+    norms = [k for _, _, k in funcs if "layer_norm" in k]
+    if norms:
+        fail(f"a {tag} sampling eval ran PyTorch's LayerNorm: {norms}")
 
 
-def profile_call(fn, what: str, eager_ms: float) -> None:
+def profile_call(fn, what: str, eager_ms: float) -> list:
     """Device time of one call of ``fn`` by kernel (torch.profiler), and the
-    launches of each kernel in that call."""
+    launches of each kernel in that call; returns the device functions as
+    (ms, launches, name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4134,7 +4178,7 @@ def profile_call(fn, what: str, eager_ms: float) -> None:
     total = sum(groups.values())
     if total == 0:
         log("profile: torch.profiler recorded no device time")
-        return
+        return funcs
     parts = ", ".join(f"{k} {v:.3f} ms ({v / total:.1%}, {per_call.get(k, '-')} launches)"
                       for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
     log(f"profile: {what}, device time {total:.3f} ms of {eager_ms:.3f} ms eager "
@@ -4145,6 +4189,7 @@ def profile_call(fn, what: str, eager_ms: float) -> None:
         if n and groups.get(kernel):
             split.append(f"{label} {ms:.3f} ms x{n} ({ms / groups[kernel]:.1%} of {kernel})")
     log(f"profile parts ({what}): " + "; ".join(split))
+    return funcs
 
 
 def main(argv=None) -> int:
@@ -4174,6 +4219,7 @@ def main(argv=None) -> int:
     check_sass(cuda_build.build())
     from diffusesg_torch.ops import mlp_block_kernel as mk
     from diffusesg_torch.ops import mm_microbench as mm
+    from diffusesg_torch.ops import patch_embed as pe
     from diffusesg_torch.ops import patch_resample as pr
     from diffusesg_torch.ops import readout_kernel as rk
     from diffusesg_torch.ops import swin_block_v3 as sw
@@ -4186,7 +4232,8 @@ def main(argv=None) -> int:
                            for w in ("in", "out"))
         + ", " + ", ".join(f"patch_merge C{c} {pr.merge_tile(c)}" for c in (96, 192, 384))
         + f", patch_merge C96 64-row panels {pr.merge_tile(96, True)}; readout (rows, "
-          f"warpgroups, blocks an SM) {rk.readout_tile()}; backward: "
+          f"warpgroups, blocks an SM) {rk.readout_tile()}, its output head "
+          f"{rk.head_tile()}, patch_embed {pe.embed_tile()}; backward: "
         + ", ".join(f"swin_attn_bwd {w} C{c} {sw.attn_bwd_tile(c, w)}"
                     for c in (96, 192, 384, 768) for w in ("qkv", "stream", "wgrad"))
         + ", " + ", ".join(f"token_mlp_bwd fused C{c} {mk.mlp_bwd_fused_tile(c)}"

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.mlp_block_kernel import LN_EPS, layer_norm
+from ..ops.patch_embed import noise_affine_plain
 from ..ops.patch_resample import (patch_breakup, patch_breakup_plain, patch_merge,
                                   patch_merge_plain)
 from ..ops.readout_kernel import readout_mlp, readout_mlp_plain
@@ -93,10 +94,8 @@ class NoiseAffine(nn.Linear):
         self.dtype = dtype
 
     def forward(self, x, emb):
-        params = F.linear(emb.to(self.dtype), self.weight.to(self.dtype),
-                          self.bias.to(self.dtype))[:, None, :]
-        scale, shift = params.chunk(2, dim=-1)
-        return F.silu(shift + x * (scale + 1.0))
+        return noise_affine_plain(x, F.linear(emb.to(self.dtype), self.weight.to(self.dtype),
+                                              self.bias.to(self.dtype)))
 
 
 class WindowAttention(nn.Module):
@@ -323,14 +322,22 @@ class ReadOut(nn.Module):
         self.add_module("1", nn.Conv2d(embed_dim, embed_dim, 1))
         self.add_module("2", nn.Conv2d(embed_dim, embed_dim, 1))
 
-    def forward(self, x, ph: int, pw: int):
-        b, L, c = x.shape
+    def linears(self):
+        """The three products as Linear (weight [out, in], bias) pairs in the
+        compute dtype: the up-projection, its rows (kh, kw, cout), then the
+        two 1x1 convs."""
         p, dt = self.patch_size, self.dtype
         up, pw1, pw2 = (getattr(self, k) for k in "012")
-        d = up.out_channels
-        w0 = up.weight.permute(2, 3, 1, 0).reshape(p * p * d, c)  # rows (kh, kw, cout)
-        x = F.linear(x.to(dt), w0.to(dt), up.bias.repeat(p * p).to(dt))
+        w0 = up.weight.permute(2, 3, 1, 0).reshape(p * p * up.out_channels, -1)
+        return [(w0.to(dt), up.bias.repeat(p * p).to(dt))] + [
+            (conv.weight[:, :, 0, 0].to(dt), conv.bias.to(dt)) for conv in (pw1, pw2)]
+
+    def forward(self, x, ph: int, pw: int):
+        b, L, c = x.shape
+        p, d = self.patch_size, getattr(self, "0").out_channels
+        (w0, b0), *pointwise = self.linears()
+        x = F.linear(x.to(self.dtype), w0, b0)
         x = x.reshape(b, ph, pw, p, p, d).permute(0, 1, 3, 2, 4, 5).reshape(b, ph * p, pw * p, d)
-        for conv in (pw1, pw2):
-            x = F.linear(x, conv.weight[:, :, 0, 0].to(dt), conv.bias.to(dt))
+        for w, bias in pointwise:
+            x = F.linear(x, w, bias)
         return x

@@ -57,6 +57,8 @@ _SIGNATURES = {
     "dsg_swin_attn_bwd": [_P] * 28 + [_I] * 17 + [_P],
     "dsg_token_mlp_bwd": [_P] * 20 + [_I] * 13 + [_P],
     "dsg_readout": [_P] * 6 + [_I] * 5 + [_P],
+    "dsg_readout_head": [_P] * 16 + [_I] * 4 + [_P],
+    "dsg_patch_embed": [_P] * 11 + [_I] * 7 + [_P],
     "dsg_patch_merge": [_P] * 5 + [_I] * 7 + [_P],
     "dsg_patch_breakup": [_P, _P, _I, _I] + [_P] * 9 + [_I] * 6 + [_P],
     "dsg_window_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
@@ -69,6 +71,8 @@ _SIGNATURES = {
     "dsg_patch_breakup_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_patch_merge_tile": [_I, _I, ctypes.POINTER(_I)],
     "dsg_readout_tile": [ctypes.POINTER(_I)],
+    "dsg_readout_head_tile": [ctypes.POINTER(_I)],
+    "dsg_patch_embed_tile": [ctypes.POINTER(_I)],
     "dsg_mm_accumulate_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_swin_attn_core_per_sm": [_I],
     "dsg_swin_attn_bwd_core_per_sm": [_I],

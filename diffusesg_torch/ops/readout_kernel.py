@@ -1,4 +1,5 @@
-"""The denoiser's two-layer output heads: ``gelu(x @ W1^T + b1) @ W2^T + b2``.
+"""The denoiser's two-layer output heads: ``gelu(x @ W1^T + b1) @ W2^T + b2``,
+and the whole output head at full resolution around the adjacency one.
 
 Counterpart of diffusesg_tpu/ops/readout_kernel.py.  On a CUDA tensor the
 head's forward runs as the hand-written kernel ``readout`` (csrc/readout.cu:
@@ -9,6 +10,15 @@ runs the plain version below.  ``readout_mlp`` is a
 differentiates it, as the JAX ``custom_vjp`` differentiates its XLA
 composition.  Weights are in the PyTorch
 Linear layout ([out, in]); GELU is the exact erf form in both versions.
+
+``output_head`` widens the kernel into the denoiser's exit over the
+U-Net's [B, N, N, 96] rows (patch size 1), a forward alone that the model
+calls only where no gradient is recorded: the final LayerNorm, ReadOut's
+three products, the adjacency head, and the node pooling's masked sums, in
+one launch (``readout_kernel_head``) in which ``shared`` never reaches device
+memory.  The pooling comes back as fixed-order partial sums, two a node,
+which the wrapper adds and divides by N.  ``output_head_plain`` is the same
+function in PyTorch, rounded at the same points as the model's composition.
 """
 from __future__ import annotations
 
@@ -16,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .masking import mask_adjs
+from .mlp_block_kernel import layer_norm
 
 NAME = "readout"
 
@@ -82,3 +94,68 @@ class _Readout(torch.autograd.Function):
 def readout_mlp(x, w1, b1, w2, b2):
     """Readout head, differentiable (the kernel forward on CUDA tensors)."""
     return _Readout.apply(x, w1, b1, w2, b2)
+
+
+def node_pool_plain(shared, node_flags):
+    """[B, N, N, C] -> [B, N, C] fp32: each node's masked mean over j,
+    summed in fp32 with the full N as the divisor (the padding-aware pooled
+    node readout)."""
+    return torch.mean(mask_adjs(shared, node_flags), dim=2, dtype=torch.float32)
+
+
+def output_head_plain(x, ln_w, ln_b, w0, b0, w1, b1, w2, b2, fc1_w, fc1_b, fc2_w, fc2_b,
+                      node_flags):
+    """The exit over the U-Net's rows ``x`` [B, N, N, D] in the compute
+    dtype: ``shared`` = ReadOut(bf16(LayerNorm(x))), each of its three
+    products rounded to the dtype; returns (the adjacency head over
+    ``shared``, rounded to the dtype, as fp32 [B, N, N, n_out]; the node
+    pooling of ``shared``, fp32 [B, N, D]).  ``w*`` and ``b*`` in the
+    compute dtype, ``ln_*`` and ``fc*_b`` fp32."""
+    dt = w0.dtype
+    s = layer_norm(x, ln_w, ln_b).to(dt)
+    for w, bias in ((w0, b0), (w1, b1), (w2, b2)):
+        s = F.linear(s, w, bias)
+    adj = readout_mlp_plain(s.reshape(-1, s.shape[-1]), fc1_w, fc1_b, fc2_w, fc2_b)
+    return adj.to(dt).float().reshape(*s.shape[:3], -1), node_pool_plain(s, node_flags)
+
+
+def head_covers(n: int, width: int, n_out: int) -> bool:
+    """Whether ``output_head``'s kernel takes an N x N grid of ``width``
+    channels with an adjacency head of ``n_out`` outputs."""
+    return 0 < n <= 64 and width == 96 and 1 <= n_out <= 16
+
+
+def head_tile() -> tuple[int, ...]:
+    """The output head's tile, from the library, as ``readout_tile``'s."""
+    return cuda_build.tile_of("dsg_readout_head_tile")
+
+
+def output_head(x, ln_w, ln_b, w0, b0, w1, b1, w2, b2, fc1_w, fc1_b, fc2_w, fc2_b, node_flags):
+    """The exit, forward alone: the kernel on CUDA tensors, the plain
+    version on CPU.  Returns what ``output_head_plain`` returns."""
+    if x.device.type == "cpu":
+        return output_head_plain(x, ln_w, ln_b, w0, b0, w1, b1, w2, b2, fc1_w, fc1_b, fc2_w,
+                                 fc2_b, node_flags)
+    b, n, n2, d = x.shape
+    n_out = fc2_w.shape[0]
+    if (n2 != n or not head_covers(n, d, n_out) or tuple(node_flags.shape) != (b, n)
+            or any(tuple(w.shape) != (d, d) for w in (w0, w1, w2, fc1_w))
+            or tuple(fc2_w.shape) != (n_out, d)):
+        raise ValueError(f"output head shapes x{tuple(x.shape)} fc2{tuple(fc2_w.shape)} "
+                         f"flags{tuple(node_flags.shape)} are not supported (N up to 64, "
+                         "width 96, 1 to 16 outputs)")
+    bf, f32 = torch.bfloat16, torch.float32
+    args = [cuda_build.require(t, dt, k) for t, dt, k in (
+        (x, bf, "x"), (ln_w, f32, "ln_w"), (ln_b, f32, "ln_b"), (w0, bf, "w0"), (b0, bf, "b0"),
+        (w1, bf, "w1"), (b1, bf, "b1"), (w2, bf, "w2"), (b2, bf, "b2"), (fc1_w, bf, "fc1_w"),
+        (fc1_b, f32, "fc1_b"), (fc2_w, bf, "fc2_w"), (fc2_b, f32, "fc2_b"))]
+    flags = node_flags.bool().contiguous()
+    m = b * n * n
+    out = torch.empty((b, n, n, n_out), dtype=f32, device=x.device)
+    part = torch.empty((b * n, 2, d), dtype=f32, device=x.device)
+    blocks = readout_plan(m, head_tile(), cuda_build.sm_count(x.device))
+    p = cuda_build.ptr
+    cuda_build.launch(NAME, x.device, "dsg_readout_head", *(p(t) for t in args), p(flags),
+                      p(out), p(part), m, n, n_out, blocks)
+    cuda_build.count_launch(NAME, f"head N{n}->{n_out}")
+    return out, part.sum(1).div_(n).reshape(b, n, d)

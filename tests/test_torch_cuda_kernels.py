@@ -14,6 +14,7 @@ import torch
 from diffusesg_torch.models.layers import shifted_window_attn_mask
 from diffusesg_torch.ops import cuda_build
 from diffusesg_torch.ops import mlp_block_kernel as mk
+from diffusesg_torch.ops import patch_embed as pe
 from diffusesg_torch.ops import patch_resample as pr
 from diffusesg_torch.ops import readout_kernel as rk
 from diffusesg_torch.ops import swin_block_v3 as sw
@@ -56,13 +57,18 @@ def _check(name, kern, plain, *args):
     after = cuda_build.launches_by_kernel()
     assert {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)} == {
         k: 1 for k in names}
-    assert out.shape == ref.shape and out.dtype == ref.dtype
-    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL, rtol=RTOL)
+    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    assert len(outs) == len(refs)
+    for o, r in zip(outs, refs):
+        assert o.shape == r.shape and o.dtype == r.dtype
+        torch.testing.assert_close(o.float(), r.float(), atol=ATOL, rtol=RTOL)
 
 
 def _bit_equal_again(kern, *args):
     """Two launches on the same inputs give the same bits (no atomics)."""
-    assert torch.equal(kern(*args), kern(*args))
+    a, b = kern(*args), kern(*args)
+    assert all(torch.equal(x, y) for x, y in zip(*((a, b) if isinstance(a, tuple)
+                                                    else ((a,), (b,)))))
 
 
 # (grid, heads, shift, batch): batch 7 at 64x64 gives the window core a run
@@ -161,6 +167,83 @@ def test_readout_kernel(cuda, m, n_out):
             _vec(cuda, n_out))
     _check("readout", rk.readout_mlp, rk.readout_mlp_plain, *args)
     _bit_equal_again(rk.readout_mlp, *args)
+
+
+def _graph_batch(dev, b, n, seed):
+    """Node flags of ``b`` graphs on an N grid, the first full, the others
+    2..N nodes, and the denoiser's inputs: adj [B, N, N, 1], node [B, N, 5]
+    and their self-conditioning tensors."""
+    g = torch.Generator().manual_seed(seed)
+    counts = torch.randint(2, n + 1, (b,), generator=g)
+    counts[0] = n
+    flags = (torch.arange(n)[None, :] < counts[:, None]).to(dev)
+    t = [torch.randn(s, generator=g).to(dev) for s in ((b, n, n, 1), (b, n, 5))]
+    return flags, t[0], t[1], t[0] * 0.5 + 0.1, t[1] * 0.5 - 0.1
+
+
+# patch_embed at VG's and COCO's grids, batch 16 and 64, and a small ragged
+# one (N = 8, 3 graphs: tiles that cross graphs), with the self-conditioning
+# channels given, zero (None) and absent, over padded node counts; the
+# module's tolerance: both versions round the product, the LayerNorm and each
+# step of the affine to bf16 at the same points, so an element lands at most
+# an ulp or two apart where the sums' order moves a rounding
+@pytest.mark.parametrize("n,b", [(64, 16), (64, 64), (40, 16), (40, 64), (8, 3)])
+@pytest.mark.parametrize("sc", ["given", "zeros", "off"])
+def test_patch_embed_kernel(cuda, n, b, sc):
+    torch.manual_seed(n + b)
+    flags, adj, node, sc_a, sc_x = _graph_batch(cuda, b, n, seed=n + b)
+    if sc != "given":
+        sc_a = sc_x = None
+    cin = 11 if sc == "off" else 22
+    args = (adj, node, flags, sc_a, sc_x, _lin(cuda, 96, cin), _rnd(cuda, 96, scale=0.1),
+            _vec(cuda, 96, 1.0), _vec(cuda, 96), _rnd(cuda, b, 192, scale=0.5), sc != "off")
+    _check("patch_embed", pe.patch_embed, pe.patch_embed_plain, *args)
+    _bit_equal_again(pe.patch_embed, *args)
+
+
+# the output head (readout_kernel_head) at VG's and COCO's grids, batch 16
+# and 64, and ragged ones (N = 8 and 7: many (b, i) groups a tile, groups cut
+# between tiles, a last tile part full), the adjacency head with 1 output and
+# with 5; the module's tolerance, as readout's: the same rounding points, and
+# the pooling's fp32 sums in another order than torch.mean's
+@pytest.mark.parametrize("n,b,n_out", [(64, 16, 1), (64, 64, 1), (40, 16, 1), (40, 64, 1),
+                                       (8, 3, 1), (7, 5, 5)])
+def test_output_head_kernel(cuda, n, b, n_out):
+    torch.manual_seed(n + b)
+    flags = _graph_batch(cuda, b, n, seed=n * b)[0]
+    args = (_rnd(cuda, b, n, n, 96, scale=2.0, offset=0.5), _vec(cuda, 96, 1.0), _vec(cuda, 96),
+            _lin(cuda, 96, 96), _rnd(cuda, 96, scale=0.1), _lin(cuda, 96, 96),
+            _rnd(cuda, 96, scale=0.1), _lin(cuda, 96, 96), _rnd(cuda, 96, scale=0.1),
+            _lin(cuda, 96, 96), _vec(cuda, 96), _lin(cuda, n_out, 96), _vec(cuda, n_out), flags)
+    _check("readout", rk.output_head, rk.output_head_plain, *args)
+    _bit_equal_again(rk.output_head, *args)
+
+
+def test_full_resolution_ends_on_the_sampling_path(cuda):
+    """The full-width VG model under inference mode runs its two ends as
+    the two kernels (one patch_embed, the head and the node head's readout a
+    launch) and no PyTorch LayerNorm; with a gradient recorded it runs the
+    composition, whose outputs the kernels' match."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusesg_torch.config import load_config
+    from diffusesg_torch.models import build_model
+    cfg = load_config("configs/edm_diffuse_sg_regular_visual_genome.yaml")
+    model = build_model(cfg, device=cuda, seed=0)
+    flags, adj, node, sc_a, sc_x = _graph_batch(cuda, 4, 64, seed=1)
+    x = (adj[..., 0], node, flags, torch.full((4,), 0.3, device=cuda), sc_a[..., 0], sc_x)
+    before = cuda_build.launches_by_kernel()
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = model(*x)
+        torch.cuda.synchronize()
+    after = cuda_build.launches_by_kernel()
+    moved = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+    assert moved["patch_embed"] == 1 and moved["readout"] == 2, moved
+    names = [e.key for e in prof.key_averages()]
+    assert not any("layer_norm" in k for k in names), names
+    want = [t.detach() for t in model(*x)]
+    for g, w in zip(got, want):
+        assert float((g - w).norm() / w.norm()) < 2e-2
 
 
 def test_forward_kernels_launch_on_every_card_of_the_process(cuda):
