@@ -25,8 +25,11 @@ Phases, each printed on its own line:
      the denoiser's two full-resolution ends (patch_embed and the output
      head, readout at its "head" shapes) at VG's and COCO's grids, self-
      conditioning on, padded node counts;
-     for swin_attn, patch_merge, patch_breakup, readout, swin_attn_bwd and
-     token_mlp_bwd also the device time and count of each of their launches
+     the resampling layers' backwards (patch_merge_bwd, patch_breakup_bwd)
+     against ``plain_vjp`` of their plain versions on the card;
+     for swin_attn, patch_merge, patch_breakup, readout, swin_attn_bwd,
+     token_mlp_bwd, patch_merge_bwd and patch_breakup_bwd also the device
+     time and count of each of their launches
      (torch.profiler) beside a yardstick of the same products in PyTorch
      (bf16, timed only): F.layer_norm + F.linear for qkv, merge and the qkv
      recompute, F.linear for the others, F.linear, F.gelu, F.linear for
@@ -47,7 +50,8 @@ Phases, each printed on its own line:
      through ``go_training`` (its compiled step, train/compiled.py, since
      phase 13's slice; its graphs are read) on synthetic scene graphs (seed
      0): finite losses,
-     12 launches of each backward kernel per step, parameters, Adam moments
+     12 launches of each backward kernel per step and 3 of each resampling
+     backward (COCO: 18 and 2), parameters, Adam moments
      and the 5 EMAs move and the EMAs follow their warm-up ramp, a checkpoint
      restores bit-equal state; the gradients of the card's bf16 kernel model
      are held against the fp32 plain model on the CPU at batch 4 (a leaf that
@@ -247,10 +251,13 @@ K12 = "scripts/microbench_int8.py:17"
 PE = "none (diffusesg_tpu/models/layers.py::PatchEmbed, XLA's composition)"
 VG = dict(tag="VG", path="vg", config="configs/edm_diffuse_sg_regular_visual_genome.yaml",
           params=35_808_848, node_types=150, edge_types=51, requests=[64, 40, 12, 5],
-          small=(64, 23), blocks=12)
+          small=(64, 23), blocks=12, resamples=3)
 COCO = dict(tag="COCO", path="coco", config="configs/edm_diffuse_sg_regular_coco.yaml",
             params=30_690_020, node_types=171, edge_types=7, requests=[40, 33, 12, 5],
-            small=(40, 17), blocks=18)
+            small=(40, 17), blocks=18, resamples=2)
+# the resampling layers' backwards: each runs once per merge (breakup) of a
+# backward, ``resamples`` of each a model
+RESAMPLE_BWD = ("patch_merge_bwd", "patch_breakup_bwd")
 
 
 def log(msg: str) -> None:
@@ -505,6 +512,12 @@ def kernel_cases(dev):
                 ("LN2 vjp row pass", "ln_bwd_rows_kernel", None),
                 ("reductions", "reduce_partials_kernel", None))
 
+    def resample_vjp(plain_fn):
+        """The resampling backwards' reference: the plain version
+        differentiated on the card (``plain_vjp``, fp32 products)."""
+        from diffusesg_torch.ops import cuda_build
+        return lambda *a: cuda_build.plain_vjp(plain_fn, a[:-1], a[-1])
+
     def attn_bwd_launches(m, c):
         return (("qkv recompute", "SwinBwdQkv", ln_linear(m, c, 3 * c)),
                 ("dattn = dy Wproj", "SwinBwdDattn", mm_nn(m, c, c)),
@@ -586,6 +599,16 @@ def kernel_cases(dev):
                               fwd_tol, path,
                               gemms=(("merge GEMM", "MergeProj",
                                       ln_linear(mo, 4 * c, 2 * c, bias=False)),)))
+            # its backward: dout in, four gradients out (plain_vjp the reference)
+            bargs = args + (rnd(b, hw // 2, hw // 2, 2 * c),)
+            cases.append(Case("patch_merge_bwd", "patch_resample.cu", K2, pr.patch_merge_bwd,
+                              resample_vjp(pr.patch_merge_plain), bargs, 4 * mo * 4 * c * 2 * c,
+                              2 * b * hw * hw * c * 2 + mo * 2 * c * 2 + 2 * 8 * c * c * 2
+                              + 4 * 4 * c * 4, bwd_tol, path, graph_plain=False,
+                              gemms=(("dhn = dy W", "MergeProjBwdDhn", None),
+                                     ("row pass", "merge_rows_bwd_kernel", None),
+                                     ("dW", "MergeProjBwdDw, dsg::hg", None),
+                                     ("reductions", "resample_reduce_kernel", None))))
         # patch_breakup: [x | skip] back up the same grids
         for hw, c in grids[:0:-1]:
             cin, cout = 2 * c, c // 2
@@ -603,6 +626,20 @@ def kernel_cases(dev):
                                      ("row pass", "breakup_rows_kernel", None),
                                      ("second GEMM", "BreakupOut",
                                       linear(mo, cout, cout, False)))))
+            # its backward: dout in, eight gradients out (plain_vjp the reference)
+            bargs = args + (rnd(b, 2 * hw, 2 * hw, cout),)
+            cases.append(Case("patch_breakup_bwd", "patch_resample.cu", K3, pr.patch_breakup_bwd,
+                              resample_vjp(pr.patch_breakup_plain), bargs,
+                              4 * mi * cin * dim + 4 * mo * cout * cout,
+                              2 * mi * cin * 2 + mo * cout * 2 + 2 * (cin * dim + cout * cout) * 2
+                              + 2 * (2 * dim + 2 * cout) * 4, bwd_tol, path, graph_plain=False,
+                              gemms=(("y recompute", "BreakupInBwdY", None),
+                                     ("dh2 = dout W_out", "BreakupOutBwdDh", None),
+                                     ("row pass", "breakup_rows_kernel_bwd", None),
+                                     ("dW_out", "BreakupOutBwdDw, dsg::hg", None),
+                                     ("[dx | dskip] = dy W_in", "BreakupInBwdDx", None),
+                                     ("dW_in", "BreakupInBwdDw, dsg::hg", None),
+                                     ("reductions", "resample_reduce_kernel", None))))
         # readout: the adjacency head over B*N*N tokens, the node head over B*N
         n = grids[0][0]
         for m, n_out in ((b * n * n, 1), (b * n, 5)):
@@ -1361,7 +1398,7 @@ def check_training(dev, smi: str, spec=VG, find_largest_batch: bool = True):
         after = cuda_build.launches_by_kernel()
         record["losses"].append(metrics["loss"])
         record["bwd"].append(tuple(after.get(k, 0) - before.get(k, 0)
-                                   for k in ("swin_attn_bwd", "token_mlp_bwd")))
+                                   for k in ("swin_attn_bwd", "token_mlp_bwd") + RESAMPLE_BWD))
         if done < 3:  # the EMA warm-up ramp: copy, copy, then min(beta, 1 - 1/3)
             params = [p.detach() for p in st.params()]
             for beta, ema in zip(st.ema_betas, st.ema_params):
@@ -1396,16 +1433,18 @@ def check_training(dev, smi: str, spec=VG, find_largest_batch: bool = True):
     log(f"train {tag}: {state.step} steps at batch {TRAIN_BATCH} through go_training in {wall:.2f} s "
         f"(first step and the epoch-0 test pass included; compiled: graphs {graphs}); losses "
         f"{' '.join(f'{x:.4f}' for x in losses)}; backward launches per step "
-        f"(swin_attn_bwd, token_mlp_bwd) {sorted(set(record['bwd']))}")
+        f"(swin_attn_bwd, token_mlp_bwd, patch_merge_bwd, patch_breakup_bwd) "
+        f"{sorted(set(record['bwd']))}")
     if state.step != 2 * steps_per_epoch or len(losses) != state.step:
         fail(f"expected {2 * steps_per_epoch} steps, ran {state.step}")
     if not graphs:
         fail("go_training's training step captured no graph")
     if not all(x == x and abs(x) != float("inf") for x in losses):
         fail("a training loss is not finite")
-    if set(record["bwd"]) != {(n_blocks, n_blocks)}:
-        fail(f"each backward must launch each backward kernel {n_blocks} times, saw "
-             f"{record['bwd']}")
+    n_res = spec["resamples"]
+    if set(record["bwd"]) != {(n_blocks, n_blocks, n_res, n_res)}:
+        fail(f"each backward must launch each block's backward kernel {n_blocks} times and "
+             f"each resampling backward {n_res} times, saw {record['bwd']}")
     moved = max_diff(state.params(), p0)
     moments = [state.opt.state[p] for p in state.params()]
     if not (moved > 0 and all(float(m["exp_avg"].abs().max()) > 0 for m in moments[:8])
@@ -3799,10 +3838,11 @@ def _compiled_training(dev, smi: str, spec) -> dict:
         f"{stats['pool_bytes']} bytes")
     if not (all(metrics_equal) and same):
         fail(f"{tag}: the compiled training step is not bit-equal to the eager one")
-    n_blocks = spec["blocks"] * CTRAIN_STEPS
+    n_blocks, n_res = spec["blocks"] * CTRAIN_STEPS, spec["resamples"] * CTRAIN_STEPS
     if counts["compiled"] != counts["eager"] or any(
             comp_k.get(k, 0) == 0 for k in FORWARD_KERNELS) or any(
-            comp_k.get(k, 0) != n_blocks for k in BACKWARD_KERNELS):
+            comp_k.get(k, 0) != n_blocks for k in BACKWARD_KERNELS) or any(
+            comp_k.get(k, 0) != n_res for k in RESAMPLE_BWD):
         fail(f"{tag}: compiled training launches {comp_k} against eager {eager_k}")
     if set(stats["variants"]) != CTRAIN_GRAPHS or len(set(lrs)) != 2:
         fail(f"{tag}: graphs {stats['variants']}, learning rates {lrs}")

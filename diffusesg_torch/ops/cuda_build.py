@@ -61,6 +61,8 @@ _SIGNATURES = {
     "dsg_patch_embed": [_P] * 11 + [_I] * 7 + [_P],
     "dsg_patch_merge": [_P] * 5 + [_I] * 7 + [_P],
     "dsg_patch_breakup": [_P, _P, _I, _I] + [_P] * 9 + [_I] * 6 + [_P],
+    "dsg_patch_merge_bwd": [_P] * 6 + [_I] + [_P] * 7 + [_I] * 9 + [_P],
+    "dsg_patch_breakup_bwd": [_P, _P, _I, _I] + [_P] * 19 + [_I] * 12 + [_P],
     "dsg_window_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     "dsg_mm_accumulate": [_P] * 3 + [_I] * 6 + [_P],
     # the forward grid plans' queries: a kernel's tile and its occupancy
@@ -70,11 +72,13 @@ _SIGNATURES = {
     "dsg_token_mlp_bwd_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_patch_breakup_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_patch_merge_tile": [_I, _I, ctypes.POINTER(_I)],
+    "dsg_patch_resample_bwd_tile": [_I, _I, ctypes.POINTER(_I)],
     "dsg_readout_tile": [ctypes.POINTER(_I)],
     "dsg_readout_head_tile": [ctypes.POINTER(_I)],
     "dsg_patch_embed_tile": [ctypes.POINTER(_I)],
     "dsg_mm_accumulate_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_swin_attn_core_per_sm": [_I],
+    "dsg_patch_resample_bwd_rows_per_sm": [_I, _I],
     "dsg_swin_attn_bwd_core_per_sm": [_I],
     "dsg_window_attention_per_sm": [_I],
 }

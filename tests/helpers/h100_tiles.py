@@ -81,6 +81,21 @@ class StubLib:
             return -1
         return self._fill(geom, attn_tile(c, 0, wide) if which == 1 else STREAM_TILE)
 
+    # the resampling layers' backwards' (csrc/patch_resample.cu): the wide
+    # products (merge's dhn, the breakup's y and [dx | dskip]) on 128 x 192,
+    # the breakup's dh2 on the streamed 128 x 96, the weight gradients on
+    # the token-axis tile
+    def dsg_patch_resample_bwd_tile(self, which, k, geom):
+        self.calls.append(("resample_bwd", which, k))
+        if k <= 0 or k % 8 or which not in range(7):
+            return -1
+        if which in (1, 5, 6):
+            return self._fill(geom, tokens_tile(k))
+        return self._fill(geom, STREAM_TILE if which == 3 else WIDE_STREAM_TILE)
+
+    def dsg_patch_resample_bwd_rows_per_sm(self, which, width):
+        return resample_rows_per_sm(which, width)
+
     def dsg_swin_attn_bwd_core_per_sm(self, L):
         return BWD_CORE_PER_SM.get(L, -1)
 
@@ -98,6 +113,19 @@ class StubLib:
 # weight gradients' token-axis tile (192 columns where they divide the
 # output's, else 96), the backward window core's blocks an SM by L
 STREAM_TILE = (128, 96, 1, 0)
+WIDE_STREAM_TILE = (128, 192, 1, 0)
+
+
+def resample_rows_per_sm(which, width):
+    """Blocks of the resampling backwards' row passes an SM holds (their
+    registers): merge (which 0) by K = 4C, breakup (1) by c; -1 outside."""
+    if which == 0:
+        if width <= 0 or width % 8 or width > 1536:
+            return -1
+        return 9 if width <= 256 else 7 if width <= 512 else 5 if width <= 768 else 3
+    if width <= 0 or width > 384:
+        return -1
+    return 8 if width <= 32 else 5 if width <= 96 else 3 if width <= 192 else 2
 FUSED_MLP_BWD_TILE = (128, 64, 1, 1)
 BWD_CORE_PER_SM = {64: 2, 100: 1}
 

@@ -8,6 +8,8 @@ small shapes the kernels cover (window 8 and 10, head_dim 32); the tolerance is
 bf16's: the two versions round their bf16 intermediates at the same points
 but sum in different orders, so an intermediate can land one bf16 ulp apart.
 """
+import collections
+
 import pytest
 import torch
 
@@ -746,11 +748,199 @@ def test_token_mlp_bwd_kernel_model_shapes(cuda, c, m):
     assert all(torch.equal(x, y) for x, y in zip(again, mk.token_mlp_bwd(*args)))
 
 
+# The resampling layers' backwards (csrc/patch_resample.cu): every VG and
+# COCO shape (merges at 64/32/16 and 40/20, breakups 8x8 1536->384, 16x16
+# 768->192, 32x32 384->96, 10x10 768->192, 20x20 384->96), a small width,
+# ragged token counts, batch 2-8, the breakup with and without its skip.
+# Each gradient within a relative L2 of ``plain_vjp``'s (the plain version
+# differentiated on the card, fp32 products): both sum in other orders, and
+# each rounds its bf16 outputs once
+MERGE_BWD_SHAPES = [(64, 96, 2), (32, 192, 4), (16, 384, 8), (40, 96, 3), (20, 192, 5),
+                    (16, 48, 2), (62, 96, 3), (6, 384, 7), (8, 16, 3, 24)]
+BREAKUP_BWD_SHAPES = [(8, 1536, 384, 2), (16, 768, 192, 4), (32, 384, 96, 2), (10, 768, 192, 8),
+                      (20, 384, 96, 3), (8, 128, 32, 5), (6, 1536, 384, 3)]
+RESAMPLE_BWD_REL_L2 = 1e-2
+
+
+def _merge_bwd_args(dev, hw, c, b, c_out=None):
+    c_out = c_out or 2 * c
+    return (_rnd(dev, b, hw, hw, c), _vec(dev, 4 * c, 1.0), _vec(dev, 4 * c),
+            _lin(dev, c_out, 4 * c), _rnd(dev, b, hw // 2, hw // 2, c_out))
+
+
+def _breakup_bwd_args(dev, hw, cin, cout, b, with_skip):
+    dim = 4 * cout
+    c1 = cin // 2 if with_skip else cin
+    return (_rnd(dev, b, hw, hw, c1), _rnd(dev, b, hw, hw, cin - c1) if with_skip else None,
+            _lin(dev, dim, cin), _vec(dev, dim, 1.0), _vec(dev, dim), _vec(dev, cout, 1.0),
+            _vec(dev, cout), _lin(dev, cout, cout), _rnd(dev, b, 2 * hw, 2 * hw, cout))
+
+
+def _check_resample_bwd(name, kern, plain, args):
+    """One launch of ``name``, each gradient against ``plain_vjp``'s, two
+    launches bit-equal; returns the relative L2 gaps."""
+    before = cuda_build.launches_by_kernel().get(name, 0)
+    got = kern(*args)
+    want = cuda_build.plain_vjp(plain, args[:-1], args[-1])
+    torch.cuda.synchronize()
+    assert cuda_build.launches_by_kernel()[name] == before + 1
+    gaps = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g is None) == (w is None), i
+        if g is None:
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype, i
+        gaps.append(float((g.float() - w.float()).norm() / w.float().norm()))
+    print(name, [f"{x:.3e}" for x in gaps])
+    assert all(x < RESAMPLE_BWD_REL_L2 for x in gaps), (name, gaps)
+    again = kern(*args)
+    assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+    return gaps
+
+
+# (grid, C, batch[, outputs]): 24 outputs, which the forward takes, give dhn
+# = dy W a K that is no multiple of 16 (its operands zero-padded)
+@pytest.mark.parametrize("shape", MERGE_BWD_SHAPES)
+def test_patch_merge_bwd_kernel(cuda, shape):
+    torch.manual_seed(sum(shape))
+    _check_resample_bwd("patch_merge_bwd", pr.patch_merge_bwd, pr.patch_merge_plain,
+                        _merge_bwd_args(cuda, *shape))
+
+
+@pytest.mark.parametrize("hw,cin,cout,b", BREAKUP_BWD_SHAPES)
+@pytest.mark.parametrize("with_skip", [True, False])
+def test_patch_breakup_bwd_kernel(cuda, hw, cin, cout, b, with_skip):
+    torch.manual_seed(hw + cin + b)
+    _check_resample_bwd("patch_breakup_bwd", pr.patch_breakup_bwd, pr.patch_breakup_plain,
+                        _breakup_bwd_args(cuda, hw, cin, cout, b, with_skip))
+
+
+def _straight_through(t):
+    """t rounded to bf16, its gradient passed through unrounded (fp64)."""
+    return t + (t.to(torch.bfloat16).double() - t).detach()
+
+
+def _merge_fp64(x, g, b, w):
+    """patch_merge_plain in fp64, its roundings straight through."""
+    bsz, h, ww, c = x.shape
+    x = x.reshape(bsz, h // 2, 2, ww // 2, 2, c).permute(0, 1, 3, 4, 2, 5)
+    x = x.reshape(bsz, h // 2, ww // 2, 4 * c)
+    hn = _straight_through(torch.nn.functional.layer_norm(x, (4 * c,), g, b, 1e-6))
+    return _straight_through(hn @ w.T)
+
+
+def _breakup_fp64(x, skip, w_in, g1, b1, g2, b2, w_out):
+    """patch_breakup_plain in fp64, its roundings straight through."""
+    if skip is not None:
+        x = torch.cat([x, skip], -1)
+    bsz, h, ww, _ = x.shape
+    c = w_out.shape[0]
+    a = _straight_through(torch.nn.functional.layer_norm(x @ w_in.T, (4 * c,), g1, b1, 1e-6))
+    a = a.reshape(bsz, h, ww, 2, 2, c).permute(0, 1, 4, 2, 3, 5).reshape(bsz, 2 * h, 2 * ww, c)
+    h2 = _straight_through(torch.nn.functional.layer_norm(a, (c,), g2, b2, 1e-6))
+    return _straight_through(h2 @ w_out.T)
+
+
+@pytest.mark.parametrize("which", ["merge", "breakup"])
+def test_resample_bwd_no_less_precise_than_plain_vjp(cuda, which):
+    """Against an fp64 vjp of the same forward (its bf16 roundings applied,
+    their gradients passed straight through), each gradient of the kernels
+    lies no further than ``plain_vjp``'s, within a bf16 ulp's share: the
+    kernels take bf16 operands, fp32 sums and fp32 LayerNorm vjps, and keep
+    in fp32 what the plain version rounds (the breakup's LN2 vjp)."""
+    torch.manual_seed(7)
+    if which == "merge":
+        args = _merge_bwd_args(cuda, 32, 192, 4)
+        kern, plain, f64 = pr.patch_merge_bwd, pr.patch_merge_plain, _merge_fp64
+    else:
+        args = _breakup_bwd_args(cuda, 16, 768, 192, 4, True)
+        kern, plain, f64 = pr.patch_breakup_bwd, pr.patch_breakup_plain, _breakup_fp64
+    got = kern(*args)
+    want = cuda_build.plain_vjp(plain, args[:-1], args[-1])
+    leaves = [None if t is None else t.double().requires_grad_(True) for t in args[:-1]]
+    out = f64(*leaves)
+    exact = torch.autograd.grad(out, [t for t in leaves if t is not None], args[-1].double())
+    gaps = []
+    for g, w, e in zip((t for t in got if t is not None), (t for t in want if t is not None),
+                       exact):
+        gaps.append((float((g.double() - e).norm() / e.norm()),
+                     float((w.double() - e).norm() / e.norm())))
+    print(which, [f"{a:.3e}/{b:.3e}" for a, b in gaps])
+    assert all(a <= b + 2 ** -12 for a, b in gaps), gaps
+
+
+def test_resample_bwd_replays_in_a_cuda_graph(cuda):
+    """Both backwards captured into one CUDA graph (as the compiled training
+    step captures its backward) and replayed on new inputs give the eager
+    launches' bits, and the replay counts one launch of each."""
+    torch.manual_seed(5)
+    margs = _merge_bwd_args(cuda, 32, 192, 3)
+    bargs = _breakup_bwd_args(cuda, 16, 768, 192, 3, True)
+
+    def run():
+        return pr.patch_merge_bwd(*margs), pr.patch_breakup_bwd(*bargs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()  # first use outside the capture, as warm_and_capture takes it
+    torch.cuda.current_stream().wait_stream(side)
+    graph, record = torch.cuda.CUDAGraph(), collections.Counter()
+    with cuda_build.capturing(record, side), torch.cuda.graph(graph, stream=side):
+        static = run()
+    assert record == {("patch_merge_bwd", "32x32xC192"): 1,
+                      ("patch_breakup_bwd", "16x16xC768->192"): 1}
+    for t in margs + bargs:
+        if t is not None:
+            t.copy_(torch.randn_like(t.float()).to(t.dtype) * (0.5 if t.dtype == torch.bfloat16
+                                                                 else 0.1))
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = run()
+    for got, want in zip(static, eager):
+        assert all(g is None or torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_resample_bwd_functions_are_charged_to_their_kernels(cuda):
+    """Every device function that the two backwards launch maps, through the
+    benchmark's kernel tables (benchmark/metrics/torch_ops_pct.train.json and
+    swin_bwd_roofline.json, first matching fragment), to ``patch_merge`` or
+    ``patch_breakup``: none is charged to the backward rows or to PyTorch."""
+    import json
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+    root = Path(__file__).resolve().parent.parent / "benchmark" / "metrics"
+    tables = [json.loads((root / f).read_text())["table"]
+              for f in ("torch_ops_pct.train.json", "swin_bwd_roofline.json")]
+
+    def kernel_of(name, table):  # benchmark/yardstick/kernels.py
+        return next((k for frag, k in table if frag in name), None)
+    torch.manual_seed(6)
+    for hw, args, fn, want in (
+            (16, _merge_bwd_args(cuda, 16, 384, 2), pr.patch_merge_bwd, "patch_merge"),
+            (8, _breakup_bwd_args(cuda, 8, 1536, 384, 2, True), pr.patch_breakup_bwd,
+             "patch_breakup"),
+            (32, _breakup_bwd_args(cuda, 32, 384, 96, 2, True), pr.patch_breakup_bwd,
+             "patch_breakup")):
+        fn(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
+        names = {n for n in names if "Memcpy" not in n and "Memset" not in n}
+        assert names, "no device function in the profile"
+        for table in tables:
+            assert {n: kernel_of(n, table) for n in names} == {n: want for n in names}
+
+
 def test_backward_through_a_two_stage_model_runs_the_backward_kernels(cuda):
     """One ``backward()`` of a two-stage bf16 model: every parameter gets a
     finite gradient within 1e-1 relative L2 of the fp32 plain model's on the
     CPU (the backward rounds dy, du and dqkv to bf16 on top of the forward's
-    roundings), and the two backward kernels run once per block."""
+    roundings), the two backward kernels run once per block, and the
+    resampling layers' backwards once per layer, never through
+    ``plain_vjp``."""
     from diffusesg_torch.models.diffusesg import DiffuseSG
     kw = dict(img_size=16, in_chans=11, embed_dim=96, depths=(2, 1), num_heads=(3, 6),
               window_size=8, out_chans_adj=1, out_chans_node=5, self_condition=False,
@@ -771,10 +961,22 @@ def test_backward_through_a_two_stage_model_runs_the_backward_kernels(cuda):
         return torch.autograd.grad((a ** 2).mean() + (x ** 2).mean(), list(m.parameters()))
 
     cuda_build.reset_launches()
-    got = grads(model, cuda)
+    vjps = []
+    plain_vjp = cuda_build.plain_vjp
+
+    def recording(fn, *args):
+        vjps.append(fn.__name__)
+        return plain_vjp(fn, *args)
+    cuda_build.plain_vjp = recording
+    try:
+        got = grads(model, cuda)
+    finally:
+        cuda_build.plain_vjp = plain_vjp
     torch.cuda.synchronize()
     counts = cuda_build.launches_by_kernel()
     assert counts["swin_attn_bwd"] == counts["token_mlp_bwd"] == 6  # blocks: 2+1 down, 1+2 up
+    assert counts["patch_merge_bwd"] == counts["patch_breakup_bwd"] == 1
+    assert not {"patch_merge_plain", "patch_breakup_plain"} & set(vjps), vjps
     want = grads(ref, "cpu")
     num = sum(float((g.float().cpu() - w).norm()) ** 2 for g, w in zip(got, want))
     den = sum(float(w.norm()) ** 2 for w in want)

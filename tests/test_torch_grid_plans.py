@@ -405,6 +405,78 @@ def test_merge_tiles_come_from_the_library(stub_lib):
     assert stub_lib.calls == [("merge", 384, 0), ("merge", 192, 0), ("merge", 96, 1)]
 
 
+def _token_split_covers(splits, chunk, tokens):
+    """launch_wgrad: block z covers tokens [z chunk, min((z + 1) chunk, T))."""
+    parts = [range(z * chunk, min((z + 1) * chunk, tokens)) for z in range(splits)]
+    assert all(len(p) > 0 for p in parts), "an empty split"
+    assert sum(len(p) for p in parts) == tokens and parts[-1].stop == tokens
+    assert chunk % cuda_build.TOKEN_BOX == 0
+
+
+# (tiles, tokens): the weight gradients of the resampling backwards at batch
+# 1000 and 1 (VG's breakup 8x8 dW_in: 144 tiles over 64,000 tokens, one
+# split would leave 120 of 132 SMs idle in a second wave), and few tokens
+@pytest.mark.parametrize("tiles,tokens", [(144, 64000), (9, 1024000), (1, 4096000), (4, 1024000),
+                                          (6, 256000), (144, 64), (2, 100), (40, 300 * 64 + 5),
+                                          (300, 10 ** 6)])
+def test_wgrad_split_fills_the_card_and_covers_every_token(tiles, tokens):
+    splits, chunk = pr.wgrad_split(tiles, tokens, 1, H100_SMS)
+    _token_split_covers(splits, chunk, tokens)
+    most = max(1, tokens // cuda_build.TOKEN_SPLIT_MIN)
+    assert splits <= most
+    fill = lambda s: tiles * s / (-(-tiles * s // H100_SMS) * H100_SMS)  # noqa: E731
+    if fill(splits) < pr.WAVE_FILL:  # none fills: the fullest
+        assert all(fill(s) <= fill(splits) for s in range(1, most + 1))
+    else:  # the fewest that fill
+        assert all(fill(s) < pr.WAVE_FILL for s in range(1, splits))
+    if tiles == 144 and tokens == 64000:
+        assert splits == 5
+
+
+@pytest.mark.parametrize("hw,c,b", [(hw, c, b) for hw, c in MERGE_STAGES for b in (1, 16, 1000)]
+                         + [(16, 48, 2), (62, 96, 3)])
+def test_merge_bwd_plan(stub_lib, hw, c, b):
+    m = b * (hw // 2) ** 2
+    plan = pr.merge_bwd_plan(m, c, 2 * c, H100_SMS)
+    tile = pr.bwd_tile("merge_dhn", 2 * c)
+    assert plan["dhn"] == gemm_plan(m, 4 * c, tile, H100_SMS)["tiles"]
+    assert tile[:2] == (128, 192)
+    assert pr.bwd_tile("merge_dw", 4 * c) == h100_tiles.tokens_tile(4 * c)
+    _token_split_covers(plan["w"], plan["kchunk"], m)
+    # one wave of the row pass's resident blocks, four rows a block at a time
+    assert plan["rows"] == min(H100_SMS * h100_tiles.resample_rows_per_sm(0, 4 * c), -(-m // 4))
+
+
+def test_merge_bwd_plan_pads_k_to_16(stub_lib):
+    """dhn = dy W takes K in steps of 16: c_out = 24 plans at K = 32."""
+    pr.merge_bwd_plan(64, 48, 24, H100_SMS)
+    assert ("resample_bwd", 0, 32) in stub_lib.calls
+
+
+@pytest.mark.parametrize("hw,cin,dim,b,skip", [(hw, cin, dim, b, skip)
+                                               for hw, cin, dim in BREAKUP_STAGES
+                                               for b in (1, 1000) for skip in (True, False)]
+                         + [(8, 128, 128, 5, True)])
+def test_breakup_bwd_plan(stub_lib, hw, cin, dim, b, skip):
+    m, c = b * hw * hw, dim // 4
+    c1 = cin // 2 if skip else cin
+    plan = pr.breakup_bwd_plan(m, c1, cin - c1, dim, H100_SMS)
+    assert plan["y"] == gemm_plan(m, dim, pr.bwd_tile("breakup_y", cin), H100_SMS)["tiles"]
+    assert plan["dh"] == gemm_plan(4 * m, c, pr.bwd_tile("breakup_dh", c), H100_SMS)["tiles"]
+    assert plan["dx"] == gemm_plan(m, cin, pr.bwd_tile("breakup_dx", 3 * dim), H100_SMS)["tiles"]
+    _token_split_covers(plan["w_out"], plan["kchunk_out"], 4 * m)
+    _token_split_covers(plan["w_in"], plan["kchunk_in"], m)
+    assert plan["rows"] == min(H100_SMS * h100_tiles.resample_rows_per_sm(1, c), -(-m // 4))
+
+
+def test_resample_bwd_tiles_come_from_the_library(stub_lib):
+    assert pr.bwd_tile("breakup_dx", 4608) == (128, 192, 1, 0)
+    assert pr.bwd_tile("breakup_dh", 96) == (128, 96, 1, 0)
+    assert pr.bwd_tile("breakup_dw_out", 96) == (128, 96, 1, 0)
+    assert stub_lib.calls == [("resample_bwd", 4, 4608), ("resample_bwd", 3, 96),
+                              ("resample_bwd", 5, 96)]
+
+
 # the readout heads of one VG and one COCO eval at batch 1, 16 and 64, and
 # ragged row counts
 @pytest.mark.parametrize("m", [1, 64, 65, 300, 16 * 64, 16 * 40, 16 * 4096, 16 * 1600,

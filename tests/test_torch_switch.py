@@ -33,7 +33,8 @@ from diffusesg_torch.ops import window_attention as wa  # noqa: E402
 # every dispatcher between a layer and its kernel: (module, name)
 ENTRIES = [(sw, "swin_attn_fwd"), (sw, "swin_attn_bwd"), (mk, "token_mlp_fwd"),
            (mk, "token_mlp_bwd"), (pr, "patch_merge_fwd"), (pr, "patch_breakup_fwd"),
-           (rk, "readout_mlp_fwd"), (wa, "window_attention_fwd")]
+           (pr, "patch_merge_bwd"), (pr, "patch_breakup_bwd"), (rk, "readout_mlp_fwd"),
+           (wa, "window_attention_fwd")]
 KERNEL_LAYERS = (SwinBlock, WindowAttention, Mlp, PatchMerging, PatchBreakup)
 
 
@@ -115,7 +116,8 @@ def test_switch_on_reaches_the_entry_points(monkeypatch):
     grads_on = torch.autograd.grad(loss_on, list(on.parameters()))
     assert forward == {"swin_attn_fwd", "token_mlp_fwd", "patch_merge_fwd", "patch_breakup_fwd",
                        "readout_mlp_fwd"}
-    assert {"swin_attn_bwd", "token_mlp_bwd"} <= set(reached)
+    assert {"swin_attn_bwd", "token_mlp_bwd", "patch_merge_bwd",
+            "patch_breakup_bwd"} <= set(reached)
     reached.clear()
     loss_off = _loss(off)
     grads_off = torch.autograd.grad(loss_off, list(off.parameters()))

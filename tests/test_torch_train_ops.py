@@ -27,6 +27,7 @@ from diffusesg_tpu.ops.swin_block_kernel import swin_attn_block_xla
 from diffusesg_torch.ops import cuda_build
 from diffusesg_torch.ops import mlp_block_kernel as mk
 from diffusesg_torch.ops import swin_block_v3 as sw
+from diffusesg_torch.ops import patch_resample as pr
 from diffusesg_torch.ops.patch_resample import patch_breakup, patch_merge
 from diffusesg_torch.ops.readout_kernel import readout_mlp
 
@@ -274,6 +275,45 @@ def test_patch_breakup_function_gradients_match_jax_vjp(with_skip):
         dx = torch.cat([dx, got.pop(0)], dim=-1)
     for name, a, b in zip(("dx", "dw_in", "dg1", "db1", "dg2", "db2", "dw_out"), [dx] + got, want):
         _close(a, b.T if name in ("dw_in", "dw_out") else b, name)
+
+
+@pytest.mark.parametrize("which", ["merge", "breakup", "breakup_no_skip"])
+def test_resample_functions_on_cpu_tensors_take_plain_vjp(monkeypatch, which):
+    """On CPU tensors ``_PatchMerge`` and ``_PatchBreakup`` differentiate
+    their plain versions through ``cuda_build.plain_vjp`` (the card's kernel
+    backwards are CUDA-only), in bf16 as the model runs them: each gradient
+    bit-equal to autograd through the plain version itself."""
+    from diffusesg_torch.ops import cuda_build
+    calls = []
+    orig = cuda_build.plain_vjp
+
+    def recording(fn, *args):
+        calls.append(fn.__name__)
+        return orig(fn, *args)
+    monkeypatch.setattr(cuda_build, "plain_vjp", recording)
+    gen = torch.Generator().manual_seed(3)
+    r = lambda *s, scale=1.0, dt=torch.bfloat16: (torch.randn(*s, generator=gen)  # noqa: E731
+                                                  * scale).to(dt)
+    if which == "merge":
+        c = 16
+        tensors = [r(2, 8, 8, c), 1 + r(4 * c, scale=0.1, dt=torch.float32),
+                   r(4 * c, scale=0.1, dt=torch.float32), r(2 * c, 4 * c, scale=0.125)]
+        fn, plain, ct = patch_merge, pr.patch_merge_plain, r(2, 4, 4, 2 * c)
+    else:
+        c_out, cin = 8, 64
+        skip = r(2, 4, 4, cin // 2) if which == "breakup" else None
+        tensors = [r(2, 4, 4, cin // 2 if skip is not None else cin), skip,
+                   r(4 * c_out, cin, scale=0.125), 1 + r(4 * c_out, scale=0.1, dt=torch.float32),
+                   r(4 * c_out, scale=0.1, dt=torch.float32),
+                   1 + r(c_out, scale=0.1, dt=torch.float32), r(c_out, scale=0.1, dt=torch.float32),
+                   r(c_out, c_out, scale=0.3)]
+        fn, plain, ct = patch_breakup, pr.patch_breakup_plain, r(2, 8, 8, c_out)
+    got = _function_grads(fn, tensors, ct)
+    assert calls == [plain.__name__]
+    want = _function_grads(plain, tensors, ct)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n_out", [1, 5])
