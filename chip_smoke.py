@@ -4264,34 +4264,34 @@ def main(argv=None) -> int:
     from diffusesg_torch.ops import readout_kernel as rk
     from diffusesg_torch.ops import swin_block_v3 as sw
     log("Hopper GEMM tiles (rows, columns, blocks an SM, whole rows), as the library reports "
-        "them: " + ", ".join(f"swin_attn {w} C{c} {sw.attn_gemm_tile(c, w)}"
+        "them: " + ", ".join(f"swin_attn {w} C{c} {sw.attn_gemm_tile(dev, c, w)}"
                              for c in (96, 192, 384, 768) for w in ("qkv", "proj"))
-        + f", swin_attn qkv C384 64-row panels {sw.attn_gemm_tile(384, 'qkv', True)}"
-        + ", " + ", ".join(f"patch_breakup {w} {cin}->{dim} {pr.breakup_tile(cin, dim, w)}"
+        + f", swin_attn qkv C384 64-row panels {sw.attn_gemm_tile(dev, 384, 'qkv', True)}"
+        + ", " + ", ".join(f"patch_breakup {w} {cin}->{dim} {pr.breakup_tile(dev, cin, dim, w)}"
                            for cin, dim in ((1536, 1536), (768, 768), (384, 384))
                            for w in ("in", "out"))
-        + ", " + ", ".join(f"patch_merge C{c} {pr.merge_tile(c)}" for c in (96, 192, 384))
-        + f", patch_merge C96 64-row panels {pr.merge_tile(96, True)}; readout (rows, "
-          f"warpgroups, blocks an SM) {rk.readout_tile()}, its output head "
-          f"{rk.head_tile()}, patch_embed {pe.embed_tile()}; backward: "
-        + ", ".join(f"swin_attn_bwd {w} C{c} {sw.attn_bwd_tile(c, w)}"
+        + ", " + ", ".join(f"patch_merge C{c} {pr.merge_tile(dev, c)}" for c in (96, 192, 384))
+        + f", patch_merge C96 64-row panels {pr.merge_tile(dev, 96, True)}; readout (rows, "
+          f"warpgroups, blocks an SM) {rk.readout_tile(dev)}, its output head "
+          f"{rk.head_tile(dev)}, patch_embed {pe.embed_tile(dev)}; backward: "
+        + ", ".join(f"swin_attn_bwd {w} C{c} {sw.attn_bwd_tile(dev, c, w)}"
                     for c in (96, 192, 384, 768) for w in ("qkv", "stream", "wgrad"))
-        + ", " + ", ".join(f"token_mlp_bwd fused C{c} {mk.mlp_bwd_fused_tile(c)}"
+        + ", " + ", ".join(f"token_mlp_bwd fused C{c} {mk.mlp_bwd_fused_tile(dev, c)}"
                            for c in (96, 192, 384, 768))
-        + ", " + ", ".join(f"token_mlp_bwd {w} C{c} {mk.mlp_bwd_tile(c, w)}"
+        + ", " + ", ".join(f"token_mlp_bwd {w} C{c} {mk.mlp_bwd_tile(dev, c, w)}"
                            for c in (384, 768) for w in ("fc1", "stream"))
-        + ", " + ", ".join(f"token_mlp_bwd wgrad {j} columns {mk.mlp_bwd_tile(j, 'wgrad')}"
+        + ", " + ", ".join(f"token_mlp_bwd wgrad {j} columns {mk.mlp_bwd_tile(dev, j, 'wgrad')}"
                            for j in (96, 384, 768, 3072))
         + "; mm_accumulate (rows, columns, blocks an SM, shared bytes): "
-        + ", ".join(f"{m}x{k}x{n} {t} {mm.kernel_tile(n, k, t == 'int8')}"
+        + ", ".join(f"{m}x{k}x{n} {t} {mm.kernel_tile(dev, n, k, t == 'int8')}"
                     for m, k, n in mm.SHAPES for t in ("bf16", "int8")))
     log("grid plans, as the library reports them: blocks of the window core an SM holds "
-        + ", ".join(f"{q} L={L} {cuda_build.blocks_per_sm(q, L)}"
+        + ", ".join(f"{q} L={L} {cuda_build.blocks_per_sm(dev, q, L)}"
                     for q in ("dsg_swin_attn_core_per_sm", "dsg_window_attention_per_sm",
                               "dsg_swin_attn_bwd_core_per_sm")
                     for L in (64, 100))
         + "; token_mlp (rows, hidden chunk, blocks an SM) "
-        + ", ".join(f"C{c} {mk.mlp_tile(c)}" for c in (64, 96, 192, 384, 768)))
+        + ", ".join(f"C{c} {mk.mlp_tile(dev, c)}" for c in (64, 96, 192, 384, 768)))
 
     # wall seconds of each phase, printed as it ends and again before the last lines
     seconds, mark = {}, [t0]

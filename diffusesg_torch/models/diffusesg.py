@@ -12,13 +12,12 @@ contract:
 The grid input is [sc_a ; adj] then [sc_x ; node] tiled as
 [adj ; node_i ; node_j], as in the reference.
 
-The two full-resolution ends run as one kernel each where no gradient is
-recorded, the kernels are on (``use_kernels``) and the shapes are theirs
-(patch size 1, a width of 96, N up to 64): the entry (input assembly,
-PatchEmbed, its LayerNorm and noise affine) as ``ops.patch_embed``, the exit
-(the final LayerNorm, ReadOut, the adjacency head and the node pooling) as
-``ops.readout_kernel.output_head``.  Elsewhere, and wherever a gradient is
-recorded, the modules' composition runs.
+The two full-resolution ends are ops like every layer with a kernel, chosen
+by ``use_kernels`` alone: the entry (input assembly, PatchEmbed, its
+LayerNorm and noise affine) is ``ops.patch_embed``, the exit (the final
+LayerNorm, ReadOut, the adjacency head and the node pooling)
+``ops.readout_kernel.output_head``, or their plain versions with the
+kernels off.  Each op decides from its operands where its kernel runs.
 """
 from __future__ import annotations
 
@@ -29,16 +28,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import patch_embed as pe
+from ..ops import readout_kernel as rk
 from ..ops.masking import mask_adjs, mask_nodes, symmetrize
-from ..ops.mlp_block_kernel import LN_EPS, layer_norm
-from ..ops.readout_kernel import head_covers, node_pool_plain, output_head
+from ..ops.mlp_block_kernel import LN_EPS
 from .layers import (NOISE_EMB_CHANNELS, BasicLayer, Mlp, PatchEmbed, PositionalEmbedding,
                      ReadOut, dense)
-
-
-def _records(*tensors) -> bool:
-    """Whether autograd records a graph through any of ``tensors``."""
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 class DiffuseSG(nn.Module):
@@ -99,21 +93,6 @@ class DiffuseSG(nn.Module):
             x = layer(x, emb, skip) if layer.upsample is not None else layer(x, emb)
         return x
 
-    def _fused_entry(self, adj, node, node_flags, emb, *sc) -> bool:
-        """Whether the entry runs as ``ops.patch_embed``."""
-        embed = self.patch_embed
-        return (self.use_kernels and embed.patch_size == 1 and embed.norm is not None
-                and node_flags.ndim == 2
-                and pe.covers(embed.proj.out_channels, embed.proj.in_channels)
-                and not _records(adj, node, emb, *sc, *embed.parameters()))
-
-    def _fused_exit(self, x, node_flags) -> bool:
-        """Whether the exit runs as ``ops.readout_kernel.output_head``."""
-        return (self.use_kernels and self.read_out.patch_size == 1 and node_flags.ndim == 2
-                and head_covers(self.patches_resolution[0], x.shape[-1], self.out_chans_adj)
-                and not _records(x, *self.norm.parameters(), *self.read_out.parameters(),
-                                 *self.readout_adj_mlp.parameters()))
-
     def forward(self, adj, node, node_flags, noise_labels, self_cond_adj=None,
                 self_cond_node=None):
         dt = self.dtype
@@ -133,32 +112,21 @@ class DiffuseSG(nn.Module):
             if self_cond_node is not None:
                 sc_x = self_cond_node[..., None] if self_cond_node.ndim == 2 else self_cond_node
 
-        b, n = node.shape[:2]
         embed = self.patch_embed
-        if self._fused_entry(adj, node, node_flags, emb, sc_a, sc_x):
-            scale_shift = dense(emb, embed.affine, dt)
-            x = pe.patch_embed(adj, node, node_flags, sc_a, sc_x,
-                               embed.proj.weight[:, :, 0, 0].to(dt), embed.proj.bias.to(dt),
-                               embed.norm.weight, embed.norm.bias, scale_shift,
-                               self.self_condition)
-        else:
-            x = pe.assemble_plain(adj, node, node_flags, sc_a, sc_x, self.self_condition)
-            x = embed(x.to(dt), emb)
+        norm = (None, None) if embed.norm is None else (embed.norm.weight, embed.norm.bias)
+        entry = pe.patch_embed if self.use_kernels else pe.patch_embed_plain
+        x = entry(adj, node, node_flags, sc_a, sc_x, *embed.linear(), *norm,
+                  dense(emb, embed.affine, dt), self.self_condition, embed.patch_size)
         x = self.forward_features(x, emb)
 
         ph, pw = self.patches_resolution
-        if self._fused_exit(x, node_flags):
-            a = self.readout_adj_mlp
-            adj_out, node_feat = output_head(
-                x.reshape(b, ph, pw, -1), self.norm.weight, self.norm.bias,
-                *(t for pair in self.read_out.linears() for t in pair),
-                a.fc1.weight.to(dt), a.fc1.bias, a.fc2.weight.to(dt), a.fc2.bias, node_flags)
-        else:
-            x = layer_norm(x, self.norm.weight, self.norm.bias).to(dt)
-            shared = self.read_out(x, ph, pw)
-            adj_out = self.readout_adj_mlp(shared).float()
-            # padding-aware pooled node readout: full-N mean divisor, fp32 sum
-            node_feat = node_pool_plain(shared, node_flags)
+        a = self.readout_adj_mlp
+        head = rk.output_head if self.use_kernels else rk.output_head_plain
+        adj_out, node_feat = head(
+            x.reshape(x.shape[0], ph, pw, -1), self.norm.weight, self.norm.bias,
+            *(t for pair in self.read_out.linears() for t in pair),
+            a.fc1.weight.to(dt), a.fc1.bias, a.fc2.weight.to(dt), a.fc2.bias, node_flags,
+            patch_size=self.read_out.patch_size)
         if self.out_chans_adj == 1:
             adj_out = adj_out[..., 0]
         node_out = self.readout_node_mlp(node_feat).float()

@@ -21,8 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.mlp_block_kernel import LN_EPS, layer_norm
-from ..ops.patch_embed import noise_affine_plain
+from ..ops.mlp_block_kernel import LN_EPS
 from ..ops.patch_resample import (patch_breakup, patch_breakup_plain, patch_merge,
                                   patch_merge_plain)
 from ..ops.readout_kernel import readout_mlp, readout_mlp_plain
@@ -83,19 +82,6 @@ class Mlp(nn.Module):
         out = readout(x.reshape(-1, c).to(dt), self.fc1.weight.to(dt), self.fc1.bias,
                       self.fc2.weight.to(dt), self.fc2.bias)
         return out.reshape(*x.shape[:-1], self.fc2.out_features).to(dt)
-
-
-class NoiseAffine(nn.Linear):
-    """Noise conditioning ``silu(shift + x * (scale + 1))``; the module is
-    the Linear emb -> (scale | shift), named ``affine`` by its owner."""
-
-    def __init__(self, dim: int, emb_dim: int = NOISE_EMB_CHANNELS, dtype=torch.float32):
-        super().__init__(emb_dim, 2 * dim)
-        self.dtype = dtype
-
-    def forward(self, x, emb):
-        return noise_affine_plain(x, F.linear(emb.to(self.dtype), self.weight.to(self.dtype),
-                                              self.bias.to(self.dtype)))
 
 
 class WindowAttention(nn.Module):
@@ -287,8 +273,10 @@ class PositionalEmbedding(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """Patchify (the reference's strided Conv2d as space-to-depth + Linear),
-    LayerNorm, noise affine."""
+    """The entry's parameters: the patchify (the reference's strided Conv2d,
+    computed as space-to-depth + Linear), an optional LayerNorm, and the
+    noise affine's Linear emb -> (scale | shift).  ``ops.patch_embed``
+    computes the entry from them."""
 
     def __init__(self, img_size: int, patch_size: int, in_chans: int, embed_dim: int,
                  patch_norm: bool = True, dtype=torch.float32):
@@ -296,24 +284,20 @@ class PatchEmbed(nn.Module):
         self.patch_size, self.dtype = patch_size, dtype
         self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, patch_size)
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS) if patch_norm else None
-        self.affine = NoiseAffine(embed_dim, dtype=dtype)
+        self.affine = nn.Linear(NOISE_EMB_CHANNELS, 2 * embed_dim)
 
-    def forward(self, x, emb):
-        b, h, w, c = x.shape
-        p, dt = self.patch_size, self.dtype
-        x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
-        x = x.reshape(b, (h // p) * (w // p), p * p * c)
-        weight = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.out_channels, -1)
-        x = F.linear(x.to(dt), weight.to(dt), self.proj.bias.to(dt))
-        if self.norm is not None:
-            x = layer_norm(x, self.norm.weight, self.norm.bias).to(dt)
-        return self.affine(x, emb)
+    def linear(self):
+        """The patchify as a Linear (weight [D, p p Cin], its columns in
+        (kh, kw, c) order; bias) in the compute dtype."""
+        w = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.out_channels, -1)
+        return w.to(self.dtype), self.proj.bias.to(self.dtype)
 
 
 class ReadOut(nn.Module):
-    """Un-patchify + two pointwise layers: the reference's ConvTranspose2d(p)
-    and two 1x1 Conv2d (children ``0``, ``1``, ``2``) as depth-to-space and
-    Linear layers."""
+    """The exit's un-patchify and two pointwise layers: the reference's
+    ConvTranspose2d(p) and two 1x1 Conv2d (children ``0``, ``1``, ``2``),
+    computed as a Linear put depth-to-space and two Linears by
+    ``ops.readout_kernel``."""
 
     def __init__(self, patch_size: int, embed_dim: int, dtype=torch.float32):
         super().__init__()
@@ -331,13 +315,3 @@ class ReadOut(nn.Module):
         w0 = up.weight.permute(2, 3, 1, 0).reshape(p * p * up.out_channels, -1)
         return [(w0.to(dt), up.bias.repeat(p * p).to(dt))] + [
             (conv.weight[:, :, 0, 0].to(dt), conv.bias.to(dt)) for conv in (pw1, pw2)]
-
-    def forward(self, x, ph: int, pw: int):
-        b, L, c = x.shape
-        p, d = self.patch_size, getattr(self, "0").out_channels
-        (w0, b0), *pointwise = self.linears()
-        x = F.linear(x.to(self.dtype), w0, b0)
-        x = x.reshape(b, ph, pw, p, p, d).permute(0, 1, 3, 2, 4, 5).reshape(b, ph * p, pw * p, d)
-        for w, bias in pointwise:
-            x = F.linear(x, w, bias)
-        return x

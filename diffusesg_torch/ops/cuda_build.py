@@ -22,9 +22,10 @@ the backward kernels' reductions and ``token_split`` the token split of
 their weight gradients (the wrapper allocates their partials),
 ``wave_split`` the column splits of the forward kernels whose row tiles are
 too few to fill the card (``gemm_plan`` and ``wide_panels`` apply it to the
-Hopper GEMM of csrc/hopper_gemm.cuh), ``sm_count`` and ``blocks_per_sm`` give the forward
-grid plans the card's SM count and a kernel's occupancy, ``tile_of`` reads a
-kernel's tile from the library, and ``plain_vjp`` is the backward of the
+Hopper GEMM of csrc/hopper_gemm.cuh), ``sm_count`` and ``blocks_per_sm`` give the
+grid plans a card's SM count and a kernel's occupancy on it, ``tile_of``
+reads a kernel's tile on a card from the library, ``records`` says whether a
+kernel with no backward may run, and ``plain_vjp`` is the backward of the
 kernels that differentiate their plain version.
 """
 from __future__ import annotations
@@ -190,12 +191,14 @@ def wide_panels(m: int, n: int, tile_for, sms: int = 132) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def tile_of(query: str, *args: int) -> tuple[int, ...]:
-    """A kernel's tile from the library's ``query`` entry, which fills four
+def tile_of(device: torch.device, query: str, *args: int) -> tuple[int, ...]:
+    """A kernel's tile on ``device`` from the library's ``query`` entry, run
+    under it (the library answers for the current card), which fills four
     ints (rows, columns, blocks an SM holds at these widths, a flag); raises
     ValueError for widths the kernel is not built for."""
     geom = (ctypes.c_int * 4)()
-    rc = getattr(lib(), query)(*args, geom)
+    with torch.cuda.device(device):
+        rc = getattr(lib(), query)(*args, geom)
     if rc == -1:
         raise ValueError(f"{query}{args}: no tile covers these widths")
     check(rc, query)
@@ -211,13 +214,20 @@ def sm_count(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def blocks_per_sm(query: str, *args: int) -> int:
-    """Blocks of a kernel an SM holds, from the library's ``query`` entry
-    (the card's occupancy for the kernel's registers and shared memory)."""
-    n = getattr(lib(), query)(*args)
+def blocks_per_sm(device: torch.device, query: str, *args: int) -> int:
+    """Blocks of a kernel an SM of ``device`` holds, from the library's
+    ``query`` entry run under it (the card's occupancy for the kernel)."""
+    with torch.cuda.device(device):
+        n = getattr(lib(), query)(*args)
     if n <= 0:
         raise RuntimeError(f"{query}{args}: no occupancy (error {n})")
     return n
+
+
+def records(*tensors) -> bool:
+    """Whether autograd records a graph through any of ``tensors`` (None
+    skipped), where a kernel with no backward may not run."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def plain_vjp(plain_fn, tensors, grad_out):

@@ -16,8 +16,6 @@ backward recomputes.  Weights are in the PyTorch Linear layout ([out, in]).
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
@@ -120,18 +118,12 @@ def _checked(x, ln_gamma, ln_beta, w1, b1, w2):
     return xf, g, bt, w1, b1, w2
 
 
-@functools.lru_cache(maxsize=None)
-def mlp_tile(c: int) -> tuple[int, int, int, int]:
+def mlp_tile(device, c: int) -> tuple[int, int, int, int]:
     """The fused forward kernel's tile at C, from the library
     (csrc/token_mlp.cu MlpConfig): token rows a block, hidden columns a
     chunk, the blocks an SM holds (the card's occupancy), and the column
     groups a row tile's fc2 columns are cut into, a block each (2 at C768)."""
-    geom = (ctypes.c_int * 4)()
-    rc = cuda_build.lib().dsg_token_mlp_tile(c, geom)
-    if rc == -1:
-        raise ValueError(f"token_mlp is not built for C={c}")
-    cuda_build.check(rc, NAME)
-    return tuple(geom)
+    return cuda_build.tile_of(device, "dsg_token_mlp_tile", c)
 
 
 # What a tile's fixed work (LN2 prologue, ramp, epilogue) and the closing
@@ -205,7 +197,7 @@ def token_mlp_fwd(x, ln_gamma, ln_beta, w1, b1, w2, b2):
     b2 = cuda_build.require(b2, torch.float32, "b2")
     m, c = xf.shape
     hidden = w1.shape[0]
-    tile = mlp_tile(c)
+    tile = mlp_tile(x.device, c)
     if hidden % tile[1]:
         raise ValueError(f"token_mlp needs a hidden width that is a multiple of its chunk "
                          f"{tile[1]}; got C={c} hidden={hidden}")
@@ -223,7 +215,7 @@ def token_mlp_fwd(x, ln_gamma, ln_beta, w1, b1, w2, b2):
     return out.reshape(x.shape)
 
 
-def mlp_bwd_tile(width: int, which: str, wide: bool = False) -> tuple[int, ...]:
+def mlp_bwd_tile(device, width: int, which: str, wide: bool = False) -> tuple[int, ...]:
     """A tile of ``token_mlp_bwd`` from the library (csrc/token_mlp_bwd.cu
     ``dsg_token_mlp_bwd_tile``): "fused" the fused row tile at C (rows,
     hidden chunk, blocks an SM, 1), "fc1" (64-row panels if ``wide``) and
@@ -232,13 +224,13 @@ def mlp_bwd_tile(width: int, which: str, wide: bool = False) -> tuple[int, ...]:
     blocks an SM, 0).  Raises ValueError where no tile covers the width (for
     "fused": where the chain takes C)."""
     which_i = ("fused", "fc1", "stream", "wgrad").index(which)
-    return cuda_build.tile_of("dsg_token_mlp_bwd_tile", width, which_i, int(wide))
+    return cuda_build.tile_of(device, "dsg_token_mlp_bwd_tile", width, which_i, int(wide))
 
 
-def mlp_bwd_fused_tile(c: int) -> tuple[int, ...] | None:
+def mlp_bwd_fused_tile(device, c: int) -> tuple[int, ...] | None:
     """The fused row tile at C, or None where the chain takes C."""
     try:
-        return mlp_bwd_tile(c, "fused")
+        return mlp_bwd_tile(device, c, "fused")
     except ValueError:
         return None
 
@@ -253,7 +245,7 @@ def mlp_bwd_splits(m: int, c: int, hidden: int) -> dict[str, int]:
                 ln=min(cuda_build.TARGET_BLOCKS, -(-m // 8)))
 
 
-def mlp_bwd_plan(m: int, c: int, hidden: int, sms: int = 132) -> dict[str, int]:
+def mlp_bwd_plan(m: int, c: int, hidden: int, device) -> dict[str, int]:
     """Grid plan of ``token_mlp_bwd`` over ``m`` tokens at width C: ``fused``
     (one row-tile launch of ``blocks`` blocks, each walking every hidden
     chunk) where the library has a fused tile for C, else the chain's
@@ -262,19 +254,20 @@ def mlp_bwd_plan(m: int, c: int, hidden: int, sms: int = 132) -> dict[str, int]:
     ``dhn``) and ``mlp_bwd_splits``; and for both the token split of the two
     weight gradients (``w`` splits of ``kchunk`` tokens, one plan for both,
     from the larger of their tile counts)."""
-    wt1, wt2 = mlp_bwd_tile(c, "wgrad"), mlp_bwd_tile(hidden, "wgrad")
+    sms = cuda_build.sm_count(device)
+    wt1, wt2 = mlp_bwd_tile(device, c, "wgrad"), mlp_bwd_tile(device, hidden, "wgrad")
     tiles = max(-(-hidden // wt1[0]) * -(-c // wt1[1]), -(-c // wt2[0]) * -(-hidden // wt2[1]))
     splits, chunk = cuda_build.token_split(tiles, m, min(wt1[2], wt2[2]), sms)
     plan = dict(fused=0, blocks=0, wide=0, fc1=1, dm=1, dhn=1, w=splits, kchunk=chunk, b1=1, b2=1,
                 ln=1)
-    fused = mlp_bwd_fused_tile(c)
+    fused = mlp_bwd_fused_tile(device, c)
     if fused is not None:
         plan.update(fused=1, blocks=-(-m // fused[0]))
     else:
-        stream = mlp_bwd_tile(c, "stream")
-        wide = cuda_build.wide_panels(m, hidden, lambda wd: mlp_bwd_tile(c, "fc1", wd), sms)
-        plan.update(wide=int(wide),
-                    fc1=cuda_build.gemm_plan(m, hidden, mlp_bwd_tile(c, "fc1", wide), sms)["tiles"],
+        stream = mlp_bwd_tile(device, c, "stream")
+        wide = cuda_build.wide_panels(m, hidden, lambda wd: mlp_bwd_tile(device, c, "fc1", wd), sms)
+        fc1 = mlp_bwd_tile(device, c, "fc1", wide)
+        plan.update(wide=int(wide), fc1=cuda_build.gemm_plan(m, hidden, fc1, sms)["tiles"],
                     dm=cuda_build.gemm_plan(m, hidden, stream, sms)["tiles"],
                     dhn=cuda_build.gemm_plan(m, c, stream, sms)["tiles"],
                     **mlp_bwd_splits(m, c, hidden))
@@ -298,7 +291,7 @@ def token_mlp_bwd(x, dout, ln_gamma, ln_beta, w1, b1, w2):
                          f"that is a multiple of 64; got C={c} hidden={hidden}")
     do = cuda_build.require(dout, torch.bfloat16, "dout").reshape(m, c)
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
-    plan = mlp_bwd_plan(m, c, hidden, cuda_build.sm_count(dev))
+    plan = mlp_bwd_plan(m, c, hidden, dev)
 
     def buf(*shape, dtype=f32):
         return torch.empty(shape, dtype=dtype, device=dev)

@@ -47,11 +47,11 @@ def operations(m: int, k: int, n: int, repeats: int, copies: int) -> int:
     return 2 * m * k * n * repeats * copies
 
 
-def kernel_tile(n: int, k: int, is_int8: bool) -> tuple[int, ...]:
+def kernel_tile(device, n: int, k: int, is_int8: bool) -> tuple[int, ...]:
     """The kernel's tile at these widths, from the library: (rows, columns,
     blocks an SM holds, dynamic shared memory bytes a block); ValueError
     where no tile divides ``n``."""
-    return cuda_build.tile_of("dsg_mm_accumulate_tile", n, k, int(is_int8))
+    return cuda_build.tile_of(device, "dsg_mm_accumulate_tile", n, k, int(is_int8))
 
 
 def kernel_plan(m: int, n: int, tile: tuple[int, ...], sms: int) -> dict[str, int]:
@@ -80,7 +80,7 @@ def mm_accumulate(a, b, repeats: int = 64):
     if b.shape[0] != k or m < 1 or k % 32 or repeats < 1:
         raise ValueError(f"mm_accumulate takes k a multiple of 32 and repeats >= 1; got "
                          f"a{tuple(a.shape)} b{tuple(b.shape)} x{repeats}")
-    kernel_tile(n, k, is_int8)  # raises ValueError where no tile divides n
+    kernel_tile(a.device, n, k, is_int8)  # raises ValueError where no tile divides n
     out = torch.empty((m, n), dtype=torch.int32 if is_int8 else torch.float32, device=a.device)
     _, copies = grid_plan(m, n, cuda_build.sm_count(a.device))
     p = cuda_build.ptr

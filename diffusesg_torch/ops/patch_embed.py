@@ -1,16 +1,15 @@
-"""The denoiser's full-resolution entry at patch size 1: the grid input's
-assembly, PatchEmbed's product, its LayerNorm and the noise affine.
+"""The denoiser's full-resolution entry: the grid input's assembly,
+PatchEmbed's patchify and product, its LayerNorm and the noise affine.
 
 No TPU kernel computes it: the JAX package leaves this composition to XLA
-(diffusesg_tpu/models/diffusesg.py, layers.py::PatchEmbed).  On a CUDA
-tensor ``patch_embed`` runs the hand-written kernel ``patch_embed``
-(csrc/patch_embed.cu: one persistent launch that gathers each row's input
-channels straight into the product's A fragments, multiplies on wgmma, and
-applies the bias, the LayerNorm, the affine and SiLU before one bf16 write);
-on a CPU tensor it runs ``patch_embed_plain``.  It is a forward alone, with
-no backward: the model calls it only where no gradient is recorded
-(``models/diffusesg.py``), and composes the pieces below, differentiated by
-autograd, elsewhere.  Weights are in the PyTorch Linear layout ([out, in]).
+(diffusesg_tpu/models/diffusesg.py, layers.py::PatchEmbed), as
+``patch_embed_plain`` does here.  ``patch_embed`` runs the hand-written
+kernel ``patch_embed`` instead (csrc/patch_embed.cu: one persistent launch
+that gathers each row's input channels straight into the product's A
+fragments, multiplies on wgmma, and applies the bias, the LayerNorm, the
+affine and SiLU before one bf16 write), a forward alone, where it covers the
+shapes and autograd records nothing through the operands.  Weights are in
+the PyTorch Linear layout ([out, in]).
 """
 from __future__ import annotations
 
@@ -27,11 +26,16 @@ WIDTH = 96          # the embedding the kernel writes: one m64n96 wgmma
 MAX_CHANNELS = 32   # input channels it takes: two k16 steps
 
 
-def assemble_plain(adj, node, node_flags, sc_adj, sc_node, self_condition: bool):
-    """The grid input [B, N, N, Cin] in fp32 (reference: diffusesg.py:
-    [sc_a ; adj] then [sc_x ; node] of node i and of node j, the node
-    channels masked by both nodes' flags).  ``adj`` [B, N, N, Ca], ``node``
-    [B, N, Cx]; a self-conditioning tensor that is None is zeros."""
+def patch_embed_plain(adj, node, node_flags, sc_adj, sc_node, w, bias, ln_w, ln_b, scale_shift,
+                      self_condition: bool, patch_size: int = 1):
+    """[B, (N / p)^2, D] in ``w``'s dtype.  The grid input [B, N, N, Cin] is
+    assembled in fp32 as the reference does ([sc_a ; adj] then [sc_x ; node]
+    of node i and of node j, the node channels masked by both nodes' flags;
+    a self-conditioning tensor that is None is zeros) and rounded; then p x p
+    patches (``w`` [D, p p Cin], its columns (kh, kw, c)), ``x W^T + bias``,
+    the fp32 LayerNorm rounded (none where ``ln_w`` is None), and
+    ``silu(shift + x * (scale + 1))`` with ``scale_shift`` [B, 2D]."""
+    dt, p = w.dtype, patch_size
     node = node.float()
     if self_condition:
         sc_a = torch.zeros_like(adj) if sc_adj is None else sc_adj
@@ -41,27 +45,14 @@ def assemble_plain(adj, node, node_flags, sc_adj, sc_node, self_condition: bool)
     b, n = node.shape[:2]
     node_mat = node[:, :, None, :].expand(b, n, n, node.shape[-1])
     node_cat = mask_adjs(torch.cat([node_mat, node_mat.transpose(1, 2)], dim=-1), node_flags)
-    return torch.cat([adj.to(node_cat.dtype), node_cat], dim=-1)
-
-
-def noise_affine_plain(x, scale_shift):
-    """``silu(shift + x * (scale + 1))`` over [B, L, C] rows, ``scale_shift``
-    [B, 2C] (scale | shift), in the dtype of both."""
+    x = torch.cat([adj.to(node_cat.dtype), node_cat], dim=-1).to(dt)
+    b, h, ww, c = x.shape
+    x = x.reshape(b, h // p, p, ww // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    x = F.linear(x.reshape(b, (h // p) * (ww // p), p * p * c), w, bias)
+    if ln_w is not None:
+        x = layer_norm(x, ln_w, ln_b).to(dt)
     scale, shift = scale_shift[:, None, :].chunk(2, dim=-1)
     return F.silu(shift + x * (scale + 1.0))
-
-
-def patch_embed_plain(adj, node, node_flags, sc_adj, sc_node, w, bias, ln_w, ln_b, scale_shift,
-                      self_condition: bool):
-    """[B, N * N, D] in ``w``'s dtype: the assembled input rounded to it,
-    ``bf16(x W^T + bias)``, the fp32 LayerNorm rounded, the noise affine
-    (``PatchEmbed`` at patch size 1 with its norm)."""
-    dt = w.dtype
-    x = assemble_plain(adj, node, node_flags, sc_adj, sc_node, self_condition).to(dt)
-    b, n = x.shape[:2]
-    x = F.linear(x.reshape(b, n * n, -1), w, bias)
-    x = layer_norm(x, ln_w, ln_b).to(dt)
-    return noise_affine_plain(x, scale_shift)
 
 
 def covers(width: int, channels: int) -> bool:
@@ -70,17 +61,29 @@ def covers(width: int, channels: int) -> bool:
     return width == WIDTH and 0 < channels <= MAX_CHANNELS
 
 
-def embed_tile() -> tuple[int, ...]:
+def embed_tile(device) -> tuple[int, ...]:
     """The kernel's tile, from the library (csrc/patch_embed.cu): rows a
     tile, tiles a block works on at once (its warpgroups), blocks an SM."""
-    return cuda_build.tile_of("dsg_patch_embed_tile")
+    return cuda_build.tile_of(device, "dsg_patch_embed_tile")
 
 
 def patch_embed(adj, node, node_flags, sc_adj, sc_node, w, bias, ln_w, ln_b, scale_shift,
-                self_condition: bool):
-    """The entry, forward alone: the kernel on CUDA tensors, the plain
-    version on CPU.  ``w`` [96, Cin] and ``bias`` in the compute dtype,
-    ``ln_w`` / ``ln_b`` fp32, ``scale_shift`` [B, 192]."""
+                self_condition: bool, patch_size: int = 1):
+    """The entry: ``patch_embed_fwd`` where its kernel covers the shapes and
+    autograd records nothing through the operands, else ``patch_embed_plain``."""
+    args = (adj, node, node_flags, sc_adj, sc_node, w, bias, ln_w, ln_b, scale_shift,
+            self_condition)
+    if (patch_size == 1 and ln_w is not None and node_flags.ndim == 2 and covers(*w.shape)
+            and not cuda_build.records(*args[:-1])):
+        return patch_embed_fwd(*args)
+    return patch_embed_plain(*args, patch_size)
+
+
+def patch_embed_fwd(adj, node, node_flags, sc_adj, sc_node, w, bias, ln_w, ln_b, scale_shift,
+                    self_condition: bool):
+    """The entry at patch size 1, forward alone: the kernel on CUDA tensors,
+    the plain version on CPU.  ``w`` [96, Cin] and ``bias`` in the compute
+    dtype, ``ln_w`` / ``ln_b`` fp32, ``scale_shift`` [B, 192]."""
     if adj.device.type == "cpu":
         return patch_embed_plain(adj, node, node_flags, sc_adj, sc_node, w, bias, ln_w, ln_b,
                                  scale_shift, self_condition)
@@ -107,7 +110,7 @@ def patch_embed(adj, node, node_flags, sc_adj, sc_node, w, bias, ln_w, ln_b, sca
     scale_shift = cuda_build.require(scale_shift, torch.bfloat16, "scale_shift")
     m = b * n * n
     out = torch.empty((b, n * n, d), dtype=torch.bfloat16, device=adj.device)
-    blocks = readout_plan(m, embed_tile(), cuda_build.sm_count(adj.device))
+    blocks = readout_plan(m, embed_tile(adj.device), cuda_build.sm_count(adj.device))
     p = cuda_build.ptr
     cuda_build.launch(NAME, adj.device, "dsg_patch_embed", *(p(t) for t in srcs), p(flags),
                       p(scale_shift), p(w), p(bias), p(ln_w), p(ln_b), p(out), m, n, ca, cx, cin,

@@ -41,38 +41,44 @@ def patch_merge_plain(x, ln_g, ln_b, w):
     return F.linear(x.float(), w.float()).to(w.dtype)
 
 
-def merge_tile(c: int, wide: bool = False) -> tuple[int, ...]:
+def merge_tile(device, c: int, wide: bool = False) -> tuple[int, ...]:
     """The tile of ``patch_merge``'s GEMM at width C (64-row panels where
     4C <= 384 if ``wide``), from the library (csrc/patch_resample.cu
     ``merge_tile``): rows, columns, blocks an SM holds, 0."""
-    return cuda_build.tile_of("dsg_patch_merge_tile", c, int(wide))
+    return cuda_build.tile_of(device, "dsg_patch_merge_tile", c, int(wide))
 
 
-def merge_plan(m: int, c: int, n: int, sms: int = 132) -> dict[str, int]:
+def merge_plan(m: int, c: int, n: int, device) -> dict[str, int]:
     """Grid plan of ``patch_merge`` over ``m`` merged tokens, width C and
     ``n`` output columns: 64-row panels where ``wide_panels`` says so, and
     ``gemm_plan``'s column split on the tile taken."""
-    wide = cuda_build.wide_panels(m, n, lambda w: merge_tile(c, w), sms)
-    plan = cuda_build.gemm_plan(m, n, merge_tile(c, wide), sms)
+    sms = cuda_build.sm_count(device)
+    wide = cuda_build.wide_panels(m, n, lambda w: merge_tile(device, c, w), sms)
+    plan = cuda_build.gemm_plan(m, n, merge_tile(device, c, wide), sms)
     return dict(wide=int(wide), tiles=plan["tiles"])
+
+
+def _check_merge(x, w, name: str) -> None:
+    """The shapes both merge kernels take."""
+    _, h, ww, c = x.shape
+    if h % 2 or ww % 2 or c % 8 or 4 * c > 1536 or w.shape[1] != 4 * c or w.shape[0] % 8:
+        raise ValueError(f"{name} shapes x{tuple(x.shape)} w{tuple(w.shape)} are not supported "
+                         "(an even grid, C a multiple of 8 up to 384, outputs a multiple of 8)")
 
 
 def patch_merge_fwd(x, ln_g, ln_b, w):
     """Forward alone: the kernel on CUDA tensors, the plain version on CPU."""
     if x.device.type == "cpu":
         return patch_merge_plain(x, ln_g, ln_b, w)
+    _check_merge(x, w, "patch_merge")
     b, h, ww, c = x.shape
     c_out = w.shape[0]
-    if h % 2 or ww % 2 or c % 8 or 4 * c > 1536 or w.shape[1] != 4 * c or c_out % 8:
-        raise ValueError(f"patch_merge shapes x{tuple(x.shape)} w{tuple(w.shape)} "
-                         "are not supported (an even grid, C a multiple of 8 up to 384, "
-                         "outputs a multiple of 8)")
     x = cuda_build.require(x, torch.bfloat16, "x")
     w = cuda_build.require(w, torch.bfloat16, "w")
     g = cuda_build.require(ln_g, torch.float32, "ln_g")
     bt = cuda_build.require(ln_b, torch.float32, "ln_b")
     out = torch.empty((b, h // 2, ww // 2, c_out), dtype=torch.bfloat16, device=x.device)
-    plan = merge_plan(b * (h // 2) * (ww // 2), c, c_out, cuda_build.sm_count(x.device))
+    plan = merge_plan(b * (h // 2) * (ww // 2), c, c_out, x.device)
     p = cuda_build.ptr
     cuda_build.launch("patch_merge", x.device, "dsg_patch_merge", p(x), p(g), p(bt), p(w),
                       p(out), b, h, ww, c, c_out, plan["wide"], plan["tiles"])
@@ -96,12 +102,13 @@ def patch_breakup_plain(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
     return F.linear(y.float(), w_out.float()).to(w_out.dtype)
 
 
-def breakup_tile(cin: int, dim: int, which: str) -> tuple[int, ...]:
+def breakup_tile(device, cin: int, dim: int, which: str) -> tuple[int, ...]:
     """The tile of ``patch_breakup``'s first (``"in"``: Cin -> dim) or second
     (``"out"``: c -> c) GEMM, from the library (csrc/patch_resample.cu):
     rows, columns, blocks an SM holds, and 1 where the first GEMM holds whole
     output rows (the fused path, no fp32 rows in device memory)."""
-    return cuda_build.tile_of("dsg_patch_breakup_tile", cin, dim, ("in", "out").index(which))
+    return cuda_build.tile_of(device, "dsg_patch_breakup_tile", cin, dim,
+                              ("in", "out").index(which))
 
 
 # the backwards' GEMM tiles, as dsg_patch_resample_bwd_tile numbers them
@@ -111,13 +118,13 @@ BWD_TILES = ("merge_dhn", "merge_dw", "breakup_y", "breakup_dh", "breakup_dx", "
 WAVE_FILL = 0.9
 
 
-def bwd_tile(which: str, k: int) -> tuple[int, ...]:
+def bwd_tile(device, which: str, k: int) -> tuple[int, ...]:
     """A tile of the backwards' GEMMs from the library (csrc/patch_resample.cu
     ``dsg_patch_resample_bwd_tile``): the products at K = ``k`` ("merge_dhn",
     "breakup_y", "breakup_dh", "breakup_dx"), the weight gradients at ``k``
     output columns ("merge_dw", "breakup_dw_out", "breakup_dw_in"): rows,
     columns, blocks an SM holds, 0."""
-    return cuda_build.tile_of("dsg_patch_resample_bwd_tile", BWD_TILES.index(which), k)
+    return cuda_build.tile_of(device, "dsg_patch_resample_bwd_tile", BWD_TILES.index(which), k)
 
 
 def wgrad_split(tiles: int, tokens: int, per_sm: int, sms: int = 132) -> tuple[int, int]:
@@ -140,26 +147,26 @@ def wgrad_split(tiles: int, tokens: int, per_sm: int, sms: int = 132) -> tuple[i
     return -(-tokens // chunk), chunk
 
 
-def row_blocks(m: int, which: str, width: int, sms: int = 132) -> int:
+def row_blocks(m: int, which: str, width: int, device) -> int:
     """Blocks of a backward row pass ("merge" at K = ``width``, "breakup" at
     c = ``width``) over ``m`` rows, four warps a block and a row a warp at a
     time: one wave of the blocks the card holds (the library's occupancy),
     fewer where the rows are few."""
-    per_sm = cuda_build.blocks_per_sm("dsg_patch_resample_bwd_rows_per_sm",
+    per_sm = cuda_build.blocks_per_sm(device, "dsg_patch_resample_bwd_rows_per_sm",
                                       ("merge", "breakup").index(which), width)
-    return max(1, min(sms * per_sm, -(-m // 4)))
+    return max(1, min(cuda_build.sm_count(device) * per_sm, -(-m // 4)))
 
 
-def merge_bwd_plan(m: int, c: int, c_out: int, sms: int = 132) -> dict[str, int]:
+def merge_bwd_plan(m: int, c: int, c_out: int, device) -> dict[str, int]:
     """Grid plan of ``patch_merge_bwd`` over ``m`` merged tokens at width C
     with ``c_out`` outputs: the column split of dhn = dy W (``gemm_plan``,
     K = c_out rounded up to 16), the row pass's blocks, and the token split
     of dW = dy^T hn (``wgrad_split``)."""
-    k = 4 * c
-    dhn = cuda_build.gemm_plan(m, k, bwd_tile("merge_dhn", -(-c_out // 16) * 16), sms)["tiles"]
-    wt = bwd_tile("merge_dw", k)
+    k, sms = 4 * c, cuda_build.sm_count(device)
+    dhn = cuda_build.gemm_plan(m, k, bwd_tile(device, "merge_dhn", -(-c_out // 16) * 16), sms)
+    wt = bwd_tile(device, "merge_dw", k)
     splits, chunk = wgrad_split(-(-c_out // wt[0]) * -(-k // wt[1]), m, wt[2], sms)
-    return dict(dhn=dhn, rows=row_blocks(m, "merge", k, sms), w=splits, kchunk=chunk)
+    return dict(dhn=dhn["tiles"], rows=row_blocks(m, "merge", k, device), w=splits, kchunk=chunk)
 
 
 def patch_merge_bwd(x, ln_g, ln_b, w, dout):
@@ -168,11 +175,9 @@ def patch_merge_bwd(x, ln_g, ln_b, w, dout):
     version differentiated (``plain_vjp``)."""
     if x.device.type == "cpu":
         return cuda_build.plain_vjp(patch_merge_plain, (x, ln_g, ln_b, w), dout)
+    _check_merge(x, w, "patch_merge_bwd")
     b, h, ww, c = x.shape
     c_out = w.shape[0]
-    if h % 2 or ww % 2 or c % 8 or 4 * c > 1536 or w.shape[1] != 4 * c or c_out % 8:
-        raise ValueError(f"patch_merge_bwd shapes x{tuple(x.shape)} w{tuple(w.shape)} "
-                         "are not supported")
     bf, f32, dev = torch.bfloat16, torch.float32, x.device
     x = cuda_build.require(x, bf, "x")
     w = cuda_build.require(w, bf, "w")
@@ -183,7 +188,7 @@ def patch_merge_bwd(x, ln_g, ln_b, w, dout):
     # dhn = dy W takes K in steps of 16: zero columns of dy and rows of W where c_out is not
     pad = -c_out % 16
     dy_k, w_k = (dy, w) if not pad else (F.pad(dy, (0, pad)), F.pad(w, (0, 0, 0, pad)))
-    plan = merge_bwd_plan(m, c, c_out, cuda_build.sm_count(dev))
+    plan = merge_bwd_plan(m, c, c_out, dev)
 
     def buf(*shape, dtype=f32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -215,20 +220,25 @@ def patch_merge(x, ln_g, ln_b, w):
     return _PatchMerge.apply(x, ln_g, ln_b, w)
 
 
-def patch_breakup_fwd(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
-    """Forward alone: the kernel on CUDA tensors, the plain version on CPU."""
-    if x.device.type == "cpu":
-        return patch_breakup_plain(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out)
-    b, h, ww, c1 = x.shape
-    c2 = 0 if skip is None else skip.shape[-1]
-    dim = w_in.shape[0]
+def _check_breakup(x, skip, w_in, w_out, name: str) -> tuple[int, int, int]:
+    """The shapes both breakup kernels take: (C1, C2, 4c)."""
+    c1, c2, dim = x.shape[-1], 0 if skip is None else skip.shape[-1], w_in.shape[0]
     c = dim // 4
     if (w_in.shape[1] != c1 + c2 or dim % 64 or c > 384 or c1 % 8 or c2 % 8
             or (c1 + c2) % 16 or (c2 and c1 % 64) or tuple(w_out.shape) != (c, c)
             or (skip is not None and skip.shape[:3] != x.shape[:3])):
-        raise ValueError(f"patch_breakup shapes x{tuple(x.shape)} w_in{tuple(w_in.shape)} "
-                         "are not supported (4c a multiple of 64 up to 1536, Cin of 16, "
-                         "C1 of 64 beside a skip)")
+        raise ValueError(f"{name} shapes x{tuple(x.shape)} w_in{tuple(w_in.shape)} are not "
+                         "supported (4c a multiple of 64 up to 1536, Cin of 16, C1 of 64 beside "
+                         "a skip)")
+    return c1, c2, dim
+
+
+def patch_breakup_fwd(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
+    """Forward alone: the kernel on CUDA tensors, the plain version on CPU."""
+    if x.device.type == "cpu":
+        return patch_breakup_plain(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out)
+    c1, c2, dim = _check_breakup(x, skip, w_in, w_out, "patch_breakup")
+    (b, h, ww), c = x.shape[:3], dim // 4
     bf, f32 = torch.bfloat16, torch.float32
     x = cuda_build.require(x, bf, "x")
     if skip is not None:
@@ -239,9 +249,9 @@ def patch_breakup_fwd(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
         (ln1_g, "ln1_g"), (ln1_b, "ln1_b"), (ln2_g, "ln2_g"), (ln2_b, "ln2_b")))
     m = b * h * ww
     sms = cuda_build.sm_count(x.device)
-    tile_in = breakup_tile(c1 + c2, dim, "in")
+    tile_in = breakup_tile(x.device, c1 + c2, dim, "in")
     plan_in = cuda_build.gemm_plan(m, dim, tile_in, sms)
-    plan_out = cuda_build.gemm_plan(4 * m, c, breakup_tile(c1 + c2, dim, "out"), sms)
+    plan_out = cuda_build.gemm_plan(4 * m, c, breakup_tile(x.device, c1 + c2, dim, "out"), sms)
     y = None if tile_in[3] else torch.empty((m, dim), dtype=f32, device=x.device)
     scattered = torch.empty((4 * m, c), dtype=bf, device=x.device)
     out = torch.empty((b, 2 * h, 2 * ww, c), dtype=bf, device=x.device)
@@ -254,25 +264,24 @@ def patch_breakup_fwd(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out):
     return out
 
 
-def breakup_bwd_plan(m: int, c1: int, c2: int, dim: int, sms: int = 132) -> dict[str, int]:
+def breakup_bwd_plan(m: int, c1: int, c2: int, dim: int, device) -> dict[str, int]:
     """Grid plan of ``patch_breakup_bwd`` over ``m`` input tokens of C1 + C2
     channels and 4c = ``dim``: the column splits (``gemm_plan``) of y =
     [x | skip] W_in^T (``y``), dh2 = dout W_out (``dh``) and [dx | dskip] =
     dy W_in over the three terms of dy (``dx``), the row pass's blocks, and
     the token splits (``wgrad_split``) of dW_out over the 4m output tokens and
     of dW_in (one plan for its x and skip launches, from the larger)."""
-    cin, c = c1 + c2, dim // 4
-    y = cuda_build.gemm_plan(m, dim, bwd_tile("breakup_y", cin), sms)["tiles"]
-    dh = cuda_build.gemm_plan(4 * m, c, bwd_tile("breakup_dh", c), sms)["tiles"]
-    dx = cuda_build.gemm_plan(m, cin, bwd_tile("breakup_dx", 3 * dim), sms)["tiles"]
-    wo = bwd_tile("breakup_dw_out", c)
+    cin, c, sms = c1 + c2, dim // 4, cuda_build.sm_count(device)
+    y = cuda_build.gemm_plan(m, dim, bwd_tile(device, "breakup_y", cin), sms)["tiles"]
+    dh = cuda_build.gemm_plan(4 * m, c, bwd_tile(device, "breakup_dh", c), sms)["tiles"]
+    dx = cuda_build.gemm_plan(m, cin, bwd_tile(device, "breakup_dx", 3 * dim), sms)["tiles"]
+    wo = bwd_tile(device, "breakup_dw_out", c)
     w_out, kchunk_out = wgrad_split(-(-c // wo[0]) * -(-c // wo[1]), 4 * m, wo[2], sms)
-    wi = [bwd_tile("breakup_dw_in", j) for j in (c1, c2) if j]
+    wi = [bwd_tile(device, "breakup_dw_in", j) for j in (c1, c2) if j]
     tiles = max(-(-3 * dim // t[0]) * -(-j // t[1]) for t, j in zip(wi, (c1, c2)))
     w_in, kchunk_in = wgrad_split(tiles, m, min(t[2] for t in wi), sms)
-    return dict(y=y, dh=dh, dx=dx, rows=row_blocks(m, "breakup", c, sms), w_out=w_out,
-                kchunk_out=kchunk_out,
-                w_in=w_in, kchunk_in=kchunk_in)
+    return dict(y=y, dh=dh, dx=dx, rows=row_blocks(m, "breakup", c, device), w_out=w_out,
+                kchunk_out=kchunk_out, w_in=w_in, kchunk_in=kchunk_in)
 
 
 def patch_breakup_bwd(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out, dout):
@@ -283,15 +292,8 @@ def patch_breakup_bwd(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out, dout):
     args = (x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out)
     if x.device.type == "cpu":
         return cuda_build.plain_vjp(patch_breakup_plain, args, dout)
-    b, h, ww, c1 = x.shape
-    c2 = 0 if skip is None else skip.shape[-1]
-    dim = w_in.shape[0]
-    c = dim // 4
-    if (w_in.shape[1] != c1 + c2 or dim % 64 or c > 384 or c1 % 8 or c2 % 8
-            or (c1 + c2) % 16 or (c2 and c1 % 64) or tuple(w_out.shape) != (c, c)
-            or (skip is not None and skip.shape[:3] != x.shape[:3])):
-        raise ValueError(f"patch_breakup_bwd shapes x{tuple(x.shape)} w_in{tuple(w_in.shape)} "
-                         "are not supported")
+    c1, c2, dim = _check_breakup(x, skip, w_in, w_out, "patch_breakup_bwd")
+    (b, h, ww), c = x.shape[:3], dim // 4
     bf, f32, dev = torch.bfloat16, torch.float32, x.device
     x = cuda_build.require(x, bf, "x")
     if skip is not None:
@@ -302,7 +304,7 @@ def patch_breakup_bwd(x, skip, w_in, ln1_g, ln1_b, ln2_g, ln2_b, w_out, dout):
         (ln1_g, "ln1_g"), (ln1_b, "ln1_b"), (ln2_g, "ln2_g"), (ln2_b, "ln2_b")))
     m, cin = b * h * ww, c1 + c2
     do = dout.to(bf).contiguous()
-    plan = breakup_bwd_plan(m, c1, c2, dim, cuda_build.sm_count(dev))
+    plan = breakup_bwd_plan(m, c1, c2, dim, dev)
 
     def buf(*shape, dtype=f32):
         return torch.empty(shape, dtype=dtype, device=dev)

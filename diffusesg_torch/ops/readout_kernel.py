@@ -11,16 +11,17 @@ differentiates it, as the JAX ``custom_vjp`` differentiates its XLA
 composition.  Weights are in the PyTorch
 Linear layout ([out, in]); GELU is the exact erf form in both versions.
 
-``output_head`` widens the kernel into the denoiser's exit over the
-U-Net's [B, N, N, 96] rows (patch size 1), a forward alone that the model
-calls only where no gradient is recorded: the final LayerNorm, ReadOut's
-three products, the adjacency head, and the node pooling's masked sums, in
-one launch (``readout_kernel_head``) in which ``shared`` never reaches device
-memory.  The pooling comes back as fixed-order partial sums, two a node,
-which the wrapper adds and divides by N.  ``output_head_plain`` is the same
-function in PyTorch, rounded at the same points as the model's composition.
+The denoiser's exit (the final LayerNorm, ReadOut's three products, the
+adjacency head and the node pooling) is one composition that takes its
+adjacency head, ``output_head_composed``.  ``output_head`` runs it as one
+launch (``readout_kernel_head``, in which ``shared`` never reaches device
+memory) where the kernel covers the shapes and autograd records nothing
+through the operands.  The pooling comes back as fixed-order partial sums,
+two a node, which the wrapper adds and divides by N.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -40,10 +41,10 @@ def readout_mlp_plain(x, w1, b1, w2, b2):
     return F.linear(h.float(), w2.float(), b2.float())
 
 
-def readout_tile() -> tuple[int, ...]:
+def readout_tile(device) -> tuple[int, ...]:
     """The kernel's tile, from the library (csrc/readout.cu): rows a tile,
     tiles a block works on at once (its warpgroups), blocks an SM holds."""
-    return cuda_build.tile_of("dsg_readout_tile")
+    return cuda_build.tile_of(device, "dsg_readout_tile")
 
 
 def readout_plan(m: int, tile: tuple[int, ...], sms: int = 132) -> int:
@@ -72,7 +73,7 @@ def readout_mlp_fwd(x, w1, b1, w2, b2):
                          f"w2{tuple(w2.shape)} are not supported (C a multiple of 16 up to "
                          "128, hidden 96, 1 to 16 outputs)")
     out = torch.empty((m, n_out), dtype=torch.float32, device=x.device)
-    blocks = readout_plan(m, readout_tile(), cuda_build.sm_count(x.device))
+    blocks = readout_plan(m, readout_tile(x.device), cuda_build.sm_count(x.device))
     p = cuda_build.ptr
     cuda_build.launch(NAME, x.device, "dsg_readout",
                       p(x), p(w1), p(b1), p(w2), p(b2), p(out), m, c, hidden, n_out, blocks)
@@ -103,20 +104,28 @@ def node_pool_plain(shared, node_flags):
     return torch.mean(mask_adjs(shared, node_flags), dim=2, dtype=torch.float32)
 
 
-def output_head_plain(x, ln_w, ln_b, w0, b0, w1, b1, w2, b2, fc1_w, fc1_b, fc2_w, fc2_b,
-                      node_flags):
-    """The exit over the U-Net's rows ``x`` [B, N, N, D] in the compute
-    dtype: ``shared`` = ReadOut(bf16(LayerNorm(x))), each of its three
-    products rounded to the dtype; returns (the adjacency head over
-    ``shared``, rounded to the dtype, as fp32 [B, N, N, n_out]; the node
-    pooling of ``shared``, fp32 [B, N, D]).  ``w*`` and ``b*`` in the
+def output_head_composed(adj_head, x, ln_w, ln_b, w0, b0, w1, b1, w2, b2, fc1_w, fc1_b, fc2_w,
+                         fc2_b, node_flags, patch_size: int = 1):
+    """The exit over the U-Net's rows ``x`` [B, H, W, D] in the compute dtype:
+    ``shared`` = ReadOut(bf16(LayerNorm(x))), ``w0``'s rows (kh, kw, d) put
+    depth-to-space, each product rounded to the dtype; returns (``adj_head``
+    over ``shared``, rounded to the dtype, as fp32 [B, pH, pW, n_out]; the
+    node pooling of ``shared``, fp32 [B, pH, D]).  ``w*`` and ``b*`` in the
     compute dtype, ``ln_*`` and ``fc*_b`` fp32."""
     dt = w0.dtype
-    s = layer_norm(x, ln_w, ln_b).to(dt)
-    for w, bias in ((w0, b0), (w1, b1), (w2, b2)):
-        s = F.linear(s, w, bias)
-    adj = readout_mlp_plain(s.reshape(-1, s.shape[-1]), fc1_w, fc1_b, fc2_w, fc2_b)
-    return adj.to(dt).float().reshape(*s.shape[:3], -1), node_pool_plain(s, node_flags)
+    b, h, w, _ = x.shape
+    p = patch_size
+    s = F.linear(layer_norm(x, ln_w, ln_b).to(dt), w0, b0)
+    d = s.shape[-1] // (p * p)
+    s = s.reshape(b, h, w, p, p, d).permute(0, 1, 3, 2, 4, 5).reshape(b, h * p, w * p, d)
+    for wt, bias in ((w1, b1), (w2, b2)):
+        s = F.linear(s, wt, bias)
+    adj = adj_head(s.reshape(-1, d), fc1_w, fc1_b, fc2_w, fc2_b)
+    return adj.reshape(*s.shape[:3], -1).to(dt).float(), node_pool_plain(s, node_flags)
+
+
+# the kernel's reference, and the exit with the kernels off
+output_head_plain = functools.partial(output_head_composed, readout_mlp_plain)
 
 
 def head_covers(n: int, width: int, n_out: int) -> bool:
@@ -125,14 +134,28 @@ def head_covers(n: int, width: int, n_out: int) -> bool:
     return 0 < n <= 64 and width == 96 and 1 <= n_out <= 16
 
 
-def head_tile() -> tuple[int, ...]:
+def head_tile(device) -> tuple[int, ...]:
     """The output head's tile, from the library, as ``readout_tile``'s."""
-    return cuda_build.tile_of("dsg_readout_head_tile")
+    return cuda_build.tile_of(device, "dsg_readout_head_tile")
 
 
-def output_head(x, ln_w, ln_b, w0, b0, w1, b1, w2, b2, fc1_w, fc1_b, fc2_w, fc2_b, node_flags):
-    """The exit, forward alone: the kernel on CUDA tensors, the plain
-    version on CPU.  Returns what ``output_head_plain`` returns."""
+def output_head(x, ln_w, ln_b, w0, b0, w1, b1, w2, b2, fc1_w, fc1_b, fc2_w, fc2_b, node_flags,
+                patch_size: int = 1):
+    """The exit: ``output_head_fwd`` where its kernel covers the shapes and
+    autograd records nothing through the operands, else the composition with
+    ``readout_mlp`` (the readout kernel's forward, ``plain_vjp`` behind it)."""
+    args = (x, ln_w, ln_b, w0, b0, w1, b1, w2, b2, fc1_w, fc1_b, fc2_w, fc2_b, node_flags)
+    _, h, w, d = x.shape
+    if (patch_size == 1 and h == w and node_flags.ndim == 2 and head_covers(h, d, fc2_w.shape[0])
+            and not cuda_build.records(*args)):
+        return output_head_fwd(*args)
+    return output_head_composed(readout_mlp, *args, patch_size=patch_size)
+
+
+def output_head_fwd(x, ln_w, ln_b, w0, b0, w1, b1, w2, b2, fc1_w, fc1_b, fc2_w, fc2_b,
+                    node_flags):
+    """The exit at patch size 1, forward alone: the kernel on CUDA tensors,
+    the plain version on CPU.  Returns what ``output_head_plain`` returns."""
     if x.device.type == "cpu":
         return output_head_plain(x, ln_w, ln_b, w0, b0, w1, b1, w2, b2, fc1_w, fc1_b, fc2_w,
                                  fc2_b, node_flags)
@@ -153,7 +176,7 @@ def output_head(x, ln_w, ln_b, w0, b0, w1, b1, w2, b2, fc1_w, fc1_b, fc2_w, fc2_
     m = b * n * n
     out = torch.empty((b, n, n, n_out), dtype=f32, device=x.device)
     part = torch.empty((b * n, 2, d), dtype=f32, device=x.device)
-    blocks = readout_plan(m, head_tile(), cuda_build.sm_count(x.device))
+    blocks = readout_plan(m, head_tile(x.device), cuda_build.sm_count(x.device))
     p = cuda_build.ptr
     cuda_build.launch(NAME, x.device, "dsg_readout_head", *(p(t) for t in args), p(flags),
                       p(out), p(part), m, n, n_out, blocks)

@@ -56,22 +56,23 @@ def core_blocks(n_windows: int, classes: int, wpb: int) -> int:
     return classes * -(-(n_windows // classes) // wpb)
 
 
-def attn_gemm_tile(c: int, which: str, wide: bool = False) -> tuple[int, ...]:
+def attn_gemm_tile(device, c: int, which: str, wide: bool = False) -> tuple[int, ...]:
     """The tile of ``swin_attn``'s qkv or proj GEMM at width C (64-row panels
     if ``wide``), from the library (csrc/swin_attn.cu ``with_tile``): rows,
     columns, blocks an SM holds, 0."""
-    return cuda_build.tile_of("dsg_swin_attn_gemm_tile", c, ("qkv", "proj").index(which),
-                              int(wide))
+    return cuda_build.tile_of(device, "dsg_swin_attn_gemm_tile", c,
+                              ("qkv", "proj").index(which), int(wide))
 
 
-def attn_gemm_plan(m: int, c: int, sms: int = 132) -> dict[str, int]:
+def attn_gemm_plan(m: int, c: int, device) -> dict[str, int]:
     """Grid plan of ``swin_attn``'s two GEMMs over ``m`` tokens at width C:
     64-row panels (``wide``) where ``wide_panels`` says so for the qkv GEMM,
     and ``gemm_plan``'s column split of each GEMM on the tile taken."""
-    wide = cuda_build.wide_panels(m, 3 * c, lambda w: attn_gemm_tile(c, "qkv", w), sms)
-    return dict(wide=int(wide),
-                qkv=cuda_build.gemm_plan(m, 3 * c, attn_gemm_tile(c, "qkv", wide), sms)["tiles"],
-                proj=cuda_build.gemm_plan(m, c, attn_gemm_tile(c, "proj", wide), sms)["tiles"])
+    sms = cuda_build.sm_count(device)
+    wide = cuda_build.wide_panels(m, 3 * c, lambda w: attn_gemm_tile(device, c, "qkv", w), sms)
+    qkv, proj = (attn_gemm_tile(device, c, k, wide) for k in ("qkv", "proj"))
+    return dict(wide=int(wide), qkv=cuda_build.gemm_plan(m, 3 * c, qkv, sms)["tiles"],
+                proj=cuda_build.gemm_plan(m, c, proj, sms)["tiles"])
 
 
 def _to_windows(t, window: int):
@@ -287,9 +288,9 @@ def swin_attn_fwd(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, r
     out = torch.empty_like(x)
     n_win = (h // window) * (w // window)
     sms = cuda_build.sm_count(x.device)
-    per_sm = cuda_build.blocks_per_sm("dsg_swin_attn_core_per_sm", window * window)
+    per_sm = cuda_build.blocks_per_sm(x.device, "dsg_swin_attn_core_per_sm", window * window)
     wpb = window_core_plan(b * n_win, num_heads, n_win if mask is not None else 1, per_sm, sms)
-    plan = attn_gemm_plan(m, c, sms)
+    plan = attn_gemm_plan(m, c, x.device)
     p = cuda_build.ptr
     cuda_build.launch(
         NAME, x.device, "dsg_swin_attn",
@@ -310,26 +311,27 @@ def attn_bwd_splits(b: int, h: int, w: int, c: int, num_heads: int, window: int)
                 rows=min(-(-h * w // 8), max(1, -(-cuda_build.TARGET_BLOCKS // b))))
 
 
-def attn_bwd_tile(c: int, which: str, wide: bool = False) -> tuple[int, ...]:
+def attn_bwd_tile(device, c: int, which: str, wide: bool = False) -> tuple[int, ...]:
     """A tile of ``swin_attn_bwd``'s GEMMs at width C from the library
     (csrc/swin_attn_bwd.cu ``dsg_swin_attn_bwd_tile``): "qkv" the recompute
     (64-row panels if ``wide``), "stream" dy Wproj and dqkv Wqkv, "wgrad" the
     weight gradients; rows, columns, blocks an SM holds, 0."""
-    return cuda_build.tile_of("dsg_swin_attn_bwd_tile", c,
+    return cuda_build.tile_of(device, "dsg_swin_attn_bwd_tile", c,
                               ("qkv", "stream", "wgrad").index(which), int(wide))
 
 
-def attn_bwd_gemm_plan(m: int, c: int, sms: int = 132) -> dict[str, int]:
+def attn_bwd_gemm_plan(m: int, c: int, device) -> dict[str, int]:
     """Grid plan of ``swin_attn_bwd``'s GEMMs over ``m`` tokens at width C:
     the qkv recompute's panels and column split as the forward's
     (``wide_panels``, ``gemm_plan``), the column splits of the two streamed
     products, and the token split of the two weight gradients (``w``
     splits of ``kchunk`` tokens, planned on dWqkv's tiles)."""
-    wide = cuda_build.wide_panels(m, 3 * c, lambda wd: attn_bwd_tile(c, "qkv", wd), sms)
-    stream, wt = attn_bwd_tile(c, "stream"), attn_bwd_tile(c, "wgrad")
+    sms = cuda_build.sm_count(device)
+    wide = cuda_build.wide_panels(m, 3 * c, lambda wd: attn_bwd_tile(device, c, "qkv", wd), sms)
+    stream, wt = attn_bwd_tile(device, c, "stream"), attn_bwd_tile(device, c, "wgrad")
     splits, chunk = cuda_build.token_split(-(-3 * c // wt[0]) * -(-c // wt[1]), m, wt[2], sms)
-    return dict(wide=int(wide),
-                qkv=cuda_build.gemm_plan(m, 3 * c, attn_bwd_tile(c, "qkv", wide), sms)["tiles"],
+    qkv = attn_bwd_tile(device, c, "qkv", wide)
+    return dict(wide=int(wide), qkv=cuda_build.gemm_plan(m, 3 * c, qkv, sms)["tiles"],
                 dattn=cuda_build.gemm_plan(m, c, stream, sms)["tiles"],
                 dhn=cuda_build.gemm_plan(m, c, stream, sms)["tiles"], w=splits, kchunk=chunk)
 
@@ -364,11 +366,11 @@ def _swin_attn_bwd_kernel(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wpr
     m, L = b * h * w, window * window
     sms = cuda_build.sm_count(dev)
     sp = attn_bwd_splits(b, h, w, c, num_heads, window)
-    gp = attn_bwd_gemm_plan(m, c, sms)
+    gp = attn_bwd_gemm_plan(m, c, dev)
     # the backward core's grid as the forward's: runs of one mask class
     n_win = b * (h // window) * (w // window)
     classes = (h // window) * (w // window) if mask is not None else 1
-    per_sm = cuda_build.blocks_per_sm("dsg_swin_attn_bwd_core_per_sm", L)
+    per_sm = cuda_build.blocks_per_sm(dev, "dsg_swin_attn_bwd_core_per_sm", L)
     wpb = window_core_plan(n_win, num_heads, classes, per_sm, sms)
 
     def buf(*shape, dtype=f32):

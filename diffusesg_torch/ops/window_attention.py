@@ -57,7 +57,7 @@ def window_attention_fwd(q, k, v, rel_bias, mask=None, scale: float = 1.0):
         if tuple(mask.shape[1:]) != (L, L) or nwb % mask_n:
             raise ValueError(f"mask{tuple(mask.shape)} does not tile {nwb} windows of {L} tokens")
     out = torch.empty_like(q)
-    per_sm = cuda_build.blocks_per_sm("dsg_window_attention_per_sm", L)
+    per_sm = cuda_build.blocks_per_sm(q.device, "dsg_window_attention_per_sm", L)
     wpb = window_core_plan(nwb, nh, mask_n, per_sm, cuda_build.sm_count(q.device))
     p = cuda_build.ptr
     cuda_build.launch(NAME, q.device, "dsg_window_attention",

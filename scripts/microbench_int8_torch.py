@@ -35,7 +35,7 @@ def run(m, k, n, dtype, dev, iters=5):
     else:
         a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
-    tile = mm.kernel_tile(n, k, dtype == torch.int8)
+    tile = mm.kernel_tile(dev, n, k, dtype == torch.int8)
     plan = mm.kernel_plan(m, n, tile, torch.cuda.get_device_properties(dev).multi_processor_count)
     mm.mm_accumulate(a, b, R)  # builds the kernels on the first call
     torch.cuda.synchronize()

@@ -1,8 +1,17 @@
 """A stub of the kernel library's tile queries (diffusesg_torch/csrc,
 ``dsg_*_tile`` and ``dsg_*_per_sm``), answering as the H100 build does, so
 that the grid plans of the wrappers can be checked on the CPU.  Install it
-with ``install(monkeypatch)``."""
+with ``install(monkeypatch)``; the plans are asked about ``DEVICE``, which
+the stub takes for one H100 as it takes any other device."""
+import contextlib
+import types
+
+import torch
+
 from diffusesg_torch.ops import cuda_build
+
+DEVICE = torch.device("cuda", 0)
+H100_PROPERTIES = types.SimpleNamespace(multi_processor_count=132)
 
 
 def attn_tile(c, which, wide=0):
@@ -35,13 +44,32 @@ def merge_tile(c, wide=0):
 
 
 READOUT_TILE = (64, 2, 2, 0)  # rows a tile, warpgroups a block, blocks an SM
+# the fused MLP's tile by C: token rows, hidden chunk, blocks an SM, and the
+# column groups a row tile's fc2 columns are cut into (a block each)
+MLP_TILE = {64: (128, 64, 1, 1), 96: (128, 64, 1, 1), 192: (128, 64, 1, 1), 384: (64, 64, 1, 1),
+            768: (64, 64, 1, 2)}
 
 
 class StubLib:
-    """The library's tile queries, answering as the H100 build."""
+    """The library's tile queries, answering as the H100 build.  ``calls``
+    are the queries asked, ``under`` the device current at each."""
 
     def __init__(self):
-        self.calls = []
+        self.calls, self.under = [], []
+        self.current = None
+
+    @contextlib.contextmanager
+    def device(self, device):
+        """``torch.cuda.device``: ``device`` current inside."""
+        prev, self.current = self.current, device
+        try:
+            yield
+        finally:
+            self.current = prev
+
+    def _record(self, *call):
+        self.calls.append(call)
+        self.under.append(self.current)
 
     def _fill(self, geom, values):
         for i, v in enumerate(values):
@@ -49,30 +77,34 @@ class StubLib:
         return 0
 
     def dsg_swin_attn_gemm_tile(self, c, which, wide, geom):
-        self.calls.append(("attn", c, which, wide))
+        self._record("attn", c, which, wide)
         return self._fill(geom, attn_tile(c, which, wide))
 
     def dsg_patch_breakup_tile(self, cin, dim, which, geom):
-        self.calls.append(("breakup", cin, dim, which))
+        self._record("breakup", cin, dim, which)
         return self._fill(geom, breakup_tile(cin, dim, which))
 
     def dsg_patch_merge_tile(self, c, wide, geom):
-        self.calls.append(("merge", c, wide))
+        self._record("merge", c, wide)
         return self._fill(geom, merge_tile(c, wide))
 
+    def dsg_token_mlp_tile(self, c, geom):
+        self._record("mlp", c)
+        return self._fill(geom, MLP_TILE[c]) if c in MLP_TILE else -1
+
     def dsg_readout_tile(self, geom):
-        self.calls.append(("readout",))
+        self._record("readout")
         return self._fill(geom, READOUT_TILE)
 
     # the backward kernels' (csrc/swin_attn_bwd.cu, csrc/token_mlp_bwd.cu)
     def dsg_swin_attn_bwd_tile(self, c, which, wide, geom):
-        self.calls.append(("attn_bwd", c, which, wide))
+        self._record("attn_bwd", c, which, wide)
         if c % 32 or c <= 0 or c > 768:
             return -1
         return self._fill(geom, (attn_tile(c, 0, wide), STREAM_TILE, tokens_tile(c))[which])
 
     def dsg_token_mlp_bwd_tile(self, c, which, wide, geom):
-        self.calls.append(("mlp_bwd", c, which, wide))
+        self._record("mlp_bwd", c, which, wide)
         if which == 0:
             return self._fill(geom, FUSED_MLP_BWD_TILE) if c in (96, 192) else -1
         if which == 3:
@@ -86,7 +118,7 @@ class StubLib:
     # the breakup's dh2 on the streamed 128 x 96, the weight gradients on
     # the token-axis tile
     def dsg_patch_resample_bwd_tile(self, which, k, geom):
-        self.calls.append(("resample_bwd", which, k))
+        self._record("resample_bwd", which, k)
         if k <= 0 or k % 8 or which not in range(7):
             return -1
         if which in (1, 5, 6):
@@ -94,14 +126,16 @@ class StubLib:
         return self._fill(geom, STREAM_TILE if which == 3 else WIDE_STREAM_TILE)
 
     def dsg_patch_resample_bwd_rows_per_sm(self, which, width):
+        self._record("resample_rows", which, width)
         return resample_rows_per_sm(which, width)
 
     def dsg_swin_attn_bwd_core_per_sm(self, L):
+        self._record("attn_bwd_core", L)
         return BWD_CORE_PER_SM.get(L, -1)
 
     # the int8 / bf16 micro-benchmark's (csrc/mm_microbench.cu)
     def dsg_mm_accumulate_tile(self, n, k, is_int8, geom):
-        self.calls.append(("mm", n, k, is_int8))
+        self._record("mm", n, k, is_int8)
         if n <= 0 or k <= 0 or k % 32:
             return -1
         tile = mm_tile(n, is_int8)
@@ -148,10 +182,14 @@ def mm_tile(n, is_int8):
 
 
 def install(monkeypatch):
-    """Route cuda_build.lib() to a fresh StubLib (and clear the cached
-    queries); returns the stub."""
+    """Route cuda_build.lib() to a fresh StubLib, ``torch.cuda.device`` to
+    its stand-in (the CPU build has no devices to make current), and the
+    device's properties to the H100's, and clear the cached queries; returns
+    the stub."""
     stub = StubLib()
-    cuda_build.tile_of.cache_clear()
-    cuda_build.blocks_per_sm.cache_clear()
+    for query in (cuda_build.tile_of, cuda_build.blocks_per_sm, cuda_build.sm_count):
+        query.cache_clear()
     monkeypatch.setattr(cuda_build, "lib", lambda: stub)
+    monkeypatch.setattr(torch.cuda, "device", stub.device)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: H100_PROPERTIES)
     return stub

@@ -151,16 +151,16 @@ def test_backward_grid_plans_cover_the_coco_shapes(monkeypatch, b, hw, c, heads)
     assert all(v >= 1 for v in plan.values())
     classes = (hw // WINDOW) ** 2 if hw > WINDOW else 1
     wpb = sw.window_core_plan(n_windows, heads, classes, cuda_build.blocks_per_sm(
-        "dsg_swin_attn_bwd_core_per_sm", L))
+        h100_tiles.DEVICE, "dsg_swin_attn_bwd_core_per_sm", L))
     assert 1 <= sw.core_blocks(n_windows, classes, wpb) <= n_windows
     m = b * hw * hw
-    gemm = sw.attn_bwd_gemm_plan(m, c)
+    gemm = sw.attn_bwd_gemm_plan(m, c, h100_tiles.DEVICE)
     for key, align in (("bqkv", 1), ("bproj", 1)):
         chunk = -(-m // plan[key])
         chunk = -(-chunk // align) * align
         assert chunk * (plan[key] - 1) < m, (key, plan[key])  # no split is empty
     assert gemm["kchunk"] * (gemm["w"] - 1) < m <= gemm["kchunk"] * gemm["w"]
-    mlp = mk.mlp_bwd_plan(m, c, 4 * c)
+    mlp = mk.mlp_bwd_plan(m, c, 4 * c, h100_tiles.DEVICE)
     assert mlp["w"] >= 1 and mlp["fused"] == (c in (96, 192))
     assert mlp["fused"] or 1 <= mlp["ln"] <= cuda_build.TARGET_BLOCKS
 

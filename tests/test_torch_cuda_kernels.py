@@ -109,7 +109,7 @@ def test_swin_attn_kernel(cuda, hw, heads, shift, b):
                                        (384, 64 * 100, False)])
 def test_token_mlp_kernel(cuda, c, m, split):
     torch.manual_seed(c)
-    plan = mk.mlp_fwd_plan(m, 4 * c, mk.mlp_tile(c), cuda_build.sm_count(cuda))
+    plan = mk.mlp_fwd_plan(m, 4 * c, mk.mlp_tile(cuda, c), cuda_build.sm_count(cuda))
     assert bool(plan["split"]) == split, plan
     args = (_rnd(cuda, m, c), _vec(cuda, c, 1.0), _vec(cuda, c), _lin(cuda, 4 * c, c),
             _vec(cuda, 4 * c), _lin(cuda, c, 4 * c), _vec(cuda, c))
@@ -130,8 +130,8 @@ def test_token_mlp_kernel(cuda, c, m, split):
 def test_patch_merge_kernel(cuda, hw, c, b, rows):
     torch.manual_seed(hw + c + b)
     m = b * (hw // 2) ** 2
-    plan = pr.merge_plan(m, c, 2 * c, cuda_build.sm_count(cuda))
-    assert pr.merge_tile(c, bool(plan["wide"]))[0] == rows, plan
+    plan = pr.merge_plan(m, c, 2 * c, cuda)
+    assert pr.merge_tile(cuda, c, bool(plan["wide"]))[0] == rows, plan
     args = (_rnd(cuda, b, hw, hw, c), _vec(cuda, 4 * c, 1.0), _vec(cuda, 4 * c),
             _lin(cuda, 2 * c, 4 * c))
     _check("patch_merge", pr.patch_merge, pr.patch_merge_plain, *args)
@@ -149,7 +149,7 @@ def test_patch_merge_kernel(cuda, hw, c, b, rows):
 def test_patch_breakup_kernel(cuda, hw, cin, cout, fused, with_skip):
     torch.manual_seed(hw + cin)
     dim = 4 * cout
-    assert bool(pr.breakup_tile(cin, dim, "in")[3]) == fused
+    assert bool(pr.breakup_tile(cuda, cin, dim, "in")[3]) == fused
     c1 = cin // 2 if with_skip else cin
     skip = _rnd(cuda, 2, hw, hw, cin - c1) if with_skip else None
     args = (_rnd(cuda, 2, hw, hw, c1), skip, _lin(cuda, dim, cin), _vec(cuda, dim, 1.0),
@@ -1062,10 +1062,10 @@ def test_swin_attn_bwd_kernel_model_shapes(cuda, hw, heads, window, shift, b):
 def test_swin_attn_kernel_model_shapes(cuda, hw, heads, window, shift, b):
     torch.manual_seed(hw + heads + b)
     c, m = 32 * heads, b * hw * hw
-    plan = sw.attn_gemm_plan(m, c, cuda_build.sm_count(cuda))
+    plan = sw.attn_gemm_plan(m, c, cuda)
     assert plan["wide"] or c < 384, plan
     if c == 768:
-        assert plan["qkv"] < -(-3 * c // sw.attn_gemm_tile(c, "qkv", True)[1]), plan
+        assert plan["qkv"] < -(-3 * c // sw.attn_gemm_tile(cuda, c, "qkv", True)[1]), plan
     args = _attn_args(cuda, b, hw, heads, window, shift)
     _check("swin_attn", sw.swin_attn, sw.swin_attn_block_plain, *args, heads, window, shift)
     _bit_equal_again(sw.swin_attn, *args, heads, window, shift)
@@ -1154,7 +1154,7 @@ def test_mm_accumulate_kernel(cuda, m, k, n, repeats):
     assert got.dtype == torch.float32
     assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
     for is_int8 in (False, True):
-        rows, cols, per_sm, smem = mm.kernel_tile(n, k, is_int8)
+        rows, cols, per_sm, smem = mm.kernel_tile(cuda, n, k, is_int8)
         assert n % cols == 0 and per_sm >= 1 and smem <= 232_448
     with pytest.raises(ValueError, match="mm_accumulate takes"):
         mm.mm_accumulate(a[:, :24].contiguous(), b[:24].contiguous(), 64)

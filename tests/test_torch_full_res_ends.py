@@ -1,20 +1,28 @@
-"""The denoiser's full-resolution ends on the CPU: the plain versions of the
-entry (``ops.patch_embed``) and of the exit (``ops.readout_kernel.
-output_head``) against the module composition they replace, the node
-pooling's fixed-order partial sums, and the routing: the ops where no
-gradient is recorded, the composition, with autograd's gradients, where one
-is."""
+"""The denoiser's full-resolution ends on the CPU: the one composition of
+the entry (``ops.patch_embed``) and of the exit (``ops.readout_kernel``)
+against the modules' composition as the seed computed it (frozen here), the
+node pooling's fixed-order partial sums, the routing inside the two ops (the
+kernel where no gradient is recorded, the composition, with autograd's
+gradients, where one is), and patch size 2 against the JAX package."""
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
-from diffusesg_torch.models import diffusesg as dsg_mod
-from diffusesg_torch.models.layers import Mlp, PatchEmbed, ReadOut, dense
-from diffusesg_torch.ops import patch_embed as pe
-from diffusesg_torch.ops import readout_kernel as rk
-from diffusesg_torch.ops.masking import mask_adjs, mask_nodes, symmetrize
-from diffusesg_torch.ops.mlp_block_kernel import layer_norm
+import jax  # noqa: F401  (the JAX package's model is the reference of the patch-size case)
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
+from torch_parity import ATOL, RTOL, load_pair, model_pair, node_flags  # noqa: E402
+
+from diffusesg_torch.models.layers import Mlp, PatchEmbed, ReadOut, dense  # noqa: E402
+from diffusesg_torch.ops import patch_embed as pe  # noqa: E402
+from diffusesg_torch.ops import readout_kernel as rk  # noqa: E402
+from diffusesg_torch.ops.masking import mask_adjs, mask_nodes, symmetrize  # noqa: E402
+from diffusesg_torch.ops.mlp_block_kernel import layer_norm  # noqa: E402
+from diffusesg_torch.utils.weights import state_dict_to_flax  # noqa: E402
 
 # (N, node counts of a batch of 2) at VG's and COCO's grids, the second
 # graph padded
@@ -67,6 +75,36 @@ def _seed_assembly(adj, node, flags, sc_a, sc_x, self_condition, dt):
     return torch.cat([adj.to(node_cat.dtype), node_cat], dim=-1).to(dt)
 
 
+def _seed_patch_embed(embed, x, emb):
+    """PatchEmbed's forward and its noise affine's as the modules computed
+    them before the entry became an op."""
+    b, h, w, c = x.shape
+    p, dt = embed.patch_size, embed.dtype
+    x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(b, (h // p) * (w // p), p * p * c)
+    weight = embed.proj.weight.permute(0, 2, 3, 1).reshape(embed.proj.out_channels, -1)
+    x = F.linear(x.to(dt), weight.to(dt), embed.proj.bias.to(dt))
+    if embed.norm is not None:
+        x = layer_norm(x, embed.norm.weight, embed.norm.bias).to(dt)
+    a = embed.affine
+    ss = F.linear(emb.to(dt), a.weight.to(dt), a.bias.to(dt))
+    scale, shift = ss[:, None, :].chunk(2, dim=-1)
+    return F.silu(shift + x * (scale + 1.0))
+
+
+def _seed_read_out(read_out, x, ph, pw):
+    """ReadOut's forward as the module computed it before the exit became
+    an op: [B, L, D] -> [B, pH, pW, D]."""
+    b, L, c = x.shape
+    p, d = read_out.patch_size, getattr(read_out, "0").out_channels
+    (w0, b0), *pointwise = read_out.linears()
+    x = F.linear(x.to(read_out.dtype), w0, b0)
+    x = x.reshape(b, ph, pw, p, p, d).permute(0, 1, 3, 2, 4, 5).reshape(b, ph * p, pw * p, d)
+    for w, bias in pointwise:
+        x = F.linear(x, w, bias)
+    return x
+
+
 # self-conditioning: channels and tensors given, channels with None (zeros),
 # no channels (a model without it)
 @pytest.mark.parametrize("grid", sorted(GRIDS))
@@ -79,15 +117,16 @@ def test_patch_embed_plain_matches_the_module_composition(grid, sc, dtype):
     sc_a, sc_x = (x["sc_a"], x["sc_x"]) if sc == "given" else (None, None)
     cin = (2 if self_condition else 1) * (CA + 2 * CX)
     embed = _randomize(PatchEmbed(n, 1, cin, D, True, dt), seed=3)
+    args = (x["adj"], x["node"], x["flags"], sc_a, sc_x, *embed.linear(), embed.norm.weight,
+            embed.norm.bias, dense(x["emb"], embed.affine, dt), self_condition)
     with torch.no_grad():
-        want = embed(_seed_assembly(x["adj"], x["node"], x["flags"], sc_a, sc_x, self_condition,
-                                    dt), x["emb"])
-        got = pe.patch_embed(x["adj"], x["node"], x["flags"], sc_a, sc_x,
-                             embed.proj.weight[:, :, 0, 0].to(dt), embed.proj.bias.to(dt),
-                             embed.norm.weight, embed.norm.bias, dense(x["emb"], embed.affine, dt),
-                             self_condition)
+        want = _seed_patch_embed(embed, _seed_assembly(x["adj"], x["node"], x["flags"], sc_a,
+                                                       sc_x, self_condition, dt), x["emb"])
+        got = pe.patch_embed_plain(*args)
+        routed = pe.patch_embed(*args)
     assert got.shape == (2, n * n, D) and got.dtype == dt
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(routed, want, atol=0, rtol=0)
     # the padded graph's node channels are masked: its rows past the count
     # see only the adjacency channels
     assert not torch.equal(got[1, -1], got[0, -1])
@@ -104,18 +143,20 @@ def test_output_head_plain_matches_the_module_composition(grid, dtype):
     norm = _randomize(torch.nn.LayerNorm(D, eps=1e-6), seed=1)
     read_out = _randomize(ReadOut(1, D, dt), seed=2)
     head = _randomize(Mlp(D, D, 1, dt), seed=4)
-    with torch.no_grad():
-        shared = read_out(layer_norm(rows, norm.weight, norm.bias).to(dt), n, n)
-        want_adj = head(shared).float()
-        want_node = torch.mean(mask_adjs(shared, flags), dim=2, dtype=torch.float32)
-        got_adj, got_node = rk.output_head(
-            rows.reshape(2, n, n, D), norm.weight, norm.bias,
+    args = (rows.reshape(2, n, n, D), norm.weight, norm.bias,
             *(t for pair in read_out.linears() for t in pair),
             head.fc1.weight.to(dt), head.fc1.bias, head.fc2.weight.to(dt), head.fc2.bias, flags)
+    with torch.no_grad():
+        shared = _seed_read_out(read_out, layer_norm(rows, norm.weight, norm.bias).to(dt), n, n)
+        want_adj = head(shared).float()
+        want_node = torch.mean(mask_adjs(shared, flags), dim=2, dtype=torch.float32)
+        got_adj, got_node = rk.output_head_plain(*args)
+        routed = rk.output_head(*args)
     assert got_adj.shape == (2, n, n, 1) and got_adj.dtype == torch.float32
     assert got_node.shape == (2, n, D) and got_node.dtype == torch.float32
-    torch.testing.assert_close(got_adj, want_adj, atol=0, rtol=0)
-    torch.testing.assert_close(got_node, want_node, atol=0, rtol=0)
+    for adj, node in ((got_adj, got_node), routed):
+        torch.testing.assert_close(adj, want_adj, atol=0, rtol=0)
+        torch.testing.assert_close(node, want_node, atol=0, rtol=0)
     # the padded graph's pooled rows of padded nodes are zero
     assert float(got_node[1, counts[1]:].abs().max()) == 0.0
 
@@ -193,9 +234,10 @@ def _seed_composition(model, adj, node, flags, c_noise, sc_a, sc_x):
     emb = F.silu(dense(emb, model.map_layer0, dt))
     emb = F.silu(dense(emb, model.map_layer1, dt))
     x = _seed_assembly(adj[..., None], node, flags, sc_a[..., None], sc_x, True, dt)
-    x = model.forward_features(model.patch_embed(x, emb), emb)
+    x = model.forward_features(_seed_patch_embed(model.patch_embed, x, emb), emb)
     n = node.shape[1]
-    shared = model.read_out(layer_norm(x, model.norm.weight, model.norm.bias).to(dt), n, n)
+    shared = _seed_read_out(model.read_out, layer_norm(x, model.norm.weight, model.norm.bias)
+                            .to(dt), n, n)
     adj_out = model.readout_adj_mlp(shared).float()[..., 0]
     node_feat = torch.mean(mask_adjs(shared, flags), dim=2, dtype=torch.float32).to(dt)
     node_out = mask_nodes(model.readout_node_mlp(node_feat).float(), flags)
@@ -204,8 +246,9 @@ def _seed_composition(model, adj, node, flags, c_noise, sc_a, sc_x):
 
 @pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "grad"])
 def test_the_ends_route_by_the_grad_mode(monkeypatch, mode):
+    """The two ops launch their kernel (``*_fwd``, the plain version on the
+    CPU) where no gradient is recorded, and never with the kernels off."""
     calls = []
-    real_embed, real_head = pe.patch_embed, dsg_mod.output_head
 
     def spy(name, fn):
         def run(*a, **k):
@@ -213,8 +256,8 @@ def test_the_ends_route_by_the_grad_mode(monkeypatch, mode):
             return fn(*a, **k)
         return run
 
-    monkeypatch.setattr(pe, "patch_embed", spy("entry", real_embed))
-    monkeypatch.setattr(dsg_mod, "output_head", spy("exit", real_head))
+    monkeypatch.setattr(pe, "patch_embed_fwd", spy("entry", pe.patch_embed_fwd))
+    monkeypatch.setattr(rk, "output_head_fwd", spy("exit", rk.output_head_fwd))
     model = _small_model()
     ctx = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode,
            "grad": torch.enable_grad}[mode]
@@ -231,9 +274,9 @@ def test_the_ends_route_by_the_grad_mode(monkeypatch, mode):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_grad_path_runs_the_composition_with_its_gradients(dtype):
-    """Where a gradient is recorded the model runs the composition: its
-    outputs and autograd's gradients are those of the modules as they were
-    composed before; without one (the ops, plain on the CPU) the outputs are
+    """Where a gradient is recorded the ops run the composition: its outputs
+    and autograd's gradients are those of the modules as the seed composed
+    them; without one (the kernels' path, plain on the CPU) the outputs are
     the same."""
     model = _small_model(DTYPES[dtype])
     x = _inputs()
@@ -254,3 +297,47 @@ def test_grad_path_runs_the_composition_with_its_gradients(dtype):
     for got, ref in zip(fused, want):
         torch.testing.assert_close(got, ref.detach(), atol=0, rtol=0)
     assert np.isfinite(fused[0].numpy()).all()
+
+
+def test_patch_size_2_matches_the_jax_model():
+    """At patch size 2 (``configs/vg_small_test.yaml`` cut as the parity
+    tests cut it) the entry's patchify and the exit's depth-to-space run in
+    the one composition of each end, with the kernels off and, through the
+    ops, on: both match the JAX package's XLA model on shared weights, the
+    entry's output (which the model's outputs barely feel at these weights)
+    held against the flax PatchEmbed's as well."""
+    jcfg, tcfg = load_pair()
+    for cfg in (jcfg, tcfg):
+        with cfg.unlocked():
+            cfg.model.patch_size = 2
+    jm, _, tm = model_pair(jcfg, tcfg)
+    assert tm.patches_resolution == (8, 8) and not tm.use_kernels
+    # shared through the reference's state dict: its ConvTranspose2d has one
+    # bias a channel, which flax's up-projection holds tiled p * p times
+    params = state_dict_to_flax(tm.state_dict(), 2)
+    rng = np.random.default_rng(5)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    x = dict(adj=f(2, 16, 16), node=f(2, 16, 5), flags=node_flags(2, 16, [16, 9]),
+             c_noise=f(2) * 0.3, sc_a=f(2, 16, 16), sc_x=f(2, 16, 5))
+    (ja, jx), seen = jm.apply(params, x["adj"], x["node"], x["flags"], x["c_noise"], x["sc_a"],
+                              x["sc_x"], mutable=["intermediates"],
+                              capture_intermediates=lambda mdl, _: mdl.name == "patch_embed")
+    assert float(np.abs(np.asarray(ja)).max()) > 1e-2
+    t = [torch.from_numpy(x[k]) for k in ("adj", "node", "flags", "c_noise", "sc_a", "sc_x")]
+    embed, dt = tm.patch_embed, tm.dtype
+    emb = F.silu(dense(tm.map_noise(t[3]), tm.map_layer0, dt))
+    emb = F.silu(dense(emb, tm.map_layer1, dt))
+    args = (t[0][..., None], t[1], t[2], t[4][..., None], t[5], *embed.linear(), embed.norm.weight,
+            embed.norm.bias, dense(emb, embed.affine, dt), True, 2)
+    want = np.asarray(seen["intermediates"]["patch_embed"]["__call__"][0])
+    for entry in (pe.patch_embed_plain, pe.patch_embed):
+        with torch.no_grad():
+            got = entry(*args)
+        assert got.shape == (2, 64, 24)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    for use_kernels in (False, True):
+        tm.use_kernels = use_kernels
+        with torch.no_grad():
+            ta, tx = tm(*t)
+        np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=ATOL, rtol=RTOL)
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=ATOL, rtol=RTOL)

@@ -23,6 +23,7 @@ import re
 import sys
 
 import pytest
+import torch
 
 from diffusesg_torch.ops import cuda_build
 from diffusesg_torch.ops import mm_microbench as mm
@@ -38,12 +39,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "helpers"))
 import h100_tiles  # noqa: E402
 
 H100_SMS = 132
+DEV = h100_tiles.DEVICE  # the device the plans are asked about, an H100 to the stub
 # blocks of the window core an SM holds on the H100, by window length
 CORE_PER_SM = {64: 4, 100: 2}
-# the fused MLP's tile on the H100 by C: token rows, hidden chunk, blocks an
-# SM, and the column groups a row tile's fc2 columns are cut into (a block each)
-MLP_TILE = {64: (128, 64, 1, 1), 96: (128, 64, 1, 1), 192: (128, 64, 1, 1), 384: (64, 64, 1, 1),
-            768: (64, 64, 1, 2)}
+MLP_TILE = h100_tiles.MLP_TILE
 
 
 def window_runs(n_windows: int, classes: int, wpb: int):
@@ -288,8 +287,28 @@ def test_token_mlp_kernels_keep_the_names_the_profile_attributes():
 def stub_lib(monkeypatch):
     stub = h100_tiles.install(monkeypatch)
     yield stub
-    cuda_build.tile_of.cache_clear()
-    cuda_build.blocks_per_sm.cache_clear()
+    for query in (cuda_build.tile_of, cuda_build.blocks_per_sm, cuda_build.sm_count):
+        query.cache_clear()
+
+
+def test_library_queries_are_cached_per_device(stub_lib):
+    """A query runs under the device it is asked about, and each device has
+    its own entry: a card's occupancy answers for that card alone.  The
+    MLP's tile is one of these queries."""
+    cards = [DEV, torch.device("cuda", 1)]
+    for _ in range(2):
+        for card in cards:
+            assert mk.mlp_tile(card, 96) == MLP_TILE[96]
+            assert pr.merge_tile(card, 96) == h100_tiles.merge_tile(96)
+            assert cuda_build.blocks_per_sm(card, "dsg_swin_attn_bwd_core_per_sm", 64) == 2
+            assert cuda_build.sm_count(card) == H100_SMS
+    assert stub_lib.calls == [("mlp", 96), ("merge", 96, 0), ("attn_bwd_core", 64)] * 2
+    assert stub_lib.under == [cards[0]] * 3 + [cards[1]] * 3
+    assert cuda_build.tile_of.cache_info().currsize == 4
+    assert cuda_build.blocks_per_sm.cache_info().currsize == 2
+    assert cuda_build.sm_count.cache_info().currsize == 2
+    with pytest.raises(ValueError, match="dsg_token_mlp_tile"):
+        mk.mlp_tile(cards[0], 80)
 
 
 ATTN_STAGES = [(64, 96), (32, 192), (16, 384), (8, 768), (40, 96), (20, 192), (10, 384)]
@@ -303,24 +322,24 @@ def _gemms(b):
     out = []
     for hw, c in ATTN_STAGES:
         m = b * hw * hw
-        wide = bool(sw.attn_gemm_plan(m, c, H100_SMS)["wide"])
-        out += [(m, 3 * c, sw.attn_gemm_tile(c, "qkv", wide)),
-                (m, c, sw.attn_gemm_tile(c, "proj", wide))]
+        wide = bool(sw.attn_gemm_plan(m, c, DEV)["wide"])
+        out += [(m, 3 * c, sw.attn_gemm_tile(DEV, c, "qkv", wide)),
+                (m, c, sw.attn_gemm_tile(DEV, c, "proj", wide))]
     for hw, cin, dim in BREAKUP_STAGES:
         m = b * hw * hw
-        out += [(m, dim, pr.breakup_tile(cin, dim, "in")),
-                (4 * m, dim // 4, pr.breakup_tile(cin, dim, "out"))]
+        out += [(m, dim, pr.breakup_tile(DEV, cin, dim, "in")),
+                (4 * m, dim // 4, pr.breakup_tile(DEV, cin, dim, "out"))]
     for hw, c in MERGE_STAGES:
         m = b * (hw // 2) ** 2
-        out.append((m, 2 * c, pr.merge_tile(c, bool(pr.merge_plan(m, c, 2 * c, H100_SMS)["wide"]))))
+        out.append((m, 2 * c, pr.merge_tile(DEV, c, bool(pr.merge_plan(m, c, 2 * c, DEV)["wide"]))))
     return out
 
 
 def test_gemm_tiles_come_from_the_library(stub_lib):
-    assert sw.attn_gemm_tile(768, "qkv") == (64, 192, 1, 0)
-    assert sw.attn_gemm_tile(384, "proj", True) == (64, 192, 1, 0)
-    assert pr.breakup_tile(384, 384, "in") == (64, 384, 1, 1)
-    assert pr.breakup_tile(768, 768, "out") == (128, 96, 2, 0)
+    assert sw.attn_gemm_tile(DEV, 768, "qkv") == (64, 192, 1, 0)
+    assert sw.attn_gemm_tile(DEV, 384, "proj", True) == (64, 192, 1, 0)
+    assert pr.breakup_tile(DEV, 384, 384, "in") == (64, 384, 1, 1)
+    assert pr.breakup_tile(DEV, 768, 768, "out") == (128, 96, 2, 0)
     assert stub_lib.calls == [("attn", 768, 0, 0), ("attn", 384, 1, 1),
                               ("breakup", 384, 384, 0), ("breakup", 768, 768, 1)]
 
@@ -335,9 +354,9 @@ def test_gemm_tiles_come_from_the_library(stub_lib):
                                          (10, 384, 64, True), (40, 96, 1, True),
                                          (64, 96, 64, False), (32, 192, 64, False)])
 def test_attn_gemm_plan_takes_64_row_panels_where_rows_are_few(stub_lib, hw, c, b, wide):
-    plan = sw.attn_gemm_plan(b * hw * hw, c, H100_SMS)
+    plan = sw.attn_gemm_plan(b * hw * hw, c, DEV)
     assert bool(plan["wide"]) == wide
-    tile = sw.attn_gemm_tile(c, "qkv", bool(plan["wide"]))
+    tile = sw.attn_gemm_tile(DEV, c, "qkv", bool(plan["wide"]))
     assert plan["qkv"] == gemm_plan(b * hw * hw, 3 * c, tile, H100_SMS)["tiles"]
 
 
@@ -376,12 +395,12 @@ def test_gemm_plan_splits_where_the_rows_do_not_fill_the_card(stub_lib):
     fused breakup never splits."""
     def splits(m, n, tile):
         return gemm_plan(m, n, tile, H100_SMS)["splits"]
-    assert splits(16 * 64, 3 * 768, sw.attn_gemm_tile(768, "qkv")) > 1
-    assert splits(16 * 64, 768, sw.attn_gemm_tile(768, "proj")) > 1
-    assert splits(16 * 100, 3 * 384, sw.attn_gemm_tile(384, "qkv")) > 1
-    assert splits(16 * 4096, 3 * 96, sw.attn_gemm_tile(96, "qkv")) == 1
-    assert splits(16 * 1024, 384, pr.breakup_tile(384, 384, "in")) == 1
-    assert splits(16 * 64, 1536, pr.breakup_tile(1536, 1536, "in")) > 1
+    assert splits(16 * 64, 3 * 768, sw.attn_gemm_tile(DEV, 768, "qkv")) > 1
+    assert splits(16 * 64, 768, sw.attn_gemm_tile(DEV, 768, "proj")) > 1
+    assert splits(16 * 100, 3 * 384, sw.attn_gemm_tile(DEV, 384, "qkv")) > 1
+    assert splits(16 * 4096, 3 * 96, sw.attn_gemm_tile(DEV, 96, "qkv")) == 1
+    assert splits(16 * 1024, 384, pr.breakup_tile(DEV, 384, 384, "in")) == 1
+    assert splits(16 * 64, 1536, pr.breakup_tile(DEV, 1536, 1536, "in")) > 1
 
 
 # (grid, C, batch, 64-row tiles) of patch_merge: the 128-row panel at K = 384
@@ -392,16 +411,16 @@ def test_gemm_plan_splits_where_the_rows_do_not_fill_the_card(stub_lib):
                                          (40, 96, 1, True), (16, 48, 2, False)])
 def test_merge_plan_takes_64_row_panels_where_rows_are_few(stub_lib, hw, c, b, wide):
     m = b * (hw // 2) ** 2
-    plan = pr.merge_plan(m, c, 2 * c, H100_SMS)
+    plan = pr.merge_plan(m, c, 2 * c, DEV)
     assert bool(plan["wide"]) == wide
-    assert plan["tiles"] == gemm_plan(m, 2 * c, pr.merge_tile(c, wide), H100_SMS)["tiles"]
-    assert pr.merge_tile(c, wide)[0] == (64 if wide else 128)
+    assert plan["tiles"] == gemm_plan(m, 2 * c, pr.merge_tile(DEV, c, wide), H100_SMS)["tiles"]
+    assert pr.merge_tile(DEV, c, wide)[0] == (64 if wide else 128)
 
 
 def test_merge_tiles_come_from_the_library(stub_lib):
-    assert pr.merge_tile(384) == (64, 96, 1, 0)
-    assert pr.merge_tile(192) == (64, 192, 1, 0)
-    assert pr.merge_tile(96, True) == (64, 192, 1, 0)
+    assert pr.merge_tile(DEV, 384) == (64, 96, 1, 0)
+    assert pr.merge_tile(DEV, 192) == (64, 192, 1, 0)
+    assert pr.merge_tile(DEV, 96, True) == (64, 192, 1, 0)
     assert stub_lib.calls == [("merge", 384, 0), ("merge", 192, 0), ("merge", 96, 1)]
 
 
@@ -437,11 +456,11 @@ def test_wgrad_split_fills_the_card_and_covers_every_token(tiles, tokens):
                          + [(16, 48, 2), (62, 96, 3)])
 def test_merge_bwd_plan(stub_lib, hw, c, b):
     m = b * (hw // 2) ** 2
-    plan = pr.merge_bwd_plan(m, c, 2 * c, H100_SMS)
-    tile = pr.bwd_tile("merge_dhn", 2 * c)
+    plan = pr.merge_bwd_plan(m, c, 2 * c, DEV)
+    tile = pr.bwd_tile(DEV, "merge_dhn", 2 * c)
     assert plan["dhn"] == gemm_plan(m, 4 * c, tile, H100_SMS)["tiles"]
     assert tile[:2] == (128, 192)
-    assert pr.bwd_tile("merge_dw", 4 * c) == h100_tiles.tokens_tile(4 * c)
+    assert pr.bwd_tile(DEV, "merge_dw", 4 * c) == h100_tiles.tokens_tile(4 * c)
     _token_split_covers(plan["w"], plan["kchunk"], m)
     # one wave of the row pass's resident blocks, four rows a block at a time
     assert plan["rows"] == min(H100_SMS * h100_tiles.resample_rows_per_sm(0, 4 * c), -(-m // 4))
@@ -449,7 +468,7 @@ def test_merge_bwd_plan(stub_lib, hw, c, b):
 
 def test_merge_bwd_plan_pads_k_to_16(stub_lib):
     """dhn = dy W takes K in steps of 16: c_out = 24 plans at K = 32."""
-    pr.merge_bwd_plan(64, 48, 24, H100_SMS)
+    pr.merge_bwd_plan(64, 48, 24, DEV)
     assert ("resample_bwd", 0, 32) in stub_lib.calls
 
 
@@ -460,19 +479,19 @@ def test_merge_bwd_plan_pads_k_to_16(stub_lib):
 def test_breakup_bwd_plan(stub_lib, hw, cin, dim, b, skip):
     m, c = b * hw * hw, dim // 4
     c1 = cin // 2 if skip else cin
-    plan = pr.breakup_bwd_plan(m, c1, cin - c1, dim, H100_SMS)
-    assert plan["y"] == gemm_plan(m, dim, pr.bwd_tile("breakup_y", cin), H100_SMS)["tiles"]
-    assert plan["dh"] == gemm_plan(4 * m, c, pr.bwd_tile("breakup_dh", c), H100_SMS)["tiles"]
-    assert plan["dx"] == gemm_plan(m, cin, pr.bwd_tile("breakup_dx", 3 * dim), H100_SMS)["tiles"]
+    plan = pr.breakup_bwd_plan(m, c1, cin - c1, dim, DEV)
+    assert plan["y"] == gemm_plan(m, dim, pr.bwd_tile(DEV, "breakup_y", cin), H100_SMS)["tiles"]
+    assert plan["dh"] == gemm_plan(4 * m, c, pr.bwd_tile(DEV, "breakup_dh", c), H100_SMS)["tiles"]
+    assert plan["dx"] == gemm_plan(m, cin, pr.bwd_tile(DEV, "breakup_dx", 3 * dim), H100_SMS)["tiles"]
     _token_split_covers(plan["w_out"], plan["kchunk_out"], 4 * m)
     _token_split_covers(plan["w_in"], plan["kchunk_in"], m)
     assert plan["rows"] == min(H100_SMS * h100_tiles.resample_rows_per_sm(1, c), -(-m // 4))
 
 
 def test_resample_bwd_tiles_come_from_the_library(stub_lib):
-    assert pr.bwd_tile("breakup_dx", 4608) == (128, 192, 1, 0)
-    assert pr.bwd_tile("breakup_dh", 96) == (128, 96, 1, 0)
-    assert pr.bwd_tile("breakup_dw_out", 96) == (128, 96, 1, 0)
+    assert pr.bwd_tile(DEV, "breakup_dx", 4608) == (128, 192, 1, 0)
+    assert pr.bwd_tile(DEV, "breakup_dh", 96) == (128, 96, 1, 0)
+    assert pr.bwd_tile(DEV, "breakup_dw_out", 96) == (128, 96, 1, 0)
     assert stub_lib.calls == [("resample_bwd", 4, 4608), ("resample_bwd", 3, 96),
                               ("resample_bwd", 5, 96)]
 
@@ -482,7 +501,7 @@ def test_resample_bwd_tiles_come_from_the_library(stub_lib):
 @pytest.mark.parametrize("m", [1, 64, 65, 300, 16 * 64, 16 * 40, 16 * 4096, 16 * 1600,
                                64 * 4096, 64 * 1600])
 def test_readout_plan_covers_every_tile_once(stub_lib, m):
-    tile = rk.readout_tile()
+    tile = rk.readout_tile(DEV)
     rows, groups, per_sm = tile[:3]
     blocks = rk.readout_plan(m, tile, H100_SMS)
     # readout_kernel: warpgroup g of block x is worker w = x groups + g of W =
@@ -507,8 +526,8 @@ def _weight_gradients(b):
     out = []
     for hw, c in ATTN_STAGES:
         m = b * hw * hw
-        out += [(m, sw.attn_bwd_gemm_plan(m, c, H100_SMS)),
-                (m, mk.mlp_bwd_plan(m, c, 4 * c, H100_SMS))]
+        out += [(m, sw.attn_bwd_gemm_plan(m, c, DEV)),
+                (m, mk.mlp_bwd_plan(m, c, 4 * c, DEV))]
     return out
 
 
@@ -532,10 +551,10 @@ def test_token_split_aims_at_one_wave(stub_lib, b):
     least cuda_build.TOKEN_SPLIT_MIN tokens where it can."""
     for hw, c in ATTN_STAGES:
         m = b * hw * hw
-        wt = sw.attn_bwd_tile(c, "wgrad")
+        wt = sw.attn_bwd_tile(DEV, c, "wgrad")
         tiles = -(-3 * c // wt[0]) * -(-c // wt[1])
         splits, chunk = cuda_build.token_split(tiles, m, wt[2], H100_SMS)
-        assert (splits, chunk) == tuple(sw.attn_bwd_gemm_plan(m, c, H100_SMS)[k]
+        assert (splits, chunk) == tuple(sw.attn_bwd_gemm_plan(m, c, DEV)[k]
                                         for k in ("w", "kchunk"))
         assert tiles * splits <= max(H100_SMS * wt[2], tiles), (m, c)
         assert splits == 1 or chunk >= cuda_build.TOKEN_SPLIT_MIN
@@ -554,8 +573,8 @@ def test_fused_mlp_bwd_plan_covers_every_row_tile_and_hidden_chunk_once(stub_lib
     every hidden chunk of BH once; its column sums are rows 2x and 2x + 1 of
     the partials the wrapper allocates (2 * blocks)."""
     hidden = 4 * c
-    plan = mk.mlp_bwd_plan(m, c, hidden, H100_SMS)
-    rows, chunk = mk.mlp_bwd_tile(c, "fused")[:2]
+    plan = mk.mlp_bwd_plan(m, c, hidden, DEV)
+    rows, chunk = mk.mlp_bwd_tile(DEV, c, "fused")[:2]
     assert plan["fused"] == 1 and hidden % chunk == 0
     blocks = plan["blocks"]
     row_parts = [range(x * rows, min((x + 1) * rows, m)) for x in range(blocks)]
@@ -566,13 +585,13 @@ def test_fused_mlp_bwd_plan_covers_every_row_tile_and_hidden_chunk_once(stub_lib
 
 
 def test_backward_tiles_come_from_the_library(stub_lib):
-    assert mk.mlp_bwd_fused_tile(96) == h100_tiles.FUSED_MLP_BWD_TILE
-    assert mk.mlp_bwd_fused_tile(384) is None  # the chain takes C384 and C768
-    assert mk.mlp_bwd_tile(3072, "wgrad") == (128, 192, 1, 0)
-    assert sw.attn_bwd_tile(96, "wgrad") == (128, 96, 1, 0)
-    assert sw.attn_bwd_tile(384, "qkv", True) == sw.attn_gemm_tile(384, "qkv", True)
+    assert mk.mlp_bwd_fused_tile(DEV, 96) == h100_tiles.FUSED_MLP_BWD_TILE
+    assert mk.mlp_bwd_fused_tile(DEV, 384) is None  # the chain takes C384 and C768
+    assert mk.mlp_bwd_tile(DEV, 3072, "wgrad") == (128, 192, 1, 0)
+    assert sw.attn_bwd_tile(DEV, 96, "wgrad") == (128, 96, 1, 0)
+    assert sw.attn_bwd_tile(DEV, 384, "qkv", True) == sw.attn_gemm_tile(DEV, 384, "qkv", True)
     assert ("mlp_bwd", 96, 0, 0) in stub_lib.calls and ("attn_bwd", 96, 2, 0) in stub_lib.calls
-    plan = mk.mlp_bwd_plan(16 * 256, 384, 1536, H100_SMS)
+    plan = mk.mlp_bwd_plan(16 * 256, 384, 1536, DEV)
     assert plan["fused"] == 0 and plan["fc1"] >= 1 and plan["dm"] >= 1 and plan["dhn"] >= 1
     # the chain's fc1 takes 64-row panels where 128-row ones would split N
     # beyond the blocks an SM holds, as swin_attn's qkv GEMM does
@@ -590,7 +609,7 @@ BWD_WINDOW_CASES = [(64 * 64, 3, 1, 64), (64 * 16, 6, 1, 64), (64 * 4, 12, 1, 64
 def test_backward_core_plan_covers_every_window_once(stub_lib, n_windows, heads, classes, L):
     """The backward window core takes the forward core's plan on its own
     occupancy; its d(rel_bias) partials are one per block (core_blocks)."""
-    per_sm = cuda_build.blocks_per_sm("dsg_swin_attn_bwd_core_per_sm", L)
+    per_sm = cuda_build.blocks_per_sm(DEV, "dsg_swin_attn_bwd_core_per_sm", L)
     wpb = window_core_plan(n_windows, heads, classes, per_sm, H100_SMS)
     runs = window_runs(n_windows, classes, wpb)
     assert len(runs) == sw.core_blocks(n_windows, classes, wpb)
@@ -612,7 +631,7 @@ def test_mm_plan_covers_every_item_once(stub_lib, m, k, n, is_int8):
     [(t // tiles_n) rows, + rows) and columns [(t % tiles_n) cols, + cols).
     Every (tile, copy) once, every block with work, at most one wave; the
     tiles of a copy cover every output element once."""
-    tile = mm.kernel_tile(n, k, is_int8)
+    tile = mm.kernel_tile(DEV, n, k, is_int8)
     rows, cols, per_sm = tile[:3]
     plan = mm.kernel_plan(m, n, tile, H100_SMS)
     tiles, items, grid = plan["tiles"], plan["items"], plan["grid"]
@@ -635,7 +654,7 @@ def test_mm_copies_keep_the_work_whatever_the_tile(stub_lib, m, k, n, tile):
     plan's at the four shapes (11 / 33 / 33 / 33), whatever tile the kernel
     runs (None: the library's)."""
     for is_int8 in (False, True):
-        t = tile if tile is not None and n % tile[1] == 0 else mm.kernel_tile(n, k, is_int8)
+        t = tile if tile is not None and n % tile[1] == 0 else mm.kernel_tile(DEV, n, k, is_int8)
         plan = mm.kernel_plan(m, n, t, H100_SMS)
         assert plan["copies"] == MM_COPIES[(m, k, n)] == mm.grid_plan(m, n, H100_SMS)[1]
         assert mm.operations(m, k, n, 64, plan["copies"]) == 2 * m * k * n * 64 * MM_COPIES[
@@ -646,7 +665,7 @@ def test_mm_copies_keep_the_work_whatever_the_tile(stub_lib, m, k, n, tile):
 @pytest.mark.parametrize("m,k,n", mm.SHAPES)
 def test_mm_tile_divides_n_and_fits_shared_memory(stub_lib, m, k, n, is_int8):
     """No column is computed on padding, and a block's ring fits the card."""
-    rows, cols, per_sm, smem = mm.kernel_tile(n, k, is_int8)
+    rows, cols, per_sm, smem = mm.kernel_tile(DEV, n, k, is_int8)
     assert n % cols == 0 and cols % 8 == 0 and cols <= 256 and rows == 128
     assert per_sm >= 1 and 0 < smem <= SMEM_PER_BLOCK
     assert ("mm", n, k, int(is_int8)) in stub_lib.calls
@@ -655,4 +674,4 @@ def test_mm_tile_divides_n_and_fits_shared_memory(stub_lib, m, k, n, is_int8):
 @pytest.mark.parametrize("n,k", [(40, 96), (8, 96), (96, 24), (96, 0)])
 def test_mm_tile_refuses_what_no_tile_covers(stub_lib, n, k):
     with pytest.raises(ValueError, match="no tile covers"):
-        mm.kernel_tile(n, k, True)
+        mm.kernel_tile(DEV, n, k, True)

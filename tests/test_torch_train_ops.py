@@ -358,11 +358,12 @@ def test_backward_grid_plans_cover_the_vg_shapes(monkeypatch, b, hw, c, heads):
     assert 1 <= plan["rows"] <= -(-hw * hw // 8)
     assert all(v >= 1 for v in plan.values())
     wpb = sw.window_core_plan(n_windows, heads, 1, cuda_build.blocks_per_sm(
-        "dsg_swin_attn_bwd_core_per_sm", 64))
+        h100_tiles.DEVICE, "dsg_swin_attn_bwd_core_per_sm", 64))
     assert 1 <= sw.core_blocks(n_windows, 1, wpb) <= n_windows
-    for gemm in (sw.attn_bwd_gemm_plan(m, c), mk.mlp_bwd_plan(m, c, 4 * c)):
+    dev = h100_tiles.DEVICE
+    for gemm in (sw.attn_bwd_gemm_plan(m, c, dev), mk.mlp_bwd_plan(m, c, 4 * c, dev)):
         splits, chunk = gemm["w"], gemm["kchunk"]
         assert splits >= 1 and chunk % 64 == 0 and chunk * (splits - 1) < m <= chunk * splits
-    mlp = mk.mlp_bwd_plan(m, c, 4 * c)
+    mlp = mk.mlp_bwd_plan(m, c, 4 * c, dev)
     assert mlp["fused"] == (c in (96, 192))
     assert mlp["fused"] or 1 <= mlp["ln"] <= cuda_build.TARGET_BLOCKS
