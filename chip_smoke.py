@@ -320,7 +320,7 @@ def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
 
 
 WGMMA_KERNELS = ("hgemm_kernel", "readout_kernel", "mlp_bwd_kernel", "token_mlp_kernel_wg",
-                 "patch_embed_kernel")
+                 "patch_embed_kernel", "window_attn_kernel_fused")
 MM_KERNEL = "mm_accumulate_wgmma"  # K12: an instantiation per type, tile and K tail
 # the warpgroup MMA of each K12 instantiation: HGMMA for bf16 operands,
 # IGMMA for int8 ones; WMMA-era mma.sync (HMMA, IMMA) in none
@@ -331,8 +331,8 @@ def check_sass(lib_path) -> None:
     """The wgmma kernels of the built library issue wgmma: count the HGMMA
     instructions of every hgemm_kernel instantiation (the forward and
     backward GEMM sites), of readout_kernel, of the fused MLP backward
-    mlp_bwd_kernel and of the fused MLP token_mlp_kernel_wg (every C;
-    cuobjdump -sass); and the port has one GEMM: no other
+    mlp_bwd_kernel, of the fused MLP token_mlp_kernel_wg (every C) and of the
+    attention half window_attn_kernel_fused (every C and L; cuobjdump -sass); and the port has one GEMM: no other
     *gemm_kernel is left in the library.  K12's mm_accumulate_wgmma: every
     bf16 instantiation issues HGMMA and every int8 one IGMMA, none issues a
     WMMA-era HMMA or IMMA, and no mm_accumulate_kernel is left."""
@@ -562,9 +562,8 @@ def kernel_cases(dev):
             flops, nbytes = attn_work(hw, c, heads, window, mask)
             cases.append(Case("swin_attn", "swin_attn.cu", K1, sw.swin_attn,
                               sw.swin_attn_block_plain, args, flops, nbytes, fwd_tol, path,
-                              gemms=(("qkv GEMM", "SwinQkv", ln_linear(m, c, 3 * c)),
-                                     ("window core", "window_attn_kernel<", None),
-                                     ("proj GEMM", "SwinProj", linear(m, c, c)))))
+                              gemms=(("one kernel", "window_attn_kernel_fused", None),
+                                     ("closing pass", "window_attn_kernel_close", None))))
             # its backward: x, scale_shift and dy in; nine gradients out
             bargs = args[:2] + (rnd(b, hw, hw, c),) + args[2:7] + args[8:]
             cases.append(Case(
@@ -4147,7 +4146,6 @@ KERNEL_OF = (("window_attn_bwd_kernel", "swin_attn_bwd"), ("SwinBwd", "swin_attn
              ("reduce_partials_kernel", "backward row pass + reductions (both backward kernels)"),
              ("col_sums_kernel", "backward row pass + reductions (both backward kernels)"),
              ("window_attn_kernel", "swin_attn"),
-             ("SwinQkv", "swin_attn"), ("SwinProj", "swin_attn"),
              ("token_mlp_kernel", "token_mlp"), ("mlp_close_kernel", "token_mlp"),
              ("MergeProj", "patch_merge"),
              ("BreakupIn", "patch_breakup"), ("breakup_rows_kernel", "patch_breakup"),
@@ -4155,8 +4153,8 @@ KERNEL_OF = (("window_attn_bwd_kernel", "swin_attn_bwd"), ("SwinBwd", "swin_attn
              ("patch_embed_kernel", "patch_embed"))
 # device functions printed under their own names beside their kernel's total:
 # the parts of the redesigned kernels (label, name fragment, kernel)
-PARTS = (("window core", "window_attn_kernel<", "swin_attn"),
-         ("qkv GEMM", "SwinQkv", "swin_attn"), ("proj GEMM", "SwinProj", "swin_attn"),
+PARTS = (("attention half", "window_attn_kernel_fused", "swin_attn"),
+         ("attention closing pass", "window_attn_kernel_close", "swin_attn"),
          ("fused MLP", "token_mlp_kernel", "token_mlp"),
          ("closing pass", "mlp_close_kernel", "token_mlp"),
          ("breakup first GEMM", "BreakupIn", "patch_breakup"),
@@ -4264,10 +4262,7 @@ def main(argv=None) -> int:
     from diffusesg_torch.ops import readout_kernel as rk
     from diffusesg_torch.ops import swin_block_v3 as sw
     log("Hopper GEMM tiles (rows, columns, blocks an SM, whole rows), as the library reports "
-        "them: " + ", ".join(f"swin_attn {w} C{c} {sw.attn_gemm_tile(dev, c, w)}"
-                             for c in (96, 192, 384, 768) for w in ("qkv", "proj"))
-        + f", swin_attn qkv C384 64-row panels {sw.attn_gemm_tile(dev, 384, 'qkv', True)}"
-        + ", " + ", ".join(f"patch_breakup {w} {cin}->{dim} {pr.breakup_tile(dev, cin, dim, w)}"
+        "them: " + ", ".join(f"patch_breakup {w} {cin}->{dim} {pr.breakup_tile(dev, cin, dim, w)}"
                            for cin, dim in ((1536, 1536), (768, 768), (384, 384))
                            for w in ("in", "out"))
         + ", " + ", ".join(f"patch_merge C{c} {pr.merge_tile(dev, c)}" for c in (96, 192, 384))
@@ -4285,10 +4280,13 @@ def main(argv=None) -> int:
         + "; mm_accumulate (rows, columns, blocks an SM, shared bytes): "
         + ", ".join(f"{m}x{k}x{n} {t} {mm.kernel_tile(dev, n, k, t == 'int8')}"
                     for m, k, n in mm.SHAPES for t in ("bf16", "int8")))
-    log("grid plans, as the library reports them: blocks of the window core an SM holds "
+    log("grid plans, as the library reports them: swin_attn (rows, windows a block, blocks an "
+        "SM, heads a block) " + ", ".join(f"C{c} L={L} {sw.attn_tile(dev, c, L)}"
+                                          for c in (96, 192, 384, 768) for L in (64, 100)
+                                          if (c, L) != (768, 100))
+        + "; blocks of the window cores an SM holds "
         + ", ".join(f"{q} L={L} {cuda_build.blocks_per_sm(dev, q, L)}"
-                    for q in ("dsg_swin_attn_core_per_sm", "dsg_window_attention_per_sm",
-                              "dsg_swin_attn_bwd_core_per_sm")
+                    for q in ("dsg_window_attention_per_sm", "dsg_swin_attn_bwd_core_per_sm")
                     for L in (64, 100))
         + "; token_mlp (rows, hidden chunk, blocks an SM) "
         + ", ".join(f"C{c} {mk.mlp_tile(dev, c)}" for c in (64, 96, 192, 384, 768)))

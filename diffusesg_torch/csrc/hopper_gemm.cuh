@@ -3,20 +3,21 @@
 // PyTorch Linear weight [N, K] (K-major, the B operand wgmma reads as it is).
 // It is the port's one GEMM.
 //
-// Call sites: swin_attn's qkv and proj GEMMs (swin_attn.cu), patch_merge's
-// product and patch_breakup's two products (patch_resample.cu), and every
-// product of the backward kernels (swin_attn_bwd.cu, token_mlp_bwd.cu,
-// backward.cuh), which need two more operand layouts, both read MN-major
-// through wgmma's transpose modes for 16-bit types:
+// Call sites: patch_merge's product and patch_breakup's two products
+// (patch_resample.cu), and every product of the backward kernels
+// (swin_attn_bwd.cu, token_mlp_bwd.cu, backward.cuh), which need two more
+// operand layouts, both read MN-major through wgmma's transpose modes for
+// 16-bit types:
 //   * W stored [K, N] (Tile::kBMn): a Linear weight taken untransposed
 //     (dout W2, dy Wproj, du W1, dqkv Wqkv), TMA boxes of 64 N x 64 K;
 //   * the token-axis contraction dW[i, j] = sum_t a[t, i] b[t, j]
 //     (Tile::kAMn with kBMn): both operands [T, .] row-major, 64 tokens a
 //     box, K = tokens split over the grid's z into fp32 partials
 //     (PartialEpi) that reduce_partials (backward.cuh) adds in a fixed order.
-// readout (readout.cu), the fused MLP forward (token_mlp.cu) and backward
-// (token_mlp_bwd.cu) and the int8 / bf16 micro-benchmark (mm_microbench.cu)
-// are kernels of their own built from the PTX pieces below.
+// The Swin attention half's forward (swin_attn.cu), readout (readout.cu),
+// the fused MLP forward (token_mlp.cu) and backward (token_mlp_bwd.cu) and
+// the int8 / bf16 micro-benchmark (mm_microbench.cu) are kernels of their
+// own built from the PTX pieces below (and the LN1 prologue, LnPanel).
 //
 // A block is one or two consumer warpgroups and one producer warp.  The
 // producer's lane 0 streams 64-wide K slices of W by TMA (cp.async.bulk.tensor,
@@ -70,8 +71,6 @@ namespace dsg {
 
 // Call sites of the Hopper GEMM: an empty tag type per site, so each launch
 // has a kernel name of its own in a profile.
-struct SwinQkv {};
-struct SwinProj {};
 struct MergeProj {};
 struct BreakupIn {};
 struct BreakupOut {};

@@ -9,8 +9,9 @@
 //
 // Given x, scale_shift and dy, everything is recomputed.  Every product runs
 // on wgmma (hopper_gemm.cuh) or, inside the window core, on mma.sync:
-//   1. hn, qkv: one launch of the forward's qkv GEMM (noise affine + LN1 its
-//      panel prologue, the same tile and plan); column split 0 stores hn;
+//   1. hn, qkv: one launch of a Hopper GEMM with the noise affine and LN1
+//      as its panel prologue (with_tile; the forward's roundings), column
+//      split 0 storing hn;
 //   2. dattn = bf16(dy Wproj): A streamed, Wproj read MN-major;
 //   3. the window core (window_attn_bwd_kernel), per head and run of one
 //      mask class's windows, as the forward core: S, P in registers; dP = dO

@@ -1,21 +1,20 @@
-// Pieces the forward and backward of the Swin attention half share: the
-// noise-affine row source and the qkv GEMM's tile (`with_tile`: the forward
-// and the backward's recompute run the same), the window geometry (window 8
-// or 10, head_dim 32), the map from a window's token to its raster row with
-// the cyclic shift of shifted windows folded in, the scores, softmax and
-// bias staging of a warp's query rows in registers (`window_scores`,
-// `window_softmax`, `stage_bias`; the backward core, swin_attn_bwd.cu, runs
-// them too), and the forward window core `window_attn_kernel`, a template
-// over the window length and over where its operands lie (swin_attn.cu:
-// packed qkv rows in raster order; window_attention.cu: separate q, k, v in
-// [window, head, token, hd] order).
+// Pieces the Swin attention half's kernels share: the noise-affine row source
+// and the qkv GEMM's tile (`with_tile`, the backward's recompute), the window
+// geometry (window 8 or 10, head_dim 32), the map from a window's token to
+// its raster row with the cyclic shift of shifted windows folded in, the
+// scores, softmax and bias staging of a warp's query rows in registers
+// (`window_scores`, `window_bias`, `window_softmax`, `stage_bias`; the
+// forward kernel, swin_attn.cu, and the backward core, swin_attn_bwd.cu, run
+// them too), and
+// the window core `window_attn_kernel` of window attention alone
+// (window_attention.cu: separate q, k, v in [window, head, token, hd] order).
 //
-// The forward core replaces the window attention of
-// diffusesg_tpu/ops/window_attention.py::_fused_kernel and of
-// diffusesg_tpu/ops/swin_block_v3.py::_kernel.  Bound on the H100: bytes (4 L^2
-// hd FLOP per window and head against 4 L hd 2 bytes of q, k, v, out: 32-50
-// FLOP per byte, far under the ~295 ridge), so the design keeps everything
-// but q, k, v and out on chip and overlaps their loads with compute:
+// The core replaces the window attention of
+// diffusesg_tpu/ops/window_attention.py::_fused_kernel.  Bound on the H100:
+// bytes (4 L^2 hd FLOP per window and head against 4 L hd 2 bytes of q, k,
+// v, out: 32-50 FLOP per byte, far under the ~295 ridge), so the design
+// keeps everything but q, k, v and out on chip and overlaps their loads with
+// compute:
 //   - S = Q K^T by mma.sync m16n8k16 (fragments from ldmatrix), the row max
 //     and sum by quad shuffles and P = bf16(softmax) all in registers; P is
 //     the A operand of P V as it stands (the accumulator layout of two score
@@ -72,11 +71,13 @@ struct AffineRows {
 template <int MAXV, int ROWS, int LPR>
 using AffineLnPanel = hg::LnPanel<AffineRows, MAXV, ROWS, LPR>;
 
-// The GEMM tile of a width C: 128-row panels up to C = 384 (two blocks an SM
-// up to C = 192), 64-row panels (K up to 768) above, or wherever `wide`
-// asks for them (the wrapper's plan, where 128-row tiles are too few to fill
-// the card: a block's LayerNorm prologue then covers half the rows); `f`
-// gets a value of the tile type and of the qkv prologue's type.
+// The tile of the backward's qkv recompute (a Hopper GEMM with the noise
+// affine and LN1 as its panel prologue) at a width C: 128-row panels up to
+// C = 384 (two blocks an SM up to C = 192), 64-row panels (K up to 768)
+// above, or wherever `wide` asks for them (the wrapper's plan, where
+// 128-row tiles are too few to fill the card: a block's LayerNorm prologue
+// then covers half the rows); `f` gets a value of the tile type and of the
+// prologue's type.
 template <class F>
 int with_tile(int C, int wide, F f) {
   if (C % 32 || C <= 0 || C > 768) return -1;
@@ -111,20 +112,6 @@ __device__ __forceinline__ size_t window_token_row(int wi, int t, int H, int W, 
   const int x = ((wl % nww) * window + t % window + shift) % W;
   return ((size_t)b * H + y) * W + x;
 }
-
-// Operands of the Swin block's core: packed qkv rows [M, 3C] and the output
-// [M, C], both in raster order; window `wi` of the rolled grid, head h.
-struct PackedWindows {
-  const bf16* qkv;
-  bf16* out;
-  int H, W, C, window, shift;
-  __device__ const bf16* src(int which, int wi, int h, int t) const {
-    return qkv + window_token_row(wi, t, H, W, window, shift) * 3 * C + which * C + h * kHD;
-  }
-  __device__ bf16* dst(int wi, int h, int t) const {
-    return out + window_token_row(wi, t, H, W, window, shift) * C + h * kHD;
-  }
-};
 
 // Operands of window attention alone: q, k, v and out, each a contiguous
 // [nWB, nH, L, hd] tensor.
@@ -179,24 +166,36 @@ __device__ __forceinline__ void window_scores(float (&s)[G::NN][4], const bf16* 
   }
 }
 
+// The bias of a warp's score elements: b[n][i] = bias(row0 + g + 8 i, 8 n +
+// 2 t) for columns 8 n + 2 t and + 1 (bias(r, c) a float2), g = lane / 4,
+// t = lane % 4, as the accumulator layout holds them.
+template <class G, class Bias>
+__device__ __forceinline__ void window_bias(float2 (&b)[G::NN][2], const Bias& bias, int row0,
+                                            int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < G::NN; ++n) {
+    b[n][0] = bias(row0 + g, n * 8 + 2 * t4);
+    b[n][1] = bias(row0 + g + 8, n * 8 + 2 * t4);
+  }
+}
+
 // softmax of rows row0 + g (elements 0, 1) and row0 + g + 8 (2, 3) of the
-// scores in place: fp32, scale S + the staged bias (row stride LdB),
-// columns >= L out; the quad of lanes 4g..4g+3 holds each row.  s becomes
-// exp(s - max) and sum the reciprocal of each row's sum: P = s * sum.
+// scores in place: fp32, scale S + the bias (window_bias), columns >= L
+// out; the quad of lanes 4g..4g+3 holds each row.  s becomes exp(s - max)
+// and sum the reciprocal of each row's sum: P = s * sum.
 template <class G>
 __device__ __forceinline__ void window_softmax(float (&s)[G::NN][4], float (&sum)[2],
-                                               const float* Bs, int row0, int lane,
+                                               const float2 (&b)[G::NN][2], int lane,
                                                float scale) {
-  const int g = lane >> 2, t4 = lane & 3;
+  const int t4 = lane & 3;
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int n = 0; n < G::NN; ++n) {
     const int c = n * 8 + 2 * t4;
-    const float2 b[2] = {*reinterpret_cast<const float2*>(Bs + (row0 + g) * G::LdB + c),
-                         *reinterpret_cast<const float2*>(Bs + (row0 + g + 8) * G::LdB + c)};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float bias = e & 1 ? b[e >> 1].y : b[e >> 1].x;
+      const float bias = e & 1 ? b[n][e >> 1].y : b[n][e >> 1].x;
       s[n][e] = c + (e & 1) < G::L ? s[n][e] * scale + bias : -INFINITY;
       mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
     }
@@ -221,6 +220,25 @@ __device__ __forceinline__ void window_softmax(float (&s)[G::NN][4], float (&sum
     sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
     sum[i] = 1.f / sum[i];
   }
+}
+
+// the bias staged by stage_bias: [LP][LdB] fp32
+template <class G>
+struct StagedBias {
+  const float* Bs;
+  __device__ float2 operator()(int r, int c) const {
+    return *reinterpret_cast<const float2*>(Bs + r * G::LdB + c);
+  }
+};
+
+// the same over the staged bias
+template <class G>
+__device__ __forceinline__ void window_softmax(float (&s)[G::NN][4], float (&sum)[2],
+                                               const float* Bs, int row0, int lane,
+                                               float scale) {
+  float2 b[G::NN][2];
+  window_bias<G>(b, StagedBias<G>{Bs}, row0, lane);
+  window_softmax<G>(s, sum, b, lane, scale);
 }
 
 // The bias of head h and mask class cls (mask null: none) into Bs, once per

@@ -7,9 +7,10 @@
 //
 // q, k, v and out are separate contiguous [nWB, nH, L, hd] bf16 tensors,
 // rel_bias [nH, L, L] and mask [nW, L, L] fp32.  One launch of the window
-// core the Swin block uses (window_attn_kernel, swin_window.cuh) with its
-// second operand layout: no packed qkv rows, no window gather, no shift, the
-// scale handed in.  A block serves one head and one mask class and walks a
+// core (window_attn_kernel, swin_window.cuh; the Swin block's kernel,
+// swin_attn.cu, runs the same scores, softmax and P V steps on q, k, v it
+// keeps in shared memory): no window gather, no shift, the scale handed
+// in.  A block serves one head and one mask class and walks a
 // run of windows (swin_block_v3.window_core_plan); scores and probabilities
 // stay in registers and the bias is staged once per block, so device memory
 // sees q, k, v once and out once, which is what the TPU kernel keeps in VMEM

@@ -53,7 +53,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every entry point: pointers and the stream as c_void_p
 _SIGNATURES = {
-    "dsg_swin_attn": [_P] * 13 + [_I] * 11 + [_P],
+    "dsg_swin_attn": [_P] * 12 + [_I] * 8 + [_P],
     "dsg_token_mlp": [_P] * 9 + [_I] * 4 + [_P],
     "dsg_swin_attn_bwd": [_P] * 28 + [_I] * 17 + [_P],
     "dsg_token_mlp_bwd": [_P] * 20 + [_I] * 13 + [_P],
@@ -68,7 +68,7 @@ _SIGNATURES = {
     "dsg_mm_accumulate": [_P] * 3 + [_I] * 6 + [_P],
     # the forward grid plans' queries: a kernel's tile and its occupancy
     "dsg_token_mlp_tile": [_I, ctypes.POINTER(_I)],
-    "dsg_swin_attn_gemm_tile": [_I, _I, _I, ctypes.POINTER(_I)],
+    "dsg_swin_attn_tile": [_I, _I, ctypes.POINTER(_I)],
     "dsg_swin_attn_bwd_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_token_mlp_bwd_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_patch_breakup_tile": [_I, _I, _I, ctypes.POINTER(_I)],
@@ -78,7 +78,6 @@ _SIGNATURES = {
     "dsg_readout_head_tile": [ctypes.POINTER(_I)],
     "dsg_patch_embed_tile": [ctypes.POINTER(_I)],
     "dsg_mm_accumulate_tile": [_I, _I, _I, ctypes.POINTER(_I)],
-    "dsg_swin_attn_core_per_sm": [_I],
     "dsg_patch_resample_bwd_rows_per_sm": [_I, _I],
     "dsg_swin_attn_bwd_core_per_sm": [_I],
     "dsg_window_attention_per_sm": [_I],
@@ -171,7 +170,7 @@ def gemm_plan(m: int, n: int, tile: tuple[int, ...], sms: int = 132) -> dict[str
     wave of resident blocks (``sms`` x ``tile[2]``, the blocks an SM holds)
     the columns are cut into ``splits`` (each split redoes its rows'
     prologue).  ``tile`` is what the library reports for the launch
-    (``swin_block_v3.attn_gemm_tile``, ``patch_resample.merge_tile``,
+    (``swin_block_v3.attn_bwd_tile``, ``patch_resample.merge_tile``,
     ``patch_resample.breakup_tile``)."""
     rows, cols, per_sm = tile[:3]
     splits, per = wave_split(-(-m // rows), -(-n // cols), per_sm, sms)

@@ -249,7 +249,7 @@ def mlp_bwd_plan(m: int, c: int, hidden: int, device) -> dict[str, int]:
     """Grid plan of ``token_mlp_bwd`` over ``m`` tokens at width C: ``fused``
     (one row-tile launch of ``blocks`` blocks, each walking every hidden
     chunk) where the library has a fused tile for C, else the chain's
-    fc1's panels (``wide``, as ``swin_block_v3.attn_gemm_plan``) and the
+    fc1's panels (``wide``, as ``swin_block_v3.attn_bwd_gemm_plan``) and the
     column splits of its three GEMMs (``gemm_plan``: ``fc1``, ``dm``,
     ``dhn``) and ``mlp_bwd_splits``; and for both the token split of the two
     weight gradients (``w`` splits of ``kchunk`` tokens, one plan for both,

@@ -7,10 +7,11 @@ Counterpart of diffusesg_tpu/ops/swin_block_v3.py:
     out = y + fc2(gelu(fc1(LN2(y))))
 
 ``swin_attn`` is a ``torch.autograd.Function``: on a CUDA tensor its forward
-is the hand-written kernel ``swin_attn`` (csrc/swin_attn.cu: the qkv GEMM
-with the noise affine and LN1 as its prologue, the window core, the proj
-GEMM with the residual in its epilogue) and its backward
-the kernel ``swin_attn_bwd`` (csrc/swin_attn_bwd.cu; the TPU's
+is the hand-written kernel ``swin_attn`` (csrc/swin_attn.cu: one launch per
+block: the noise affine and LN1 of a block's windows, then per head qkv, the
+window core and its share of proj, with q, k, v and the attention output on
+chip, and the residual in the epilogue; a closing pass where ``attn_plan``
+splits the heads) and its backward the kernel ``swin_attn_bwd`` (csrc/swin_attn_bwd.cu; the TPU's
 ``_attn_bwd_kernel``); on a CPU tensor both run the plain versions below.  It
 saves ``x``, ``scale_shift``, the parameters and ``rel_bias``; the backward
 recomputes everything else.  ``fused_swin_block`` composes it with
@@ -37,7 +38,8 @@ WINDOWS = (8, 10)  # window sizes the kernels are built for (L = 64 and 100)
 
 def window_core_plan(n_windows: int, num_heads: int, classes: int, per_sm: int,
                      sms: int = 132) -> int:
-    """Windows per block of the forward window core.  A block serves one head
+    """Windows per block of a window core (window attention alone, K11's
+    ``window_attn_kernel``, and the backward's).  A block serves one head
     and one of ``classes`` mask classes (window index mod the class count; 1
     without a mask) and walks a run of that class's windows, so the bias is
     staged once per run.  The runs are as short as one wave of resident
@@ -56,23 +58,30 @@ def core_blocks(n_windows: int, classes: int, wpb: int) -> int:
     return classes * -(-(n_windows // classes) // wpb)
 
 
-def attn_gemm_tile(device, c: int, which: str, wide: bool = False) -> tuple[int, ...]:
-    """The tile of ``swin_attn``'s qkv or proj GEMM at width C (64-row panels
-    if ``wide``), from the library (csrc/swin_attn.cu ``with_tile``): rows,
-    columns, blocks an SM holds, 0."""
-    return cuda_build.tile_of(device, "dsg_swin_attn_gemm_tile", c,
-                              ("qkv", "proj").index(which), int(wide))
+def attn_tile(device, c: int, L: int) -> tuple[int, ...]:
+    """The tile of the ``swin_attn`` kernel at width C and window length L,
+    from the library (csrc/swin_attn.cu ``dsg_swin_attn_tile``): rows,
+    windows a block, blocks an SM holds, the most heads a block holds."""
+    return cuda_build.tile_of(device, "dsg_swin_attn_tile", c, L)
 
 
-def attn_gemm_plan(m: int, c: int, device) -> dict[str, int]:
-    """Grid plan of ``swin_attn``'s two GEMMs over ``m`` tokens at width C:
-    64-row panels (``wide``) where ``wide_panels`` says so for the qkv GEMM,
-    and ``gemm_plan``'s column split of each GEMM on the tile taken."""
-    sms = cuda_build.sm_count(device)
-    wide = cuda_build.wide_panels(m, 3 * c, lambda w: attn_gemm_tile(device, c, "qkv", w), sms)
-    qkv, proj = (attn_gemm_tile(device, c, k, wide) for k in ("qkv", "proj"))
-    return dict(wide=int(wide), qkv=cuda_build.gemm_plan(m, 3 * c, qkv, sms)["tiles"],
-                proj=cuda_build.gemm_plan(m, c, proj, sms)["tiles"])
+def attn_plan(n_windows: int, heads: int, classes: int, tile: tuple[int, ...],
+              sms: int = 132) -> dict[str, int]:
+    """Grid plan of the ``swin_attn`` kernel: ``tiles`` blocks of
+    ``tile[1]`` whole windows of one of ``classes`` mask classes (1 without
+    a mask), each for every head or a group of ``heads`` consecutive heads
+    (``groups`` of them, grid y).  One group where a block holds every head
+    (``tile[3]``) and the tiles fill a wave of resident blocks (``sms`` x
+    ``tile[2]``, the blocks an SM holds); else as many groups as fill that
+    wave without passing it, and at least as many as the block needs.  Each
+    group's proj is an fp32 partial that the closing pass adds in group
+    order."""
+    _, wpb, per_sm, most = tile[:4]
+    classes = max(classes, 1)
+    tiles = classes * -(-(n_windows // classes) // wpb)
+    want = max(-(-heads // most), min(heads, sms * per_sm // tiles))
+    per = -(-heads // want)
+    return dict(tiles=tiles, groups=-(-heads // per), heads=per)
 
 
 def _to_windows(t, window: int):
@@ -282,22 +291,18 @@ def swin_attn_fwd(x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, bproj, r
         x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias, mask, num_heads, window)
     bproj = cuda_build.require(bproj, torch.float32, "bproj")
     b, h, w, c = x.shape
-    m = b * h * w
-    qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
-    attn = torch.empty((m, c), dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
     n_win = (h // window) * (w // window)
-    sms = cuda_build.sm_count(x.device)
-    per_sm = cuda_build.blocks_per_sm(x.device, "dsg_swin_attn_core_per_sm", window * window)
-    wpb = window_core_plan(b * n_win, num_heads, n_win if mask is not None else 1, per_sm, sms)
-    plan = attn_gemm_plan(m, c, x.device)
+    plan = attn_plan(b * n_win, num_heads, n_win if mask is not None else 1,
+                     attn_tile(x.device, c, window * window), cuda_build.sm_count(x.device))
+    part = (torch.empty((plan["groups"], b * h * w, c), dtype=torch.float32, device=x.device)
+            if plan["groups"] > 1 else None)
+    out = torch.empty_like(x)
     p = cuda_build.ptr
     cuda_build.launch(
         NAME, x.device, "dsg_swin_attn",
         p(x), p(ss), p(g), p(bt), p(wqkv), p(bqkv), p(wproj), p(bproj), p(rel), p(mask),
-        p(qkv), p(attn), p(out), b, h, w, c, num_heads, window, shift, wpb, plan["wide"],
-        plan["qkv"], plan["proj"])
-    cuda_build.count_launch(NAME, _shape_key(h, w, c, shift))
+        p(part), p(out), b, h, w, c, num_heads, window, shift, plan["groups"])
+    cuda_build.count_launch(NAME, _shape_key(h, w, c, shift) + f" g{plan['groups']}")
     return out
 
 

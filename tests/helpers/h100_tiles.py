@@ -15,9 +15,11 @@ H100_PROPERTIES = types.SimpleNamespace(multi_processor_count=132)
 
 
 def attn_tile(c, which, wide=0):
-    """What the H100 build reports for swin_attn's GEMMs (rows, columns,
-    blocks an SM, 0): 128-row panels up to C384 (two blocks an SM while the
-    panel is at most 48 KB), 64-row panels at C768 or where asked for."""
+    """What the H100 build reports for a panel GEMM over C (rows, columns,
+    blocks an SM, 0): swin_window.cuh's ``with_tile``, the backward's qkv
+    recompute, takes 128-row panels up to C384 (two blocks an SM while the
+    panel is at most 48 KB), 64-row panels at C768 or where asked for;
+    patch_breakup's second product takes the 128-row one."""
     if c <= 384 and not wide:
         return (128, 96, 2 if c <= 192 else 1, 0)
     return (64, 192, 1, 0)
@@ -43,6 +45,12 @@ def merge_tile(c, wide=0):
     return (128, 96, 1, 0)
 
 
+# swin_attn's kernel by (C, L): rows, windows a block, blocks an SM, the most
+# heads a block holds (csrc/swin_attn.cu, with_attn_tile)
+SWIN_ATTN_TILE = {(64, 64): (64, 1, 2, 2), (96, 64): (64, 1, 2, 3), (192, 64): (64, 1, 1, 6),
+                  (384, 64): (64, 1, 1, 12), (768, 64): (64, 1, 1, 12),
+                  (64, 100): (112, 1, 1, 2), (96, 100): (112, 1, 1, 3),
+                  (192, 100): (112, 1, 1, 6), (384, 100): (112, 1, 1, 6)}
 READOUT_TILE = (64, 2, 2, 0)  # rows a tile, warpgroups a block, blocks an SM
 # the fused MLP's tile by C: token rows, hidden chunk, blocks an SM, and the
 # column groups a row tile's fc2 columns are cut into (a block each)
@@ -76,9 +84,10 @@ class StubLib:
             geom[i] = v
         return 0
 
-    def dsg_swin_attn_gemm_tile(self, c, which, wide, geom):
-        self._record("attn", c, which, wide)
-        return self._fill(geom, attn_tile(c, which, wide))
+    def dsg_swin_attn_tile(self, c, L, geom):
+        self._record("attn", c, L)
+        tile = SWIN_ATTN_TILE.get((c, L))
+        return -1 if tile is None else self._fill(geom, tile)
 
     def dsg_patch_breakup_tile(self, cin, dim, which, geom):
         self._record("breakup", cin, dim, which)

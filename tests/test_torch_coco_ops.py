@@ -165,6 +165,27 @@ def test_backward_grid_plans_cover_the_coco_shapes(monkeypatch, b, hw, c, heads)
     assert mlp["fused"] or 1 <= mlp["ln"] <= cuda_build.TARGET_BLOCKS
 
 
+@pytest.mark.parametrize("b,hw,c,heads", [(64, 40, 96, 3), (64, 20, 192, 6), (64, 10, 384, 12),
+                                          (16, 10, 384, 12), (1, 10, 384, 12), (5, 40, 96, 3)])
+def test_forward_grid_plan_covers_the_coco_shapes(monkeypatch, b, hw, c, heads):
+    """swin_attn's plan at COCO-Stuff shapes (window 10: a window in 112
+    rows, one a block), the tile from a stub of the H100 library
+    (tests/helpers/h100_tiles.py): every window once a head group, groups
+    of at most the heads a block holds, and the heads split only where the
+    windows cannot fill the card (10x10 C384 from batch 64 down, where a
+    block holds half its heads too)."""
+    h100_tiles.install(monkeypatch)
+    tile = sw.attn_tile(h100_tiles.DEVICE, c, L)
+    assert tile[:2] == (112, 1)
+    n_windows = b * (hw // WINDOW) ** 2
+    plan = sw.attn_plan(n_windows, heads, 1, tile)
+    assert plan["tiles"] == n_windows
+    assert plan["heads"] <= tile[3] and plan["groups"] * plan["heads"] >= heads
+    assert (plan["groups"] - 1) * plan["heads"] < heads  # no group is empty
+    # one wave: a second group only where twice the tiles still fit in it
+    assert (plan["groups"] > 1) == (2 * n_windows <= 132 * tile[2] or heads > tile[3])
+
+
 @pytest.mark.parametrize("window,c,heads,match", [
     (7, 64, 2, "swin_attn covers windows"),      # a window the kernels are not built for
     (10, 96, 2, "swin_attn covers windows"),     # head_dim 48

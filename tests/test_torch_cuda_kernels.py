@@ -1032,10 +1032,10 @@ def test_swin_attn_bwd_kernel_window_10(cuda, hw, heads, shift, b):
     assert all(torch.equal(x, y) for x, y in zip(again, sw.swin_attn_bwd(*bargs, heads, 10, shift)))
 
 
-# Every VG and COCO stage of swin_attn at ragged token counts (batch 1 and 3):
-# the qkv and proj GEMMs (csrc/hopper_gemm.cuh) at each C, window 8 and 10,
-# shift on and off; at these few rows C384 and C768 take 64-row panels, and
-# at C768 the plan splits N across blocks, each redoing its rows' prologue.
+# Every VG and COCO stage of swin_attn at ragged token counts (batch 1 and 3)
+# and at the sampling cells' batch 64: window 8 and 10, shift on and off; at
+# few windows (C768, COCO's 10x10 C384, any stage at batch 1) the plan
+# splits the heads into groups whose proj partials a closing pass adds.
 MODEL_ATTN_SHAPES = [(64, 3, 8, 0), (32, 6, 8, 0), (16, 12, 8, 0), (16, 12, 8, 4), (8, 24, 8, 0),
                      (40, 3, 10, 0), (20, 6, 10, 0), (20, 6, 10, 5), (10, 12, 10, 0)]
 
@@ -1057,18 +1057,92 @@ def test_swin_attn_bwd_kernel_model_shapes(cuda, hw, heads, window, shift, b):
                for x, y in zip(again, sw.swin_attn_bwd(*bargs, heads, window, shift)))
 
 
+def _attn_plan(dev, b, hw, heads, window, shift):
+    n_win = (hw // window) ** 2
+    return sw.attn_plan(b * n_win, heads, n_win if shift else 1,
+                        sw.attn_tile(dev, 32 * heads, window * window), cuda_build.sm_count(dev))
+
+
 @pytest.mark.parametrize("hw,heads,window,shift", MODEL_ATTN_SHAPES)
-@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("b", [1, 3, 64])
 def test_swin_attn_kernel_model_shapes(cuda, hw, heads, window, shift, b):
+    """One launch at every stage (its key names the plan's head groups),
+    bit-equal on a relaunch; a shifted stage bit-equal to the same kernel on
+    the pre-rolled grid (the roll is index math: a row's sums do not depend
+    on where it falls)."""
     torch.manual_seed(hw + heads + b)
-    c, m = 32 * heads, b * hw * hw
-    plan = sw.attn_gemm_plan(m, c, cuda)
-    assert plan["wide"] or c < 384, plan
-    if c == 768:
-        assert plan["qkv"] < -(-3 * c // sw.attn_gemm_tile(cuda, c, "qkv", True)[1]), plan
+    plan = _attn_plan(cuda, b, hw, heads, window, shift)
+    if 32 * heads == 768 or b == 1:
+        assert plan["groups"] > 1, plan  # few windows: the heads split
     args = _attn_args(cuda, b, hw, heads, window, shift)
+    before = collections.Counter(cuda_build.LAUNCHES)
     _check("swin_attn", sw.swin_attn, sw.swin_attn_block_plain, *args, heads, window, shift)
+    key = f"{hw}x{hw}xC{32 * heads}" + (f" shift{shift}" if shift else "") + f" g{plan['groups']}"
+    assert cuda_build.LAUNCHES[("swin_attn", key)] == before[("swin_attn", key)] + 1
     _bit_equal_again(sw.swin_attn, *args, heads, window, shift)
+    if shift:
+        rolled = torch.roll(args[0], (-shift, -shift), dims=(1, 2))
+        got = torch.roll(sw.swin_attn(rolled, *args[1:], heads, window, 0), (shift, shift),
+                         dims=(1, 2))
+        assert torch.equal(got, sw.swin_attn(*args, heads, window, shift))
+
+
+def test_swin_attn_kernel_at_the_training_batch(cuda):
+    """VG's 64x64 C96 stage at batch 1000, the training forward's largest
+    launch (4.1 M tokens)."""
+    torch.manual_seed(1000)
+    args = _attn_args(cuda, 1000, 64, 3, 8, 0)
+    _check("swin_attn", sw.swin_attn, sw.swin_attn_block_plain, *args, 3, 8, 0)
+    _bit_equal_again(sw.swin_attn, *args, 3, 8, 0)
+
+
+@pytest.mark.parametrize("hw,heads,window,shift,b", [(64, 3, 8, 0, 64), (16, 12, 8, 4, 64),
+                                                     (40, 3, 10, 0, 64), (20, 6, 10, 5, 64),
+                                                     (8, 24, 8, 0, 64), (10, 12, 10, 0, 16)])
+def test_swin_attn_head_groups_match_the_whole_plan(cuda, monkeypatch, hw, heads, window,
+                                                    shift, b):
+    """The plan follows the SM count: on a card taken for 64 times its SMs
+    it splits every stage's heads into more groups, each writing fp32 proj
+    partials that the closing pass adds.  The groups round the same bf16
+    intermediates and differ from the whole plan only in the order of proj's
+    fp32 sum, so y moves by at most about one bf16 ulp (2^-8 relative)."""
+    torch.manual_seed(hw + b)
+    args = _attn_args(cuda, b, hw, heads, window, shift) + (heads, window, shift)
+    whole_plan = _attn_plan(cuda, b, hw, heads, window, shift)
+    whole = sw.swin_attn(*args)
+    sms = cuda_build.sm_count(cuda)
+    monkeypatch.setattr(cuda_build, "sm_count", lambda device: 64 * sms)
+    split_plan = _attn_plan(cuda, b, hw, heads, window, shift)
+    assert split_plan["groups"] > whole_plan["groups"], (whole_plan, split_plan)
+    split = sw.swin_attn(*args)
+    _bit_equal_again(sw.swin_attn, *args)
+    torch.testing.assert_close(split.float(), whole.float(), atol=1e-2, rtol=2 ** -7)
+    torch.testing.assert_close(split.float(), sw.swin_attn_block_plain(*args).float(),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("hw,heads,window,shift", [(16, 12, 8, 4), (8, 24, 8, 0),
+                                                   (20, 6, 10, 5), (10, 12, 10, 0)])
+def test_swin_attn_gradients_through_the_kernels(cuda, hw, heads, window, shift):
+    """Autograd through swin_attn: the forward kernel, then the backward
+    kernel on what the forward saved, against the plain backward at the
+    backward kernel's own tolerance (_check_grads)."""
+    torch.manual_seed(hw + heads)
+    b, c = 3, 32 * heads
+    a = _attn_args(cuda, b, hw, heads, window, shift)
+    dy = _rnd(cuda, b, hw, hw, c)
+    leaves = [t.clone().requires_grad_() for t in a[:9]]
+    before = cuda_build.launches_by_kernel()
+    y = sw.swin_attn(*leaves, a[9], heads, window, shift)
+    grads = torch.autograd.grad(y, leaves, dy)
+    after = cuda_build.launches_by_kernel()
+    assert all(after[k] == before.get(k, 0) + 1 for k in ("swin_attn", "swin_attn_bwd"))
+    refs = sw.swin_attn_bwd_plain(*a[:2], dy, *a[2:7], *a[8:], heads, window, shift)
+    for i, (got, ref) in enumerate(zip(grads, refs)):  # x, ss, g, b, wqkv, bqkv, wproj, bproj, rel
+        assert got.shape == ref.shape and got.dtype == ref.dtype, i
+        o, r = got.float(), ref.float()
+        tol = 2e-2 * r.abs() + 1e-2 * r.abs().max()
+        assert bool(((o - r).abs() <= tol).all()), (i, float((o - r).abs().max()))
 
 
 def test_an_uncovered_window_raises_on_the_card(cuda):

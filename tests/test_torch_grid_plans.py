@@ -1,11 +1,13 @@
 """The grid plans of the forward kernels, on the CPU.
 
-``window_core_plan`` (ops/swin_block_v3.py) gives the windows per block of
-``window_attn_kernel`` (csrc/swin_window.cuh); ``mlp_fwd_plan``
+``attn_plan`` (ops/swin_block_v3.py) gives the windows and head groups of
+``window_attn_kernel_fused`` (csrc/swin_attn.cu); ``window_core_plan`` the
+windows per block of ``window_attn_kernel`` (csrc/swin_window.cuh, window
+attention alone) and of the backward core; ``mlp_fwd_plan``
 (ops/mlp_block_kernel.py) the hidden split of ``token_mlp_kernel``
 (csrc/token_mlp.cu); ``gemm_plan`` (ops/cuda_build.py) the column split of
-the Hopper GEMM (csrc/hopper_gemm.cuh) that runs swin_attn's qkv and proj,
-patch_merge's product and patch_breakup's two products; ``readout_plan``
+the Hopper GEMM (csrc/hopper_gemm.cuh) that runs patch_merge's product,
+patch_breakup's two products and the backward's; ``readout_plan``
 (ops/readout_kernel.py) the persistent grid of ``readout_kernel``
 (csrc/readout.cu); ``kernel_plan`` (ops/mm_microbench.py) the persistent
 grid of ``mm_accumulate_wgmma`` (csrc/mm_microbench.cu) over its work items.  The partitions below repeat the kernels' index
@@ -320,11 +322,6 @@ def _gemms(b):
     """(rows, columns, tile) of every Hopper GEMM launch of one VG and one
     COCO eval at batch b, the tiles through the wrappers' library queries."""
     out = []
-    for hw, c in ATTN_STAGES:
-        m = b * hw * hw
-        wide = bool(sw.attn_gemm_plan(m, c, DEV)["wide"])
-        out += [(m, 3 * c, sw.attn_gemm_tile(DEV, c, "qkv", wide)),
-                (m, c, sw.attn_gemm_tile(DEV, c, "proj", wide))]
     for hw, cin, dim in BREAKUP_STAGES:
         m = b * hw * hw
         out += [(m, dim, pr.breakup_tile(DEV, cin, dim, "in")),
@@ -336,28 +333,119 @@ def _gemms(b):
 
 
 def test_gemm_tiles_come_from_the_library(stub_lib):
-    assert sw.attn_gemm_tile(DEV, 768, "qkv") == (64, 192, 1, 0)
-    assert sw.attn_gemm_tile(DEV, 384, "proj", True) == (64, 192, 1, 0)
+    assert sw.attn_bwd_tile(DEV, 768, "qkv") == (64, 192, 1, 0)
+    assert sw.attn_bwd_tile(DEV, 384, "qkv", True) == (64, 192, 1, 0)
     assert pr.breakup_tile(DEV, 384, 384, "in") == (64, 384, 1, 1)
     assert pr.breakup_tile(DEV, 768, 768, "out") == (128, 96, 2, 0)
-    assert stub_lib.calls == [("attn", 768, 0, 0), ("attn", 384, 1, 1),
+    assert stub_lib.calls == [("attn_bwd", 768, 0, 0), ("attn_bwd", 384, 0, 1),
                               ("breakup", 384, 384, 0), ("breakup", 768, 768, 1)]
 
 
-# (grid, C, batch, 64-row tiles): the default tile where its N splits are no
-# more than the blocks an SM holds, 64-row panels where they are more: VG's
-# C384-C768 and COCO's C192-C384 stages at batch 16, COCO's 10x10 at 64 too
+# (grid, C, batch, 64-row tiles) of the backward's qkv recompute: the
+# default tile where its N splits are no more than the blocks an SM holds,
+# 64-row panels where they are more: VG's C384-C768 and COCO's C192-C384
+# stages at batch 16, COCO's 10x10 at 64 too
 @pytest.mark.parametrize("hw,c,b,wide", [(64, 96, 16, False), (32, 192, 16, False),
                                          (16, 384, 16, True), (16, 384, 64, False),
                                          (8, 768, 16, True), (40, 96, 16, False),
                                          (20, 192, 16, True), (10, 384, 16, True),
                                          (10, 384, 64, True), (40, 96, 1, True),
                                          (64, 96, 64, False), (32, 192, 64, False)])
-def test_attn_gemm_plan_takes_64_row_panels_where_rows_are_few(stub_lib, hw, c, b, wide):
-    plan = sw.attn_gemm_plan(b * hw * hw, c, DEV)
+def test_attn_bwd_gemm_plan_takes_64_row_panels_where_rows_are_few(stub_lib, hw, c, b, wide):
+    plan = sw.attn_bwd_gemm_plan(b * hw * hw, c, DEV)
     assert bool(plan["wide"]) == wide
-    tile = sw.attn_gemm_tile(DEV, c, "qkv", bool(plan["wide"]))
+    tile = sw.attn_bwd_tile(DEV, c, "qkv", bool(plan["wide"]))
     assert plan["qkv"] == gemm_plan(b * hw * hw, 3 * c, tile, H100_SMS)["tiles"]
+
+
+# (windows, heads, mask classes, C, L): every swin_attn launch of a VG and a
+# COCO evaluation at batch 64, 16 and 1, of a VG training forward at batch
+# 1000, and ragged counts (a class run that is not a whole number of
+# tiles, heads that do not divide into the groups)
+ATTN_PLAN_CASES = [
+    (64 * 64, 3, 1, 96, 64), (64 * 16, 6, 1, 192, 64), (64 * 4, 12, 1, 384, 64),
+    (64 * 4, 12, 4, 384, 64), (64, 24, 1, 768, 64),
+    (64 * 16, 3, 1, 96, 100), (64 * 4, 6, 1, 192, 100), (64 * 4, 6, 4, 192, 100),
+    (64, 12, 1, 384, 100),
+    (16 * 64, 3, 1, 96, 64), (16 * 16, 6, 1, 192, 64), (16 * 4, 12, 4, 384, 64),
+    (16, 24, 1, 768, 64), (16 * 16, 3, 1, 96, 100), (16 * 4, 6, 4, 192, 100),
+    (16, 12, 1, 384, 100),
+    (64, 3, 1, 96, 64), (16, 6, 1, 192, 64), (4, 12, 4, 384, 64), (1, 24, 1, 768, 64),
+    (16, 3, 1, 96, 100), (4, 6, 4, 192, 100), (1, 12, 1, 384, 100),
+    (1000 * 64, 3, 1, 96, 64), (1000 * 16, 6, 1, 192, 64), (1000 * 4, 12, 4, 384, 64),
+    (1000, 24, 1, 768, 64),
+    (7 * 64, 2, 1, 64, 64), (23 * 4, 12, 4, 384, 64), (3 * 4, 2, 4, 64, 100),
+    (5, 24, 1, 768, 64), (3, 12, 1, 384, 100),
+]
+
+
+def _attn_blocks(n_windows, heads, classes, wpb, plan):
+    """The (window, head) pairs of each block of the plan's grid, as
+    window_attn_kernel_fused reads its block index: x -> class x % classes
+    and windows cls + classes (x / classes wpb + j), j < wpb, clipped to the
+    class's windows; y -> heads [y per, min((y + 1) per, heads))."""
+    per_class, per = n_windows // classes, plan["heads"]
+    blocks = []
+    for x in range(plan["tiles"]):
+        cls, first = x % classes, x // classes * wpb
+        windows = [cls + classes * (first + j) for j in range(min(wpb, per_class - first))]
+        for y in range(plan["groups"]):
+            blocks.append([(w, h) for w in windows for h in range(y * per, min((y + 1) * per,
+                                                                              heads))])
+    return blocks
+
+
+@pytest.mark.parametrize("n_windows,heads,classes,c,L", ATTN_PLAN_CASES)
+def test_attn_plan_covers_every_window_and_head_once(stub_lib, n_windows, heads, classes, c, L):
+    tile = sw.attn_tile(DEV, c, L)
+    plan = sw.attn_plan(n_windows, heads, classes, tile, H100_SMS)
+    blocks = _attn_blocks(n_windows, heads, classes, tile[1], plan)
+    assert all(blocks), "a block without a window or a head"
+    assert all(len({w % classes for w, _ in b}) == 1 for b in blocks), "a block mixes classes"
+    assert plan["heads"] <= tile[3], "more heads than a block holds"
+    pairs = sorted(p for b in blocks for p in b)
+    assert pairs == [(w, h) for w in range(n_windows) for h in range(heads)]
+
+
+@pytest.mark.parametrize("n_windows,heads,classes,c,L", ATTN_PLAN_CASES)
+def test_attn_plan_splits_heads_only_where_windows_cannot_fill_a_wave(stub_lib, n_windows, heads,
+                                                                     classes, c, L):
+    """One group of every head where a block holds them all and the tiles
+    fill a wave of resident blocks; else the fewest groups a block needs, or
+    as many more as fill the wave without passing it."""
+    tile = sw.attn_tile(DEV, c, L)
+    plan = sw.attn_plan(n_windows, heads, classes, tile, H100_SMS)
+    slots, least = H100_SMS * tile[2], -(-heads // tile[3])
+    if plan["tiles"] >= slots:
+        assert plan["groups"] == least
+    if plan["groups"] > least:
+        assert plan["tiles"] * plan["groups"] <= slots
+        assert plan["heads"] == 1 or 2 * plan["tiles"] * plan["groups"] > slots
+    if heads <= tile[3] and plan["tiles"] < slots // 2:
+        assert plan["groups"] > 1 or heads == 1
+
+
+def test_attn_plan_follows_the_sm_count_and_occupancy():
+    """The head groups follow the SMs and the blocks an SM holds: VG's 8x8
+    C768 at batch 64 takes two groups of 12 on 132 SMs, four of 6 on 264,
+    and the same four where an SM holds two blocks; with every window
+    filling the wave it takes the block's fewest."""
+    tile = (64, 1, 1, 12)
+    assert sw.attn_plan(64, 24, 1, tile, 132) == dict(tiles=64, groups=2, heads=12)
+    assert sw.attn_plan(64, 24, 1, tile, 264) == dict(tiles=64, groups=4, heads=6)
+    assert sw.attn_plan(64, 24, 1, (64, 1, 2, 12), 132) == dict(tiles=64, groups=4, heads=6)
+    assert sw.attn_plan(64, 24, 1, tile, 66)["groups"] == 2
+    assert sw.attn_plan(4096, 3, 1, (64, 1, 3, 3), 132) == dict(tiles=4096, groups=1, heads=3)
+    assert sw.attn_plan(64, 3, 1, (64, 1, 3, 3), 132)["groups"] == 3
+    assert sw.attn_plan(64, 3, 1, (64, 1, 3, 3), 33)["groups"] == 1
+
+
+def test_attn_tile_comes_from_the_library(stub_lib):
+    assert sw.attn_tile(DEV, 96, 64) == h100_tiles.SWIN_ATTN_TILE[(96, 64)]
+    assert sw.attn_tile(DEV, 384, 100) == h100_tiles.SWIN_ATTN_TILE[(384, 100)]
+    assert stub_lib.calls == [("attn", 96, 64), ("attn", 384, 100)]
+    with pytest.raises(ValueError, match="dsg_swin_attn_tile"):
+        sw.attn_tile(DEV, 768, 100)
 
 
 @pytest.mark.parametrize("b", [1, 16, 64])
@@ -390,15 +478,16 @@ def test_gemm_plan_aims_at_one_wave(stub_lib, b):
 
 
 def test_gemm_plan_splits_where_the_rows_do_not_fill_the_card(stub_lib):
-    """At batch 16, VG's C768 and COCO's 10x10 C384 stages split the qkv
-    columns (each split redoes its rows' LayerNorm), VG's C96 does not; the
-    fused breakup never splits."""
+    """At batch 16, VG's C768 and COCO's 10x10 C384 stages split the
+    backward's qkv recompute and its streamed products (each split of the
+    recompute redoes its rows' LayerNorm), VG's C96 does not; the fused
+    breakup never splits."""
     def splits(m, n, tile):
         return gemm_plan(m, n, tile, H100_SMS)["splits"]
-    assert splits(16 * 64, 3 * 768, sw.attn_gemm_tile(DEV, 768, "qkv")) > 1
-    assert splits(16 * 64, 768, sw.attn_gemm_tile(DEV, 768, "proj")) > 1
-    assert splits(16 * 100, 3 * 384, sw.attn_gemm_tile(DEV, 384, "qkv")) > 1
-    assert splits(16 * 4096, 3 * 96, sw.attn_gemm_tile(DEV, 96, "qkv")) == 1
+    assert splits(16 * 64, 3 * 768, sw.attn_bwd_tile(DEV, 768, "qkv")) > 1
+    assert splits(16 * 64, 768, sw.attn_bwd_tile(DEV, 768, "stream")) > 1
+    assert splits(16 * 100, 3 * 384, sw.attn_bwd_tile(DEV, 384, "qkv")) > 1
+    assert splits(16 * 4096, 3 * 96, sw.attn_bwd_tile(DEV, 96, "qkv")) == 1
     assert splits(16 * 1024, 384, pr.breakup_tile(DEV, 384, 384, "in")) == 1
     assert splits(16 * 64, 1536, pr.breakup_tile(DEV, 1536, 1536, "in")) > 1
 
@@ -589,7 +678,7 @@ def test_backward_tiles_come_from_the_library(stub_lib):
     assert mk.mlp_bwd_fused_tile(DEV, 384) is None  # the chain takes C384 and C768
     assert mk.mlp_bwd_tile(DEV, 3072, "wgrad") == (128, 192, 1, 0)
     assert sw.attn_bwd_tile(DEV, 96, "wgrad") == (128, 96, 1, 0)
-    assert sw.attn_bwd_tile(DEV, 384, "qkv", True) == sw.attn_gemm_tile(DEV, 384, "qkv", True)
+    assert sw.attn_bwd_tile(DEV, 384, "qkv", True) == h100_tiles.attn_tile(384, 0, True)
     assert ("mlp_bwd", 96, 0, 0) in stub_lib.calls and ("attn_bwd", 96, 2, 0) in stub_lib.calls
     plan = mk.mlp_bwd_plan(16 * 256, 384, 1536, DEV)
     assert plan["fused"] == 0 and plan["fc1"] >= 1 and plan["dm"] >= 1 and plan["dhn"] >= 1
