@@ -16,8 +16,8 @@
 //     half where it is not fused): the LayerNorm vjp per token (one warp per
 //     row, statistics recomputed in fp32), the noise affine's vjp for the
 //     attention half, and the sums over tokens (d gamma, d beta, d scale,
-//     d shift) kept in registers across a block's rows, written once per
-//     block;
+//     d shift) kept by each warp's row group in shared memory across a
+//     block's rows, added in a fixed order and written once per block;
 //   * reduce_partials: out[g, i] = sum_s part[(g * S + s) * ld + off + i].
 //
 // Every reduction over tokens is two-phase (per-block fp32 partials, then
@@ -254,14 +254,21 @@ inline cudaError_t col_sums(const void* x, float* part, float* out, int T, int N
 //
 // part[(g * bps + x), :] = [sum dhn * hbar | sum dhn | sum dpre * x | sum dpre]
 // over the block's rows (the last two only when AFFINE), each C wide.
+//
+// The pass waits on loads: a row's x, dhn and dres come from device memory
+// and its sums follow them.  So a row's loads are issued together where
+// the registers allow (C <= 512), and each warp's row group keeps its
+// column sums in a slice of shared memory rather than in registers, which
+// leaves room for two or three blocks an SM (ln_bwd_rows_launch).
 template <bool AFFINE, int MAXV, int LPR>
-__global__ void __launch_bounds__(256, MAXV == 1 ? 2 : 1)
+__global__ void __launch_bounds__(256, MAXV == 1 ? 3 : MAXV == 2 ? 2 : 1)
 ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ss,
                    const bf16* __restrict__ dres, const float* __restrict__ dhn,
                    const float* __restrict__ gamma, bf16* __restrict__ dx,
                    float* __restrict__ part, int HW, int C) {
   constexpr int NC = AFFINE ? 4 : 2, RPW = 32 / LPR;  // rows a warp holds at once
-  extern __shared__ float sums[];  // [NC * C]
+  // [8 RPW][NC * C]: the column sums of each warp's row group, in order
+  extern __shared__ float sums[];
   const int warp = threadIdx.x >> 5, sub = (threadIdx.x & 31) / LPR, lane = threadIdx.x % LPR;
   const int g = blockIdx.y;
   // a sum over the LPR lanes of a row
@@ -270,24 +277,30 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ss,
     for (int o = LPR / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
   };
-  for (int i = threadIdx.x; i < NC * C; i += 256) sums[i] = 0.f;
-
-  float acc[NC][MAXV][8];
+  for (int i = threadIdx.x; i < 8 * RPW * NC * C; i += 256) sums[i] = 0.f;
+  __syncthreads();
+  float* mine = sums + (warp * RPW + sub) * NC * C;
+  // mine[c][k..k+7] += a * b, or + a where b is null, each one rounding as
+  // a register accumulator's fused multiply-add (a lane's own columns: no
+  // other thread writes them)
+  auto add8 = [&](int c, int k, const float a[8], const float* b) {
+    float4* p = reinterpret_cast<float4*>(mine + c * C + k);
+    float v[8];
+    load8f(mine + c * C + k, v);
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int i = 0; i < MAXV; ++i)
-#pragma unroll
-      for (int t = 0; t < 8; ++t) acc[c][i][t] = 0.f;
+    for (int t = 0; t < 8; ++t) v[t] = b ? __fmaf_rn(a[t], b[t], v[t]) : v[t] + a[t];
+    p[0] = make_float4(v[0], v[1], v[2], v[3]);
+    p[1] = make_float4(v[4], v[5], v[6], v[7]);
+  };
 
   for (int r0 = (blockIdx.x * 8 + warp) * RPW; r0 < HW; r0 += gridDim.x * 8 * RPW) {
     const int r = r0 + sub;
     const bool live = r < HW;  // the lanes of a row past HW only join the sums
     const size_t row = (size_t)g * HW + (live ? r : r0);
-    // at C <= 256 every load of the row comes first (x, dhn, dres), so their
-    // latencies overlap; wider rows load dhn and dres where they are used
-    // (the registers of three rows in flight would not fit beside the sums)
-    constexpr bool kEarly = MAXV == 1;
+    // up to C = 512 every load of the row comes first (x, dhn, dres), so
+    // their latencies overlap; wider rows load dhn and dres where they are
+    // used (three rows' registers would not fit)
+    constexpr bool kEarly = MAXV <= 2;
     float xr[MAXV][8], d[MAXV][8], dr[MAXV][8];
 #pragma unroll
     for (int i = 0; i < MAXV; ++i) {
@@ -344,10 +357,11 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ss,
         load8f(gamma + k, gm);
         if constexpr (!kEarly) load8f(dhn + row * C + k, d[i]);
 #pragma unroll
+        for (int t = 0; t < 8; ++t) h[i][t] = (h[i][t] - mean) * rstd;
+        add8(0, k, d[i], h[i]);
+        add8(1, k, d[i], nullptr);
+#pragma unroll
         for (int t = 0; t < 8; ++t) {
-          h[i][t] = (h[i][t] - mean) * rstd;
-          acc[0][i][t] += d[i][t] * h[i][t];
-          acc[1][i][t] += d[i][t];
           d[i][t] *= gm[t];
           s1 += d[i][t];
           s2 += d[i][t] * h[i][t];
@@ -365,14 +379,15 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ss,
           if constexpr (AFFINE) load8(x + row * C + k, xr[i]);
         }
         if constexpr (AFFINE) {
+          float dp[8];
 #pragma unroll
           for (int t = 0; t < 8; ++t) {
             const float da = dr[i][t] + rstd * (d[i][t] - m1 - h[i][t] * m2);
-            const float dpre = da * silu_grad(pre[i][t]);
-            acc[2][i][t] += dpre * xr[i][t];
-            acc[3][i][t] += dpre;
-            o[t] = dpre * sc1[i][t];
+            dp[t] = da * silu_grad(pre[i][t]);
+            o[t] = dp[t] * sc1[i][t];
           }
+          add8(2, k, dp, xr[i]);
+          add8(3, k, dp, nullptr);
         } else {
 #pragma unroll
           for (int t = 0; t < 8; ++t) o[t] = dr[i][t] + rstd * (d[i][t] - m1 - h[i][t] * m2);
@@ -382,31 +397,35 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ss,
     }
   }
 
-  // the block's eight warps add their sums in warp order, a warp's rows in
+  // the block's eight warps' sums in warp order, a warp's row groups in
   // order within it
-  for (int w = 0; w < 8; ++w) {
-    __syncthreads();
-    if (warp == w) {
-      for (int sb = 0; sb < RPW; ++sb) {
-        if (sub == sb) {
-#pragma unroll
-          for (int c = 0; c < NC; ++c)
-#pragma unroll
-            for (int i = 0; i < MAXV; ++i) {
-              const int k = (i * LPR + lane) * 8;
-              if (k < C) {
-#pragma unroll
-                for (int t = 0; t < 8; ++t) sums[c * C + k + t] += acc[c][i][t];
-              }
-            }
-        }
-        __syncwarp();
-      }
-    }
-  }
   __syncthreads();
   float* out = part + ((size_t)g * gridDim.x + blockIdx.x) * NC * C;
-  for (int i = threadIdx.x; i < NC * C; i += 256) out[i] = sums[i];
+  for (int i = threadIdx.x; i < NC * C; i += 256) {
+    float v = 0.f;
+    for (int q = 0; q < 8 * RPW; ++q) v += sums[q * NC * C + i];
+    out[i] = v;
+  }
+}
+
+// The row pass's shared memory (its row groups' column sums), opted in past
+// the 48 KB default once on each device.
+template <bool AFFINE, int MAXV, int LPR>
+cudaError_t ln_bwd_rows_launch(dim3 grid, const bf16* x, const bf16* ss, const bf16* dres,
+                               const float* dhn, const float* gamma, bf16* dx, float* part, int HW,
+                               int C, cudaStream_t stream) {
+  constexpr int NC = AFFINE ? 4 : 2;
+  const size_t smem = (size_t)8 * (32 / LPR) * NC * C * sizeof(float);
+  static PerDevice ready;
+  const cudaError_t err = ready.once([](int&) {
+    return cudaFuncSetAttribute(ln_bwd_rows_kernel<AFFINE, MAXV, LPR>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                8 * (32 / LPR) * NC * (8 * LPR * MAXV) * (int)sizeof(float));
+  });
+  if (err != cudaSuccess) return err;
+  ln_bwd_rows_kernel<AFFINE, MAXV, LPR><<<grid, 256, smem, stream>>>(x, ss, dres, dhn, gamma, dx,
+                                                                     part, HW, C);
+  return cudaGetLastError();
 }
 
 template <bool AFFINE>
@@ -415,19 +434,16 @@ cudaError_t launch_ln_bwd_rows(const void* x, const void* ss, const void* dres, 
                                int bps, cudaStream_t stream) {
   if (G <= 0 || HW <= 0 || C <= 0 || C % 8 || C > 768 || bps < 1) return cudaErrorInvalidValue;
   const dim3 grid(bps, G);
-  const size_t smem = (AFFINE ? 4 : 2) * C * sizeof(float);
   const bf16 *xp = static_cast<const bf16*>(x), *sp = static_cast<const bf16*>(ss),
              *dp = static_cast<const bf16*>(dres);
   bf16* op = static_cast<bf16*>(dx);
   if (C <= 128)
-    ln_bwd_rows_kernel<AFFINE, 1, 16><<<grid, 256, smem, stream>>>(xp, sp, dp, dhn, gamma, op, part, HW, C);
-  else if (C <= 256)
-    ln_bwd_rows_kernel<AFFINE, 1, 32><<<grid, 256, smem, stream>>>(xp, sp, dp, dhn, gamma, op, part, HW, C);
-  else if (C <= 512)
-    ln_bwd_rows_kernel<AFFINE, 2, 32><<<grid, 256, smem, stream>>>(xp, sp, dp, dhn, gamma, op, part, HW, C);
-  else
-    ln_bwd_rows_kernel<AFFINE, 3, 32><<<grid, 256, smem, stream>>>(xp, sp, dp, dhn, gamma, op, part, HW, C);
-  return cudaGetLastError();
+    return ln_bwd_rows_launch<AFFINE, 1, 16>(grid, xp, sp, dp, dhn, gamma, op, part, HW, C, stream);
+  if (C <= 256)
+    return ln_bwd_rows_launch<AFFINE, 1, 32>(grid, xp, sp, dp, dhn, gamma, op, part, HW, C, stream);
+  if (C <= 512)
+    return ln_bwd_rows_launch<AFFINE, 2, 32>(grid, xp, sp, dp, dhn, gamma, op, part, HW, C, stream);
+  return ln_bwd_rows_launch<AFFINE, 3, 32>(grid, xp, sp, dp, dhn, gamma, op, part, HW, C, stream);
 }
 
 }  // namespace dsg

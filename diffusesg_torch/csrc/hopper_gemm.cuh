@@ -489,10 +489,16 @@ using PanelWide = Tile<64, 192, 2, 4, true, 1>;   // mode (a), K <= 768
 using PanelDeep = Tile<64, 96, 1, 2, true, 1>;
 using StreamRows = Tile<128, 96, 1, 3, false, 2>; // mode (b), any K
 using StreamLine = Tile<64, 384, 2, 3, false, 1>; // mode (b), whole rows of N <= 384
-// the backward's: A streamed, W [K, N] MN-major (dout W2, dy Wproj, du W1,
-// dqkv Wqkv), and the token-axis contraction dW = a^T b (both MN-major,
+// the backward's: A streamed, W [K, N] MN-major (dy Wproj and dqkv Wqkv
+// below C192), and the token-axis contraction dW = a^T b (both MN-major,
 // 96 or 192 columns a tile, K split over the grid's z)
 using StreamRowsT = Tile<128, 96, 1, 3, false, 2, false, true>;
+// the wide products' (the resampling backwards; the attention chain's dy
+// Wproj and dqkv Wqkv from C192; the MLP chain's dout W2 and du W1): 128 x
+// 192, two consumer warpgroups along M, a four-slot ring, one block an SM,
+// W K-major or (T) MN-major
+using StreamWide = Tile<128, 192, 1, 4, false, 1>;
+using StreamWideT = Tile<128, 192, 1, 4, false, 1, false, true>;
 using TokensN96 = Tile<128, 96, 1, 4, false, 1, true, true>;
 using TokensN192 = Tile<128, 192, 1, 4, false, 1, true, true>;
 

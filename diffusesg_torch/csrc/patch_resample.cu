@@ -307,12 +307,11 @@ extern "C" int dsg_patch_breakup_tile(int cin, int dim, int which, int* geom) {
 
 namespace dsg {
 
-// The backward's streamed tile for its wide products (merge's dhn, the
-// breakup's y and [dx | dskip]; N = 4C, 4c or Cin, multiples of 192 at the
-// models' widths): 128 x 192, two consumer warpgroups along M, a four-slot
-// ring, one block an SM, W K-major or (T) MN-major
-using StreamWide = hg::Tile<128, 192, 1, 4, false, 1>;
-using StreamWideT = hg::Tile<128, 192, 1, 4, false, 1, false, true>;
+// The backward's wide products (merge's dhn, the breakup's y and [dx |
+// dskip]; N = 4C, 4c or Cin, multiples of 192 at the models' widths) run on
+// hg::StreamWide and hg::StreamWideT.
+using hg::StreamWide;
+using hg::StreamWideT;
 
 // Call sites of the backward (kernel names in a profile)
 struct BreakupInBwdY {};

@@ -42,7 +42,8 @@
 // C = 384 and 768: the chain, every product on the wgmma GEMM: fc1
 // recomputed with LN(x) as its panel prologue (hn stored from column split
 // 0), m and gelu'(u) (fp16) from its epilogue; du = (dout W2) gelu'(u) with
-// W2 read MN-major; dhn = du W1 (fp32) likewise; the row pass
+// W2 read MN-major; dhn = du W1 (fp32) likewise, both on the 128 x 192
+// streamed tile (hg::StreamWideT); the row pass
 // (ln_bwd_rows) for dx, d gamma and d beta; col_sums for the biases.
 //
 // The weight gradients dW1 = du^T hn and dW2 = dout^T m are the token-axis
@@ -452,13 +453,13 @@ extern "C" int dsg_token_mlp_bwd(
     if (rc != 0) return rc;
     const MulGradEpi epi_du{{}, static_cast<bf16*>(du_buf), static_cast<const __half*>(gp_buf),
                             hidden};
-    DSG_TRY(hg::launch<hg::StreamRowsT, MlpBwdDm>(rows(dout, C), hg::NoPanel{}, epi_du,
+    DSG_TRY(hg::launch<hg::StreamWideT, MlpBwdDm>(rows(dout, C), hg::NoPanel{}, epi_du,
                                                    static_cast<const bf16*>(w2), M, hidden, dm_per,
                                                    s));
     DSG_TRY(col_sums(du_buf, static_cast<float*>(part_b1), vec, M, hidden, splits_b1, s));
     DSG_TRY(col_sums(dout, static_cast<float*>(part_b2), vec + hidden + 2 * C, M, C, splits_b2, s));
     const hg::F32Epi epi_dhn{{}, static_cast<float*>(dhn_buf), C};
-    DSG_TRY(hg::launch<hg::StreamRowsT, MlpBwdDhn>(rows(du_buf, hidden), hg::NoPanel{}, epi_dhn,
+    DSG_TRY(hg::launch<hg::StreamWideT, MlpBwdDhn>(rows(du_buf, hidden), hg::NoPanel{}, epi_dhn,
                                                     static_cast<const bf16*>(w1), M, C, dhn_per,
                                                     s));
     DSG_TRY(launch_ln_bwd_rows<false>(x, nullptr, dout, static_cast<const float*>(dhn_buf), gamma,
@@ -500,7 +501,7 @@ extern "C" int dsg_token_mlp_bwd_tile(int C, int which, int wide, int* geom) {
         return hg::tile_query<decltype(tile), MlpBwdFc1, decltype(pro), GeluAndGradEpi>(C, geom);
       });
     case 2:
-      return hg::tile_query<hg::StreamRowsT, MlpBwdDm, hg::NoPanel, MulGradEpi>(C, geom);
+      return hg::tile_query<hg::StreamWideT, MlpBwdDm, hg::NoPanel, MulGradEpi>(C, geom);
     case 3:
       return wgrad_tile<MlpBwdDw1>(C, geom);
     default:

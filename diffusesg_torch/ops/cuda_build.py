@@ -56,6 +56,7 @@ _SIGNATURES = {
     "dsg_swin_attn": [_P] * 12 + [_I] * 8 + [_P],
     "dsg_token_mlp": [_P] * 9 + [_I] * 4 + [_P],
     "dsg_swin_attn_bwd": [_P] * 28 + [_I] * 17 + [_P],
+    "dsg_swin_attn_bwd_fused": [_P] * 23 + [_I] * 10 + [_P],
     "dsg_token_mlp_bwd": [_P] * 20 + [_I] * 13 + [_P],
     "dsg_readout": [_P] * 6 + [_I] * 5 + [_P],
     "dsg_readout_head": [_P] * 16 + [_I] * 4 + [_P],
@@ -70,6 +71,7 @@ _SIGNATURES = {
     "dsg_token_mlp_tile": [_I, ctypes.POINTER(_I)],
     "dsg_swin_attn_tile": [_I, _I, ctypes.POINTER(_I)],
     "dsg_swin_attn_bwd_tile": [_I, _I, _I, ctypes.POINTER(_I)],
+    "dsg_swin_attn_bwd_fused_tile": [_I, _I, ctypes.POINTER(_I)],
     "dsg_token_mlp_bwd_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_patch_breakup_tile": [_I, _I, _I, ctypes.POINTER(_I)],
     "dsg_patch_merge_tile": [_I, _I, ctypes.POINTER(_I)],

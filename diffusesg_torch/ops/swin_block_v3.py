@@ -12,7 +12,9 @@ block: the noise affine and LN1 of a block's windows, then per head qkv, the
 window core and its share of proj, with q, k, v and the attention output on
 chip, and the residual in the epilogue; a closing pass where ``attn_plan``
 splits the heads) and its backward the kernel ``swin_attn_bwd`` (csrc/swin_attn_bwd.cu; the TPU's
-``_attn_bwd_kernel``); on a CPU tensor both run the plain versions below.  It
+``_attn_bwd_kernel``: one launch, ``window_attn_bwd_kernel_fused``, at VG's
+64x64 C96 stage, a chain of launches at the others); on a CPU tensor both run
+the plain versions below.  It
 saves ``x``, ``scale_shift``, the parameters and ``rel_bias``; the backward
 recomputes everything else.  ``fused_swin_block`` composes it with
 ``token_mlp``, so the only activation kept between the halves is ``y``, the
@@ -341,6 +343,26 @@ def attn_bwd_gemm_plan(m: int, c: int, device) -> dict[str, int]:
                 dhn=cuda_build.gemm_plan(m, c, stream, sms)["tiles"], w=splits, kchunk=chunk)
 
 
+def attn_bwd_fused_tile(device, c: int, L: int) -> tuple[int, ...] | None:
+    """The tile of the fused backward kernel ``window_attn_bwd_kernel_fused``
+    at width C and window length L, from the library (csrc/swin_attn_bwd.cu
+    ``dsg_swin_attn_bwd_fused_tile``): rows, 0, blocks an SM holds, 0; None
+    where it does not cover (C, L): it holds two windows' panels beside the
+    head's working set and the handed-over dhn at C96 and window 8 only, and
+    every other shape runs the chain of launches."""
+    try:
+        return cuda_build.tile_of(device, "dsg_swin_attn_bwd_fused_tile", c, L)
+    except ValueError:
+        return None
+
+
+def attn_bwd_fused_plan(n_windows: int, tile: tuple[int, ...], sms: int = 132) -> int:
+    """Blocks of the fused backward: one wave of resident blocks (``sms`` x
+    ``tile[2]``, the blocks an SM holds), at most one a window.  Block x
+    walks windows x, x + blocks, ... and keeps one d(rel_bias) partial."""
+    return max(1, min(n_windows, sms * tile[2]))
+
+
 def swin_attn_bwd(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias, mask,
                   num_heads: int, window: int, shift: int = 0):
     """Backward of the attention half: the kernel on CUDA tensors, the plain
@@ -358,7 +380,8 @@ def _swin_attn_bwd_kernel(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wpr
     """The launch of ``swin_attn_bwd``: its nine gradients, and the bf16 hn,
     qkv and d(attn) [B, H, W, C / 3C / C] of its recompute, which its window
     core and weight gradients read (``swin_attn_bwd_operands_plain`` gives
-    the plain version's; ``window_core_drel_plain`` checks the core alone)."""
+    the plain version's; ``window_core_drel_plain`` checks the core alone).
+    Where the fused kernel runs, qkv and d(attn) stay on chip: None."""
     x, ss, g, bt, wqkv, bqkv, wproj, rel, mask = _checked(
         x, scale_shift, ln_gamma, ln_beta, wqkv, bqkv, wproj, rel_bias, mask, num_heads, window)
     b, h, w, c = x.shape
@@ -370,8 +393,12 @@ def _swin_attn_bwd_kernel(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wpr
         raise ValueError(f"dy{tuple(dy.shape)} does not match x{tuple(x.shape)}")
     m, L = b * h * w, window * window
     sms = cuda_build.sm_count(dev)
-    sp = attn_bwd_splits(b, h, w, c, num_heads, window)
     gp = attn_bwd_gemm_plan(m, c, dev)
+    fused = attn_bwd_fused_tile(dev, c, L)
+    if fused is not None:
+        return _swin_attn_bwd_fused(x, ss, dy, g, bt, wqkv, bqkv, wproj, rel, mask, num_heads,
+                                    window, shift, fused, gp)
+    sp = attn_bwd_splits(b, h, w, c, num_heads, window)
     # the backward core's grid as the forward's: runs of one mask class
     n_win = b * (h // window) * (w // window)
     classes = (h // window) * (w // window) if mask is not None else 1
@@ -405,6 +432,42 @@ def _swin_attn_bwd_kernel(x, scale_shift, dy, ln_gamma, ln_beta, wqkv, bqkv, wpr
     dwqkv, dwproj = dw[:3 * c * c].view(3 * c, c), dw[3 * c * c:].view(c, c)
     grads = dx, dss.to(bf), dgb[0], dgb[1], dwqkv.to(bf), dbqkv, dwproj.to(bf), dbproj, drel
     return grads, (hn.view(b, h, w, c), qkv.view(b, h, w, 3 * c), dattn.view(b, h, w, c))
+
+
+def _swin_attn_bwd_fused(x, ss, dy, g, bt, wqkv, bqkv, wproj, rel, mask, num_heads: int,
+                         window: int, shift: int, tile: tuple[int, ...], gp: dict[str, int]):
+    """``_swin_attn_bwd_kernel`` through ``window_attn_bwd_kernel_fused``
+    (operands checked): its nine gradients and the bf16 hn it stores for
+    dWqkv; qkv and d(attn) never reach device memory (None)."""
+    b, h, w, c = x.shape
+    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
+    m, L = b * h * w, window * window
+    nw = (h // window) * (w // window)
+    blocks = attn_bwd_fused_plan(b * nw, tile, cuda_build.sm_count(dev))
+
+    def buf(*shape, dtype=f32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    hn, attn = buf(m, c, dtype=bf), buf(m, c, dtype=bf)
+    dqkv = buf(m, 3 * c, dtype=bf)
+    part_rel, part_win = buf(blocks, num_heads, L, L), buf(b * nw, 8 * c)
+    part_b, part_w = buf(b, 8 * c), buf(gp["w"], 4 * c * c)
+    dx = torch.empty_like(x)
+    dss, dgb = buf(b, 2 * c), buf(2, c)
+    dw, dbias, drel = buf(4 * c * c), buf(4 * c), buf(num_heads, L, L)  # dbias: dbproj | dbqkv
+    wproj_t = wproj.t().contiguous()
+    p = cuda_build.ptr
+    cuda_build.launch(
+        NAME_BWD, dev, "dsg_swin_attn_bwd_fused",
+        p(x), p(ss), p(dy), p(g), p(bt), p(wqkv), p(bqkv), p(wproj_t), p(rel), p(mask),
+        p(hn), p(attn), p(dqkv), p(part_rel), p(part_win), p(part_b), p(part_w),
+        p(dx), p(dss), p(dgb), p(dw), p(dbias), p(drel),
+        b, h, w, c, num_heads, window, shift, blocks, gp["w"], gp["kchunk"])
+    cuda_build.count_launch(NAME_BWD, _shape_key(h, w, c, shift) + " fused")
+    dwqkv, dwproj = dw[:3 * c * c].view(3 * c, c), dw[3 * c * c:].view(c, c)
+    grads = (dx, dss.to(bf), dgb[0], dgb[1], dwqkv.to(bf), dbias[c:], dwproj.to(bf), dbias[:c],
+             drel)
+    return grads, (hn.view(b, h, w, c), None, None)
 
 
 class _SwinAttn(torch.autograd.Function):

@@ -110,7 +110,8 @@ class StubLib:
         self._record("attn_bwd", c, which, wide)
         if c % 32 or c <= 0 or c > 768:
             return -1
-        return self._fill(geom, (attn_tile(c, 0, wide), STREAM_TILE, tokens_tile(c))[which])
+        stream = WIDE_STREAM_TILE if c >= 192 else STREAM_TILE  # with_stream_tile
+        return self._fill(geom, (attn_tile(c, 0, wide), stream, tokens_tile(c))[which])
 
     def dsg_token_mlp_bwd_tile(self, c, which, wide, geom):
         self._record("mlp_bwd", c, which, wide)
@@ -120,7 +121,7 @@ class StubLib:
             return self._fill(geom, tokens_tile(c))
         if c % 32 or c <= 0 or c > 768:
             return -1
-        return self._fill(geom, attn_tile(c, 0, wide) if which == 1 else STREAM_TILE)
+        return self._fill(geom, attn_tile(c, 0, wide) if which == 1 else WIDE_STREAM_TILE)
 
     # the resampling layers' backwards' (csrc/patch_resample.cu): the wide
     # products (merge's dhn, the breakup's y and [dx | dskip]) on 128 x 192,
@@ -138,6 +139,11 @@ class StubLib:
         self._record("resample_rows", which, width)
         return resample_rows_per_sm(which, width)
 
+    def dsg_swin_attn_bwd_fused_tile(self, c, L, geom):
+        self._record("attn_bwd_fused", c, L)
+        tile = FUSED_ATTN_BWD_TILE.get((c, L))
+        return -1 if tile is None else self._fill(geom, tile)
+
     def dsg_swin_attn_bwd_core_per_sm(self, L):
         self._record("attn_bwd_core", L)
         return BWD_CORE_PER_SM.get(L, -1)
@@ -151,8 +157,9 @@ class StubLib:
         return -1 if tile is None else self._fill(geom, tile)
 
 
-# the backward's tiles: the streamed products (dy Wproj, dqkv Wqkv, dout W2,
-# du W1), the fused MLP row tile (rows, hidden chunk, blocks an SM, 1), the
+# the backward's tiles: the streamed products (dy Wproj and dqkv Wqkv on the
+# wide tile from C192; the MLP chain's dout W2 and du W1 on it at every C it
+# takes), the fused MLP row tile (rows, hidden chunk, blocks an SM, 1), the
 # weight gradients' token-axis tile (192 columns where they divide the
 # output's, else 96), the backward window core's blocks an SM by L
 STREAM_TILE = (128, 96, 1, 0)
@@ -170,6 +177,9 @@ def resample_rows_per_sm(which, width):
         return -1
     return 8 if width <= 32 else 5 if width <= 96 else 3 if width <= 192 else 2
 FUSED_MLP_BWD_TILE = (128, 64, 1, 1)
+# the fused attention backward's tile by (C, L): rows, 0, blocks an SM, 0
+# (csrc/swin_attn_bwd.cu, with_bwd_tile); the chain takes every other shape
+FUSED_ATTN_BWD_TILE = {(96, 64): (64, 0, 1, 0)}
 BWD_CORE_PER_SM = {64: 2, 100: 1}
 
 

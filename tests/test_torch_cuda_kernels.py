@@ -1041,20 +1041,65 @@ MODEL_ATTN_SHAPES = [(64, 3, 8, 0), (32, 6, 8, 0), (16, 12, 8, 0), (16, 12, 8, 4
 
 
 @pytest.mark.parametrize("hw,heads,window,shift", MODEL_ATTN_SHAPES)
-@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("b", [1, 3, 16, 1000])
 def test_swin_attn_bwd_kernel_model_shapes(cuda, hw, heads, window, shift, b):
-    """swin_attn_bwd at every VG and COCO stage, batch 1 and 3 (COCO's token
-    counts are ragged: 100, 300, 1200, 4800 rows), bit-equal between two
-    launches."""
+    """swin_attn_bwd at every VG and COCO stage, batch 1, 3, 16 and the
+    training batch 1000 (COCO's token counts are ragged: 100, 300, 1200, 4800
+    rows at batch 1-3; VG's 64x64 runs the fused kernel, the others the
+    chain), all nine gradients against the plain backward in fp32 under
+    _check_grads' bf16 tolerance (2e-2 of each element plus 1e-2 of the
+    largest: the kernels round hn, qkv, P, dS, attn and dqkv to bf16 at the
+    plain version's points and sum in other orders), bit-equal between two
+    launches, each counted under its path's key (the fused kernel's ends in
+    " fused")."""
     torch.manual_seed(hw + heads + b + 1)
     c = 32 * heads
     a = _attn_args(cuda, b, hw, heads, window, shift)
     bargs = a[:2] + (_rnd(cuda, b, hw, hw, c),) + a[2:7] + a[8:]
     _check_grads("swin_attn_bwd", sw.swin_attn_bwd, sw.swin_attn_bwd_plain, *bargs, heads,
                  window, shift)
+    key = ("swin_attn_bwd", sw._shape_key(hw, hw, c, shift) + (" fused" if hw == 64 else ""))
+    before = collections.Counter(cuda_build.LAUNCHES)
     again = sw.swin_attn_bwd(*bargs, heads, window, shift)
+    assert cuda_build.LAUNCHES[key] == before[key] + 1
     assert all(torch.equal(x, y)
                for x, y in zip(again, sw.swin_attn_bwd(*bargs, heads, window, shift)))
+
+
+# the shifted stages, and the fused kernel's stage with a shift
+SHIFTED_ATTN_SHAPES = [(64, 3, 8, 4), (16, 12, 8, 4), (20, 6, 10, 5)]
+
+
+@pytest.mark.parametrize("hw,heads,window,shift", SHIFTED_ATTN_SHAPES)
+def test_swin_attn_bwd_shifted_matches_the_pre_rolled_grid(cuda, hw, heads, window, shift):
+    """The roll is index math: on the pre-rolled grid (shift 0, the same
+    mask) the windows, their order and each row's work are the same, so dx
+    and d(rel_bias) are bit-equal, and where the fused kernel runs so are its
+    per-window sums (d scale_shift, d gamma, d beta, dbqkv, dbproj).  Sums
+    over tokens in raster order (the weight gradients; the chain's row-pass
+    and column sums) see the tokens in another order: fp32 reassociation,
+    within 1e-5 of the largest element, and the weight gradients, returned
+    in bf16, may round that to the neighbouring bf16 value (2^-7 of it)."""
+    torch.manual_seed(hw + heads + shift)
+    c, b = 32 * heads, 3
+    a = _attn_args(cuda, b, hw, heads, window, shift)
+    dy = _rnd(cuda, b, hw, hw, c)
+
+    def roll(t, s):
+        return torch.roll(t, (s, s), dims=(1, 2))
+
+    got = sw.swin_attn_bwd(a[0], a[1], dy, *a[2:7], *a[8:], heads, window, shift)
+    pre = sw.swin_attn_bwd(roll(a[0], -shift), a[1], roll(dy, -shift), *a[2:7], *a[8:], heads,
+                           window, 0)
+    exact = {0, 8} | ({1, 2, 3, 5, 7} if sw.attn_bwd_fused_tile(cuda, c, window ** 2) else set())
+    for i, (g, p) in enumerate(zip(got, pre)):
+        p = roll(p, shift) if i == 0 else p
+        if i in exact:
+            assert torch.equal(g, p), i
+        else:
+            torch.testing.assert_close(g.float(), p.float(),
+                                       rtol=2.0 ** -7 if g.dtype == torch.bfloat16 else 0,
+                                       atol=1e-5 * float(p.float().abs().max()))
 
 
 def _attn_plan(dev, b, hw, heads, window, shift):

@@ -3,7 +3,9 @@
 ``attn_plan`` (ops/swin_block_v3.py) gives the windows and head groups of
 ``window_attn_kernel_fused`` (csrc/swin_attn.cu); ``window_core_plan`` the
 windows per block of ``window_attn_kernel`` (csrc/swin_window.cuh, window
-attention alone) and of the backward core; ``mlp_fwd_plan``
+attention alone) and of the backward core; ``attn_bwd_fused_plan`` the
+windows each block of ``window_attn_bwd_kernel_fused`` (csrc/swin_attn_bwd.cu)
+walks; ``mlp_fwd_plan``
 (ops/mlp_block_kernel.py) the hidden split of ``token_mlp_kernel``
 (csrc/token_mlp.cu); ``gemm_plan`` (ops/cuda_build.py) the column split of
 the Hopper GEMM (csrc/hopper_gemm.cuh) that runs patch_merge's product,
@@ -703,6 +705,60 @@ def test_backward_core_plan_covers_every_window_once(stub_lib, n_windows, heads,
     runs = window_runs(n_windows, classes, wpb)
     assert len(runs) == sw.core_blocks(n_windows, classes, wpb)
     assert all(runs) and sorted(w for r in runs for w in r) == list(range(n_windows))
+
+
+# every Swin stage of VG (window 8) and COCO (window 10) as (grid, C, L), and
+# whether the fused attention backward holds its window in one block (C <=
+# 192 at window 8); the chain of launches takes the others
+ATTN_BWD_STAGES = [(64, 96, 64, True), (32, 192, 64, False), (16, 384, 64, False),
+                   (8, 768, 64, False), (40, 96, 100, False), (20, 192, 100, False),
+                   (10, 384, 100, False)]
+
+
+@pytest.mark.parametrize("hw,c,L,fused", ATTN_BWD_STAGES)
+def test_attn_bwd_streamed_products_take_the_wide_tile_from_c192(stub_lib, hw, c, L, fused):
+    """The chain's dy Wproj and dqkv Wqkv (csrc/swin_attn_bwd.cu,
+    with_stream_tile) run on 128 x 192 tiles from C192 and 128 x 96 below;
+    the plan splits their columns on the tile the library reports."""
+    tile = sw.attn_bwd_tile(DEV, c, "stream")
+    assert tile[:2] == ((128, 192) if c >= 192 else (128, 96))
+    m = 1000 * hw * hw
+    plan = sw.attn_bwd_gemm_plan(m, c, DEV)
+    assert plan["dattn"] == plan["dhn"] == gemm_plan(m, c, tile, H100_SMS)["tiles"]
+
+
+@pytest.mark.parametrize("hw,c,L,fused", ATTN_BWD_STAGES)
+def test_fused_attn_bwd_covers_the_stages_that_fit_a_block(stub_lib, hw, c, L, fused):
+    tile = sw.attn_bwd_fused_tile(DEV, c, L)
+    assert (tile is not None) == fused
+    if fused:
+        assert tile == h100_tiles.FUSED_ATTN_BWD_TILE[(c, L)]
+    assert stub_lib.calls == [("attn_bwd_fused", c, L)]
+
+
+@pytest.mark.parametrize("b", [1, 3, 64, 1000])
+@pytest.mark.parametrize("hw,c,L,fused", ATTN_BWD_STAGES)
+def test_attn_bwd_plans_cover_every_window_once(stub_lib, hw, c, L, fused, b):
+    """Every stage of a training step at batch b: where the fused kernel
+    runs, block x walks windows x, x + blocks, ... (window_attn_bwd_kernel_
+    fused), one wave of resident blocks or one block a window, none idle,
+    and one d(rel_bias) partial a block; elsewhere the chain's window core
+    takes its runs of one mask class per head (core_blocks partials)."""
+    window = 8 if L == 64 else 10
+    n_windows = b * (hw // window) ** 2
+    if fused:
+        tile = sw.attn_bwd_fused_tile(DEV, c, L)
+        blocks = sw.attn_bwd_fused_plan(n_windows, tile, H100_SMS)
+        walked = [w for x in range(blocks) for w in range(x, n_windows, blocks)]
+        assert sorted(walked) == list(range(n_windows))
+        assert blocks == min(n_windows, H100_SMS * tile[2])
+        return
+    for classes in (1, (hw // window) ** 2):
+        per_sm = cuda_build.blocks_per_sm(DEV, "dsg_swin_attn_bwd_core_per_sm", L)
+        wpb = window_core_plan(n_windows, c // 32, classes, per_sm, H100_SMS)
+        runs = window_runs(n_windows, classes, wpb)
+        assert len(runs) == sw.core_blocks(n_windows, classes, wpb)
+        assert all(runs) and sorted(w for r in runs for w in r) == list(range(n_windows))
 
 
 # ----------------------------------------------- the micro-benchmark (K12)
